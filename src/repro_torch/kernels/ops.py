@@ -1,0 +1,111 @@
+"""Dispatch wrappers around the robust-aggregation kernels.
+
+``robust_aggregate(x, method, beta)`` accepts any (m, ...) tensor,
+flattens the coordinate space, dispatches, and restores the shape.
+Backends:
+
+- ``cuda``     the hand-written kernels (:mod:`robust_agg`); a CPU
+  tensor given to them takes their plain version;
+- ``network``  the same pruned selection program run as torch min/max
+  (:mod:`selection_network`) — the CPU path;
+- ``sort``     the ``torch.sort`` oracle (:mod:`ref`), and the path for
+  m above the network limit.
+
+``auto`` picks ``cuda`` for CUDA tensors with m <= NETWORK_MAX_M,
+``network`` for CPU tensors with 2 <= m <= NETWORK_MAX_M, else ``sort``.
+``fused_median_trimmed`` returns median AND trimmed mean from one pass.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref, robust_agg, selection_network as SN
+from repro_torch.kernels.selection_network import NETWORK_MAX_M
+
+BACKENDS = ("auto", "cuda", "network", "sort")
+
+
+def _check_network_m(m: int) -> None:
+    """Explicit backend='network' / 'cuda' must respect the same limit as
+    auto dispatch: above NETWORK_MAX_M the comparator program is
+    O(m log^2 m) ops per coordinate."""
+    if m > NETWORK_MAX_M:
+        raise ValueError(
+            f"the selection network supports m <= {NETWORK_MAX_M}, got m={m}; "
+            "use backend='sort' (or 'auto') for larger worker counts")
+
+
+def _backend(backend: str, x: torch.Tensor) -> str:
+    m = x.shape[0]
+    if backend == "auto":
+        if m > NETWORK_MAX_M:
+            return "sort"
+        if x.is_cuda:
+            return "cuda"
+        return "network" if m >= 2 else "sort"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; want one of {BACKENDS}")
+    if backend in ("cuda", "network"):
+        _check_network_m(m)
+    return backend
+
+
+def _mean(flat: torch.Tensor) -> torch.Tensor:
+    return flat.float().mean(dim=0).to(flat.dtype)
+
+
+def robust_aggregate(
+    x: torch.Tensor,
+    method: str = "median",
+    beta: float = 0.1,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Aggregate (m, ...) -> (...) coordinate-wise with the given method."""
+    m = x.shape[0]
+    flat = x.reshape(m, -1).contiguous()
+    backend = _backend(backend, x)
+    if method == "median":
+        if backend == "cuda":
+            out = robust_agg.median(flat)
+        elif backend == "network":
+            out = SN.median_select(flat)
+        else:
+            out = ref.median_ref(flat)
+    elif method == "trimmed_mean":
+        trim = int(beta * m)
+        if backend == "cuda":
+            out = robust_agg.trimmed_mean(flat, trim)
+        elif backend == "network":
+            out = SN.trimmed_mean_select(flat, trim) if trim else _mean(flat)
+        else:
+            out = ref.trimmed_mean_ref(flat, beta)
+    elif method == "mean":
+        out = _mean(flat)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return out.reshape(x.shape[1:])
+
+
+def fused_median_trimmed(
+    x: torch.Tensor,
+    beta: float = 0.1,
+    backend: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(median, trimmed_mean) of (m, ...) from ONE pass over the rows.
+
+    The fused selection program computes the union rank set, so the two
+    estimators share every compare-exchange and the (m, d) matrix is read
+    once.
+    """
+    m = x.shape[0]
+    trim = int(beta * m)
+    flat = x.reshape(m, -1).contiguous()
+    backend = _backend(backend, x)
+    if backend == "cuda":
+        med, tm = robust_agg.fused_median_trimmed(flat, trim)
+    elif backend == "network":
+        med, tm = SN.median_and_trimmed_select(flat, trim)
+    else:
+        med, tm = ref.median_ref(flat), ref.trimmed_mean_ref(flat, beta)
+    return med.reshape(x.shape[1:]), tm.reshape(x.shape[1:])
+
