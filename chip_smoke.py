@@ -15,16 +15,20 @@ Phases (any failure exits non-zero before the final line):
 4. the main path: Algorithm 1 on the paper's CNN at full width (53,370
    parameters in 8 leaves), the Table 3 layout (m=10, n=400 per worker,
    sign_flip alpha=0.1 scale 20), median and trimmed mean (beta=0.1) for
-   30 iterations each, then both estimators from one fused pass over the
-   final per-worker gradients.  The launch counters are zeroed just
-   before and read just after: every aggregation must have gone through
-   a kernel.  The first 3 iterates are compared with the same run on the
-   CPU; linreg runs at the Table 2 worker count (m=40);
+   30 iterations each.  The launch counters are zeroed just before and
+   read just after: every aggregation must have gone through a kernel.
+   Algorithm 1 does not run the fused kernel, so its entry point
+   (ops.fused_median_trimmed) is then called directly on the final
+   per-worker gradients, and its count is that call's.  The first 3
+   iterates are compared with the same run on the CPU; linreg runs at
+   the Table 2 worker count (m=40);
 5. times at the main path's shapes and one bandwidth-sized shape (CUDA
    events per call, and device time from torch.profiler), against the
    memory bound (3.35 TB/s) and the f32 operation bound (67 TFLOP/s) of
-   an H100 SXM at 700 W; the steady-state CNN step time, and the top
-   device-time rows of a torch.profiler trace of 3 steps.
+   an H100 SXM at 700 W, the plain version, and the one PyTorch call that
+   computes the same function where there is one (the median's); the
+   steady-state CNN step time, and the top device-time rows of a
+   torch.profiler trace of 3 steps.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -229,7 +233,7 @@ def main_path(dev):
     attack = AttackConfig(**CNN_ATTACK)
     torch.cuda.synchronize()
 
-    robust_agg.reset_launches()
+    robust_agg.reset_launches()  # zeroed just before robust_gd's runs
     finals = {}
     for method in ("median", "trimmed_mean"):
         t0 = time.perf_counter()
@@ -241,18 +245,24 @@ def main_path(dev):
         check(loss == loss and abs(loss) != float("inf"), f"cnn {method}: loss not finite")
         check(loss < loss0, f"cnn {method}: loss did not fall ({loss0} -> {loss})")
         finals[method] = w
-    # both estimators from one pass over the final per-worker gradients
+    launches = dict(robust_agg.LAUNCHES)  # read just after robust_gd's runs
+    print(f"phase 4: launches on robust_gd's path: median {launches['median']}, "
+          f"trimmed_mean {launches['trimmed_mean']}")
+    check(launches["median"] == CNN_ITERS * CNN_LEAVES,
+          f"median kernel launched {launches['median']} times, want {CNN_ITERS * CNN_LEAVES}")
+    check(launches["trimmed_mean"] == CNN_ITERS * CNN_LEAVES,
+          f"trimmed-mean kernel launched {launches['trimmed_mean']} times")
+    check(launches["fused_median_trimmed"] == 0, "robust_gd launched the fused kernel")
+    # Algorithm 1 never runs the fused kernel: call its entry point on the
+    # ops surface directly, on the final per-worker gradients
     stages = make_robust_gd_stages(cnn_loss, shards, cnn_config("median", 1), attack)
     grads = stages.attack(stages.local_work(finals["median"], CNN_ITERS),
                           {k: torch.zeros_like(v) for k, v in params.items()}, CNN_ITERS)
     fused = {k: ops.fused_median_trimmed(g, beta=0.1) for k, g in grads.items()}
     torch.cuda.synchronize()
-    launches = dict(robust_agg.LAUNCHES)
-    print(f"phase 4: launches on the main path: {json.dumps(launches)}")
-    check(launches["median"] == CNN_ITERS * CNN_LEAVES,
-          f"median kernel launched {launches['median']} times, want {CNN_ITERS * CNN_LEAVES}")
-    check(launches["trimmed_mean"] == CNN_ITERS * CNN_LEAVES,
-          f"trimmed-mean kernel launched {launches['trimmed_mean']} times")
+    launches["fused_median_trimmed"] = robust_agg.LAUNCHES["fused_median_trimmed"]
+    print(f"phase 4: fused kernel: {launches['fused_median_trimmed']} launches, "
+          f"ops.fused_median_trimmed called directly; not on robust_gd's path")
     check(launches["fused_median_trimmed"] == CNN_LEAVES,
           f"fused kernel launched {launches['fused_median_trimmed']} times")
     for k, g in grads.items():
@@ -347,6 +357,22 @@ def bound(name: str, m: int, n: int, trim: int, elem: int):
     return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
 
 
+def library_call(name: str, x):
+    """One PyTorch call that computes the same function, or None.  Only the
+    median has one: torch.median for odd m (it returns the lower middle value
+    for even m), and for even m torch.quantile's midpoint, which takes f32 of
+    at most 2^24 elements.  No call computes the trimmed mean."""
+    import torch
+
+    if name != "median":
+        return None
+    if x.shape[0] % 2:
+        return lambda: torch.median(x, dim=0).values
+    if x.dtype == torch.float32 and x.numel() <= 1 << 24:
+        return lambda: torch.quantile(x, 0.5, dim=0, interpolation="midpoint")
+    return None
+
+
 def timings(dev, card: str):
     """Phase 5: kernel / plain / library times; returns the rows."""
     import torch
@@ -372,14 +398,16 @@ def timings(dev, card: str):
         }
         for name, (kernel, plain) in fns.items():
             b_ms, b_by = bound(name, m, n, trim, x.element_size())
-            lib = (time_ms(lambda: torch.median(x, dim=0).values, 20 if big else 200)
-                   if name == "median" and m % 2 == 1 else None)
+            lib = library_call(name, x)
             row = {"shape": label, "kernel": name, "m": m, "n": n, "trim": trim,
                    "dtype": str(dtype).removeprefix("torch."),
                    "ms": time_ms(kernel, 20 if big else 200),
                    "device_ms": device_ms(kernel, 20, "select_kernel"),
                    "plain_ms": time_ms(plain, 3 if big else 20),
-                   "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by, "card": card}
+                   "library_ms": time_ms(lib, 20 if big else 200) if lib else None,
+                   # the library's answer against the kernel's, same inputs
+                   "library_max_abs_diff": compare(lib(), kernel())[1] if lib else None,
+                   "bound_ms": b_ms, "bound_by": b_by, "card": card}
             rows.append(row)
             print(json.dumps({"timing": row}))
         del x

@@ -1,8 +1,8 @@
 """Algorithm 1 end to end: the port's robust_gd against the JAX reference
 on the same numpy data and initial weights (CPU), plus the port's own
 contracts — bit-identical resume, exact checkpoints, the device rule, the
-kernel build's errors, and that no port module imports JAX or the
-reference.
+kernel build's errors, and that neither a port module nor chip_smoke.py
+imports JAX or the reference.
 
 Trajectory tolerances: iterates differ by float32 reduction orders in
 the gradients (the median / trimmed mean then select among values that
@@ -10,6 +10,7 @@ differ by the same few ulps), so 100 linreg iterations are held to
 1e-5 absolute on ||w - w*|| (observed: 6e-8) and the CNN's 3 iterations
 to 1e-4 of each leaf's scale.
 """
+import ast
 import os
 import subprocess
 import sys
@@ -186,6 +187,20 @@ def test_port_imports_neither_jax_nor_reference():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout) >= 20
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    # chip_smoke.py imports lazily inside its phases, so read every import
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module]
+    assert "repro_torch.core.robust_gd" in names
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu():
