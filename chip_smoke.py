@@ -5,11 +5,16 @@
 
 Phases (any failure exits non-zero before the final line):
 1. the card, torch/CUDA versions, TF32 off, the kernels' build from
-   ``src/repro_torch/kernels/csrc/robust_agg.cu``;
-2. every kernel against its plain PyTorch version on the card, bitwise
-   (NaN matched by position, -0 != +0): m in {2,...,64}, f32 and bf16,
-   ragged n and the main path's leaf sizes, columns with ±1e30, NaN and
-   mixed ±0, every legal trim for m in {10, 17, 40};
+   ``src/repro_torch/kernels/csrc/robust_agg.cu`` and ``histogram_agg.cu``
+   (one nvcc per source, started together) with their ptxas reports;
+2. every order-statistic kernel against its plain PyTorch version on the
+   card, bitwise (NaN matched by position, -0 != +0): m in {2,...,64}, f32
+   and bf16, ragged n and the main path's leaf sizes, columns with ±1e30,
+   NaN and mixed ±0, every legal trim for m in {10, 17, 40};
+2b. the sketch kernels (min/max, histogram) against their plain versions,
+   bitwise (counts and sums): rows in {1, 7, 256, 512}, n in {1, 32, 33,
+   4097, 50176}, nbins in {2, 64, 256, 512, 4096}, f32 and bf16, with and
+   without sums, columns with ±1e30 rows, a NaN, mixed ±0 and a constant;
 3. the quickstart configuration (examples/quickstart.py): median and
    trimmed mean ROBUST (||w - w*|| < 0.2), mean BROKEN;
 4. the main path: Algorithm 1 on the paper's CNN at full width (53,370
@@ -28,7 +33,20 @@ Phases (any failure exits non-zero before the final line):
    an H100 SXM at 700 W, the plain version, and the one PyTorch call that
    computes the same function where there is one (the median's); the
    steady-state CNN step time, and the top device-time rows of a
-   torch.profiler trace of 3 steps.
+   torch.profiler trace of 3 steps; the sketch kernels at the federated
+   chunk (512 x 32, 512 bins), the CLI default (256 x 64, 256 bins) and a
+   bandwidth shape (256 x 2^20, 128 bins, f32 and bf16), against the
+   memory bound, their plain versions and torch.aminmax (min/max);
+6. the federated path: ``fed.rounds.run_rounds`` at benchmarks/fed_scale.py's
+   configuration (200,000 clients, cohorts of 100,000 in chunks of 512,
+   d=32, n=16, 512 bins, sign_flip alpha=0.1 scale 100, beta=0.15, lr 0.3,
+   sgd, 30 rounds) for approx_median, approx_trimmed_mean and stream_mean.
+   The launch counters are zeroed before each method and read after it:
+   196 min/max and 196 histogram launches per round for the robust
+   methods, none for the mean.  Robust ||w - w*|| < 0.5, the mean's more
+   than 10x the median's; the sketch median within one bin of the exact
+   median of an attacked 10^4 cohort; the first 2 rounds agree with the
+   CPU; the CLI runs twice with one sha256; a profile of one round.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -460,6 +478,323 @@ def cnn_step_time(dev):
     print(json.dumps({"cnn_step_ms": out}))
 
 
+# ------------------------------------------------------- the sketch kernels
+
+SKETCH_ROWS = (1, 7, 256, 512)
+SKETCH_N = (1, 32, 33, 4097, 50176)
+SKETCH_NBINS = (2, 64, 256, 512, 4096)
+
+
+def sketch_rows(rows: int, n: int, seed: int):
+    """3 * N(0,1) rows with adversarial columns: ±1e30 rows, a NaN, mixed
+    ±0 and a constant (zero-width) column."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = (3 * rng.standard_normal((rows, n))).astype(np.float32)
+    if n >= 4:
+        x[: max(1, rows // 4), 0] = 1e30
+        x[rows // 2:, 0] = -1e30
+        x[rows // 2, 1] = np.nan
+        x[:, 2] = np.where(rng.random(rows) < 0.5, -0.0, 0.0)
+        x[:, 3] = 1.25
+    return x
+
+
+def sketch_sweep(dev):
+    """Phase 2b: the min/max and histogram kernels vs their plain versions,
+    bitwise.  Returns the max |err| per kernel."""
+    import torch
+
+    from repro_torch.kernels import histogram_agg as H
+
+    worst = {"minmax": 0.0, "histogram": 0.0}
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in SKETCH_ROWS:
+            for n in SKETCH_N:
+                x = torch.from_numpy(sketch_rows(rows, n, seed=rows * 7 + n)).to(dev, dtype)
+                lo, hi = H.minmax(x)
+                plo, phi = H.minmax_plain(x)
+                torch.cuda.synchronize()
+                for got, want in ((lo, plo), (hi, phi)):
+                    bad, err = compare(got, want)
+                    check(bad == 0, f"minmax rows={rows} n={n} {dtype}: {bad} mismatches "
+                                    f"vs the plain version (max |err| {err})")
+                    worst["minmax"] = max(worst["minmax"], err)
+                    checked += 1
+                for nbins in SKETCH_NBINS:
+                    lo, width = H.edges(plo, phi, nbins)
+                    for with_sums in (True, False):
+                        got = H.histogram(x, lo, width, nbins, with_sums)
+                        want = H.histogram_plain(x, lo, width, nbins, with_sums)
+                        torch.cuda.synchronize()
+                        for part, g, w in zip(("counts", "sums"), got, want):
+                            if w is None:
+                                check(g is None, "histogram wrote sums with with_sums=False")
+                                continue
+                            bad, err = compare(g, w)
+                            check(bad == 0, f"histogram {part} rows={rows} n={n} "
+                                            f"nbins={nbins} {dtype} sums={with_sums}: {bad} "
+                                            f"mismatches vs the plain version (max |err| {err})")
+                            worst["histogram"] = max(worst["histogram"], err)
+                            checked += 1
+                    if n == 50176 and nbins == 4096:
+                        torch.cuda.empty_cache()
+    print(f"phase 2b: {checked} sketch-kernel outputs bitwise equal to the plain version "
+          f"(max |err| {json.dumps(worst)})")
+    return worst
+
+
+def sketch_bound(name: str, rows: int, n: int, nbins: int, elem: int, sums: bool):
+    """(ms, "bytes"|"operations"): the inputs read once and the outputs
+    written once over the memory rate, against ~2 (min/max) or ~6 + k
+    (histogram: sub, div, floor, clip, convert, k adds) f32 operations per
+    element over the f32 rate."""
+    k = 2 if sums else 1
+    if name == "minmax":
+        nbytes, ops = rows * n * elem + 2 * n * 4, 2 * rows * n
+    else:
+        nbytes, ops = rows * n * elem + 2 * n * 4 + k * nbins * n * 4, (6 + k) * rows * n
+    mem_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+
+
+SKETCH_SHAPES = (("fed chunk", 512, 32, 512), ("cli default", 256, 64, 256),
+                 ("bandwidth", 256, 1 << 20, 128))
+
+
+def sketch_timings(dev, card: str):
+    """Phase 5b: min/max and histogram kernel / plain / library times."""
+    import torch
+
+    from repro_torch.kernels import histogram_agg as H
+
+    rows_out = []
+    cases = [(label, r, n, nb, torch.float32) for label, r, n, nb in SKETCH_SHAPES]
+    cases.append(("bandwidth", 256, 1 << 20, 128, torch.bfloat16))
+    for label, rows, n, nbins, dtype in cases:
+        x = (3 * torch.randn(rows, n, device=dev)).to(dtype)
+        lo, hi = H.minmax(x)
+        lo, width = H.edges(lo, hi, nbins)
+        big = n >= 1 << 20
+        fns = {
+            ("minmax", False): (lambda: H.minmax(x), lambda: H.minmax_plain(x),
+                                lambda: torch.aminmax(x.float(), dim=0), "minmax_kernel"),
+            ("histogram", True): (lambda: H.histogram(x, lo, width, nbins, True),
+                                  lambda: H.histogram_plain(x, lo, width, nbins, True),
+                                  None, "histogram_kernel"),
+            ("histogram", False): (lambda: H.histogram(x, lo, width, nbins, False),
+                                   lambda: H.histogram_plain(x, lo, width, nbins, False),
+                                   None, "histogram_kernel"),
+        }
+        for (name, sums), (kernel, plain, lib, kname) in fns.items():
+            b_ms, b_by = sketch_bound(name, rows, n, nbins, x.element_size(), sums)
+            row = {"shape": label, "kernel": name, "rows": rows, "n": n, "nbins": nbins,
+                   "with_sums": sums, "dtype": str(dtype).removeprefix("torch."),
+                   "ms": time_ms(kernel, 20 if big else 200),
+                   "device_ms": device_ms(kernel, 20, kname),
+                   "plain_ms": time_ms(plain, 2 if big else 10),
+                   "library_ms": time_ms(lib, 20 if big else 200) if lib else None,
+                   "bound_ms": b_ms, "bound_by": b_by, "card": card}
+            rows_out.append(row)
+            print(json.dumps({"timing": row}))
+        del x
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+# --------------------------------------------------------- the federated path
+
+FED_POP = dict(num_clients=200_000, samples_per_client=16, dim=32, alpha=0.1, seed=0)
+FED_ROUNDS = dict(cohort_size=100_000, chunk_clients=512, beta=0.15, nbins=512, lr=0.3,
+                  optimizer="sgd", seed=0)
+FED_NUM_ROUNDS = 30
+FED_METHODS = ("approx_median", "approx_trimmed_mean", "stream_mean")
+
+
+def fed_attack():
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.fed.rounds import AttackMixture
+
+    return AttackMixture((AttackConfig("sign_flip", alpha=0.1, scale=100.0),))
+
+
+def fed_path(dev):
+    """Phase 6: fed.rounds.run_rounds at fed_scale's configuration; returns
+    the launch counts summed over the three methods' runs."""
+    import math
+
+    import torch
+
+    from repro_torch.fed.population import ClientPopulation, PopulationConfig
+    from repro_torch.fed.rounds import RoundConfig, run_rounds
+    from repro_torch.kernels import histogram_agg as H
+
+    pop = ClientPopulation(PopulationConfig(**FED_POP), device=dev)
+    chunks = math.ceil(FED_ROUNDS["cohort_size"] / FED_ROUNDS["chunk_clients"])
+    total = {"minmax": 0, "histogram": 0}
+    errs = {}
+    for method in FED_METHODS:
+        rcfg = RoundConfig(num_rounds=FED_NUM_ROUNDS, method=method, **FED_ROUNDS)
+        torch.cuda.synchronize()
+        H.reset_launches()  # zeroed just before this method's run
+        t0 = time.perf_counter()
+        w, hist = run_rounds(pop, rcfg, fed_attack())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(H.LAUNCHES)  # read just after it
+        errs[method] = hist[-1]["err"]
+        print(json.dumps({"fed_run": method, "rounds": FED_NUM_ROUNDS,
+                          "rounds_per_s": FED_NUM_ROUNDS / dt, "seconds": dt,
+                          "err_first": hist[0]["err"], "err_final": errs[method],
+                          "launches": launches}))
+        check(all(math.isfinite(h["err"]) for h in hist) or method == "stream_mean",
+              f"fed {method}: non-finite err")
+        want = 0 if method == "stream_mean" else chunks * FED_NUM_ROUNDS
+        for k in total:
+            check(launches[k] == want, f"fed {method}: {launches[k]} {k} launches, want {want} "
+                                       f"({chunks} per round)")
+            total[k] += launches[k]
+    print(f"phase 6: ||w - w*|| after {FED_NUM_ROUNDS} rounds: "
+          + ", ".join(f"{m} {errs[m]:.4f}" for m in FED_METHODS))
+    for m in ("approx_median", "approx_trimmed_mean"):
+        check(errs[m] < 0.5, f"fed {m} is BROKEN: ||w - w*|| = {errs[m]}")
+    check(not errs["stream_mean"] <= 10 * errs["approx_median"],
+          f"fed stream_mean is not 10x worse than the median: {errs}")
+    return pop, total
+
+
+def fed_sketch_vs_exact(pop):
+    """Phase 6: the sketch median of one attacked 10^4-client cohort vs the
+    exact median of the same rows on the card (torch.median gives the
+    lower middle value of the even cohort, kthvalue the upper; their
+    midpoint is np.median's convention, as fed_scale.py uses)."""
+    import torch
+
+    from repro_torch.fed.rounds import (RoundConfig, _chunk_bounds, _make_chunk_fn,
+                                        aggregate_cohort)
+
+    m = 10_000
+    rcfg = RoundConfig(**dict(FED_ROUNDS, cohort_size=m), method="approx_median")
+    atk = fed_attack().for_round(0)
+    w = torch.zeros(pop.cfg.dim, device=pop.device)
+    ids = pop.sample_cohort(FED_ROUNDS["seed"] + 1, 0, m)
+    got = aggregate_cohort(pop, w, ids, rcfg, atk)
+    bounds = _chunk_bounds(m, rcfg.chunk_clients)
+    fn = _make_chunk_fn(pop, w, ids, bounds, atk)
+    full = torch.cat([fn(j) for j in range(len(bounds))])
+    lower = torch.median(full, dim=0).values
+    upper = torch.kthvalue(full, m // 2 + 1, dim=0).values
+    exact = (lower + upper) * 0.5
+    width = (full.amax(0) - full.amin(0)) / rcfg.nbins
+    dev_ = (got - exact).abs()
+    ok = bool((dev_ <= width * 1.0001 + 1e-6).all())
+    print(f"phase 6: 10^4 cohort: sketch median vs exact: max dev {float(dev_.max()):.4g}, "
+          f"max bin width {float(width.max()):.4g}, within one bin: {ok}")
+    check(ok, "the sketch median is more than one bin width from the exact median")
+
+
+def fed_cpu_agreement(dev):
+    """Phase 6: the first 2 rounds on the card vs the same run on the CPU at
+    a cohort of 4,096.  The data draws are the same integers on both; float
+    sums and products differ by a few ulps, and a row near a bin edge may
+    change bins.  So the round-0 aggregate is held to one bin width per
+    coordinate and each round's ||w - w*|| to 1e-4 (the CPU tests' bound
+    against the reference)."""
+    import torch
+
+    from repro_torch.fed.population import ClientPopulation, PopulationConfig
+    from repro_torch.fed.rounds import (RoundConfig, _chunk_bounds, _make_chunk_fn,
+                                        aggregate_cohort, run_rounds)
+
+    cohort = 4096
+    pops = {d: ClientPopulation(PopulationConfig(**FED_POP), device=d) for d in (dev, "cpu")}
+    ids = pops["cpu"].sample_cohort(0, 0, cohort)
+    x_card = pops[dev].client_batch(ids.to(dev))[0].cpu()
+    x_cpu = pops["cpu"].client_batch(ids)[0]
+    print(f"phase 6: client data card vs CPU: max |diff| "
+          f"{float((x_card - x_cpu).abs().max()):.3g}")
+    atk = fed_attack().for_round(0)
+    w0 = torch.zeros(FED_POP["dim"])
+    fn = _make_chunk_fn(pops["cpu"], w0, ids, _chunk_bounds(cohort, 512), atk)
+    full = torch.cat([fn(j) for j in range(cohort // 512)])
+    width = (full.amax(0) - full.amin(0)) / FED_ROUNDS["nbins"]
+    for method in ("approx_median", "approx_trimmed_mean"):
+        rcfg = RoundConfig(num_rounds=2, method=method, **dict(FED_ROUNDS, cohort_size=cohort))
+        g = {d: aggregate_cohort(p, w0.to(p.device), ids.to(p.device), rcfg, atk).cpu()
+             for d, p in pops.items()}
+        hists = {d: run_rounds(p, rcfg, fed_attack())[1] for d, p in pops.items()}
+        diff = (g[dev] - g["cpu"]).abs()
+        rows = [(a["err"], b["err"]) for a, b in zip(hists[dev], hists["cpu"])]
+        print(f"phase 6: {method}: round-0 aggregate card vs CPU max |diff| "
+              f"{float(diff.max()):.3g}; ||w - w*|| card/CPU per round {rows}")
+        check(all(abs(a - b) <= 1e-4 for a, b in rows),
+              f"fed {method}: card and CPU trajectories differ: {rows}")
+        check(bool((diff <= width * 1.0001 + 1e-6).all()),
+              f"fed {method}: round-0 aggregates differ by more than one bin width")
+
+
+def fed_cli(dev):
+    """Phase 6: python -m repro_torch.fed.run twice on the card: exit 0 and
+    one sha256."""
+    import os
+
+    args = [sys.executable, "-m", "repro_torch.fed.run", "--clients", "20000", "--cohort",
+            "4096", "--chunk", "512", "--rounds", "3", "--dim", "32", "--samples-per-client",
+            "16", "--alpha", "0.1", "--nbins", "512", "--beta", "0.15", "--lr", "0.3"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    digests = []
+    for _ in range(2):
+        out = subprocess.run(args, env=env, capture_output=True, text=True, timeout=300,
+                             cwd=ROOT)
+        check(out.returncode == 0, f"fed CLI exited {out.returncode}: {out.stderr[-2000:]}")
+        line = [ln for ln in out.stdout.splitlines() if "final iterate sha256" in ln]
+        check(len(line) == 1, f"fed CLI printed no sha256 line: {out.stdout[-2000:]}")
+        check("device=cuda" in out.stdout, "fed CLI did not run on the card")
+        digests.append(line[0].split("=")[-1].strip())
+    print(f"phase 6: CLI twice on the card: sha256 {digests[0]} / {digests[1]}")
+    check(digests[0] == digests[1], "the fed CLI is not deterministic on the card")
+
+
+def fed_profile(pop):
+    """Phase 6: a torch.profiler trace of one approx_median round at the
+    full cohort: the device's busy time, as a share of the same round's
+    unprofiled host-clock time, and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fed.rounds import RoundConfig, run_rounds
+
+    rcfg = RoundConfig(num_rounds=1, method="approx_median", **FED_ROUNDS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_rounds(pop, rcfg, fed_attack())  # unprofiled
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_rounds(pop, rcfg, fed_attack())
+        torch.cuda.synchronize()
+    profiled_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ops = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    print(json.dumps({"profile_fed_round": "approx_median", "round_ms": wall_ms,
+                      "round_ms_profiled": profiled_ms, "device_busy_ms": busy_ms,
+                      "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+                      "top_kernels": [{"kernel": e.key[:70], "device_ms":
+                                       e.self_device_time_total / 1e3, "calls": e.count}
+                                      for e in kernels[:15]],
+                      "top_ops": [{"op": e.key[:60], "device_ms": e.self_device_time_total / 1e3,
+                                   "calls": e.count} for e in ops]}))
+
+
 def main() -> None:
     import torch
 
@@ -475,26 +810,46 @@ def main() -> None:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s): {torch.cuda.get_device_name(0)}")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import histogram_agg
+
     t0 = time.perf_counter()
-    lib = robust_agg.build()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        libs = list(pool.map(lambda mod: mod.build(), (robust_agg, histogram_agg)))
     robust_agg.load()
-    print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s ({lib.name})")
-    log = lib.with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+    histogram_agg.load()
+    print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(lib.name for lib in libs)})")
+    for lib in libs:
+        log = lib.with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"  ptxas ({lib.name.split('-')[0]}):", line.strip())
 
     leaf_sizes = (144, 16, 2304, 16, 50176, 64, 640, 10)  # the CNN's 8 leaves
     t0 = time.perf_counter()
     worst = kernel_sweep(dev, leaf_sizes)
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worst.update(sketch_sweep(dev))
+    print(f"phase 2b: {time.perf_counter() - t0:.1f} s")
     quickstart(dev)
     launches = main_path(dev)
     cpu_agreement(dev)
     table2_linreg(dev)
     rows = timings(dev, card)
+    sketch_rows_ = sketch_timings(dev, card)
     cnn_step_time(dev)
+    t0 = time.perf_counter()
+    pop, fed_launches = fed_path(dev)
+    launches.update(fed_launches)
+    fed_sketch_vs_exact(pop)
+    fed_cpu_agreement(dev)
+    fed_cli(dev)
+    fed_profile(pop)
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
 
     # the TPU kernels replaced: median_pallas, trimmed_mean_pallas and
     # fused_median_trimmed_pallas
@@ -506,6 +861,18 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/robust_agg.cu",
             "replaces": f"src/repro/kernels/robust_agg.py:{lines[name]}",
+            "launches": launches[name], "max_abs_err": worst[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # minmax_pallas and histogram_pallas, timed at the federated chunk
+    # (histogram with sums, as approx_trimmed_mean runs it)
+    for name, line in (("minmax", 206), ("histogram", 254)):
+        row = next(r for r in sketch_rows_ if r["kernel"] == name and r["shape"] == "fed chunk"
+                   and r["with_sums"] == (name == "histogram"))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/histogram_agg.cu",
+            "replaces": f"src/repro/kernels/histogram_agg.py:{line}",
             "launches": launches[name], "max_abs_err": worst[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -3,10 +3,11 @@
 - ``base``      access levels, :class:`AttackContext`, :class:`Attack`;
 - ``registry``  name -> Attack registration and lookup;
 - ``library``   the registered attacks;
-- ``engine``    applying attacks on the gathered-rows and statistics paths.
+- ``engine``    applying attacks on the gathered-rows and statistics paths;
+- ``schedule``  the greedy adaptive attack scheduler.
 
-The reference's adaptive scheduler (``schedule``) and robustness matrix
-(``matrix``) are ported with the federated and scenario-matrix slices.
+The reference's robustness matrix (``matrix``) is ported with the
+scenario-matrix slice.
 """
 from repro_torch.attacks.base import (  # noqa: F401
     ACCESS_LEVELS,

@@ -1,29 +1,94 @@
-"""Histogram-sketch math for the approximate aggregators.
+"""Histogram-sketch math and the hand-written CUDA kernels of the
+federated streaming sketch.
 
-The plain torch form of the reference's sketch helpers
-(``src/repro/kernels/histogram_agg.py:58-182``): equal-width per-coordinate
-bins over the f32 min/max range, bin counts (and sums) by
-``scatter_add_``, and CDF inversion for the median, nearest-rank
-quantiles and the trimmed mean.  Both estimators are within one bin width
-``(max - min) / nbins`` of the exact statistic.
+Sketch math (the reference's ``src/repro/kernels/histogram_agg.py:58-182``
+in torch): equal-width per-coordinate bins over the f32 min/max range,
+bin counts (and sums) by ``scatter_add``, and CDF inversion for the
+median, nearest-rank quantiles and the trimmed mean.  Both estimators
+are within one bin width ``(max - min) / nbins`` of the exact statistic.
+The ``approx_*`` aggregators of :mod:`repro_torch.core.aggregators` use
+:func:`sketch_array`.
 
-The reference's two Pallas kernels here (``minmax_pallas``,
-``histogram_pallas``) carry the federated streaming path and are not
-ported yet.
+Kernels (replacing the reference's Pallas TPU kernels):
+
+==============================  =====================================
+wrapper here                    TPU kernel replaced
+==============================  =====================================
+:func:`minmax`                  ``minmax_pallas`` (``_minmax_kernel``)
+:func:`histogram`               ``histogram_pallas`` (``_hist_kernel``)
+==============================  =====================================
+
+Source: ``csrc/histogram_agg.cu`` (CUDA C++ for ``sm_90a``), built at
+first use by :mod:`repro_torch.kernels.build` and loaded with ctypes; its
+header says what bounds the kernels and what the design does about it.
+
+Device rule: a CPU tensor takes the plain version (:func:`minmax_plain`,
+:func:`histogram_plain`); a CUDA tensor launches the kernel or raises —
+nothing falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import threading
+from pathlib import Path
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import build as _build
+from repro_torch.kernels import selection_network as SN
+
+SOURCE = _build.CSRC / "histogram_agg.cu"
+
+#: kernel launches per wrapper since the last :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {"minmax": 0, "histogram": 0}
+
+_LIB: Optional[ctypes.CDLL] = None
+_LOAD_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build() -> Path:
+    """Compile the kernels (once per source content) and return the shared
+    library's path; nvcc's ``-Xptxas -v`` report goes to a ``.log`` file
+    beside it."""
+    return _build.build(SOURCE, _build.BUILD_DIR)
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call).  Raises when CUDA
+    or nvcc is missing."""
+    global _LIB
+    with _LOAD_LOCK:
+        if _LIB is None:
+            lib = _build.load(SOURCE, "hg_error_string", _build.BUILD_DIR)
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.hg_minmax.argtypes = [p, i, ll, p, p, i, p]
+            lib.hg_histogram.argtypes = [p, i, ll, p, p, i, p, p, i, p]
+            lib.hg_minmax.restype = lib.hg_histogram.restype = ctypes.c_int
+            _LIB = lib
+    return _LIB
+
+
+# --------------------------------------------------------------------------
+# sketch math
+# --------------------------------------------------------------------------
+
 
 def bin_index(x: torch.Tensor, lo: torch.Tensor, width: torch.Tensor, nbins: int) -> torch.Tensor:
-    """Bin of each entry of ``x`` (..., d) given per-coordinate lo/width (d,).
-    Zero-width coordinates map to bin 0."""
+    """Bin of each entry of ``x`` (..., d) given per-coordinate lo/width (d,),
+    as the histogram kernel computes it: f32 ``floor((x - lo) / safe_w)``
+    clipped in float to [0, nbins - 1] before the integer conversion, so
+    ±inf quotients land in the end bins and NaN in bin 0.  Zero-width
+    coordinates map to bin 0."""
     safe_w = torch.where(width > 0, width, torch.ones_like(width))
-    idx = torch.floor((x.float() - lo) / safe_w).to(torch.int64)
-    return idx.clamp(0, nbins - 1)
+    q = torch.floor((x.float() - lo) / safe_w)
+    q = torch.where(torch.isnan(q), torch.zeros_like(q), q.clamp(0, nbins - 1))
+    return q.to(torch.int64)
 
 
 def hist_init(d: int, nbins: int, with_sums: bool = True, *, device="cuda"
@@ -41,8 +106,10 @@ def hist_update(
     lo: torch.Tensor,
     width: torch.Tensor,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Accumulate a ``(rows, d)`` chunk into the (nbins, d) sketch (new
-    tensors; the inputs are not modified)."""
+    """Accumulate a ``(rows, d)`` chunk into the (nbins, d) sketch with one
+    ``scatter_add`` over the chunk (new tensors; the inputs are not
+    modified).  On CUDA the sums' scatter uses atomics, so their rounding
+    order varies from run to run; :func:`histogram` does not."""
     idx = bin_index(chunk, lo, width, counts.shape[0])  # (rows, d)
     counts = counts.scatter_add(0, idx, torch.ones_like(idx, dtype=counts.dtype))
     if sums is not None:
@@ -50,13 +117,20 @@ def hist_update(
     return counts, sums
 
 
+def edges(lo: torch.Tensor, hi: torch.Tensor, nbins: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, width) of the equal-width binning; width 0 on degenerate
+    coordinates.  The divisor is a full tensor, so this is a true IEEE
+    division on every device (CUDA's division by a host scalar multiplies
+    by the reciprocal, 1 ulp off for nbins that is not a power of two)."""
+    return lo, (hi - lo) / torch.full_like(lo, nbins)
+
+
 def sketch_array(x: torch.Tensor, nbins: int, with_sums: bool = True
                  ) -> tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Single-shot sketch of an in-memory ``(m, d)`` tensor:
     ``(counts, sums, lo, width)``."""
     xf = x.float()
-    lo = xf.amin(dim=0)
-    width = (xf.amax(dim=0) - lo) / nbins
+    lo, width = edges(xf.amin(dim=0), xf.amax(dim=0), nbins)
     counts, sums = hist_update(
         *hist_init(x.shape[-1], nbins, with_sums=with_sums, device=x.device),
         x, lo, width)
@@ -112,4 +186,103 @@ def trimmed_mean_from_hist(
     centres = lo[None, :] + (bins + 0.5) * width[None, :]
     whole = (kept == counts) & (counts > 0)
     contrib = torch.where(whole, sums, kept * centres)
-    return contrib.sum(dim=0) / (m - 2 * b_trim)
+    total = contrib.sum(dim=0)
+    return total / torch.full_like(total, m - 2 * b_trim)
+
+
+# --------------------------------------------------------------------------
+# kernels and their plain versions
+# --------------------------------------------------------------------------
+
+
+def _check_chunk(x: torch.Tensor) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"expected a (rows, n) chunk, got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"expected float32 or bfloat16, got {x.dtype}")
+    rows, n = x.shape
+    if not 1 <= rows < 2 ** 31:
+        raise ValueError(f"the kernels take 1 <= rows < 2^31, got rows={rows}")
+    if n < 1:
+        raise ValueError("the kernels need at least one coordinate")
+    if not x.is_contiguous():
+        raise ValueError("the kernels need a contiguous (rows, n) chunk")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def minmax_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`minmax`: rows reduced in order with
+    ``jnp.minimum``/``jnp.maximum`` semantics (NaN propagates, -0 < +0)."""
+    xf = x.float()
+    lo = hi = xf[0]
+    for r in range(1, xf.shape[0]):
+        lo = SN.ieee_minimum(lo, xf[r])
+        hi = SN.ieee_maximum(hi, xf[r])
+    return lo.clone(), hi.clone()
+
+
+def minmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-coordinate f32 (min, max) of a ``(rows, n)`` chunk -> two (n,)."""
+    _check_chunk(x)
+    if x.device.type == "cpu":
+        return minmax_plain(x)
+    lib = load()
+    lo = torch.empty(x.shape[1], dtype=torch.float32, device=x.device)
+    hi = torch.empty_like(lo)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.hg_minmax(x.data_ptr(), x.shape[0], x.shape[1], lo.data_ptr(),
+                            hi.data_ptr(), int(x.dtype == torch.bfloat16), stream)
+    _build.check_launch(lib, "minmax", err)
+    LAUNCHES["minmax"] += 1
+    return lo, hi
+
+
+def histogram_plain(x: torch.Tensor, lo: torch.Tensor, width: torch.Tensor, nbins: int,
+                    with_sums: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version of :func:`histogram`: one ``scatter_add_`` per row
+    into fresh zero tensors.  Within a row every column is distinct, so no
+    two additions meet and the sums are added in row order, as the kernel
+    adds them."""
+    rows, n = x.shape
+    idx = bin_index(x, lo, width, nbins)
+    xf = x.float()
+    counts = torch.zeros((nbins, n), dtype=torch.float32, device=x.device)
+    sums = torch.zeros_like(counts) if with_sums else None
+    one = torch.ones((1, n), dtype=torch.float32, device=x.device)
+    for r in range(rows):
+        counts.scatter_add_(0, idx[r:r + 1], one)
+        if sums is not None:
+            sums.scatter_add_(0, idx[r:r + 1], xf[r:r + 1])
+    return counts, sums
+
+
+def histogram(x: torch.Tensor, lo: torch.Tensor, width: torch.Tensor, nbins: int,
+              with_sums: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Per-chunk bin counts and sums of ``x`` (rows, n) -> two (nbins, n) f32
+    (sums None when ``with_sums=False``): the chunk's increments, to be
+    added to a running sketch."""
+    _check_chunk(x)
+    n = x.shape[1]
+    for name, t in (("lo", lo), ("width", width)):
+        if t.shape != (n,) or t.dtype != torch.float32 or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 ({n},) tensor on "
+                             f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if not 1 <= nbins < 2 ** 31:
+        raise ValueError(f"nbins must be >= 1, got {nbins}")
+    if x.device.type == "cpu":
+        return histogram_plain(x, lo, width, nbins, with_sums)
+    lib = load()
+    counts = torch.empty((nbins, n), dtype=torch.float32, device=x.device)
+    sums = torch.empty_like(counts) if with_sums else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.hg_histogram(x.data_ptr(), x.shape[0], n, lo.data_ptr(), width.data_ptr(),
+                               nbins, counts.data_ptr(),
+                               None if sums is None else sums.data_ptr(),
+                               int(x.dtype == torch.bfloat16), stream)
+    _build.check_launch(lib, "histogram", err)
+    LAUNCHES["histogram"] += 1
+    return counts, sums

@@ -12,10 +12,10 @@ wrapper here                    TPU kernel replaced
 ==============================  =====================================
 
 Source: ``csrc/robust_agg.cu`` (CUDA C++ for ``sm_90a``), built at first
-use with ``nvcc`` into ``build/repro_torch/`` at the repository root and
-loaded with ctypes.  Bound: memory — m*n*s bytes read and n*s written
-per output (s the element size); the source's header says what the
-design does about it.
+use by :mod:`repro_torch.kernels.build` into ``build/repro_torch/`` at
+the repository root and loaded with ctypes.  Bound: memory — m*n*s bytes
+read and n*s written per output (s the element size); the source's
+header says what the design does about it.
 
 Device rule: a CPU tensor takes the plain version (the torch executor of
 the same comparator program in :mod:`selection_network`); a CUDA tensor
@@ -26,22 +26,17 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import build as _build
 from repro_torch.kernels import selection_network as SN
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "robust_agg.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _build.CSRC / "robust_agg.cu"
+BUILD_DIR = _build.BUILD_DIR
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"median": 0, "trimmed_mean": 0, "fused_median_trimmed": 0}
@@ -58,35 +53,11 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError(
-            f"nvcc not found: the robust_agg CUDA kernels are built from {SOURCE} "
-            "at first use and need the CUDA toolkit")
-    return path
-
-
 def build() -> Path:
     """Compile the kernels (once per source content) and return the shared
-    library's path.  nvcc's ``-Xptxas -v`` report goes to a ``.log`` file
-    beside the library."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"librobust_agg-{tag}.so"
-    if lib.exists():
-        return lib
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    library's path; nvcc's ``-Xptxas -v`` report goes to a ``.log`` file
+    beside it."""
+    return _build.build(SOURCE, BUILD_DIR)
 
 
 def load() -> ctypes.CDLL:
@@ -95,11 +66,7 @@ def load() -> ctypes.CDLL:
     global _LIB
     with _LOAD_LOCK:
         if _LIB is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "the robust_agg CUDA kernels need a CUDA device "
-                    "(CPU tensors take the plain version)")
-            lib = ctypes.CDLL(str(build()))
+            lib = _build.load(SOURCE, "ra_error_string", BUILD_DIR)
             for sym in _SYMBOL.values():
                 fn = getattr(lib, sym)
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -107,8 +74,6 @@ def load() -> ctypes.CDLL:
                                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            lib.ra_error_string.argtypes = [ctypes.c_int]
-            lib.ra_error_string.restype = ctypes.c_char_p
             _LIB = lib
     return _LIB
 
@@ -150,9 +115,7 @@ def _launch(name: str, x: torch.Tensor, prog: SN.SelectionProgram, trim: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), m, n, pairs.data_ptr(), prog.size, trim,
                  ptr(med), ptr(tm), int(x.dtype == torch.bfloat16), stream)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{load().ra_error_string(err).decode()} ({err})")
+    _build.check_launch(load(), name, err)
     LAUNCHES[name] += 1
 
 

@@ -1,9 +1,12 @@
-"""Weight carrier between the reference's parameter dicts and the port's.
+"""Weight and state carrier between the reference's numpy trees and the
+port's tensors.
 
 The port keeps the reference's parameter layout (HWIO conv weights,
 ``fc1`` rows in HWC-flatten order), so conversion checks keys, shapes
 and dtypes and moves tensors; it never reshapes.  ``linreg`` parameters
-are a bare (d,) vector in both packages.
+are a bare (d,) vector in both packages.  :func:`round_state_from_reference`
+carries a round engine state (iterate, previous aggregate, optimizer
+slots, round) across.
 """
 from __future__ import annotations
 
@@ -67,3 +70,38 @@ def to_reference(params) -> Union[np.ndarray, Dict[str, np.ndarray]]:
     if isinstance(params, torch.Tensor):
         return params.detach().cpu().numpy()
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def _opt_state(opt_state, device: torch.device):
+    """The reference's optimizer state: ``()`` (sgd), one slot (momentum)
+    or ``{"m", "v"}`` (AdamW); every slot float32."""
+    if isinstance(opt_state, (tuple, list)) and len(opt_state) == 0:
+        return ()
+    if isinstance(opt_state, dict):
+        if set(opt_state) != {"m", "v"}:
+            raise KeyError(f"optimizer state: expected keys ['m', 'v'], got {sorted(opt_state)}")
+        return {k: _tensor(f"opt_state.{k}", opt_state[k], device) for k in ("m", "v")}
+    return _tensor("opt_state", opt_state, device)
+
+
+def round_state_from_reference(state_np: dict, *, seed: int = 0, device="cuda") -> dict:
+    """The reference's round engine state (a dict of numpy leaves: ``w``,
+    ``prev_agg``, ``opt_state``, ``round``, and ``comp_res``/``key``) as
+    the port's :data:`~repro_torch.rounds.engine.RoundState`.
+
+    The reference's threefry ``key`` has no counterpart (the port derives
+    its draws from an integer seed), so the port's ``seed`` is given here.
+    Compression residuals are not ported: ``comp_res`` must be empty.
+    """
+    from repro_torch.rounds import engine
+
+    dev = resolve(device)
+    comp_res = state_np.get("comp_res", ())
+    if not (isinstance(comp_res, (tuple, list)) and len(comp_res) == 0):
+        raise ValueError("compression residuals are not ported: comp_res must be ()")
+    w = _tensor("w", state_np["w"], dev)
+    prev = _tensor("prev_agg", state_np["prev_agg"], dev)
+    if prev.shape != w.shape:
+        raise ValueError(f"prev_agg has shape {tuple(prev.shape)}, w {tuple(w.shape)}")
+    return engine.make_state(w, prev_agg=prev, opt_state=_opt_state(state_np["opt_state"], dev),
+                             seed=seed, rnd=int(np.asarray(state_np["round"])))

@@ -8,7 +8,12 @@ deterministic checkpoint/resume.
   aggregation -> update, composed into one round body by
   :func:`make_round_body` (attacks see decoded transmitted values);
 - :func:`run_scan` — a Python loop over rounds that writes a snapshot
-  every ``ckpt_every`` rounds.
+  every ``ckpt_every`` rounds;
+- :func:`run_scheduled` — the host driver for per-round attack schedules
+  (``fed.rounds.AttackMixture``, including the greedy adaptive
+  adversary): it picks each round's attack, runs a per-attack cached
+  round function, records history, feeds the scheduler its damage signal
+  and snapshots state plus host state (history, scheduler table).
 
 Determinism contract: every per-round random draw comes from a generator
 seeded with (base seed, absolute round), and all cross-round state lives
@@ -16,8 +21,7 @@ in :data:`RoundState`, so resuming from the snapshot written after round
 r-1 replays rounds r..R bit for bit.
 
 The reference's jit/runner regimes have no counterpart (PyTorch runs
-eagerly); its scheduled per-round loop (``run_scheduled``) waits for the
-federated slice.
+eagerly).
 """
 from __future__ import annotations
 
@@ -204,3 +208,72 @@ def run_scan(
     if not outs:
         return state, None
     return state, tree_map(lambda *xs: torch.stack(xs), *outs)
+
+
+def run_scheduled(
+    round_fn_for: Callable,
+    state: RoundState,
+    num_rounds: int,
+    *,
+    mixture=None,
+    record: Callable,
+    damage: Optional[Callable] = None,
+    init_entry: Optional[dict] = None,
+    ckpt_every: int = 0,
+    ckpt_dir: Optional[str] = None,
+    resume: Union[bool, int] = False,
+) -> Tuple[RoundState, List[dict]]:
+    """Host driver for per-round attack schedules; returns (state, history).
+
+    ``round_fn_for(attack) -> fn(state, r) -> (state, extras)`` supplies
+    the round executor for one attack configuration (cached per attack).
+    ``record(r, attack, state, extras)`` builds the history entry;
+    ``damage(entry, prev_entry)`` is the greedy scheduler's reward (the
+    public drift every worker can observe); ``init_entry`` seeds
+    ``prev_entry`` for round 0.
+
+    Every ``ckpt_every`` rounds the :data:`RoundState` snapshot is written
+    with the host state — the history so far and the scheduler's damage
+    table — so a resumed run continues the SAME adversary and returns the
+    full-run history.
+    """
+    scheduler = mixture.make_scheduler() if mixture is not None else None
+    history: List[dict] = []
+    prev_entry = init_entry
+    state, host, r0 = _maybe_resume(state, ckpt_dir, resume)
+    if host:
+        history = list(host.get("history", []))
+        if history:
+            prev_entry = history[-1]
+        if scheduler is not None and host.get("scheduler") is not None:
+            scheduler.load_state_dict(host["scheduler"])
+    fn_cache: Dict[Any, Callable] = {}
+    for r in range(r0, num_rounds):
+        attack = mixture.for_round(r, scheduler) if mixture is not None else None
+        cache_key = _attack_cache_key(attack)
+        fn = fn_cache.get(cache_key)
+        if fn is None:
+            fn = fn_cache[cache_key] = round_fn_for(attack)
+        state, extras = fn(state, r)
+        entry = record(r, attack, state, extras)
+        if scheduler is not None and damage is not None:
+            scheduler.feedback(r, damage(entry, prev_entry))
+        prev_entry = entry
+        history.append(entry)
+        if ckpt_every and ckpt_dir and (r + 1) % ckpt_every == 0:
+            save_snapshot(ckpt_dir, state, host={
+                "history": history,
+                "scheduler": scheduler.state_dict() if scheduler else None,
+            })
+    return state, history
+
+
+def _attack_cache_key(attack):
+    """Hashable identity of one attack configuration: (name, alpha,
+    strength), what the per-attack round functions are cached on."""
+    if attack is None:
+        return None
+    from repro_torch.rounds import comm
+
+    spec, alpha, strength = comm.resolve_attack(attack)
+    return (None if spec is None else spec.name, alpha, strength)
