@@ -12,9 +12,15 @@ Phases (any failure exits non-zero before the final line):
    and bf16, ragged n and the main path's leaf sizes, columns with ±1e30,
    NaN and mixed ±0, every legal trim for m in {10, 17, 40};
 2b. the sketch kernels (min/max, histogram) against their plain versions,
-   bitwise (counts and sums): rows in {1, 7, 256, 512}, n in {1, 32, 33,
-   4097, 50176}, nbins in {2, 64, 256, 512, 4096}, f32 and bf16, with and
-   without sums, columns with ±1e30 rows, a NaN, mixed ±0 and a constant;
+   bitwise (counts and sums): rows in {1, 7, 33, 256, 512, 1000}, n in {1,
+   32, 33, 4097, 50176}, nbins in {2, 64, 256, 512, 4096}, f32 and bf16,
+   with and without sums, columns with ±1e30 rows, a NaN, mixed ±0 and a
+   constant; a row slice x[1:] (pointer not 16-byte aligned, n = 33), a
+   wide view one element off, and 2^15 / 2^16 bins (past the shared-memory
+   budget).  Every kernel variant (scalar and 16-byte loads; shared and
+   global histogram) must have run;
+2c. approx_median and approx_trimmed_mean on the card twice: bitwise equal,
+   and within the CPU tests' tolerance of the CPU result;
 3. the quickstart configuration (examples/quickstart.py): median and
    trimmed mean ROBUST (||w - w*|| < 0.2), mean BROKEN;
 4. the main path: Algorithm 1 on the paper's CNN at full width (53,370
@@ -36,7 +42,9 @@ Phases (any failure exits non-zero before the final line):
    torch.profiler trace of 3 steps; the sketch kernels at the federated
    chunk (512 x 32, 512 bins), the CLI default (256 x 64, 256 bins) and a
    bandwidth shape (256 x 2^20, 128 bins, f32 and bf16), against the
-   memory bound, their plain versions and torch.aminmax (min/max);
+   memory bound, their plain versions and torch.aminmax (min/max, timed in
+   turns with the kernel; its device time too), with a line per min/max
+   shape comparing them;
 6. the federated path: ``fed.rounds.run_rounds`` at benchmarks/fed_scale.py's
    configuration (200,000 clients, cohorts of 100,000 in chunks of 512,
    d=32, n=16, 512 bins, sign_flip alpha=0.1 scale 100, beta=0.15, lr 0.3,
@@ -46,7 +54,8 @@ Phases (any failure exits non-zero before the final line):
    methods, none for the mean.  Robust ||w - w*|| < 0.5, the mean's more
    than 10x the median's; the sketch median within one bin of the exact
    median of an attacked 10^4 cohort; the first 2 rounds agree with the
-   CPU; the CLI runs twice with one sha256; a profile of one round.
+   CPU; the CLI runs twice with one sha256; a profile of one round (with
+   the sketch kernels' device ms in it).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -128,20 +137,34 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, name: str):
-    """Device time per call of the kernels whose name contains ``name``,
-    from torch.profiler (None when the trace shows no such kernel)."""
+def time_pair(a, b, reps: int):
+    """Mean times per call of ``a`` and ``b`` (time_ms), taken in turns a, b,
+    b, a, so that drift on the host touches both alike."""
+    ta, tb = time_ms(a, reps), time_ms(b, reps)
+    tb, ta = (tb + time_ms(b, reps)) / 2, (ta + time_ms(a, reps)) / 2
+    return ta, tb
+
+
+def device_ms(fn, reps: int, name: str = ""):
+    """Device time per call of the kernels whose name contains ``name``
+    (every kernel for ""), from torch.profiler (None when two traces show
+    no such kernel)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages() if name in e.key)
-    return us / 1e3 / reps if us else None
+    for _ in range(2):  # a trace now and then comes back without the kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and name in e.key)
+        if us:
+            return us / 1e3 / reps
+    return None
 
 
 # ------------------------------------------------------------------ phases
@@ -480,9 +503,12 @@ def cnn_step_time(dev):
 
 # ------------------------------------------------------- the sketch kernels
 
-SKETCH_ROWS = (1, 7, 256, 512)
+SKETCH_ROWS = (1, 7, 33, 256, 512, 1000)
 SKETCH_N = (1, 32, 33, 4097, 50176)
 SKETCH_NBINS = (2, 64, 256, 512, 4096)
+# past the shared-memory budget: 2^15 bins with sums and 2^16 bins take the
+# global-memory histogram, 2^15 counts only a one-column tile
+SKETCH_WIDE_NBINS = (1 << 15, 1 << 16)
 
 
 def sketch_rows(rows: int, n: int, seed: int):
@@ -510,40 +536,95 @@ def sketch_sweep(dev):
 
     worst = {"minmax": 0.0, "histogram": 0.0}
     checked = 0
+    plans = set()
+
+    def run(x, label, nbins_set):
+        nonlocal checked
+        plans.add(H.minmax_plan_for(x))
+        lo, hi = H.minmax(x)
+        plo, phi = H.minmax_plain(x)
+        torch.cuda.synchronize()
+        for got, want in ((lo, plo), (hi, phi)):
+            bad, err = compare(got, want)
+            check(bad == 0, f"minmax {label}: {bad} mismatches vs the plain version "
+                            f"(max |err| {err})")
+            worst["minmax"] = max(worst["minmax"], err)
+            checked += 1
+        for nbins in nbins_set:
+            lo, width = H.edges(plo, phi, nbins)
+            for with_sums in (True, False):
+                plans.add(H.histogram_plan(x.shape[0], x.shape[1], nbins, with_sums))
+                got = H.histogram(x, lo, width, nbins, with_sums)
+                want = H.histogram_plain(x, lo, width, nbins, with_sums)
+                torch.cuda.synchronize()
+                for part, g, w in zip(("counts", "sums"), got, want):
+                    if w is None:
+                        check(g is None, "histogram wrote sums with with_sums=False")
+                        continue
+                    bad, err = compare(g, w)
+                    check(bad == 0, f"histogram {part} {label} nbins={nbins} "
+                                    f"sums={with_sums}: {bad} mismatches vs the plain "
+                                    f"version (max |err| {err})")
+                    worst["histogram"] = max(worst["histogram"], err)
+                    checked += 1
+                del got, want
+            if x.shape[1] == 50176 and nbins == 4096:
+                torch.cuda.empty_cache()
+
     for dtype in (torch.float32, torch.bfloat16):
         for rows in SKETCH_ROWS:
             for n in SKETCH_N:
                 x = torch.from_numpy(sketch_rows(rows, n, seed=rows * 7 + n)).to(dev, dtype)
-                lo, hi = H.minmax(x)
-                plo, phi = H.minmax_plain(x)
-                torch.cuda.synchronize()
-                for got, want in ((lo, plo), (hi, phi)):
-                    bad, err = compare(got, want)
-                    check(bad == 0, f"minmax rows={rows} n={n} {dtype}: {bad} mismatches "
-                                    f"vs the plain version (max |err| {err})")
-                    worst["minmax"] = max(worst["minmax"], err)
-                    checked += 1
-                for nbins in SKETCH_NBINS:
-                    lo, width = H.edges(plo, phi, nbins)
-                    for with_sums in (True, False):
-                        got = H.histogram(x, lo, width, nbins, with_sums)
-                        want = H.histogram_plain(x, lo, width, nbins, with_sums)
-                        torch.cuda.synchronize()
-                        for part, g, w in zip(("counts", "sums"), got, want):
-                            if w is None:
-                                check(g is None, "histogram wrote sums with with_sums=False")
-                                continue
-                            bad, err = compare(g, w)
-                            check(bad == 0, f"histogram {part} rows={rows} n={n} "
-                                            f"nbins={nbins} {dtype} sums={with_sums}: {bad} "
-                                            f"mismatches vs the plain version (max |err| {err})")
-                            worst["histogram"] = max(worst["histogram"], err)
-                            checked += 1
-                    if n == 50176 and nbins == 4096:
-                        torch.cuda.empty_cache()
+                run(x, f"rows={rows} n={n} {dtype}", SKETCH_NBINS)
+        # views the chunked sketch passes: a row slice whose pointer is not
+        # 16-byte aligned (n = 33), and a wide chunk one element off
+        base = torch.from_numpy(sketch_rows(34, 33, seed=34)).to(dev, dtype)
+        run(base[1:], f"row slice x[1:] rows=33 n=33 {dtype}", SKETCH_NBINS)
+        view = torch.empty(33 * 50176 + 1, device=dev, dtype=dtype)[1:].view(33, 50176)
+        view.copy_(torch.from_numpy(sketch_rows(33, 50176, seed=5)))
+        check(view.data_ptr() % 16 != 0 and H.minmax_plan_for(view).vec == 1,
+              "the misaligned wide view did not take scalar loads")
+        run(view, f"misaligned view rows=33 n=50176 {dtype}", (2, 512))
+        # past the shared-memory budget
+        x = torch.from_numpy(sketch_rows(33, 33, seed=33)).to(dev, dtype)
+        run(x, f"rows=33 n=33 {dtype}", SKETCH_WIDE_NBINS)
+    variants = {"minmax vec": sorted({p.vec for p in plans if isinstance(p, H.MinmaxPlan)}),
+                "histogram": sorted({"shared" if p.shared else "global" for p in plans
+                                     if isinstance(p, H.HistogramPlan)})}
+    check(variants == {"minmax vec": [1, 4, 8], "histogram": ["global", "shared"]},
+          f"the sweep missed a kernel variant: {variants}")
     print(f"phase 2b: {checked} sketch-kernel outputs bitwise equal to the plain version "
-          f"(max |err| {json.dumps(worst)})")
+          f"(max |err| {json.dumps(worst)}; variants {json.dumps(variants)})")
     return worst
+
+
+def approx_repeatable(dev):
+    """Phase 2c: the approx_* aggregators on the card (through the sketch
+    kernels) twice on one input: bitwise equal, and within the CPU tests'
+    tolerance (rtol = atol = 1e-5, tests/test_torch_aggregators.py) of the
+    same call on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import aggregators as A
+
+    rng = np.random.default_rng(4)
+    cases = [rng.standard_normal((20, 6, 7)).astype(np.float32),
+             rng.standard_normal((257, 4096)).astype(np.float32)]
+    for x_np in cases:
+        for name in ("approx_median", "approx_trimmed_mean"):
+            agg = A.get_aggregator(name, 0.2)
+            x = torch.from_numpy(x_np)
+            first, second = agg(x.to(dev)), agg(x.to(dev))
+            torch.cuda.synchronize()
+            bad, _ = compare(first, second)
+            check(bad == 0, f"{name} {x_np.shape}: two card calls differ in {bad} places")
+            on_cpu, first = agg(x), first.cpu()
+            diff = float((first - on_cpu).abs().max())
+            check(torch.allclose(first, on_cpu, rtol=1e-5, atol=1e-5),
+                  f"{name} {x_np.shape}: card vs CPU beyond rtol=atol=1e-5 (max |diff| {diff})")
+            print(f"phase 2c: {name} {tuple(x_np.shape)}: two card calls bitwise equal; "
+                  f"card vs CPU max |diff| {diff:.3g}")
 
 
 def sketch_bound(name: str, rows: int, n: int, nbins: int, elem: int, sums: bool):
@@ -591,17 +672,26 @@ def sketch_timings(dev, card: str):
         }
         for (name, sums), (kernel, plain, lib, kname) in fns.items():
             b_ms, b_by = sketch_bound(name, rows, n, nbins, x.element_size(), sums)
+            reps = 20 if big else 200
+            ms, lib_ms = time_pair(kernel, lib, reps) if lib else (time_ms(kernel, reps), None)
             row = {"shape": label, "kernel": name, "rows": rows, "n": n, "nbins": nbins,
                    "with_sums": sums, "dtype": str(dtype).removeprefix("torch."),
-                   "ms": time_ms(kernel, 20 if big else 200),
-                   "device_ms": device_ms(kernel, 20, kname),
+                   "ms": ms, "device_ms": device_ms(kernel, 20, kname),
                    "plain_ms": time_ms(plain, 2 if big else 10),
-                   "library_ms": time_ms(lib, 20 if big else 200) if lib else None,
+                   "library_ms": lib_ms,
+                   "library_device_ms": device_ms(lib, 20) if lib else None,
                    "bound_ms": b_ms, "bound_by": b_by, "card": card}
             rows_out.append(row)
             print(json.dumps({"timing": row}))
         del x
         torch.cuda.empty_cache()
+    for r in rows_out:
+        if r["kernel"] == "minmax":
+            print(f"phase 5b: minmax {r['shape']} {r['rows']} x {r['n']} {r['dtype']}: "
+                  f"per call kernel {r['ms']:.5f} ms vs torch.aminmax {r['library_ms']:.5f} ms "
+                  f"({r['library_ms'] / r['ms']:.2f}x); device {r['device_ms']:.5f} vs "
+                  f"{r['library_device_ms']:.5f} ms "
+                  f"({r['library_device_ms'] / r['device_ms']:.2f}x); bound {r['bound_ms']:.5f} ms")
     return rows_out
 
 
@@ -783,11 +873,14 @@ def fed_profile(pop):
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    sketch = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+              for name in ("minmax_kernel", "histogram_kernel")}
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU),
                  key=lambda e: e.self_device_time_total, reverse=True)[:15]
     print(json.dumps({"profile_fed_round": "approx_median", "round_ms": wall_ms,
                       "round_ms_profiled": profiled_ms, "device_busy_ms": busy_ms,
                       "device_busy_share": busy_ms / wall_ms if wall_ms else None,
+                      "sketch_kernels_device_ms": sketch,
                       "top_kernels": [{"kernel": e.key[:70], "device_ms":
                                        e.self_device_time_total / 1e3, "calls": e.count}
                                       for e in kernels[:15]],
@@ -835,6 +928,7 @@ def main() -> None:
     t0 = time.perf_counter()
     worst.update(sketch_sweep(dev))
     print(f"phase 2b: {time.perf_counter() - t0:.1f} s")
+    approx_repeatable(dev)
     quickstart(dev)
     launches = main_path(dev)
     cpu_agreement(dev)

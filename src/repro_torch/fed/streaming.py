@@ -16,8 +16,9 @@ Kernels: every chunk goes through
 :func:`~repro_torch.kernels.histogram_agg.minmax` and
 :func:`~repro_torch.kernels.histogram_agg.histogram`, which launch the
 CUDA kernels on a CUDA chunk and run their plain versions on a CPU chunk
-(the wrappers' device rule; nothing else picks the path).  Both add in
-row order and use no atomics, so a run is bitwise repeatable.
+(the wrappers' device rule; nothing else picks the path).  The sums are
+added in row order, the counts are integers (exact in any order), and
+nothing adds floats atomically, so a run is bitwise repeatable.
 """
 from __future__ import annotations
 

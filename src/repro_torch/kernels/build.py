@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -69,6 +70,23 @@ def load(source: Path, error_fn: str, build_dir: Path = BUILD_DIR) -> ctypes.CDL
     spell.restype = ctypes.c_char_p
     lib.spell_error = spell
     return lib
+
+
+def launch_on(device: int, launch: Callable[[int], int]) -> int:
+    """Call ``launch(stream)`` with the raw handle of the current stream of
+    CUDA device ``device`` while it is the current device; returns its CUDA
+    error code.  It switches devices only when it must and reads the raw
+    handle without building a ``torch.cuda.Stream``: on small inputs the
+    wrapper's host time is most of a call."""
+    if device == _current_device():
+        return launch(_raw_stream(device))
+    with torch.cuda.device(device):
+        return launch(_raw_stream(device))
+
+
+_current_device = getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream",
+                      lambda idx: torch.cuda.current_stream(idx).cuda_stream)
 
 
 def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
