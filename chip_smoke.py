@@ -4,13 +4,22 @@
     python3 chip_smoke.py   # needs one CUDA card and nvcc
 
 Phases (any failure exits non-zero before the final line):
-1. the card, torch/CUDA versions, TF32 off, the kernels' build from
-   ``src/repro_torch/kernels/csrc/robust_agg.cu`` and ``histogram_agg.cu``
-   (one nvcc per source, started together) with their ptxas reports;
+1. the card, torch/CUDA versions, TF32 off, the kernels' build: the fused
+   kernel from ``src/repro_torch/kernels/csrc/robust_agg.cu``, the sketch
+   kernels from ``histogram_agg.cu`` and every median / trimmed-mean
+   program this script runs (generated by ``kernels/select_codegen.py``
+   around ``csrc/select_program.cuh``, ``robust_agg.prepare``: a few
+   libraries), all nvcc processes started together; the build seconds and
+   the ptxas reports; any spill fails;
 2. every order-statistic kernel against its plain PyTorch version on the
    card, bitwise (NaN matched by position, -0 != +0): m in {2,...,64}, f32
    and bf16, ragged n and the main path's leaf sizes, columns with ±1e30,
-   NaN and mixed ±0, every legal trim for m in {10, 17, 40};
+   NaN and mixed ±0, every legal trim for m in {10, 17, 40}; then the
+   multi-leaf calls: the CNN's 8 leaf sizes in one launch (m in {10, 17,
+   40}, f32 and bf16, rows with ±inf, ±1e30, NaN, ±0 and subnormals), a
+   call with more leaves than one launch takes, misaligned inputs
+   (``x[:, 1:]`` made contiguous, a view one element off) and m = 1.  Both
+   load paths (vector and scalar) must have run;
 2b. the sketch kernels (min/max, histogram) against their plain versions,
    bitwise (counts and sums): rows in {1, 7, 33, 256, 512, 1000}, n in {1,
    32, 33, 4097, 50176}, nbins in {2, 64, 256, 512, 4096}, f32 and bf16,
@@ -27,14 +36,16 @@ Phases (any failure exits non-zero before the final line):
    parameters in 8 leaves), the Table 3 layout (m=10, n=400 per worker,
    sign_flip alpha=0.1 scale 20), median and trimmed mean (beta=0.1) for
    30 iterations each.  The launch counters are zeroed just before and
-   read just after: every aggregation must have gone through a kernel.
+   read just after: every aggregation must have gone through a kernel,
+   one launch a step over all 8 leaves (30 launches, 240 leaves a method).
    Algorithm 1 does not run the fused kernel, so its entry point
    (ops.fused_median_trimmed) is then called directly on the final
    per-worker gradients, and its count is that call's.  The first 3
    iterates are compared with the same run on the CPU; linreg runs at
    the Table 2 worker count (m=40);
-5. times at the main path's shapes and one bandwidth-sized shape (CUDA
-   events per call, and device time from torch.profiler), against the
+5. times at the main path's shapes, the CNN's 8 leaves in one call, and
+   bandwidth-sized shapes (CUDA events per call, and device time from
+   torch.profiler), against the
    memory bound (3.35 TB/s) and the f32 operation bound (67 TFLOP/s) of
    an H100 SXM at 700 W, the plain version, and the one PyTorch call that
    computes the same function where there is one (the median's); the
@@ -110,6 +121,22 @@ def adversarial_rows(m: int, n: int, seed: int):
     return x
 
 
+def special_rows(m: int, n: int, seed: int):
+    """N(0,1) rows with one value in four drawn from ±0, ±inf, ±1e30, f32
+    subnormals and the smallest normal, and a NaN in one column."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, n)).astype(np.float32)
+    pool = np.array([0.0, -0.0, np.inf, -np.inf, 1e30, -1e30, 1e-40, -1e-40, 1.4e-45,
+                     -1.4e-45, 1.1754944e-38, -3e-39], dtype=np.float32)
+    pick = rng.random((m, n)) < 0.25
+    x[pick] = pool[rng.integers(0, len(pool), int(pick.sum()))]
+    if n >= 3:
+        x[m // 2, n // 3] = np.nan
+    return x
+
+
 def compare(got, want):
     """(bit mismatches, max |got - want|): NaN matches NaN, -0 != +0."""
     import torch
@@ -169,6 +196,55 @@ def device_ms(fn, reps: int, name: str = ""):
 
 # ------------------------------------------------------------------ phases
 
+CNN_LEAF_SIZES = (144, 16, 2304, 16, 50176, 64, 640, 10)  # the CNN's 8 leaves
+MULTI_LEAF_M = (10, 17, 40)
+TIMING_SHAPES = (("cnn fc1 leaf", 10, 50176, "float32"), ("logreg w leaf", 40, 7840, "float32"),
+                 ("bandwidth", 32, 1 << 24, "float32"), ("bandwidth, odd m", 31, 1 << 24, "float32"),
+                 ("bandwidth", 32, 1 << 24, "bfloat16"))
+
+
+def sweep_trim(m: int) -> int:
+    return max(1, m // 10) if m >= 3 else 0
+
+
+def select_specs():
+    """Every (kind, m, trim, dtype) of the median / trimmed-mean kernels this
+    script runs, in both dtypes: phase 2's sweeps, the quickstart (m=8,
+    beta 0.3), the CNN (m=10, beta 0.1), linreg m=40 (beta 0.05) and phase
+    5's shapes."""
+    import torch
+
+    progs = {("median", 1, 0), ("trimmed_mean", 1, 0), ("median", 8, 0),
+             ("trimmed_mean", 8, int(0.3 * 8)), ("trimmed_mean", 40, int(0.05 * 40))}
+    for m in SWEEP_M + MULTI_LEAF_M + tuple(s[1] for s in TIMING_SHAPES):
+        progs |= {("median", m, 0), ("trimmed_mean", m, sweep_trim(m)),
+                  ("trimmed_mean", m, int(0.1 * m))}
+    for m in TRIM_SWEEP_M:
+        progs |= {("trimmed_mean", m, t) for t in range((m + 1) // 2)}
+    return [(k, m, t, d) for k, m, t in sorted(progs) for d in (torch.float32, torch.bfloat16)]
+
+
+def ptxas_report(lib):
+    """(registers, spill bytes, stack bytes) maxima over the kernels in a
+    library's ptxas log, and the number of kernels."""
+    import re
+
+    text = lib.with_suffix(".log").read_text()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(a) + int(b) for a, b in
+              re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+    stack = [int(a) for a in re.findall(r"(\d+) bytes stack frame", text)]
+    return max(regs, default=0), max(spills, default=0), max(stack, default=0), len(regs)
+
+
+def check_spills(libs, label: str) -> None:
+    """Print each library's ptxas maxima; fail on any spill."""
+    for lib in libs:
+        regs, spill, stack, kernels = ptxas_report(lib)
+        print(f"  ptxas {lib.name}: {kernels} kernels, at most {regs} registers, "
+              f"{spill} spill bytes, {stack} stack bytes")
+        check(spill == 0, f"{label}: ptxas spilled in {lib.name}")
+
 
 def kernel_sweep(dev, leaf_sizes):
     """Phase 2: each kernel vs its plain version, bitwise.  Returns the
@@ -200,7 +276,7 @@ def kernel_sweep(dev, leaf_sizes):
 
     for dtype in (torch.float32, torch.bfloat16):
         for m in SWEEP_M:
-            trim = max(1, m // 10) if m >= 3 else 0
+            trim = sweep_trim(m)
             for n in sorted(set(SWEEP_N) | set(leaf_sizes)):  # ragged n, the CNN's leaves
                 x = torch.from_numpy(adversarial_rows(m, n, seed=m * 7919 + n)).to(dev, dtype)
                 for name in worst:
@@ -214,6 +290,65 @@ def kernel_sweep(dev, leaf_sizes):
     print(f"phase 2: {checked} kernel outputs bitwise equal to the plain version "
           f"(max |err| {json.dumps(worst)})")
     return worst
+
+
+def multi_leaf_sweep(dev, worst):
+    """Phase 2: multi-leaf median / trimmed-mean calls vs the per-leaf plain
+    versions, bitwise; one launch per 16 leaves; both load paths run."""
+    import torch
+
+    from repro_torch.kernels import robust_agg
+    from repro_torch.kernels import select_codegen as G
+    from repro_torch.kernels import selection_network as SN
+
+    checked, paths = 0, set()
+
+    def run(xs, trim, label, want_launches):
+        nonlocal checked
+        paths.update(robust_agg.plan_for(x).scalar for x in xs)
+        for name in ("median", "trimmed_mean"):
+            before = dict(robust_agg.LAUNCHES), dict(robust_agg.LEAVES)
+            if name == "median":
+                got, want = robust_agg.median_many(xs), [SN.median_select(x) for x in xs]
+            else:
+                got = robust_agg.trimmed_mean_many(xs, trim)
+                want = [SN.trimmed_mean_select(x, trim) for x in xs]
+            torch.cuda.synchronize()
+            ran = robust_agg.LAUNCHES[name] - before[0][name]
+            leaves = robust_agg.LEAVES[name] - before[1][name]
+            check(ran == want_launches and leaves == len(xs),
+                  f"{name} {label}: {ran} launches for {leaves} leaves, want "
+                  f"{want_launches} for {len(xs)}")
+            for i, (g, w) in enumerate(zip(got, want)):
+                bad, err = compare(g, w)
+                check(bad == 0, f"{name} {label} leaf {i} ({tuple(xs[i].shape)}): {bad} "
+                                f"mismatches vs the plain version (max |err| {err})")
+                worst[name] = max(worst[name], err)
+                checked += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in MULTI_LEAF_M:
+            xs = [torch.from_numpy(special_rows(m, n, seed=m * 31 + n)).to(dev, dtype)
+                  for n in CNN_LEAF_SIZES]
+            run(xs, sweep_trim(m), f"m={m} CNN leaves {dtype}", 1)
+        cap = G.MAX_LEAVES
+        xs = [torch.from_numpy(special_rows(10, 1 + 37 * i, seed=i)).to(dev, dtype)
+              for i in range(2 * cap + 3)]
+        run(xs, 1, f"{len(xs)} leaves {dtype}", 3)
+        # misaligned inputs: a column slice made contiguous (n % 4 != 0) and a
+        # view one element off; with an aligned leaf in the same launch
+        base = torch.from_numpy(special_rows(10, 50176, seed=3)).to(dev, dtype)
+        sliced = base[:, 1:].contiguous()
+        off = torch.empty(10 * 50176 + 1, device=dev, dtype=dtype)[1:].view(10, 50176)
+        off.copy_(base)
+        check(robust_agg.plan_for(sliced).scalar and robust_agg.plan_for(off).scalar
+              and not robust_agg.plan_for(base).scalar,
+              "the misaligned leaves did not take the scalar path")
+        run([sliced, off, base], 1, f"misaligned {dtype}", 1)
+        run([base[:1, :4096].contiguous(), base[:1, :7].contiguous()], 0, f"m=1 {dtype}", 1)
+    check(paths == {False, True}, f"the sweep missed a load path: scalar in {paths}")
+    print(f"phase 2: {checked} multi-leaf kernel outputs bitwise equal to the plain version "
+          f"(max |err| {json.dumps(worst)})")
 
 
 def quickstart(dev):
@@ -287,13 +422,16 @@ def main_path(dev):
         check(loss < loss0, f"cnn {method}: loss did not fall ({loss0} -> {loss})")
         finals[method] = w
     launches = dict(robust_agg.LAUNCHES)  # read just after robust_gd's runs
-    print(f"phase 4: launches on robust_gd's path: median {launches['median']}, "
-          f"trimmed_mean {launches['trimmed_mean']}")
-    check(launches["median"] == CNN_ITERS * CNN_LEAVES,
-          f"median kernel launched {launches['median']} times, want {CNN_ITERS * CNN_LEAVES}")
-    check(launches["trimmed_mean"] == CNN_ITERS * CNN_LEAVES,
-          f"trimmed-mean kernel launched {launches['trimmed_mean']} times")
+    leaves = dict(robust_agg.LEAVES)
+    print(f"phase 4: launches on robust_gd's path: median {launches['median']} "
+          f"({leaves['median']} leaves), trimmed_mean {launches['trimmed_mean']} "
+          f"({leaves['trimmed_mean']} leaves)")
+    for name in ("median", "trimmed_mean"):  # one launch a step over all 8 leaves
+        check(launches[name] == CNN_ITERS and leaves[name] == CNN_ITERS * CNN_LEAVES,
+              f"{name} kernel: {launches[name]} launches for {leaves[name]} leaves, want "
+              f"{CNN_ITERS} for {CNN_ITERS * CNN_LEAVES}")
     check(launches["fused_median_trimmed"] == 0, "robust_gd launched the fused kernel")
+    launches.update({f"{k}_leaves": v for k, v in leaves.items()})
     # Algorithm 1 never runs the fused kernel: call its entry point on the
     # ops surface directly, on the final per-worker gradients
     stages = make_robust_gd_stages(cnn_loss, shards, cnn_config("median", 1), attack)
@@ -421,12 +559,9 @@ def timings(dev, card: str):
     from repro_torch.kernels import robust_agg
     from repro_torch.kernels import selection_network as SN
 
-    f32, bf16 = torch.float32, torch.bfloat16
-    shapes = [("cnn fc1 leaf", 10, 50176, f32), ("logreg w leaf", 40, 7840, f32),
-              ("bandwidth", 32, 1 << 24, f32), ("bandwidth, odd m", 31, 1 << 24, f32),
-              ("bandwidth", 32, 1 << 24, bf16)]
     rows = []
-    for label, m, n, dtype in shapes:
+    for label, m, n, dtype in TIMING_SHAPES:
+        dtype = getattr(torch, dtype)
         x = torch.randn(m, n, device=dev).to(dtype)
         trim = int(0.1 * m)
         big = n >= 1 << 20
@@ -443,7 +578,7 @@ def timings(dev, card: str):
             row = {"shape": label, "kernel": name, "m": m, "n": n, "trim": trim,
                    "dtype": str(dtype).removeprefix("torch."),
                    "ms": time_ms(kernel, 20 if big else 200),
-                   "device_ms": device_ms(kernel, 20, "select_kernel"),
+                   "device_ms": device_ms(kernel, 20, KERNEL_NAMES[name]),
                    "plain_ms": time_ms(plain, 3 if big else 20),
                    "library_ms": time_ms(lib, 20 if big else 200) if lib else None,
                    # the library's answer against the kernel's, same inputs
@@ -453,6 +588,48 @@ def timings(dev, card: str):
             print(json.dumps({"timing": row}))
         del x
         torch.cuda.empty_cache()
+    rows += multi_leaf_timings(dev, card)
+    return rows
+
+
+# the device kernels' names (torch.profiler keys contain them)
+KERNEL_NAMES = {"median": "leaf_select_kernel", "trimmed_mean": "leaf_select_kernel",
+                "fused_median_trimmed": "fused_select_kernel"}
+
+
+def multi_leaf_timings(dev, card: str):
+    """Phase 5: the CNN's 8 leaves (m=10, f32) in one median / trimmed-mean
+    call, against 8 single-leaf calls of the same kernel and the plain
+    versions leaf by leaf."""
+    import torch
+
+    from repro_torch.kernels import robust_agg
+    from repro_torch.kernels import selection_network as SN
+
+    m, trim = 10, 1
+    xs = [torch.randn(m, n, device=dev) for n in CNN_LEAF_SIZES]
+    rows = []
+    for name in ("median", "trimmed_mean"):
+        if name == "median":
+            many = lambda: robust_agg.median_many(xs)
+            single = lambda: [robust_agg.median(x) for x in xs]
+            plain = lambda: [SN.median_select(x) for x in xs]
+        else:
+            many = lambda: robust_agg.trimmed_mean_many(xs, trim)
+            single = lambda: [robust_agg.trimmed_mean(x, trim) for x in xs]
+            plain = lambda: [SN.trimmed_mean_select(x, trim) for x in xs]
+        bounds = [bound(name, m, x.shape[1], trim, 4) for x in xs]
+        ms, single_ms = time_pair(many, single, 200)
+        row = {"shape": "cnn 8 leaves, one call", "kernel": name, "m": m,
+               "n": sum(CNN_LEAF_SIZES), "trim": trim, "dtype": "float32", "ms": ms,
+               "device_ms": device_ms(many, 20, KERNEL_NAMES[name]),
+               "single_leaf_calls_ms": single_ms,
+               "single_leaf_calls_device_ms": device_ms(single, 20, KERNEL_NAMES[name]),
+               "plain_ms": time_ms(plain, 20), "library_ms": None,
+               "bound_ms": sum(b for b, _ in bounds), "bound_by": "bytes", "card": card}
+        check(all(by == "bytes" for _, by in bounds), "a CNN leaf is not bound by bytes")
+        rows.append(row)
+        print(json.dumps({"timing": row}))
     return rows
 
 
@@ -907,23 +1084,29 @@ def main() -> None:
 
     from repro_torch.kernels import histogram_agg
 
+    specs = select_specs()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        libs = list(pool.map(lambda mod: mod.build(), (robust_agg, histogram_agg)))
+    with ThreadPoolExecutor(3) as pool:  # every nvcc started together
+        builds = [pool.submit(mod.build) for mod in (robust_agg, histogram_agg)]
+        prepared = pool.submit(robust_agg.prepare, specs)
+        libs = [b.result() for b in builds]
+        select_libs = prepared.result()
     robust_agg.load()
     histogram_agg.load()
-    print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(lib.name for lib in libs)})")
+    print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s: "
+          f"{', '.join(lib.name for lib in libs)} and {len(specs)} median / trimmed-mean "
+          f"programs in {len(select_libs)} libraries")
     for lib in libs:
         log = lib.with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print(f"  ptxas ({lib.name.split('-')[0]}):", line.strip())
+    check_spills(libs + select_libs, "phase 1")
 
-    leaf_sizes = (144, 16, 2304, 16, 50176, 64, 640, 10)  # the CNN's 8 leaves
     t0 = time.perf_counter()
-    worst = kernel_sweep(dev, leaf_sizes)
+    worst = kernel_sweep(dev, CNN_LEAF_SIZES)
+    multi_leaf_sweep(dev, worst)
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     worst.update(sketch_sweep(dev))
@@ -944,6 +1127,9 @@ def main() -> None:
     fed_cli(dev)
     fed_profile(pop)
     print(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    late = [p for p in robust_agg.select_libraries() if p not in select_libs]
+    check_spills(late, "programs built after phase 1")
+    print(f"phase 1: {len(late)} median / trimmed-mean libraries were built after phase 1")
 
     # the TPU kernels replaced: median_pallas, trimmed_mean_pallas and
     # fused_median_trimmed_pallas
@@ -951,13 +1137,17 @@ def main() -> None:
     kernels = []
     for name in lines:
         row = next(r for r in rows if r["kernel"] == name and r["shape"] == "cnn fc1 leaf")
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/robust_agg.cu",
-            "replaces": f"src/repro/kernels/robust_agg.py:{lines[name]}",
-            "launches": launches[name], "max_abs_err": worst[name],
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+        entry = {"name": name, "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/robust_agg.cu",
+                 "replaces": f"src/repro/kernels/robust_agg.py:{lines[name]}",
+                 "launches": launches[name], "max_abs_err": worst[name],
+                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        if name != "fused_median_trimmed":  # compiled-in programs
+            entry["source"] = "src/repro_torch/kernels/csrc/select_program.cuh"
+            entry["generator"] = "src/repro_torch/kernels/select_codegen.py"
+            entry["leaves"] = launches[name + "_leaves"]
+        kernels.append(entry)
     # minmax_pallas and histogram_pallas, timed at the federated chunk
     # (histogram with sums, as approx_trimmed_mean runs it)
     for name, line in (("minmax", 206), ("histogram", 254)):

@@ -7,7 +7,8 @@ the result lies on ``x``'s device.
 For 2 <= m <= NETWORK_MAX_M the median and trimmed mean go through
 :func:`repro_torch.kernels.ops.robust_aggregate`: the hand-written CUDA
 kernel for CUDA tensors, the torch executor of the same comparator
-program for CPU tensors.
+program for CPU tensors.  :func:`tree_aggregate` groups a tree's leaves
+so that each group takes one kernel call over all its leaves.
 """
 from __future__ import annotations
 
@@ -18,9 +19,9 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from repro_torch.kernels import histogram_agg as H
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, robust_agg
 from repro_torch.kernels.selection_network import NETWORK_MAX_M
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 AggFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -230,7 +231,44 @@ def get_aggregator(method: str, beta: float = 0.1) -> AggFn:
     return get_aggregator_spec(method).make(beta)
 
 
+def aggregate_leaves(leaves, method: str, beta: float = 0.1) -> list:
+    """Aggregate each (m, ...) leaf with ``method``; equal, leaf for leaf, to
+    ``[get_aggregator(method, beta)(x) for x in leaves]``.
+
+    The median, and the trimmed mean with a trim of at least 1, over
+    2 <= m <= NETWORK_MAX_M rows of float32 / bfloat16 leaves take one call
+    of :func:`robust_agg.median_many` / :func:`robust_agg.trimmed_mean_many`
+    per (m, dtype, device) group: on the card one kernel launch covers the
+    group's leaves; on the CPU that call runs the plain version leaf by
+    leaf, which is what the per-leaf path runs too."""
+    agg = get_aggregator(method, beta)
+    out = [None] * len(leaves)
+    groups: Dict[tuple, list] = {}
+    if method == "median" or (method == "trimmed_mean" and 0.0 <= beta < 0.5):
+        for i, x in enumerate(leaves):
+            m = x.shape[0] if x.dim() else 0
+            trim = int(beta * m) if method == "trimmed_mean" else 0
+            if (2 <= m <= NETWORK_MAX_M and x.numel() > 0
+                    and x.dtype in (torch.float32, torch.bfloat16)
+                    and x.device.type in ("cpu", "cuda")
+                    and (method == "median" or 1 <= trim and 2 * trim < m)):
+                groups.setdefault((m, trim, x.dtype, x.device), []).append(i)
+    for (m, trim, _, _), idx in groups.items():
+        flats = [leaves[i] if leaves[i].dim() == 2 else leaves[i].reshape(m, -1)
+                 for i in idx]
+        flats = [x.contiguous() for x in flats]
+        if method == "median":
+            res = robust_agg.median_many(flats)
+        else:
+            res = robust_agg.trimmed_mean_many(flats, trim)
+        for i, r in zip(idx, res):
+            out[i] = r if leaves[i].dim() == 2 else r.view(leaves[i].shape[1:])
+    return [agg(x) if r is None else r for x, r in zip(leaves, out)]
+
+
 def tree_aggregate(grads_stacked, method: str, beta: float = 0.1):
     """Apply an aggregator leaf-wise to a dict/tuple tree of per-worker
-    stacked gradients (each leaf has leading worker axis m)."""
-    return tree_map(get_aggregator(method, beta), grads_stacked)
+    stacked gradients (each leaf has leading worker axis m), grouping the
+    leaves as :func:`aggregate_leaves` does."""
+    results = iter(aggregate_leaves(tree_leaves(grads_stacked), method, beta))
+    return tree_map(lambda _: next(results), grads_stacked)

@@ -4,7 +4,8 @@ Single-device simulation of the m-worker protocol: per-worker gradients
 come from ``torch.func.vmap(torch.func.grad(loss))`` over the worker
 axis, Byzantine rows are replaced, every parameter leaf is aggregated
 coordinate-wise (on the card: the hand-written median / trimmed-mean
-kernels), and the projected GD step runs.
+kernels, one launch a step over all the leaves), and the projected GD
+step runs.
 
 The data layout is the paper's: ``m`` workers each hold ``n`` samples,
 fixed once before training.
@@ -57,7 +58,7 @@ def make_robust_gd_stages(
     leaf = tree_leaves(worker_data)[0]
     m, device = leaf.shape[0], leaf.device
     per_worker_grads = torch.func.vmap(torch.func.grad(loss_fn), in_dims=(None, 0))
-    agg = aggregators.get_aggregator(cfg.method, cfg.beta)
+    aggregators.get_aggregator_spec(cfg.method)  # unknown names fail here
     mask = (attack.byzantine_mask(m, device=device) if attack is not None
             else torch.zeros(m, dtype=torch.bool, device=device))
 
@@ -76,7 +77,7 @@ def make_robust_gd_stages(
 
     return engine.RoundStages(
         local_work=lambda w, i: per_worker_grads(w, worker_data),
-        aggregate=lambda grads: tree_map(agg, grads),
+        aggregate=lambda grads: aggregators.tree_aggregate(grads, cfg.method, cfg.beta),
         update=update,
         attack=atk_fn,
         emit=((lambda w_new, g: trajectory_fn(w_new))

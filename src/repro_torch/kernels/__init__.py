@@ -2,11 +2,15 @@
 
 - selection_network.py: pruned compare-exchange program generator and
   its torch executors (the kernels' plain versions)
+- select_codegen.py: launch plan and CUDA source of the median /
+  trimmed-mean kernels (each program compiled in around
+  csrc/select_program.cuh)
 - robust_agg.py: hand-written CUDA kernels running the programs
-  (median, trimmed mean, fused) — built at first use
+  (median, trimmed mean, fused) — built at first use or in a batch
+  (``prepare``)
 - ops.py: dispatch (cuda kernel / torch network / torch.sort)
 - histogram_agg.py: histogram-sketch math for the approx_* aggregators
 - ref.py: torch.sort oracle
 """
 from repro_torch.kernels import (  # noqa: F401
-    histogram_agg, ops, ref, robust_agg, selection_network)
+    histogram_agg, ops, ref, robust_agg, select_codegen, selection_network)

@@ -1,6 +1,8 @@
 """Build and load the port's hand-written CUDA sources.
 
-Each ``csrc/*.cu`` file has a plain C interface.  At first use it is
+Each ``csrc/*.cu`` file, and each source generated into the build
+directory (which may include the headers in ``csrc/``), has a plain C
+interface.  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library named after
 the source and the hash of its content, ``lib<stem>-<hash>.so``, in
 ``build/repro_torch/`` at the repository root, and loaded with ctypes.
@@ -22,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
 
 
 def nvcc(source: Path) -> str:
@@ -55,21 +57,31 @@ def build(source: Path, build_dir: Path = BUILD_DIR) -> Path:
     return lib
 
 
-def load(source: Path, error_fn: str, build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
-    """Build ``source`` if needed and load it; ``error_fn`` names its
-    ``const char* (int)`` function that spells a CUDA error code.  Raises
-    without CUDA: CPU tensors take the kernels' plain versions and never
-    reach here."""
+def require_cuda(what: str) -> None:
+    """Raise unless a CUDA device is present: CPU tensors take the kernels'
+    plain versions and never need one."""
     if not torch.cuda.is_available():
         raise RuntimeError(
-            f"the {source.stem} CUDA kernels need a CUDA device "
+            f"the {what} CUDA kernels need a CUDA device "
             "(CPU tensors take the plain version)")
-    lib = ctypes.CDLL(str(build(source, build_dir)))
+
+
+def load_library(lib_path: Path, error_fn: str) -> ctypes.CDLL:
+    """Load a built library; ``error_fn`` names its ``const char* (int)``
+    function that spells a CUDA error code (``lib.spell_error``)."""
+    lib = ctypes.CDLL(str(lib_path))
     spell = getattr(lib, error_fn)
     spell.argtypes = [ctypes.c_int]
     spell.restype = ctypes.c_char_p
     lib.spell_error = spell
     return lib
+
+
+def load(source: Path, error_fn: str, build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+    """Build ``source`` if needed and load it (:func:`load_library`).
+    Raises without CUDA."""
+    require_cuda(source.stem)
+    return load_library(build(source, build_dir), error_fn)
 
 
 def launch_on(device: int, launch: Callable[[int], int]) -> int:

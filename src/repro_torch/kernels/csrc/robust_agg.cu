@@ -1,20 +1,24 @@
-// Coordinate-wise median / beta-trimmed mean over m worker rows on Hopper.
+// Coordinate-wise median AND beta-trimmed mean over m worker rows, from one
+// read of the rows, on Hopper.
 //
-// Replaces the Pallas TPU kernels of the JAX reference
+// Replaces the Pallas TPU kernel of the JAX reference
 // (src/repro/kernels/robust_agg.py):
-//   ra_median        <- median_pallas                (_median_kernel)
-//   ra_trimmed_mean  <- trimmed_mean_pallas          (_trimmed_mean_kernel)
-//   ra_fused         <- fused_median_trimmed_pallas  (_fused_kernel)
+//   ra_fused  <- fused_median_trimmed_pallas  (_fused_kernel)
 //
-// Each kernel runs a pruned compare-exchange program (generated in
-// repro_torch/kernels/selection_network.py and uploaded by the wrapper as
-// (i, j) byte pairs) on every column of an (m, n) row-major matrix.
+// The median and the trimmed mean alone (median_pallas, trimmed_mean_pallas)
+// are no longer here: their programs are compiled in, on integer keys in
+// registers (select_program.cuh, generated by select_codegen.py).  This
+// kernel still walks its comparator list at runtime and is next to be
+// redesigned the same way.
 //
-// Bound: memory.  The work is m*n*s bytes read plus n*s written per
-// output (2*n*s for the fused kernel), s the element size, against about
-// 2 compares per comparator per coordinate: at m=32 that is ~130 bytes
-// against ~310 ALU operations per coordinate, far below the card's
-// operations-per-byte balance point.
+// It runs the pruned compare-exchange program of the union rank set
+// (selection_network.fused_program, uploaded by the wrapper as (i, j) byte
+// pairs) on every column of an (m, n) row-major matrix.
+//
+// Bound: memory.  The work is m*n*s bytes read plus 2*n*s written, s the
+// element size, against about 2 compares per comparator per coordinate: at
+// m=32 that is ~130 bytes against ~310 ALU operations per coordinate, far
+// below the card's operations-per-byte balance point.
 //
 // Design (the simple, exact version):
 // - one thread owns one coordinate; its column of m values lives in
@@ -32,12 +36,10 @@
 //   from contracting or reassociating any of it.
 // The whole column stays on chip, so every byte is read once and written
 // once: the kernel moves exactly the bytes of the bound.  It does not run
-// at that bound: on an H100 SXM (700 W) at m=32, n=2^24 f32 the median
-// takes ~3.1 ms against 0.66 ms, and the time grows with the comparator
-// count (~19.6 us per comparator at that n), so walking a runtime
-// comparator list from shared memory is bound by the instruction rate.  A
-// program generated at compile time per (m, ranks), with the column in
-// registers and 16-byte loads, is the next step.
+// at that bound: on an H100 SXM (700 W) at m=32, n=2^24 f32 it takes ~3.7
+// ms against 0.68 ms, and the time grows with the comparator count, so
+// walking a runtime comparator list from shared memory is bound by the
+// instruction rate.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,11 +67,11 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-template <typename T, bool kMedian, bool kTrimmed>
+template <typename T>
 __global__ void __launch_bounds__(kBlock)
-select_kernel(const T* __restrict__ x, int m, long long n,
-              const uint8_t* __restrict__ pairs, int ncomp, int trim,
-              T* __restrict__ med, T* __restrict__ tm) {
+fused_select_kernel(const T* __restrict__ x, int m, long long n,
+                    const uint8_t* __restrict__ pairs, int ncomp, int trim,
+                    T* __restrict__ med, T* __restrict__ tm) {
   extern __shared__ float col[];  // (m, kBlock)
   const int t = threadIdx.x;
   const long long c = (long long)blockIdx.x * kBlock + t;
@@ -83,55 +85,33 @@ select_kernel(const T* __restrict__ x, int m, long long n,
     v[i] = ieee_min(a, b);
     v[j] = ieee_max(a, b);
   }
-  if (kMedian) {
-    const int h = m / 2;
-    const float r = (m & 1) ? v[h * kBlock]
-                            : __fmul_rn(__fadd_rn(v[(h - 1) * kBlock], v[h * kBlock]), 0.5f);
-    store(med + c, r);
-  }
-  if (kTrimmed) {
-    float acc = v[trim * kBlock];
-    for (int i = trim + 1; i < m - trim; ++i) acc = __fadd_rn(acc, v[i * kBlock]);
-    store(tm + c, __fdiv_rn(acc, (float)(m - 2 * trim)));
-  }
+  const int h = m / 2;
+  const float r = (m & 1) ? v[h * kBlock]
+                          : __fmul_rn(__fadd_rn(v[(h - 1) * kBlock], v[h * kBlock]), 0.5f);
+  store(med + c, r);
+  float acc = v[trim * kBlock];
+  for (int i = trim + 1; i < m - trim; ++i) acc = __fadd_rn(acc, v[i * kBlock]);
+  store(tm + c, __fdiv_rn(acc, (float)(m - 2 * trim)));
 }
 
-template <typename T, bool kMedian, bool kTrimmed>
+template <typename T>
 int launch(const void* x, int m, long long n, const void* pairs, int ncomp, int trim,
            void* med, void* tm, void* stream) {
   const long long blocks = (n + kBlock - 1) / kBlock;
   const size_t smem = (size_t)m * kBlock * sizeof(float);
-  select_kernel<T, kMedian, kTrimmed><<<(unsigned)blocks, kBlock, smem, (cudaStream_t)stream>>>(
+  fused_select_kernel<T><<<(unsigned)blocks, kBlock, smem, (cudaStream_t)stream>>>(
       (const T*)x, m, n, (const uint8_t*)pairs, ncomp, trim, (T*)med, (T*)tm);
   return (int)cudaGetLastError();
 }
 
-template <bool kMedian, bool kTrimmed>
-int dispatch(const void* x, int m, long long n, const void* pairs, int ncomp, int trim,
-             void* med, void* tm, int is_bf16, void* stream) {
-  return is_bf16
-      ? launch<__nv_bfloat16, kMedian, kTrimmed>(x, m, n, pairs, ncomp, trim, med, tm, stream)
-      : launch<float, kMedian, kTrimmed>(x, m, n, pairs, ncomp, trim, med, tm, stream);
-}
-
 }  // namespace
 
-// Plain C interface (loaded with ctypes).  All three share one signature;
-// the output a kernel does not write is passed as NULL.  Each returns
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int ra_median(const void* x, int m, long long n, const void* pairs, int ncomp,
-                         int trim, void* med, void* tm, int is_bf16, void* stream) {
-  return dispatch<true, false>(x, m, n, pairs, ncomp, trim, med, tm, is_bf16, stream);
-}
-
-extern "C" int ra_trimmed_mean(const void* x, int m, long long n, const void* pairs, int ncomp,
-                               int trim, void* med, void* tm, int is_bf16, void* stream) {
-  return dispatch<false, true>(x, m, n, pairs, ncomp, trim, med, tm, is_bf16, stream);
-}
-
+// Plain C interface (loaded with ctypes).  Returns cudaGetLastError() after
+// the launch (0 = launched).
 extern "C" int ra_fused(const void* x, int m, long long n, const void* pairs, int ncomp,
                         int trim, void* med, void* tm, int is_bf16, void* stream) {
-  return dispatch<true, true>(x, m, n, pairs, ncomp, trim, med, tm, is_bf16, stream);
+  return is_bf16 ? launch<__nv_bfloat16>(x, m, n, pairs, ncomp, trim, med, tm, stream)
+                 : launch<float>(x, m, n, pairs, ncomp, trim, med, tm, stream);
 }
 
 extern "C" const char* ra_error_string(int err) {
