@@ -4,20 +4,21 @@
     python3 chip_smoke.py   # needs one CUDA card and nvcc
 
 Phases (any failure exits non-zero before the final line):
-1. the card, torch/CUDA versions, TF32 off, the kernels' build: the fused
-   kernel from ``src/repro_torch/kernels/csrc/robust_agg.cu``, the sketch
-   kernels from ``histogram_agg.cu`` and every median / trimmed-mean
-   program this script runs (generated by ``kernels/select_codegen.py``
-   around ``csrc/select_program.cuh``, ``robust_agg.prepare``: a few
-   libraries), all nvcc processes started together; the build seconds and
-   the ptxas reports; any spill fails;
+1. the card, torch/CUDA versions, TF32 off, the kernels' build: the sketch
+   kernels from ``src/repro_torch/kernels/csrc/histogram_agg.cu`` and every
+   median, trimmed-mean and fused median + trimmed-mean program this
+   script runs (generated by ``kernels/select_codegen.py`` around
+   ``csrc/select_program.cuh``, ``robust_agg.prepare``: a few libraries),
+   all nvcc processes started together; the build seconds and the ptxas
+   reports; any spill fails;
 2. every order-statistic kernel against its plain PyTorch version on the
    card, bitwise (NaN matched by position, -0 != +0): m in {2,...,64}, f32
    and bf16, ragged n and the main path's leaf sizes, columns with ±1e30,
    NaN and mixed ±0, every legal trim for m in {10, 17, 40}; then the
-   multi-leaf calls: the CNN's 8 leaf sizes in one launch (m in {10, 17,
-   40}, f32 and bf16, rows with ±inf, ±1e30, NaN, ±0 and subnormals), a
-   call with more leaves than one launch takes, misaligned inputs
+   multi-leaf calls of the median, the trimmed mean and the fused kernel
+   (both of its outputs): the CNN's 8 leaf sizes in one launch (m in {10,
+   17, 40}, f32 and bf16, rows with ±inf, ±1e30, NaN, ±0 and subnormals),
+   a call with more leaves than one launch takes, misaligned inputs
    (``x[:, 1:]`` made contiguous, a view one element off) and m = 1.  Both
    load paths (vector and scalar) must have run;
 2b. the sketch kernels (min/max, histogram) against their plain versions,
@@ -39,11 +40,14 @@ Phases (any failure exits non-zero before the final line):
    read just after: every aggregation must have gone through a kernel,
    one launch a step over all 8 leaves (30 launches, 240 leaves a method).
    Algorithm 1 does not run the fused kernel, so its entry point
-   (ops.fused_median_trimmed) is then called directly on the final
-   per-worker gradients, and its count is that call's.  The first 3
+   (ops.fused_median_trimmed) is then called directly on each of the final
+   per-worker gradients' 8 leaves, then robust_agg.fused_median_trimmed_many
+   once over all 8 (8 + 1 launches; both outputs bitwise equal to the median
+   and trimmed-mean kernels), and its count is those calls'.  The first 3
    iterates are compared with the same run on the CPU; linreg runs at
    the Table 2 worker count (m=40);
-5. times at the main path's shapes, the CNN's 8 leaves in one call, and
+5. times at the main path's shapes, the CNN's 8 leaves in one call (median,
+   trimmed mean and fused), and
    bandwidth-sized shapes (CUDA events per call, and device time from
    torch.profiler), against the
    memory bound (3.35 TB/s) and the f32 operation bound (67 TFLOP/s) of
@@ -208,10 +212,10 @@ def sweep_trim(m: int) -> int:
 
 
 def select_specs():
-    """Every (kind, m, trim, dtype) of the median / trimmed-mean kernels this
+    """Every (kind, m, trim, dtype) of the order-statistic kernels this
     script runs, in both dtypes: phase 2's sweeps, the quickstart (m=8,
     beta 0.3), the CNN (m=10, beta 0.1), linreg m=40 (beta 0.05) and phase
-    5's shapes."""
+    5's shapes; the fused kernel at each (m, trim) of the trimmed mean."""
     import torch
 
     progs = {("median", 1, 0), ("trimmed_mean", 1, 0), ("median", 8, 0),
@@ -221,6 +225,7 @@ def select_specs():
                   ("trimmed_mean", m, int(0.1 * m))}
     for m in TRIM_SWEEP_M:
         progs |= {("trimmed_mean", m, t) for t in range((m + 1) // 2)}
+    progs |= {("fused_median_trimmed", m, t) for k, m, t in progs if k == "trimmed_mean"}
     return [(k, m, t, d) for k, m, t in sorted(progs) for d in (torch.float32, torch.bfloat16)]
 
 
@@ -235,6 +240,26 @@ def ptxas_report(lib):
               re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
     stack = [int(a) for a in re.findall(r"(\d+) bytes stack frame", text)]
     return max(regs, default=0), max(spills, default=0), max(stack, default=0), len(regs)
+
+
+def registers_by_program_kind(libs):
+    """The most registers a kernel of each order-statistic kind uses (the
+    program struct's prefix, med_ / tm_ / fu_, in the kernel's mangled name),
+    over the libraries' ptxas logs."""
+    import re
+
+    most = {}
+    for lib in libs:
+        kind = None
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            entry = re.search(r"Compiling entry function '([^']*)'", line)
+            if entry:
+                named = re.search(r"\d(med|tm|fu)_m\d+", entry.group(1))
+                kind = named.group(1) if named else None
+            used = re.search(r"Used (\d+) registers", line)
+            if used and kind:
+                most[kind] = max(most.get(kind, 0), int(used.group(1)))
+    return most
 
 
 def check_spills(libs, label: str) -> None:
@@ -293,8 +318,9 @@ def kernel_sweep(dev, leaf_sizes):
 
 
 def multi_leaf_sweep(dev, worst):
-    """Phase 2: multi-leaf median / trimmed-mean calls vs the per-leaf plain
-    versions, bitwise; one launch per 16 leaves; both load paths run."""
+    """Phase 2: multi-leaf median, trimmed-mean and fused calls vs the
+    per-leaf plain versions, bitwise (both of the fused kernel's outputs);
+    one launch per 16 leaves; both load paths run."""
     import torch
 
     from repro_torch.kernels import robust_agg
@@ -306,23 +332,30 @@ def multi_leaf_sweep(dev, worst):
     def run(xs, trim, label, want_launches):
         nonlocal checked
         paths.update(robust_agg.plan_for(x).scalar for x in xs)
-        for name in ("median", "trimmed_mean"):
+        for name in ("median", "trimmed_mean", "fused_median_trimmed"):
             before = dict(robust_agg.LAUNCHES), dict(robust_agg.LEAVES)
             if name == "median":
                 got, want = robust_agg.median_many(xs), [SN.median_select(x) for x in xs]
-            else:
+            elif name == "trimmed_mean":
                 got = robust_agg.trimmed_mean_many(xs, trim)
                 want = [SN.trimmed_mean_select(x, trim) for x in xs]
+            else:  # both outputs, leaf by leaf
+                got = [t for pair in zip(*robust_agg.fused_median_trimmed_many(xs, trim))
+                       for t in pair]
+                want = [t for x in xs for t in SN.median_and_trimmed_select(x, trim)]
             torch.cuda.synchronize()
             ran = robust_agg.LAUNCHES[name] - before[0][name]
             leaves = robust_agg.LEAVES[name] - before[1][name]
             check(ran == want_launches and leaves == len(xs),
                   f"{name} {label}: {ran} launches for {leaves} leaves, want "
                   f"{want_launches} for {len(xs)}")
+            per_leaf = len(got) // len(xs)  # outputs a leaf
             for i, (g, w) in enumerate(zip(got, want)):
                 bad, err = compare(g, w)
-                check(bad == 0, f"{name} {label} leaf {i} ({tuple(xs[i].shape)}): {bad} "
-                                f"mismatches vs the plain version (max |err| {err})")
+                leaf = i // per_leaf
+                check(bad == 0, f"{name} {label} leaf {leaf} output {i % per_leaf} "
+                                f"({tuple(xs[leaf].shape)}): {bad} mismatches vs the plain "
+                                f"version (max |err| {err})")
                 worst[name] = max(worst[name], err)
                 checked += 1
 
@@ -438,22 +471,32 @@ def main_path(dev):
     grads = stages.attack(stages.local_work(finals["median"], CNN_ITERS),
                           {k: torch.zeros_like(v) for k, v in params.items()}, CNN_ITERS)
     fused = {k: ops.fused_median_trimmed(g, beta=0.1) for k, g in grads.items()}
+    flats = [g.reshape(g.shape[0], -1).contiguous() for g in grads.values()]
+    trim = int(0.1 * flats[0].shape[0])
+    many = dict(zip(grads, zip(*robust_agg.fused_median_trimmed_many(flats, trim))))
     torch.cuda.synchronize()
     launches["fused_median_trimmed"] = robust_agg.LAUNCHES["fused_median_trimmed"]
-    print(f"phase 4: fused kernel: {launches['fused_median_trimmed']} launches, "
-          f"ops.fused_median_trimmed called directly; not on robust_gd's path")
-    check(launches["fused_median_trimmed"] == CNN_LEAVES,
-          f"fused kernel launched {launches['fused_median_trimmed']} times")
-    for k, g in grads.items():
+    launches["fused_median_trimmed_leaves"] = robust_agg.LEAVES["fused_median_trimmed"]
+    print(f"phase 4: fused kernel: {launches['fused_median_trimmed']} launches "
+          f"({launches['fused_median_trimmed_leaves']} leaves): ops.fused_median_trimmed on "
+          f"each leaf and fused_median_trimmed_many over all {CNN_LEAVES}, called directly; "
+          f"not on robust_gd's path")
+    check(launches["fused_median_trimmed"] == CNN_LEAVES + 1
+          and launches["fused_median_trimmed_leaves"] == 2 * CNN_LEAVES,
+          f"fused kernel: {launches['fused_median_trimmed']} launches for "
+          f"{launches['fused_median_trimmed_leaves']} leaves, want {CNN_LEAVES + 1} for "
+          f"{2 * CNN_LEAVES}")
+    for (k, g), flat in zip(grads.items(), flats):
         med, tm = fused[k]
-        flat = g.reshape(g.shape[0], -1)
         check(compare(med, robust_agg.median(flat).reshape(med.shape))[0] == 0,
               f"fused median != median kernel on leaf {k}")
-        trim = int(0.1 * flat.shape[0])
         check(compare(tm, robust_agg.trimmed_mean(flat, trim).reshape(tm.shape))[0] == 0,
               f"fused trimmed mean != trimmed-mean kernel on leaf {k}")
         check(bool(torch.isfinite(med).all() and torch.isfinite(tm).all()),
               f"non-finite aggregate on leaf {k}")
+        for got, want in zip(many[k], (med, tm)):
+            check(compare(got, want.reshape(-1))[0] == 0,
+                  f"fused_median_trimmed_many != fused_median_trimmed on leaf {k}")
     return launches
 
 
@@ -594,13 +637,13 @@ def timings(dev, card: str):
 
 # the device kernels' names (torch.profiler keys contain them)
 KERNEL_NAMES = {"median": "leaf_select_kernel", "trimmed_mean": "leaf_select_kernel",
-                "fused_median_trimmed": "fused_select_kernel"}
+                "fused_median_trimmed": "leaf_select_kernel"}
 
 
 def multi_leaf_timings(dev, card: str):
-    """Phase 5: the CNN's 8 leaves (m=10, f32) in one median / trimmed-mean
-    call, against 8 single-leaf calls of the same kernel and the plain
-    versions leaf by leaf."""
+    """Phase 5: the CNN's 8 leaves (m=10, f32) in one median, trimmed-mean
+    or fused call, against 8 single-leaf calls of the same kernel and the
+    plain versions leaf by leaf."""
     import torch
 
     from repro_torch.kernels import robust_agg
@@ -609,15 +652,18 @@ def multi_leaf_timings(dev, card: str):
     m, trim = 10, 1
     xs = [torch.randn(m, n, device=dev) for n in CNN_LEAF_SIZES]
     rows = []
-    for name in ("median", "trimmed_mean"):
-        if name == "median":
-            many = lambda: robust_agg.median_many(xs)
-            single = lambda: [robust_agg.median(x) for x in xs]
-            plain = lambda: [SN.median_select(x) for x in xs]
-        else:
-            many = lambda: robust_agg.trimmed_mean_many(xs, trim)
-            single = lambda: [robust_agg.trimmed_mean(x, trim) for x in xs]
-            plain = lambda: [SN.trimmed_mean_select(x, trim) for x in xs]
+    fns = {
+        "median": (lambda: robust_agg.median_many(xs),
+                   lambda: [robust_agg.median(x) for x in xs],
+                   lambda: [SN.median_select(x) for x in xs]),
+        "trimmed_mean": (lambda: robust_agg.trimmed_mean_many(xs, trim),
+                         lambda: [robust_agg.trimmed_mean(x, trim) for x in xs],
+                         lambda: [SN.trimmed_mean_select(x, trim) for x in xs]),
+        "fused_median_trimmed": (lambda: robust_agg.fused_median_trimmed_many(xs, trim),
+                                 lambda: [robust_agg.fused_median_trimmed(x, trim) for x in xs],
+                                 lambda: [SN.median_and_trimmed_select(x, trim) for x in xs]),
+    }
+    for name, (many, single, plain) in fns.items():
         bounds = [bound(name, m, x.shape[1], trim, 4) for x in xs]
         ms, single_ms = time_pair(many, single, 200)
         row = {"shape": "cnn 8 leaves, one call", "kernel": name, "m": m,
@@ -1086,16 +1132,17 @@ def main() -> None:
 
     specs = select_specs()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # every nvcc started together
-        builds = [pool.submit(mod.build) for mod in (robust_agg, histogram_agg)]
+    with ThreadPoolExecutor(2) as pool:  # every nvcc started together
+        built = pool.submit(histogram_agg.build)
         prepared = pool.submit(robust_agg.prepare, specs)
-        libs = [b.result() for b in builds]
+        libs = [built.result()]
         select_libs = prepared.result()
-    robust_agg.load()
     histogram_agg.load()
+    kinds = {k: sum(s[0] == k for s in specs) for k in ("median", "trimmed_mean",
+                                                         "fused_median_trimmed")}
     print(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.1f} s: "
-          f"{', '.join(lib.name for lib in libs)} and {len(specs)} median / trimmed-mean "
-          f"programs in {len(select_libs)} libraries")
+          f"{', '.join(lib.name for lib in libs)} and {len(specs)} order-statistic "
+          f"programs ({json.dumps(kinds)}) in {len(select_libs)} libraries")
     for lib in libs:
         log = lib.with_suffix(".log")
         if log.exists():
@@ -1103,6 +1150,8 @@ def main() -> None:
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print(f"  ptxas ({lib.name.split('-')[0]}):", line.strip())
     check_spills(libs + select_libs, "phase 1")
+    print(f"phase 1: most registers a kernel by program (med_ median, tm_ trimmed mean, "
+          f"fu_ fused): {json.dumps(registers_by_program_kind(select_libs))}")
 
     t0 = time.perf_counter()
     worst = kernel_sweep(dev, CNN_LEAF_SIZES)
@@ -1129,7 +1178,7 @@ def main() -> None:
     print(f"phase 6: {time.perf_counter() - t0:.1f} s")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
-    print(f"phase 1: {len(late)} median / trimmed-mean libraries were built after phase 1")
+    print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")
 
     # the TPU kernels replaced: median_pallas, trimmed_mean_pallas and
     # fused_median_trimmed_pallas
@@ -1137,17 +1186,15 @@ def main() -> None:
     kernels = []
     for name in lines:
         row = next(r for r in rows if r["kernel"] == name and r["shape"] == "cnn fc1 leaf")
-        entry = {"name": name, "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/robust_agg.cu",
-                 "replaces": f"src/repro/kernels/robust_agg.py:{lines[name]}",
-                 "launches": launches[name], "max_abs_err": worst[name],
-                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-        if name != "fused_median_trimmed":  # compiled-in programs
-            entry["source"] = "src/repro_torch/kernels/csrc/select_program.cuh"
-            entry["generator"] = "src/repro_torch/kernels/select_codegen.py"
-            entry["leaves"] = launches[name + "_leaves"]
-        kernels.append(entry)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/select_program.cuh",
+            "generator": "src/repro_torch/kernels/select_codegen.py",
+            "replaces": f"src/repro/kernels/robust_agg.py:{lines[name]}",
+            "launches": launches[name], "leaves": launches[name + "_leaves"],
+            "max_abs_err": worst[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     # minmax_pallas and histogram_pallas, timed at the federated chunk
     # (histogram with sums, as approx_trimmed_mean runs it)
     for name, line in (("minmax", 206), ("histogram", 254)):

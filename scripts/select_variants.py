@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time variants of the compiled-in order-statistic kernels (B1 median, B2
-trimmed mean) on one CUDA card.
+trimmed mean, B3 both from one read) on one CUDA card.
 
     python3 scripts/select_variants.py   # needs one CUDA card and nvcc
 
@@ -19,8 +19,8 @@ trimmed mean) on one CUDA card.
 3. Coordinates per thread (V) for the m=32 f32 programs: V in {1, 2, 4},
    each output checked bitwise against the shipped V.
 
-Shapes: m=32, n=2^24 in f32 and bf16 (median, trim 3), and the CNN's fc1
-leaf (m=10, n=50,176, f32).  Times are CUDA-event times per call over 20
+Shapes: m=32, n=2^24 in f32 and bf16 (median, trim 3, fused trim 3), and
+the CNN's fc1 leaf (m=10, n=50,176, f32).  Times are CUDA-event times per call over 20
 calls after a warm-up, taken through the C entry points; every line names
 the card and its power limit.
 """
@@ -53,9 +53,11 @@ SHAPES = (("bandwidth", 32, 1 << 24, "float32"), ("bandwidth", 32, 1 << 24, "bfl
           ("cnn fc1 leaf", 10, 50176, "float32"))
 COORDS = (1, 2, 4)
 for _v in COORDS:  # V of the m=32 programs (the f32 ones are timed)
-    VARIANTS[f"m=32 f32 V={_v}"] = ([], [("med_m32, 2, sel::kMedian", f"med_m32, {_v}, sel::kMedian"),
-                                         ("tm_m32_t3, 2, sel::kTrimmed",
-                                          f"tm_m32_t3, {_v}, sel::kTrimmed")])
+    VARIANTS[f"m=32 f32 V={_v}"] = ([], [(f"{p}, 2, sel::{k}", f"{p}, {_v}, sel::{k}")
+                                         for p, k in (("med_m32", "kMedian"),
+                                                      ("tm_m32_t3", "kTrimmed"),
+                                                      ("fu_m32_t3", "kFused"))])
+KINDS = ("median", "trimmed_mean", "fused_median_trimmed")
 
 RATE_SOURCE = r"""
 #include <cuda_runtime.h>
@@ -100,7 +102,7 @@ def specs():
     out = []
     for _, m, _, dt in SHAPES:
         dtype = getattr(torch, dt)
-        out += [G.spec("median", m, 0, dtype), G.spec("trimmed_mean", m, int(0.1 * m), dtype)]
+        out += [G.spec(kind, m, int(0.1 * m), dtype) for kind in KINDS]
     return out
 
 
@@ -152,14 +154,16 @@ def entry(lib, s):
     return fn
 
 
-def call(fn, x, out, coords):
-    """One launch of an entry on one leaf (vector loads where they can be)."""
+def call(fn, x, outs, coords):
+    """One launch of an entry on one leaf (vector loads where they can be);
+    ``outs`` holds the kernel's one output, or the fused kernel's two."""
     import torch
 
     n = x.shape[1]
     width = coords * x.element_size()
-    vec = int((x.data_ptr() | out.data_ptr()) % width == 0 and n % coords == 0)
-    arr = (ctypes.c_longlong * 4)(x.data_ptr(), out.data_ptr(), n, vec)
+    ptrs = [o.data_ptr() for o in outs] + [0]  # the second output, or null
+    vec = int((x.data_ptr() | ptrs[0] | ptrs[1]) % width == 0 and n % coords == 0)
+    arr = (ctypes.c_longlong * 5)(x.data_ptr(), ptrs[0], ptrs[1], n, vec)
     err = fn(arr, 1, torch.cuda.current_stream().cuda_stream)
     if err:
         raise SystemExit(f"launch failed: {err}")
@@ -230,11 +234,12 @@ def main() -> None:
         dtype = getattr(torch, dt)
         x = torch.randn(m, n, device="cuda").to(dtype)
         reps = 20 if n >= 1 << 20 else 200
-        for kind in ("median", "trimmed_mean"):
+        for kind in KINDS:
             s = G.spec(kind, m, int(0.1 * m), dtype)
             shipped_v = G.coords_per_thread(m, dtype)
             b_ms, _ = C.bound(kind, m, n, s.trim, x.element_size())
-            want = torch.empty(n, dtype=dtype, device="cuda")
+            outputs = 2 if kind == "fused_median_trimmed" else 1
+            want = [torch.empty(n, dtype=dtype, device="cuda") for _ in range(outputs)]
             call(entry(libs["shipped"], s), x, want, shipped_v)
             for name, lib in libs.items():
                 v = shipped_v
@@ -243,12 +248,12 @@ def main() -> None:
                         continue
                     v = int(name.rsplit("=", 1)[1])
                 fn = entry(lib, s)
-                out = torch.empty(n, dtype=dtype, device="cuda")
+                out = [torch.empty(n, dtype=dtype, device="cuda") for _ in range(outputs)]
                 ms = C.time_ms(lambda: call(fn, x, out, v), reps)
                 dev_ms = C.device_ms(lambda: call(fn, x, out, v), 20, "leaf_select_kernel")
                 checked = None
                 if name.startswith("m=32 f32 V="):
-                    checked = C.compare(out, want)[0] == 0
+                    checked = all(C.compare(o, w)[0] == 0 for o, w in zip(out, want))
                 print(json.dumps({"variant": name, "shape": label, "kernel": kind, "m": m,
                                   "n": n, "dtype": dt, "coords": v, "ms": ms,
                                   "device_ms": dev_ms, "bound_ms": b_ms,

@@ -2,12 +2,11 @@
 
 - selection_network.py: pruned compare-exchange program generator and
   its torch executors (the kernels' plain versions)
-- select_codegen.py: launch plan and CUDA source of the median /
-  trimmed-mean kernels (each program compiled in around
-  csrc/select_program.cuh)
-- robust_agg.py: hand-written CUDA kernels running the programs
-  (median, trimmed mean, fused) — built at first use or in a batch
-  (``prepare``)
+- select_codegen.py: launch plan and CUDA source of the median,
+  trimmed-mean and fused median + trimmed-mean kernels (each program
+  compiled in around csrc/select_program.cuh)
+- robust_agg.py: their wrappers (one launch per up to 16 leaves) — built
+  at first use or in a batch (``prepare``)
 - ops.py: dispatch (cuda kernel / torch network / torch.sort)
 - histogram_agg.py: histogram-sketch math for the approx_* aggregators
 - ref.py: torch.sort oracle

@@ -1,33 +1,40 @@
-// Coordinate-wise median (B1) and trimmed mean (B2) over m worker rows on
-// Hopper: the comparator programs of selection_network.py compiled in.
+// Coordinate-wise median (B1), trimmed mean (B2), and both from one read
+// (B3) over m worker rows on Hopper: the comparator programs of
+// selection_network.py compiled in.
 //
 // Replaces the Pallas TPU kernels of the JAX reference
 // (src/repro/kernels/robust_agg.py):
-//   median kernels        <- median_pallas        (_median_kernel)
-//   trimmed-mean kernels  <- trimmed_mean_pallas  (_trimmed_mean_kernel)
+//   median kernels        <- median_pallas                (_median_kernel)
+//   trimmed-mean kernels  <- trimmed_mean_pallas          (_trimmed_mean_kernel)
+//   fused kernels         <- fused_median_trimmed_pallas  (_fused_kernel)
 //
 // This header holds what every program shares.  The programs are generated
 // by src/repro_torch/kernels/select_codegen.py: one struct per program
-// (median_program(m) or trimmed_program(m, trim)) whose run() is one
-// CX(i, j) per comparator in the program's order, and one extern "C" entry
-// per (program, dtype) that calls sel::launch.  The generated .cu files are
-// written under build/repro_torch/ and built with nvcc, many programs to a
-// library (robust_agg.prepare).
+// (median_program(m), trimmed_program(m, trim) or fused_program(m, trim))
+// whose run() is one CX(i, j) per comparator in the program's order, and
+// one extern "C" entry per (program, dtype) that calls sel::launch.  The
+// generated .cu files are written under build/repro_torch/ and built with
+// nvcc, many programs to a library (robust_agg.prepare).
 //
 // Bound: memory for f32, the integer units for bf16.  A call reads m*n*s
-// bytes and writes n*s (s the element size).  The work is one integer min
-// and one max per comparator per coordinate (per two coordinates for bf16,
-// whose 16-bit keys are packed two to a register) plus a few integer
-// operations per element for the keys and the NaN flag.  Hopper issues 32-
-// bit and packed 16x2 integer min/max (VIMNMX, VIMNMX.S16x2) at one rate
-// (scripts/select_variants.py measures it).  At m = 32 the median program
-// has 157 comparators: in f32 ~440 operations a coordinate against 130
-// bytes, which the integer units finish in less time than HBM takes to
-// deliver the bytes; in bf16 the bytes halve, and packing halves the
-// exchanges, so both limits stay close.  The simpler design this replaces
-// (the column in shared memory at runtime indices, each comparator's pair
-// re-read from memory, branchy IEEE min/max; still the fused kernel's, in
-// robust_agg.cu) is bound by instruction issue at ~20 % of the HBM bound.
+// bytes and writes n*s per output (s the element size; B3 writes two).
+// The work is one integer min and one max per comparator per coordinate
+// (per two coordinates for bf16, whose 16-bit keys are packed two to a
+// register) plus a few integer operations per element for the keys and the
+// NaN flag.  Hopper issues 32-bit and packed 16x2 integer min/max (VIMNMX,
+// VIMNMX.S16x2) at one rate (scripts/select_variants.py measures it).  At
+// m = 32 the median program has 157 comparators: in f32 ~440 operations a
+// coordinate against 130 bytes, which the integer units finish in less
+// time than HBM takes to deliver the bytes; in bf16 the bytes halve, and
+// packing halves the exchanges, so both limits stay close.
+//
+// B3: fused_program(m, trim) has the same comparators and ranks as
+// trimmed_program(m, trim), since the band [trim, m - trim) always holds
+// the median ranks (2 * trim < m).  So the fused kernel is the trimmed
+// kernel with a second output: the median comes from the same key
+// registers (the middle wire, or the f32 midpoint of the two middle wires)
+// and costs one more store of n*s bytes.  No comparator list is walked at
+// runtime: every kernel's indices are compile-time constants.
 //
 // Design:
 // - Keys.  Each f32 value's bits b map to the int32 key
@@ -55,16 +62,18 @@
 //   path: thread t of a tile owns coordinates t, t + kThreads, ..., each
 //   load coalesced across the warp, with the ragged edge masked.
 // - Leaves.  One launch covers up to kMaxLeaves leaves: their (input,
-//   output, n, vector) records and each leaf's first block travel by value
-//   in the kernel's parameters (__grid_constant__), so there is no copy to
-//   the device and no concatenation.  A block finds its leaf from the
-//   prefix of tile counts; each leaf keeps its own load path.
+//   output, second output, n, vector) records and each leaf's first block
+//   travel by value in the kernel's parameters (__grid_constant__), so
+//   there is no copy to the device and no concatenation.  A block finds
+//   its leaf from the prefix of tile counts; each leaf keeps its own load
+//   path.
 // - Arithmetic, as the plain version's (selection_network.median_from_rows
 //   and band_mean_from_rows): even-m median (lo + hi) * 0.5 in f32; the band
 //   summed in rank order in f32 and divided truly (__fdiv_rn, after all the
-//   loads); bf16 rounded once with __float2bfloat16_rn.  The _rn intrinsics
-//   keep the compiler from contracting or reassociating any of it, and the
-//   build does not flush subnormals.
+//   loads); bf16 rounded once with __float2bfloat16_rn.  B3 computes each
+//   output exactly as B1 and B2 do, from the same keys and NaN flag.  The
+//   _rn intrinsics keep the compiler from contracting or reassociating any
+//   of it, and the build does not flush subnormals.
 #pragma once
 
 #include <climits>
@@ -80,10 +89,12 @@ constexpr int kThreads = 128;   // select_codegen.THREADS
 constexpr int kMaxLeaves = 16;  // select_codegen.MAX_LEAVES
 constexpr int kMedian = 0;
 constexpr int kTrimmed = 1;
+constexpr int kFused = 2;  // out: the median, out2: the trimmed mean
 
 struct Leaf {
   const void* x;  // (m, n) row-major
   void* out;      // (n,)
+  void* out2;     // (n,) for kFused, else null
   long long n;
   int vec;        // 1: V-wide loads and stores
 };
@@ -208,29 +219,44 @@ __device__ __forceinline__ float value(const K (&k)[M][W], int i, int v) {
   }
 }
 
-// the requested ranks' keys -> the output values, NaN where the column held one
+// the median at coordinate v: the middle wire, or the f32 midpoint of the
+// two middle wires
+template <int M, typename K, int W>
+__device__ __forceinline__ float median_of(const K (&k)[M][W], int v) {
+  if constexpr (M & 1) {
+    return value(k, M / 2, v);
+  } else {
+    return __fmul_rn(__fadd_rn(value(k, M / 2 - 1, v), value(k, M / 2, v)), 0.5f);
+  }
+}
+
+// the band [kTrim, M - kTrim) at coordinate v, summed in rank order and
+// divided truly
+template <int M, int kTrim, typename K, int W>
+__device__ __forceinline__ float band_mean_of(const K (&k)[M][W], int v) {
+  float acc = value(k, kTrim, v);
+#pragma unroll
+  for (int i = kTrim + 1; i < M - kTrim; ++i) acc = __fadd_rn(acc, value(k, i, v));
+  return __fdiv_rn(acc, (float)(M - 2 * kTrim));
+}
+
+// the requested ranks' keys -> the output values (r; r2 for kFused), NaN
+// where the column held one
 template <int M, int V, int kKind, int kTrim, typename K, int W>
 __device__ __forceinline__ void finish(const K (&k)[M][W], const uint32_t (&mag)[W],
-                                       float (&r)[V]) {
+                                       float (&r)[V], float (&r2)[V]) {
   constexpr bool kPacked = W != V;
+  const float qnan = __uint_as_float(0x7fc00000u);
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    float x;
-    if constexpr (kKind == kMedian) {
-      if constexpr (M & 1) {
-        x = value(k, M / 2, v);
-      } else {
-        x = __fmul_rn(__fadd_rn(value(k, M / 2 - 1, v), value(k, M / 2, v)), 0.5f);
-      }
-    } else {
-      float acc = value(k, kTrim, v);
-#pragma unroll
-      for (int i = kTrim + 1; i < M - kTrim; ++i) acc = __fadd_rn(acc, value(k, i, v));
-      x = __fdiv_rn(acc, (float)(M - 2 * kTrim));
-    }
     const bool nan = kPacked ? ((v & 1 ? mag[v / 2] >> 16 : mag[v / 2] & 0xffffu) > 0x7f80u)
                              : mag[v] > 0x7f800000u;
-    r[v] = nan ? __uint_as_float(0x7fc00000u) : x;
+    if constexpr (kKind == kTrimmed) {
+      r[v] = nan ? qnan : band_mean_of<M, kTrim>(k, v);
+    } else {
+      r[v] = nan ? qnan : median_of(k, v);
+    }
+    if constexpr (kKind == kFused) r2[v] = nan ? qnan : band_mean_of<M, kTrim>(k, v);
   }
 }
 
@@ -298,22 +324,27 @@ leaf_select_kernel(const __grid_constant__ Batch batch) {
     }
   }
   P::template run<K, W>(k);
-  float r[V];
-  finish<M, V, kKind, kTrim>(k, mag, r);
+  float r[V], r2[V];  // r2: kFused's trimmed mean
+  finish<M, V, kKind, kTrim>(k, mag, r, r2);
   if (vec) {
     store_vec<T, V>(leaf.out, c0, r);
+    if constexpr (kKind == kFused) store_vec<T, V>(leaf.out2, c0, r2);
   } else {
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const long long c = c0 + (long long)v * kThreads;
-      if (c < n) Elem<T>::put(leaf.out, c, r[v]);
+      if (c < n) {
+        Elem<T>::put(leaf.out, c, r[v]);
+        if constexpr (kKind == kFused) Elem<T>::put(leaf.out2, c, r2[v]);
+      }
     }
   }
 }
 
-// leaves: nleaves records of 4 long longs (input pointer, output pointer, n,
-// vector flag).  Returns cudaGetLastError() after the launch (0 = launched),
-// or an error without launching when a record is one the kernel cannot take.
+// leaves: nleaves records of 5 long longs (input pointer, output pointer,
+// second output pointer (kFused; 0 otherwise), n, vector flag).  Returns
+// cudaGetLastError() after the launch (0 = launched), or an error without
+// launching when a record is one the kernel cannot take.
 template <typename T, class P, int V, int kKind, int kTrim>
 int launch(const long long* leaves, int nleaves, void* stream) {
   if (nleaves < 1 || nleaves > kMaxLeaves) return (int)cudaErrorInvalidValue;
@@ -323,16 +354,18 @@ int launch(const long long* leaves, int nleaves, void* stream) {
   long long tiles = 0;
   for (int l = 0; l < kMaxLeaves; ++l) {
     if (l >= nleaves) {
-      batch.leaf[l] = Leaf{nullptr, nullptr, 0, 0};
+      batch.leaf[l] = Leaf{nullptr, nullptr, nullptr, 0, 0};
       batch.first_tile[l] = LLONG_MAX;
       continue;
     }
-    const long long* f = leaves + 4 * l;
-    if (f[2] < 1) return (int)cudaErrorInvalidValue;
-    if (f[3] && (((f[0] | f[1]) % kAlign) || f[2] % V)) return (int)cudaErrorMisalignedAddress;
-    batch.leaf[l] = Leaf{(const void*)f[0], (void*)f[1], f[2], (int)(f[3] != 0)};
+    const long long* f = leaves + 5 * l;
+    if (f[3] < 1 || (kKind == kFused) != (f[2] != 0)) return (int)cudaErrorInvalidValue;
+    if (f[4] && (((f[0] | f[1] | f[2]) % kAlign) || f[3] % V)) {
+      return (int)cudaErrorMisalignedAddress;
+    }
+    batch.leaf[l] = Leaf{(const void*)f[0], (void*)f[1], (void*)f[2], f[3], (int)(f[4] != 0)};
     batch.first_tile[l] = tiles;
-    tiles += (f[2] + kTile - 1) / kTile;
+    tiles += (f[3] + kTile - 1) / kTile;
   }
   if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
   leaf_select_kernel<T, P, V, kKind, kTrim>

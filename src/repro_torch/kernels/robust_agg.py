@@ -9,20 +9,21 @@ wrapper here                               TPU kernel replaced
 :func:`median`, :func:`median_many`        ``median_pallas`` (``_median_kernel``)
 :func:`trimmed_mean`,                      ``trimmed_mean_pallas``
 :func:`trimmed_mean_many`
-:func:`fused_median_trimmed`               ``fused_median_trimmed_pallas``
+:func:`fused_median_trimmed`,              ``fused_median_trimmed_pallas``
+:func:`fused_median_trimmed_many`
 =========================================  =====================================
 
-Median and trimmed mean: every comparator program is compiled in
-(:mod:`select_codegen` writes the source, ``csrc/select_program.cuh`` holds
-what the programs share) and runs on integer keys in registers; one launch
-takes up to ``select_codegen.MAX_LEAVES`` leaves.  :func:`prepare` builds
-many programs at once (a few libraries, one nvcc each, in parallel); a
-program not prepared is built at its first use.  The fused kernel
-(``csrc/robust_agg.cu``) still walks its comparator list at runtime.
+Every comparator program is compiled in (:mod:`select_codegen` writes the
+source, ``csrc/select_program.cuh`` holds what the programs share) and runs
+on integer keys in registers; one launch takes up to
+``select_codegen.MAX_LEAVES`` leaves.  The fused kernel is the trimmed
+kernel's program with a second output (the median, from the same keys).
+:func:`prepare` builds many programs at once (a few libraries, one nvcc
+each, in parallel); a program not prepared is built at its first use.
 Everything is built by :mod:`repro_torch.kernels.build` into
 ``build/repro_torch/`` at the repository root and loaded with ctypes.
 Bound: memory — m*n*s bytes read and n*s written per output (s the element
-size); the sources' headers say what the designs do about it.
+size); the header says what the design does about it.
 
 Device rule: a CPU tensor takes the plain version (the torch executor of
 the same comparator program in :mod:`selection_network`); a CUDA tensor
@@ -38,7 +39,7 @@ import hashlib
 import os
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
@@ -46,17 +47,14 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels import select_codegen as G
 from repro_torch.kernels import selection_network as SN
 
-SOURCE = _build.CSRC / "robust_agg.cu"
 BUILD_DIR = _build.BUILD_DIR
+FUSED = "fused_median_trimmed"
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"median": 0, "trimmed_mean": 0, "fused_median_trimmed": 0}
-#: leaves the median / trimmed-mean launches aggregated
-LEAVES: Dict[str, int] = {"median": 0, "trimmed_mean": 0}
+LAUNCHES: Dict[str, int] = {k: 0 for k in G.KINDS}
+#: leaves those launches aggregated
+LEAVES: Dict[str, int] = {k: 0 for k in G.KINDS}
 
-_LIB: Optional[ctypes.CDLL] = None
-_LOAD_LOCK = threading.Lock()
-_PAIRS: Dict[Tuple[int, Tuple[int, ...], torch.device], torch.Tensor] = {}
 # (kind, m, trim, dtype) -> (C entry, its library); the libraries loaded
 _HANDLES: Dict[G.Spec, tuple] = {}
 _SELECT_LIBS: List[Path] = []
@@ -67,29 +65,6 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, LEAVES):
         for k in counts:
             counts[k] = 0
-
-
-def build() -> Path:
-    """Compile the fused kernel (once per source content) and return the
-    shared library's path; nvcc's ``-Xptxas -v`` report goes to a ``.log``
-    file beside it."""
-    return _build.build(SOURCE, BUILD_DIR)
-
-
-def load() -> ctypes.CDLL:
-    """The loaded fused-kernel library (built on first call).  Raises when
-    CUDA or nvcc is missing."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    with _LOAD_LOCK:
-        if _LIB is None:
-            lib = _build.load(SOURCE, "ra_error_string", BUILD_DIR)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.ra_fused.argtypes = [p, i, ctypes.c_longlong, p, i, i, p, p, i, p]
-            lib.ra_fused.restype = i
-            _LIB = lib
-    return _LIB
 
 
 # ------------------------------------------------- compiled-in programs
@@ -108,8 +83,9 @@ def _build_select(specs: List[G.Spec]) -> Path:
 
 
 def prepare(specs: Iterable[Tuple[str, int, int, torch.dtype]]) -> List[Path]:
-    """Build and load the median / trimmed-mean kernels of ``specs``
-    ((kind, m, trim, dtype) tuples; the median's trim is ignored): the
+    """Build and load the kernels of ``specs`` ((kind, m, trim, dtype)
+    tuples, kind one of ``select_codegen.KINDS``; the median's trim is
+    ignored): the
     programs not loaded yet are split into up to one library per CPU core
     (at most 8), compiled by parallel nvcc processes.
     Returns the libraries' paths; each has nvcc's ``-Xptxas -v`` report in a
@@ -135,12 +111,12 @@ def prepare(specs: Iterable[Tuple[str, int, int, torch.dtype]]) -> List[Path]:
 
 
 def select_libraries() -> List[Path]:
-    """The median / trimmed-mean libraries loaded so far, in load order."""
+    """The order-statistic libraries loaded so far, in load order."""
     return list(_SELECT_LIBS)
 
 
 def _handle(kind: str, m: int, trim: int, dtype: torch.dtype):
-    key = G.Spec(kind, m, trim if kind == "trimmed_mean" else 0, dtype)
+    key = G.Spec(kind, m, 0 if kind == "median" else trim, dtype)
     h = _HANDLES.get(key)
     if h is None:
         prepare([key])
@@ -180,9 +156,12 @@ def plan_for(x: torch.Tensor) -> G.SelectPlan:
     return G.select_plan(m, n, x.dtype, x.data_ptr() % (v * x.element_size()) == 0)
 
 
-def _select_many(kind: str, xs: Sequence[torch.Tensor], trim: int) -> List[torch.Tensor]:
+def _select_many(kind: str, xs: Sequence[torch.Tensor], trim: int) -> List[List[torch.Tensor]]:
+    """The outputs of ``kind`` on leaves ``xs``: one list of (n_i,) tensors
+    per output (two for the fused kernel: medians, then trimmed means)."""
+    outputs = 2 if kind == FUSED else 1
     if not xs:
-        return []
+        return [[] for _ in range(outputs)]
     x0 = xs[0]
     _check(x0)
     m, dtype, device = x0.shape[0], x0.dtype, x0.device
@@ -195,23 +174,29 @@ def _select_many(kind: str, xs: Sequence[torch.Tensor], trim: int) -> List[torch
             raise ValueError("the leaves of one call need one m, one dtype and one device; "
                              f"got {tuple(x.shape)} {x.dtype} on {x.device} after "
                              f"{tuple(x0.shape)} {dtype} on {device}")
-    if kind == "trimmed_mean":
+    if kind != "median":
         _check_trim(m, trim)
     if not x0.is_cuda:
         if kind == "median":
-            return [SN.median_select(x) for x in xs]
-        return [SN.trimmed_mean_select(x, trim) for x in xs]
+            return [[SN.median_select(x) for x in xs]]
+        if kind == "trimmed_mean":
+            return [[SN.trimmed_mean_select(x, trim) for x in xs]]
+        return [list(outs) for outs in zip(*(SN.median_and_trimmed_select(x, trim)
+                                             for x in xs))]
     fn, lib = _handle(kind, m, trim, dtype)
     return _launch_many(kind, fn, lib, xs, m, dtype, device)
 
 
-def _launch_many(kind, fn, lib, xs, m, dtype, device) -> List[torch.Tensor]:
+def _launch_many(kind, fn, lib, xs, m, dtype, device) -> List[List[torch.Tensor]]:
     """Launch ``fn`` over the leaves ``xs`` (checked), MAX_LEAVES at a time,
-    into one flat output in which each leaf's segment starts on a 16-byte
-    boundary (a gap is left only where the previous segments end off it)."""
+    into one flat output per output of the kernel, in which each leaf's
+    segment starts on a 16-byte boundary (a gap is left only where the
+    previous segments end off it); the fused kernel's two outputs are the
+    halves of one buffer, each leaf at the same offset in both."""
     s = torch.finfo(dtype).bits // 8
     width = G.coords_per_thread(m, dtype) * s  # bytes of a V-wide load
     pad = 16 // s
+    fused = kind == FUSED
     records, sizes, pieces, total = [], [], [], 0
     for x in xs:
         if total % pad:
@@ -223,72 +208,62 @@ def _launch_many(kind, fn, lib, xs, m, dtype, device) -> List[torch.Tensor]:
         pieces.append(len(sizes))
         sizes.append(n)
         total += n
-    flat = torch.empty(total, dtype=dtype, device=device)
+    if fused and total % pad:  # the second half starts on a 16-byte boundary too
+        sizes.append(pad - total % pad)
+        total += sizes[-1]
+    flat = torch.empty(2 * total if fused else total, dtype=dtype, device=device)
     base = flat.data_ptr()
     dev = device.index if device.index is not None else torch.cuda.current_device()
     for start in range(0, len(records), G.MAX_LEAVES):
         chunk = records[start:start + G.MAX_LEAVES]
-        arr = (ctypes.c_longlong * (4 * len(chunk)))()
+        arr = (ctypes.c_longlong * (5 * len(chunk)))()
         for i, (xp, off, n, vec) in enumerate(chunk):
-            arr[4 * i:4 * i + 4] = (xp, base + off, n, vec)
+            out2 = base + total * s + off if fused else 0
+            arr[5 * i:5 * i + 5] = (xp, base + off, out2, n, vec)
         err = _build.launch_on(dev, lambda stream: fn(arr, len(chunk), stream))
         _build.check_launch(lib, kind, err)
         LAUNCHES[kind] += 1
         LEAVES[kind] += len(chunk)
-    parts = flat.split_with_sizes(sizes)
-    return [parts[i] for i in pieces]
+    parts = flat.split_with_sizes(sizes + sizes if fused else sizes)
+    result = [[parts[i] for i in pieces]]
+    if fused:
+        result.append([parts[len(sizes) + i] for i in pieces])
+    return result
 
 
 def median_many(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Coordinate-wise medians of leaves ``xs`` (each (m, n_i), one m, dtype
     and device) -> [(n_i,)], one launch per MAX_LEAVES leaves; the outputs
     are views of one flat buffer."""
-    return _select_many("median", xs, 0)
+    return _select_many("median", xs, 0)[0]
 
 
 def trimmed_mean_many(xs: Sequence[torch.Tensor], trim: int) -> List[torch.Tensor]:
     """Coordinate-wise trimmed means of leaves ``xs`` over the ranks
     [trim, m - trim), as :func:`median_many`."""
-    return _select_many("trimmed_mean", xs, trim)
+    return _select_many("trimmed_mean", xs, trim)[0]
+
+
+def fused_median_trimmed_many(xs: Sequence[torch.Tensor],
+                              trim: int) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """([medians], [trimmed means]) of leaves ``xs``, each pair from one read
+    of the leaf's rows, as :func:`median_many`."""
+    meds, tms = _select_many(FUSED, xs, trim)
+    return meds, tms
 
 
 def median(x: torch.Tensor) -> torch.Tensor:
     """Coordinate-wise median of ``x`` (m, n) -> (n,), same dtype."""
-    return _select_many("median", [x], 0)[0]
+    return median_many([x])[0]
 
 
 def trimmed_mean(x: torch.Tensor, trim: int) -> torch.Tensor:
     """Coordinate-wise trimmed mean of ``x`` (m, n) -> (n,) over the ranks
     [trim, m - trim)."""
-    return _select_many("trimmed_mean", [x], trim)[0]
-
-
-def _pairs(prog: SN.SelectionProgram, device: torch.device) -> torch.Tensor:
-    """The program's comparators as flat uint8 (i, j) pairs on ``device``,
-    uploaded once per (m, ranks, device)."""
-    key = (prog.m, prog.ranks, device)
-    t = _PAIRS.get(key)
-    if t is None:
-        flat = [w for pair in prog.comparators for w in pair]
-        t = _PAIRS[key] = torch.tensor(flat, dtype=torch.uint8).to(device)
-    return t
+    return trimmed_mean_many([x], trim)[0]
 
 
 def fused_median_trimmed(x: torch.Tensor, trim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(median, trimmed mean) of ``x`` (m, n) from one read of the rows."""
-    _check(x)
-    _check_trim(x.shape[0], trim)
-    if not x.is_cuda:
-        return SN.median_and_trimmed_select(x, trim)
-    lib = load()
-    m, n = x.shape
-    prog = SN.fused_program(m, trim)
-    pairs = _pairs(prog, x.device)
-    med = torch.empty(n, dtype=x.dtype, device=x.device)
-    tm = torch.empty_like(med)
-    err = _build.launch_on(x.get_device(), lambda stream: lib.ra_fused(
-        x.data_ptr(), m, n, pairs.data_ptr(), prog.size, trim, med.data_ptr(), tm.data_ptr(),
-        int(x.dtype == torch.bfloat16), stream))
-    _build.check_launch(lib, "fused_median_trimmed", err)
-    LAUNCHES["fused_median_trimmed"] += 1
-    return med, tm
+    meds, tms = fused_median_trimmed_many([x], trim)
+    return meds[0], tms[0]

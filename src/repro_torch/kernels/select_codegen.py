@@ -1,13 +1,15 @@
-"""Launch plan and CUDA source of the order-statistic kernels B1 (median)
-and B2 (trimmed mean).
+"""Launch plan and CUDA source of the order-statistic kernels B1 (median),
+B2 (trimmed mean) and B3 (median and trimmed mean from one read).
 
 Each comparator program of :mod:`selection_network` (``median_program(m)``,
-``trimmed_program(m, trim)``) is compiled in: the generator emits one
-``CX(i, j)`` per comparator, in the program's order, into a struct whose
-``run`` works on the thread's key registers ``k[m][W]`` (an int32 key per
-f32 coordinate, two 16-bit keys per register for bf16) with compile-time
-indices, so the column lives in registers and no comparator list lives in
-memory.
+``trimmed_program(m, trim)``, ``fused_program(m, trim)``) is compiled in:
+the generator emits one ``CX(i, j)`` per comparator, in the program's
+order, into a struct whose ``run`` works on the thread's key registers
+``k[m][W]`` (an int32 key per f32 coordinate, two 16-bit keys per register
+for bf16) with compile-time indices, so the column lives in registers and
+no comparator list lives in memory.  The fused program has the trimmed program's comparators and
+ranks (the band [trim, m - trim) holds the median ranks, as 2·trim < m),
+so B3 is B2 with a second output read from the same keys.
 Every (program, dtype) gets one ``extern "C"`` entry that launches
 ``leaf_select_kernel`` over up to :data:`MAX_LEAVES` leaves.  What the
 programs share (keys, the NaN flag, loads, the midpoint, the band sum,
@@ -34,7 +36,7 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels import selection_network as SN
 
 HEADER = _build.CSRC / "select_program.cuh"
-KINDS = ("median", "trimmed_mean")
+KINDS = ("median", "trimmed_mean", "fused_median_trimmed")
 #: threads per block (``sel::kThreads`` in the header)
 THREADS = 128
 #: leaves one launch takes, passed by value in the kernel's parameters
@@ -74,7 +76,11 @@ def spec(kind: str, m: int, trim: int, dtype: torch.dtype) -> Spec:
 
 def program(kind: str, m: int, trim: int) -> SN.SelectionProgram:
     """The pruned comparator program a kernel runs."""
-    return SN.median_program(m) if kind == "median" else SN.trimmed_program(m, trim)
+    if kind == "median":
+        return SN.median_program(m)
+    if kind == "trimmed_mean":
+        return SN.trimmed_program(m, trim)
+    return SN.fused_program(m, trim)
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,8 +124,17 @@ def select_plan(m: int, n: int, dtype: torch.dtype, aligned: bool) -> SelectPlan
 # ----------------------------------------------------------------- source
 
 
+# a program's struct name prefix and its sel:: kind constant
+_NAMES = {"median": ("med", "sel::kMedian"), "trimmed_mean": ("tm", "sel::kTrimmed"),
+          "fused_median_trimmed": ("fu", "sel::kFused")}
+
+
 def program_name(kind: str, m: int, trim: int) -> str:
-    return f"med_m{m}" if kind == "median" else f"tm_m{m}_t{trim}"
+    """The program's struct name, one per (kind, m, trim), so that a source
+    holding the trimmed and the fused kernel of one (m, trim) defines each
+    struct once."""
+    prefix = _NAMES[kind][0]
+    return f"{prefix}_m{m}" if kind == "median" else f"{prefix}_m{m}_t{trim}"
 
 
 def symbol(s: Spec) -> str:
@@ -130,7 +145,8 @@ def symbol(s: Spec) -> str:
 def emit_program(kind: str, m: int, trim: int) -> str:
     """The program as a struct: one CX(i, j) per comparator, in order."""
     prog = program(kind, m, trim)
-    what = "median" if kind == "median" else f"trim-{trim} band"
+    what = {"median": "median", "trimmed_mean": f"trim-{trim} band",
+            "fused_median_trimmed": f"median and trim-{trim} band"}[kind]
     lines = [f"// {what} of m={m}: {prog.size} comparators (pruned from {prog.full_size})",
              f"struct {program_name(kind, m, trim)} {{",
              f"  static constexpr int kM = {m};",
@@ -163,12 +179,11 @@ def emit_source(specs: Iterable[Spec]) -> str:
         out += [emit_program(kind, m, trim), ""]
     out += ["}  // namespace", ""]
     for s in specs:
-        kernel_kind = "sel::kMedian" if s.kind == "median" else "sel::kTrimmed"
         out += [f'extern "C" int {symbol(s)}(const long long* leaves, int nleaves, '
                 f"void* stream) {{",
                 f"  return sel::launch<{_DTYPES[s.dtype][1]}, "
                 f"{program_name(s.kind, s.m, s.trim)}, "
-                f"{coords_per_thread(s.m, s.dtype)}, {kernel_kind}, {s.trim}>"
+                f"{coords_per_thread(s.m, s.dtype)}, {_NAMES[s.kind][1]}, {s.trim}>"
                 f"(leaves, nleaves, stream);",
                 "}", ""]
     out += ['extern "C" const char* ra_sel_error_string(int err) {',

@@ -30,6 +30,7 @@ from repro_torch.core import robust_gd as gd
 from repro_torch.core import theory
 from repro_torch.core.attacks import AttackConfig
 from repro_torch.kernels import robust_agg
+from repro_torch.kernels import select_codegen as G
 from repro_torch.models import convert
 from repro_torch.models import paper_models as M
 from repro_torch.rounds import engine
@@ -212,7 +213,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         M.init_cnn(torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
-        robust_agg.load()
+        robust_agg.prepare([("fused_median_trimmed", 10, 1, torch.float32)])
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -221,4 +222,5 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("a CUDA toolkit is installed at its default path")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        robust_agg.build()
+        robust_agg._build_select([G.spec("fused_median_trimmed", 10, 1, torch.float32)])
+    assert list(tmp_path.glob("select_*.cu"))  # the generated source was written

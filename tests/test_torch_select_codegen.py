@@ -1,12 +1,13 @@
-"""The compiled-in order-statistic kernels B1 (median) and B2 (trimmed mean)
-on the CPU: their generated programs, launch plans and arithmetic, and the
-leaf grouping of ``tree_aggregate``.
+"""The compiled-in order-statistic kernels B1 (median), B2 (trimmed mean)
+and B3 (both from one read) on the CPU: their generated programs, launch
+plans and arithmetic, and the leaf grouping of ``tree_aggregate``.
 
 The kernels themselves run only on the card (chip_smoke.py holds them
 bitwise against the plain versions there).  Here:
 
 - the generator emits each program's comparators in order, for every m in
-  1..64 and every legal trim;
+  1..64 and every legal trim; the fused program is the trimmed program
+  (comparators and ranks), so B3's median comes from B2's keys;
 - the premise of the kernels' NaN rule holds: in every program every input
   wire reaches every requested rank wire, so one NaN in a column makes every
   requested rank NaN under jnp.minimum/maximum;
@@ -14,8 +15,10 @@ bitwise against the plain versions there).  Here:
   keys for bf16, integer min/max through the program, the NaN flag,
   decoding, the f32 midpoint, the rank-order band sum with true division,
   one rounding to bf16) equals
-  ``SN.median_select`` / ``SN.trimmed_mean_select`` bitwise (NaN matched by
-  position) on rows with NaN, ±0, ±inf, ±1e30 and subnormals;
+  ``SN.median_select`` / ``SN.trimmed_mean_select`` bitwise, and B3's two
+  outputs from one set of keys equal ``SN.median_and_trimmed_select``
+  bitwise (NaN matched by position), on rows with NaN, ±0, ±inf, ±1e30 and
+  subnormals;
 - the launch plan and the kernels' block-to-leaf mapping are pinned;
 - the grouped ``tree_aggregate`` equals the per-leaf one and the
   reference's ``repro.core.aggregators.tree_aggregate`` bitwise.
@@ -41,8 +44,10 @@ DTYPES = [torch.float32, torch.bfloat16]
 
 
 def _programs(m):
-    """(kind, trim) of every kernel program for m: the median and each band."""
-    return [("median", 0)] + [("trimmed_mean", t) for t in range((m + 1) // 2)]
+    """(kind, trim) of every kernel program for m: the median, and each band
+    alone and fused with the median."""
+    return [("median", 0)] + [(k, t) for t in range((m + 1) // 2)
+                              for k in ("trimmed_mean", "fused_median_trimmed")]
 
 
 # ------------------------------------------------------------- generator
@@ -55,6 +60,18 @@ def test_emitted_program_is_the_comparator_list_in_order(m):
         assert f"static constexpr int kM = {m};" in text
         emitted = [(int(i), int(j)) for i, j in re.findall(r"CX\((\d+), (\d+)\);", text)]
         assert emitted == list(G.program(kind, m, trim).comparators), (kind, m, trim)
+
+
+@pytest.mark.parametrize("m", ALL_M)
+def test_fused_program_is_the_trimmed_program(m):
+    """B3 runs the trimmed program's comparators and reads the median from
+    the same keys: the band [trim, m - trim) holds the median ranks."""
+    for t in range((m + 1) // 2):
+        fused, band = SN.fused_program(m, t), SN.trimmed_program(m, t)
+        assert fused.comparators == band.comparators, (m, t)
+        assert fused.ranks == band.ranks == tuple(range(t, m - t)), (m, t)
+        assert set(SN.median_ranks(m)) <= set(band.ranks), (m, t)
+        assert G.program("fused_median_trimmed", m, t) == fused
 
 
 @pytest.mark.parametrize("m", ALL_M)
@@ -88,9 +105,40 @@ def test_source_names_every_entry_and_the_header():
     with pytest.raises(ValueError):
         G.spec("trimmed_mean", 4, 2, torch.float32)
     with pytest.raises(ValueError):
+        G.spec("fused_median_trimmed", 4, 2, torch.float32)
+    with pytest.raises(ValueError, match="unknown kind"):
+        G.spec("mean", 4, 0, torch.float32)
+    with pytest.raises(ValueError):
         G.spec("median", 65, 0, torch.float32)
     with pytest.raises(TypeError):
         G.spec("median", 4, 0, torch.float64)
+
+
+def test_fused_spec_symbol_and_entry():
+    s = G.spec("fused_median_trimmed", 32, 3, torch.bfloat16)
+    assert s == G.Spec("fused_median_trimmed", 32, 3, torch.bfloat16)  # trim kept
+    assert G.symbol(s) == "ra_sel_fu_m32_t3_bf16"
+    assert G.program_name("fused_median_trimmed", 32, 3) == "fu_m32_t3"
+    src = G.emit_source([s])
+    assert f'extern "C" int ra_sel_fu_m32_t3_bf16(' in src
+    assert "sel::launch<__nv_bfloat16, fu_m32_t3, 4, sel::kFused, 3>" in src
+    assert "// median and trim-3 band of m=32" in src
+    assert G.cost(s) == G.cost(G.spec("trimmed_mean", 32, 3, torch.bfloat16))
+
+
+def test_source_defines_each_struct_once_across_kinds_and_dtypes():
+    """A library holding the trimmed and the fused kernel of one (m, trim),
+    each in both dtypes, defines each program struct once."""
+    specs = [G.spec(k, 10, 1, d) for k in ("trimmed_mean", "fused_median_trimmed")
+             for d in DTYPES] + [G.spec("median", 10, 0, torch.float32)]
+    src = G.emit_source(specs)
+    structs = re.findall(r"^struct (\w+) \{", src, flags=re.M)
+    assert sorted(structs) == ["fu_m10_t1", "med_m10", "tm_m10_t1"]
+    entries = re.findall(r'^extern "C" int (ra_sel_\w+)\(', src, flags=re.M)
+    assert sorted(entries) == sorted(G.symbol(s) for s in specs)
+    for d, v in (("float", 4), ("__nv_bfloat16", 8)):
+        assert f"sel::launch<{d}, fu_m10_t1, {v}, sel::kFused, 1>" in src
+        assert f"sel::launch<{d}, tm_m10_t1, {v}, sel::kTrimmed, 1>" in src
 
 
 def test_partition_covers_each_spec_once_and_balances():
@@ -101,6 +149,7 @@ def test_partition_covers_each_spec_once_and_balances():
     assert sorted(flat, key=G.spec_key) == sorted(set(specs), key=G.spec_key)
     loads = [sum(G.cost(s) for s in g) for g in groups]
     assert max(loads) <= 1.05 * min(loads)
+    assert {s.kind for s in flat} == set(G.KINDS)
     assert G.partition(specs, 8) == groups
     assert G.partition(specs[:3], 8) == [[s] for s in sorted(specs[:3], key=G.spec_key)]
 
@@ -195,7 +244,8 @@ def _value(key, dtype):
 
 
 def emulate(x, kind, trim):
-    """The kernel's arithmetic on an (m, n) tensor, in torch on the CPU."""
+    """The kernel's arithmetic on an (m, n) tensor, in torch on the CPU; the
+    fused kernel gives (median, trimmed mean) from one set of keys."""
     m = x.shape[0]
     key, mag = _keys(x)
     nan = (mag > (0x7F80 if x.dtype == torch.bfloat16 else 0x7F800000)).any(0)
@@ -203,14 +253,24 @@ def emulate(x, kind, trim):
     for i, j in G.program(kind, m, trim).comparators:
         k[i], k[j] = torch.minimum(k[i], k[j]), torch.maximum(k[i], k[j])
     value = lambda i: _value(k[i], x.dtype)
-    if kind == "median":
-        r = value(m // 2) if m % 2 else (value(m // 2 - 1) + value(m // 2)) * 0.5
-    else:
+
+    def median():
+        return value(m // 2) if m % 2 else (value(m // 2 - 1) + value(m // 2)) * 0.5
+
+    def band_mean():
         r = value(trim)
         for i in range(trim + 1, m - trim):
             r = r + value(i)
-        r = r / torch.full_like(r, m - 2 * trim)
-    return torch.where(nan, torch.full_like(r, float("nan")), r).to(x.dtype)
+        return r / torch.full_like(r, m - 2 * trim)
+
+    def out(r):
+        return torch.where(nan, torch.full_like(r, float("nan")), r).to(x.dtype)
+
+    if kind == "median":
+        return out(median())
+    if kind == "trimmed_mean":
+        return out(band_mean())
+    return out(median()), out(band_mean())
 
 
 SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, 1e30, -1e30, 1e-40, -1e-40, 1.4e-45, -1.4e-45,
@@ -250,6 +310,20 @@ def test_emulated_kernel_arithmetic_is_the_plain_version_bitwise(m, dtype):
     for trim in sorted({0, min(1, (m - 1) // 2), m // 10, (m - 1) // 2}):
         assert_bitwise(emulate(x, "trimmed_mean", trim), SN.trimmed_mean_select(x, trim),
                        f"trimmed m={m} trim={trim}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", EMULATED_M)
+def test_emulated_fused_kernel_is_the_plain_version_bitwise(m, dtype):
+    x = special_rows(m, 97, seed=100 + m, dtype=dtype)
+    for trim in sorted({0, min(1, (m - 1) // 2), m // 10, (m - 1) // 2}):
+        med, tm = emulate(x, "fused_median_trimmed", trim)
+        want_med, want_tm = SN.median_and_trimmed_select(x, trim)
+        assert_bitwise(med, want_med, f"fused median m={m} trim={trim}")
+        assert_bitwise(tm, want_tm, f"fused trimmed m={m} trim={trim}")
+        # and each output is B1's / B2's
+        assert_bitwise(med, emulate(x, "median", 0), f"fused vs median m={m}")
+        assert_bitwise(tm, emulate(x, "trimmed_mean", trim), f"fused vs trimmed m={m}")
 
 
 def test_key_order_is_jnp_order_on_special_values():
@@ -357,8 +431,37 @@ def test_many_wrappers_on_the_cpu():
         robust_agg.trimmed_mean_many(xs, 5)
 
 
+def test_fused_many_wrapper_on_the_cpu():
+    rng = np.random.default_rng(2)
+    xs = [torch.from_numpy(rng.standard_normal((9, n)).astype(np.float32)) for n in (1, 8, 33)]
+    meds, tms = robust_agg.fused_median_trimmed_many(xs, 2)
+    assert len(meds) == len(tms) == len(xs)
+    for med, tm, x in zip(meds, tms, xs):
+        want_med, want_tm = SN.median_and_trimmed_select(x, 2)
+        assert_bitwise(med, want_med)
+        assert_bitwise(tm, want_tm)
+        one_med, one_tm = robust_agg.fused_median_trimmed(x, 2)
+        assert_bitwise(one_med, med)
+        assert_bitwise(one_tm, tm)
+    x1 = special_rows(1, 5, seed=3, dtype=torch.bfloat16)  # m = 1: both outputs are the row
+    (med,), (tm,) = robust_agg.fused_median_trimmed_many([x1], 0)
+    assert_bitwise(med, x1[0])
+    assert_bitwise(tm, x1[0])
+    assert robust_agg.fused_median_trimmed_many([], 1) == ([], [])
+    with pytest.raises(ValueError, match="one m"):
+        robust_agg.fused_median_trimmed_many([xs[0], torch.zeros(8, 3)], 1)
+    with pytest.raises(ValueError, match="one m"):
+        robust_agg.fused_median_trimmed_many([xs[0], xs[1].to(torch.bfloat16)], 1)
+    with pytest.raises(ValueError, match="invalid trim"):
+        robust_agg.fused_median_trimmed_many(xs, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        robust_agg.fused_median_trimmed_many([xs[2], torch.zeros(3, 9).T], 1)
+
+
 def test_prepare_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("the machine has CUDA")
     with pytest.raises(RuntimeError, match="CUDA"):
         robust_agg.prepare([("median", 10, 0, torch.float32)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        robust_agg.prepare([("fused_median_trimmed", 10, 1, torch.bfloat16)])

@@ -129,6 +129,25 @@ def test_trimmed_mean_bitwise_vs_eager_and_ulp_vs_pallas(m, trim, dtype):
         assert_within_ulp(got, jra.trimmed_mean_pallas(jx, trim=trim, block=256))
 
 
+@pytest.mark.parametrize("m,trim,dtype", [(5, 1, "float32"), (10, 1, "float32"),
+                                          (13, 1, "float32"), (16, 3, "float32"),
+                                          (17, 8, "float32"), (32, 3, "float32"),
+                                          (10, 1, "bfloat16"), (17, 2, "bfloat16")])
+def test_fused_many_vs_pallas_and_eager(m, trim, dtype):
+    """fused_median_trimmed_many (CPU path) over ragged leaves against the
+    reference's fused Pallas kernel (interpret mode) and eager executor.
+    The leaves all pad to one Pallas block, so each case compiles once."""
+    pairs = [_both(_rows(m, n, seed=31 * m + n), dtype) for n in (1, 7, 200)]
+    meds, tms = robust_agg.fused_median_trimmed_many([tx for _, tx in pairs], trim)
+    for (jx, _), med, tm in zip(pairs, meds, tms):
+        want_med, want_tm = jra.fused_median_trimmed_pallas(jx, trim, block=256)
+        assert_bitwise(med, want_med, "fused median vs pallas")
+        assert_within_ulp(tm, want_tm)
+        eager_med, eager_tm = JSN.median_and_trimmed_select(jx, trim)
+        assert_bitwise(med, eager_med, "fused median vs eager")
+        assert_bitwise(tm, eager_tm, "fused trimmed mean vs eager")
+
+
 @pytest.mark.parametrize("n", [1, 100, 128, 1000, 4097])
 def test_ragged_n_and_rank_select(n):
     jx, tx = _both(_rows(7, n, seed=n), "float32")
