@@ -7,7 +7,8 @@ Phases (any failure exits non-zero before the final line):
 1. the card, torch/CUDA versions, TF32 off, the kernels' build: the sketch
    kernels from ``src/repro_torch/kernels/csrc/histogram_agg.cu`` and every
    median, trimmed-mean and fused median + trimmed-mean program this
-   script runs (generated by ``kernels/select_codegen.py`` around
+   script runs, in f32 and bf16, and in f16 those of phases 5 and 7
+   (generated by ``kernels/select_codegen.py`` around
    ``csrc/select_program.cuh``, ``robust_agg.prepare``: a few libraries),
    all nvcc processes started together; the build seconds and the ptxas
    reports; any spill fails;
@@ -48,8 +49,8 @@ Phases (any failure exits non-zero before the final line):
    the Table 2 worker count (m=40);
 5. times at the main path's shapes, the CNN's 8 leaves in one call (median,
    trimmed mean and fused), and
-   bandwidth-sized shapes (CUDA events per call, and device time from
-   torch.profiler), against the
+   bandwidth-sized shapes (f32, bf16 and f16; CUDA events per call, and
+   device time from torch.profiler), against the
    memory bound (3.35 TB/s) and the f32 operation bound (67 TFLOP/s) of
    an H100 SXM at 700 W, the plain version, and the one PyTorch call that
    computes the same function where there is one (the median's); the
@@ -70,8 +71,38 @@ Phases (any failure exits non-zero before the final line):
    than 10x the median's; the sketch median within one bin of the exact
    median of an attacked 10^4 cohort; the first 2 rounds agree with the
    CPU; the CLI runs twice with one sha256; a profile of one round (with
-   the sketch kernels' device ms in it).
-The last line is ``{"ok": true, "device": {...}}``.
+   the sketch kernels' device ms in it);
+7. C1 on the card: the f16 median, trimmed-mean and fused programs bitwise
+   against their plain versions (m in HALF_M, rows with NaN, ±0, ±inf,
+   ±65504 and f16 subnormals, both load paths, misaligned leaves, the CNN's
+   8 leaves in one call of each); f64 and zero-width leaves through
+   coordinate_median / coordinate_trimmed_mean take their routes (the
+   network, bitwise its plain result; an empty result) with no launch;
+8. Algorithm 2, benchmarks/table4_one_round.py at full width (logistic
+   regression d=784, 10 classes, m=10, n=500, 150 local GD steps at lr
+   0.5): its five accuracies and claim_holds, which must hold; the median
+   kernel launched once a median row over both leaves;
+9. one_round_streaming at federated scale (m=10^5 workers, n=64, d=32,
+   ~845 MB of data on the card, chunks of 512, 512 bins, sign_flip alpha
+   0.1 scale 100), approx_median and approx_trimmed_mean: within one bin
+   width of the exact one_round on the same 10^5 attacked solutions (the
+   sort path), the median more than 10x better than the mean, 196 min/max
+   and 196 histogram launches a method;
+10. local-update rounds on phase 4's CNN: tau=1 after 5 rounds bitwise
+   robust_gd (deterministic cuDNN; with the default algorithms too
+   whenever two robust_gd runs agree bitwise), tau=5 for 10 rounds with the loss
+   falling and one launch a round over the 8 leaves, the tau=5 round time
+   and its profile;
+11. compressed federated rounds: int8, topk and count_sketch, 5 rounds of
+   run_rounds at a 10^4 cohort under sign_flip for approx_median and
+   approx_trimmed_mean, each converging (the last ||w - w*|| below 0.9x the
+   first) but topk with the median, which does not converge (reported);
+The launch counters are zeroed before each of phases 8-11 and read after;
+the kernels line gives each kernel's launches on them.  In phases 4, 6 and
+8-11 the inputs each kernel wrapper gets (the first call of each shape) are
+recorded, and after the path's counts were read each kernel is run again on
+them and held against its plain version, bitwise (PathInputs); a kernel that
+launched on a path and was not held fails.  Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -152,6 +183,116 @@ def compare(got, want):
     return int((~ok).sum()), float(diff.max()) if diff.numel() else 0.0
 
 
+class PathInputs:
+    """Inside ``with``: records what a main path hands the kernel wrappers
+    (robust_agg's median / trimmed-mean / fused calls, histogram_agg's
+    minmax and histogram), the first call of each kernel, shapes, dtype and
+    16-byte alignment, as copies at the same alignment.  ``hold`` then runs
+    each kernel again on those inputs and compares it with its plain
+    version, bitwise.  Call it after the path's launch counts were read:
+    its launches are not the path's."""
+
+    def __enter__(self):
+        from repro_torch.kernels import histogram_agg as H
+        from repro_torch.kernels import robust_agg
+
+        self.calls = {}
+        self._orig = {"select": robust_agg._select_many, "minmax": H.minmax,
+                      "histogram": H.histogram}
+        self._patched = [(robust_agg, "_select_many", "select"), (H, "minmax", "minmax"),
+                         (H, "histogram", "histogram")]
+        for mod, attr, kind in self._patched:
+            setattr(mod, attr, self._recording(kind))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, kind in self._patched:
+            setattr(mod, attr, self._orig[kind])
+
+    @staticmethod
+    def _sig(v):
+        import torch
+
+        if isinstance(v, torch.Tensor):
+            return (tuple(v.shape), str(v.dtype), v.data_ptr() % 16)
+        if isinstance(v, (list, tuple)):
+            return tuple(PathInputs._sig(t) for t in v)
+        return v
+
+    @staticmethod
+    def _copy(v):
+        import torch
+
+        if isinstance(v, torch.Tensor):
+            off = (v.data_ptr() % 16) // v.element_size()
+            buf = torch.empty(v.numel() + off, dtype=v.dtype, device=v.device)[off:]
+            return buf.view(v.shape).copy_(v)
+        if isinstance(v, (list, tuple)):
+            return [PathInputs._copy(t) for t in v]
+        return v
+
+    def _recording(self, kind):
+        fn = self._orig[kind]
+
+        def recorded(*args, **kwargs):
+            x = args[1][0] if kind == "select" and args[1] else args[0]
+            if getattr(x, "is_cuda", False):
+                key = (kind, self._sig(args), tuple(sorted(kwargs.items())))
+                if key not in self.calls:
+                    self.calls[key] = (self._copy(args), dict(kwargs))
+            return fn(*args, **kwargs)
+
+        return recorded
+
+    def hold(self, label: str, worst: dict) -> set:
+        """Each recorded call again, kernel vs plain version, bitwise; returns
+        the names of the kernels held."""
+        import torch
+
+        from repro_torch.kernels import histogram_agg as H
+        from repro_torch.kernels import selection_network as SN
+
+        held, shapes = set(), []
+        for (kind, _, _), (args, kwargs) in self.calls.items():
+            if kind == "select":
+                name, xs, trim = args
+                got = self._orig["select"](name, xs, trim)
+                if name == "median":
+                    want = [[SN.median_select(x) for x in xs]]
+                elif name == "trimmed_mean":
+                    want = [[SN.trimmed_mean_select(x, trim) for x in xs]]
+                else:
+                    want = [list(o) for o in zip(*(SN.median_and_trimmed_select(x, trim)
+                                                   for x in xs))]
+                pairs = [(g, w) for gs, ws in zip(got, want) for g, w in zip(gs, ws)]
+                shape = f"{name} {[tuple(x.shape) for x in xs]} {xs[0].dtype}"
+            elif kind == "minmax":
+                name = "minmax"
+                pairs = list(zip(self._orig["minmax"](*args), H.minmax_plain(*args)))
+                shape = f"minmax {tuple(args[0].shape)} {args[0].dtype}"
+            else:
+                name = "histogram"
+                pairs = list(zip(self._orig["histogram"](*args, **kwargs),
+                                 H.histogram_plain(*args, **kwargs)))
+                shape = f"histogram {tuple(args[0].shape)} {args[0].dtype} {args[3]} bins " \
+                        f"sums={kwargs.get('with_sums', args[4] if len(args) > 4 else True)}"
+            torch.cuda.synchronize()
+            for g, w in pairs:
+                if w is None:
+                    check(g is None, f"{label}: {shape}: the kernel wrote sums the plain "
+                                     f"version did not")
+                    continue
+                bad, err = compare(g, w)
+                check(bad == 0, f"{label}: {shape}: {bad} mismatches vs the plain version "
+                                f"on the path's inputs (max |err| {err})")
+                worst[name] = max(worst[name], err)
+            held.add(name)
+            shapes.append(shape)
+        print(f"{label}: kernels held against their plain versions on the path's own "
+              f"inputs, bitwise: {shapes}")
+        return held
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean time per call over ``reps`` calls, CUDA events, after a warm-up."""
     import torch
@@ -204,7 +345,10 @@ CNN_LEAF_SIZES = (144, 16, 2304, 16, 50176, 64, 640, 10)  # the CNN's 8 leaves
 MULTI_LEAF_M = (10, 17, 40)
 TIMING_SHAPES = (("cnn fc1 leaf", 10, 50176, "float32"), ("logreg w leaf", 40, 7840, "float32"),
                  ("bandwidth", 32, 1 << 24, "float32"), ("bandwidth, odd m", 31, 1 << 24, "float32"),
-                 ("bandwidth", 32, 1 << 24, "bfloat16"))
+                 ("bandwidth", 32, 1 << 24, "bfloat16"), ("bandwidth", 32, 1 << 24, "float16"),
+                 ("bandwidth, odd m", 31, 1 << 24, "float16"))
+# the worker counts the float16 programs are built and checked at (phase 7)
+HALF_M = (1, 2, 3, 8, 10, 31, 32, 40, 64)
 
 
 def sweep_trim(m: int) -> int:
@@ -213,9 +357,11 @@ def sweep_trim(m: int) -> int:
 
 def select_specs():
     """Every (kind, m, trim, dtype) of the order-statistic kernels this
-    script runs, in both dtypes: phase 2's sweeps, the quickstart (m=8,
+    script runs: in f32 and bf16, phase 2's sweeps, the quickstart (m=8,
     beta 0.3), the CNN (m=10, beta 0.1), linreg m=40 (beta 0.05) and phase
-    5's shapes; the fused kernel at each (m, trim) of the trimmed mean."""
+    5's shapes; the fused kernel at each (m, trim) of the trimmed mean.  In
+    f16 only what phase 7 and phase 5 run: the three kinds at HALF_M with
+    sweep_trim(m), which is also int(0.1 * m) at the timed m = 31, 32."""
     import torch
 
     progs = {("median", 1, 0), ("trimmed_mean", 1, 0), ("median", 8, 0),
@@ -226,7 +372,10 @@ def select_specs():
     for m in TRIM_SWEEP_M:
         progs |= {("trimmed_mean", m, t) for t in range((m + 1) // 2)}
     progs |= {("fused_median_trimmed", m, t) for k, m, t in progs if k == "trimmed_mean"}
-    return [(k, m, t, d) for k, m, t in sorted(progs) for d in (torch.float32, torch.bfloat16)]
+    half = {(k, m, sweep_trim(m) if k != "median" else 0) for m in HALF_M
+            for k in ("median", "trimmed_mean", "fused_median_trimmed")}
+    return ([(k, m, t, d) for k, m, t in sorted(progs) for d in (torch.float32, torch.bfloat16)]
+            + [(k, m, t, torch.float16) for k, m, t in sorted(half)])
 
 
 def ptxas_report(lib):
@@ -1073,11 +1222,8 @@ def fed_cli(dev):
 
 def fed_profile(pop):
     """Phase 6: a torch.profiler trace of one approx_median round at the
-    full cohort: the device's busy time, as a share of the same round's
-    unprofiled host-clock time, and the top kernels."""
+    full cohort (profile_summary), with the sketch kernels' device ms."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fed.rounds import RoundConfig, run_rounds
 
@@ -1087,28 +1233,471 @@ def fed_profile(pop):
     run_rounds(pop, rcfg, fed_attack())  # unprofiled
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_summary(lambda: run_rounds(pop, rcfg, fed_attack()), wall_ms, top=15,
+                           names=("minmax_kernel", "histogram_kernel"))
+    print(json.dumps({"profile_fed_round": "approx_median", **prof}))
+
+
+def profile_summary(fn, wall_ms: float, top: int = 8, names=()) -> dict:
+    """One torch.profiler trace of ``fn()``: the device's busy ms, as a
+    share of ``wall_ms`` (the same work timed unprofiled), the traced wall
+    ms, the kernel launches, the top kernels and the top ops by device time,
+    and the device ms of the kernels whose name holds each of ``names``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_rounds(pop, rcfg, fed_attack())
+        fn()
         torch.cuda.synchronize()
     profiled_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    sketch = {name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
-              for name in ("minmax_kernel", "histogram_kernel")}
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU),
-                 key=lambda e: e.self_device_time_total, reverse=True)[:15]
-    print(json.dumps({"profile_fed_round": "approx_median", "round_ms": wall_ms,
-                      "round_ms_profiled": profiled_ms, "device_busy_ms": busy_ms,
-                      "device_busy_share": busy_ms / wall_ms if wall_ms else None,
-                      "sketch_kernels_device_ms": sketch,
-                      "top_kernels": [{"kernel": e.key[:70], "device_ms":
-                                       e.self_device_time_total / 1e3, "calls": e.count}
-                                      for e in kernels[:15]],
-                      "top_ops": [{"op": e.key[:60], "device_ms": e.self_device_time_total / 1e3,
-                                   "calls": e.count} for e in ops]}))
+                 key=lambda e: e.self_device_time_total, reverse=True)[:top]
+    out = {"wall_ms": wall_ms, "wall_ms_profiled": profiled_ms, "device_busy_ms": busy,
+           "device_busy_share": busy / wall_ms if wall_ms else None,
+           "launches": sum(e.count for e in kernels),
+           "top_kernels": [{"kernel": e.key[:70], "device_ms": e.self_device_time_total / 1e3,
+                            "calls": e.count} for e in kernels[:top]],
+           "top_ops": [{"op": e.key[:60], "device_ms": e.self_device_time_total / 1e3,
+                        "calls": e.count} for e in ops]}
+    if names:
+        out["device_ms_by_name"] = {
+            name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
+            for name in names}
+    return out
+
+
+# -------------------------------------- C1: float16, float64, empty leaves
+
+HALF_SPECIALS = (0.0, -0.0, float("inf"), float("-inf"), 65504.0, -65504.0, 3e-5, -3e-5,
+                 2.0 ** -24, -(2.0 ** -24), 2.0 ** -14, -4e-6, 1e-7)
+
+
+def half_special_rows(m: int, n: int, seed: int):
+    """N(0,1) rows with one value in four drawn from ±0, ±inf, ±65504 (f16's
+    largest), f16 subnormals and its smallest normal; a NaN in one column, a
+    column of mixed ±0 and one of subnormals only."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pool = np.array(HALF_SPECIALS, dtype=np.float32)
+    x = rng.standard_normal((m, n)).astype(np.float32)
+    pick = rng.random((m, n)) < 0.25
+    x[pick] = pool[rng.integers(0, len(pool), int(pick.sum()))]
+    if n >= 4:
+        x[m // 2, 0] = np.nan
+        x[:, 1] = np.where(rng.random(m) < 0.5, -0.0, 0.0)
+        x[:, 2] = rng.choice(pool[6:], m)
+    return x
+
+
+def compare64(got, want):
+    """Bit mismatches of two float64 tensors (NaN matches NaN, -0 != +0)."""
+    import torch
+
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    ok = torch.where(gn | wn, gn & wn, got.view(torch.int64) == want.view(torch.int64))
+    return int((~ok).sum())
+
+
+def c1_on_card(dev, worst):
+    """Phase 7: C1 on the card.  f16 B1/B2/B3 bitwise against their plain
+    versions (m in HALF_M, n in {1, 97, 4096, 4097, 50176}, special rows;
+    misaligned leaves; the CNN's 8 leaves in one call of each kernel); f64
+    and zero-width leaves through coordinate_median / coordinate_trimmed_mean
+    on the card take their stated routes (the network; no launch), the f64
+    result bitwise the plain network's."""
+    import torch
+
+    from repro_torch.core import aggregators as A
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.kernels import ops, robust_agg
+    from repro_torch.kernels import selection_network as SN
+
+    half = torch.float16
+    checked, paths = 0, set()
+
+    def check_pairs(pairs, label):
+        nonlocal checked
+        torch.cuda.synchronize()
+        for name, got, want in pairs:
+            bad, err = compare(got, want)
+            check(bad == 0, f"f16 {name} {label}: {bad} mismatches vs the plain version "
+                            f"(max |err| {err})")
+            worst[name] = max(worst[name], err)
+            checked += 1
+
+    for m in HALF_M:
+        trim = sweep_trim(m)
+        for n in (1, 97, 4096, 4097, 50176):
+            x = torch.from_numpy(half_special_rows(m, n, seed=m * 131 + n)).to(dev, half)
+            check(ops.auto_backend(x) == "cuda", f"f16 m={m} n={n} is not routed to the kernels")
+            paths.add(robust_agg.plan_for(x).scalar)
+            med, tm = robust_agg.fused_median_trimmed(x, trim)
+            want_med, want_tm = SN.median_and_trimmed_select(x, trim)
+            check_pairs([("median", robust_agg.median(x), SN.median_select(x)),
+                         ("trimmed_mean", robust_agg.trimmed_mean(x, trim),
+                          SN.trimmed_mean_select(x, trim)),
+                         ("fused_median_trimmed", med, want_med),
+                         ("fused_median_trimmed", tm, want_tm)], f"m={m} n={n}")
+    base = torch.from_numpy(half_special_rows(10, 50176, seed=7)).to(dev, half)
+    sliced = base[:, 1:].contiguous()
+    off = torch.empty(10 * 50176 + 1, device=dev, dtype=half)[1:].view(10, 50176)
+    off.copy_(base)
+    leaves = [torch.from_numpy(half_special_rows(10, n, seed=n)).to(dev, half)
+              for n in CNN_LEAF_SIZES]
+    for xs, label in (([sliced, off, base], "misaligned"), (leaves, "CNN leaves")):
+        paths.update(robust_agg.plan_for(x).scalar for x in xs)
+        before = dict(robust_agg.LAUNCHES)
+        meds = robust_agg.median_many(xs)
+        tms = robust_agg.trimmed_mean_many(xs, 1)
+        fmeds, ftms = robust_agg.fused_median_trimmed_many(xs, 1)
+        ran = {k: robust_agg.LAUNCHES[k] - before[k] for k in before}
+        check(all(v == 1 for v in ran.values()), f"f16 {label}: launches {ran}, want 1 each")
+        pairs = []
+        for x, a, b, c, d in zip(xs, meds, tms, fmeds, ftms):
+            want_med, want_tm = SN.median_and_trimmed_select(x, 1)
+            pairs += [("median", a, want_med), ("trimmed_mean", b, want_tm),
+                      ("fused_median_trimmed", c, want_med), ("fused_median_trimmed", d, want_tm)]
+        check_pairs(pairs, label)
+    check(paths == {False, True}, f"f16: the sweep missed a load path: scalar in {paths}")
+
+    # float64 and empty leaves: the network and no launch, decided up front
+    x64 = torch.from_numpy(special_rows(10, 4097, seed=64)).to(dev, torch.float64)
+    x64[3, 5] = 1e300
+    before_sel, before_sk = dict(robust_agg.LAUNCHES), dict(H.LAUNCHES)
+    check(ops.auto_backend(x64) == "network", "f64 is not routed to the network")
+    got_med, got_tm = A.coordinate_median(x64), A.coordinate_trimmed_mean(x64, 0.1)
+    bad = compare64(got_med, SN.median_select(x64)) + compare64(
+        got_tm, SN.trimmed_mean_select(x64, 1))
+    check(bad == 0 and got_med.dtype == torch.float64,
+          f"f64 on the card: {bad} mismatches vs the plain network")
+    empties = {}
+    for shape in ((10, 0), (10, 3, 0), (70, 0)):
+        for dtype in (torch.float32, half, torch.float64):
+            e = torch.zeros(shape, device=dev, dtype=dtype)
+            check(ops.auto_backend(e) == "empty", f"{shape} {dtype} is not routed as empty")
+            for name, out in (("median", A.coordinate_median(e)),
+                              ("trimmed_mean", A.coordinate_trimmed_mean(e, 0.1))):
+                check(out.shape == shape[1:] and out.dtype == dtype and out.device == e.device,
+                      f"empty {name} {shape} {dtype}: got {tuple(out.shape)} {out.dtype}")
+                empties[f"{name}{shape}"] = list(out.shape)
+    tree = A.tree_aggregate({"e": torch.zeros(10, 0, device=dev),
+                             "d": x64[:, :33].contiguous()}, "median")
+    check(tree["e"].shape == (0,) and compare64(tree["d"], SN.median_select(x64[:, :33])) == 0,
+          "a tree of an empty and an f64 leaf did not aggregate right")
+    torch.cuda.synchronize()
+    ran = {k: robust_agg.LAUNCHES[k] - before_sel[k] for k in before_sel}
+    ran.update({k: H.LAUNCHES[k] - before_sk[k] for k in before_sk})
+    check(not any(ran.values()), f"f64 / empty leaves launched kernels: {ran}")
+    print(f"phase 7: f16: {checked} kernel outputs bitwise equal to the plain version "
+          f"(m in {list(HALF_M)}, both load paths, misaligned and 8-leaf calls); f64 bitwise "
+          f"the plain network with 0 launches; empty leaves "
+          f"{sorted(set(map(str, empties.values())))} with 0 launches")
+
+
+# ------------------------------------------------ Algorithm 2 (one round)
+
+T4_M, T4_N = 10, 500  # benchmarks/table4_one_round.py
+
+
+def table4_one_round(dev):
+    """Phase 8: benchmarks/table4_one_round.py on the port at full width
+    (multiclass logistic regression, d=784, 10 classes; m=10, n=500; the
+    local solver 150 GD steps at lr 0.5), its five rows and its claim.
+    Returns the launches of the median kernel on this path."""
+    import torch
+
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig, make_classification_shards
+    from repro_torch.data.synthetic import mnist_analog
+    from repro_torch.kernels import robust_agg
+    from repro_torch.models.paper_models import init_logreg, logreg_accuracy, logreg_loss
+    from repro_torch.rounds import OneRoundConfig, make_gd_local_solver, one_round
+
+    cfg = DataConfig(global_batch=T4_M * T4_N, num_workers=T4_M, seed=0)
+    clean = make_classification_shards(cfg, None, device=dev)
+    attacked = make_classification_shards(cfg, AttackConfig("random_label", alpha=0.1),
+                                          device=dev)
+    test = mnist_analog(torch.Generator().manual_seed(1234), 2000, device=dev)
+    w0 = init_logreg(device=dev)
+    check(tuple(w0["w"].shape) == (784, 10) and tuple(w0["b"].shape) == (10,),
+          "the logistic model is not d=784 x 10 classes")
+    solver = make_gd_local_solver(logreg_loss, w0, steps=150, lr=0.5)
+    atk_w = AttackConfig("sign_flip", alpha=0.1, scale=15.0)
+    rows = [("mean_clean", clean, "mean", None), ("mean_attacked", attacked, "mean", None),
+            ("median_attacked", attacked, "median", None),
+            ("mean_weights_attacked", clean, "mean", atk_w),
+            ("median_weights_attacked", clean, "median", atk_w)]
+    torch.cuda.synchronize()
+    robust_agg.reset_launches()  # zeroed just before the one-round runs
+    acc, secs = {}, {}
+    t_all = time.perf_counter()
+    for name, shards, method, watk in rows:
+        t0 = time.perf_counter()
+        w = one_round(solver, shards, OneRoundConfig(method), attack=watk)
+        acc[name] = float(logreg_accuracy(w, test))
+        secs[name] = time.perf_counter() - t0
+        check(all(bool(torch.isfinite(v).all()) for v in w.values()), f"table4 {name}: not finite")
+    total = time.perf_counter() - t_all
+    launches = dict(robust_agg.LAUNCHES)  # read just after
+    leaves = dict(robust_agg.LEAVES)
+    ok = (acc["mean_clean"] - acc["mean_attacked"] > 0.01
+          and acc["median_weights_attacked"] - acc["mean_weights_attacked"] > 0.2
+          and acc["median_attacked"] > acc["mean_attacked"] - 0.03)
+    for name in acc:
+        print(f"phase 8: table4/{name}_acc {acc[name] * 100:.1f}% ({secs[name]:.2f} s)")
+    print(json.dumps({"table4_one_round": acc, "claim_holds": ok, "seconds": total,
+                      "seconds_per_row": secs, "launches": launches, "leaves": leaves}))
+    prof = profile_summary(lambda: one_round(solver, attacked, OneRoundConfig("median")),
+                           secs["median_attacked"] * 1e3)
+    print(json.dumps({"profile_table4_row": "median_attacked", **prof}))
+    check(ok, f"table4: claim_holds is False: {acc}")
+    check(launches["median"] == 2 and leaves["median"] == 4,
+          f"table4: median kernel {launches['median']} launches for {leaves['median']} "
+          f"leaves, want 2 for 4 (one a median row, both leaves)")
+    return {"median": launches["median"]}
+
+
+OR_M, OR_N, OR_D, OR_SIGMA, OR_CHUNK, OR_NBINS = 100_000, 64, 32, 0.5, 512, 512
+
+
+def one_round_at_scale(dev):
+    """Phase 9: one_round_streaming with the quadratic solver at federated
+    scale (m = 10^5 workers, n = 64, d = 32, sigma 0.5, chunks of 512, 512
+    bins, sign_flip alpha 0.1 scale 100), approx_median and
+    approx_trimmed_mean (beta 0.15): within one bin width of the exact
+    one_round on the same 10^5 attacked solutions (the sort path), and the
+    median's ||w - w*|| more than 10x below the exact mean's.  Returns the
+    sketch kernels' launches on this path."""
+    import math
+
+    import torch
+
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.rounds import OneRoundConfig, one_round, one_round_streaming
+    from repro_torch.rounds.one_round import quadratic_local_solver, solution_chunks
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(OR_M, OR_N, OR_D, generator=gen, device=dev)
+    w_star = torch.randn(OR_D, generator=gen, device=dev) / OR_D ** 0.5
+    y = x @ w_star + OR_SIGMA * torch.randn(OR_M, OR_N, generator=gen, device=dev)
+    data = (x, y)
+    atk = AttackConfig("sign_flip", alpha=0.1, scale=100.0)
+    chunks = math.ceil(OR_M / OR_CHUNK)
+    print(f"phase 9: data {(x.numel() + y.numel()) * 4 / 1e6:.0f} MB on the card, "
+          f"{chunks} chunks of {OR_CHUNK}")
+    chunk_fn, num_chunks, _, _ = solution_chunks(
+        quadratic_local_solver, data, atk, chunk_workers=OR_CHUNK)
+    rows = torch.cat([chunk_fn(j) for j in range(num_chunks)])  # the attacked solutions
+    width = (rows.amax(0) - rows.amin(0)) / OR_NBINS
+    total = {"minmax": 0, "histogram": 0}
+    errs, out = {}, {}
+    for method, exact_method in (("approx_median", "median"),
+                                 ("approx_trimmed_mean", "trimmed_mean")):
+        cfg = OneRoundConfig(method, beta=0.15)
+        torch.cuda.synchronize()
+        H.reset_launches()  # zeroed just before this method's run
+        t0 = time.perf_counter()
+        w = one_round_streaming(quadratic_local_solver, data, cfg, attack=atk,
+                                chunk_workers=OR_CHUNK, nbins=OR_NBINS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(H.LAUNCHES)  # read just after
+        exact = one_round(lambda r: r, rows, OneRoundConfig(exact_method, beta=0.15))
+        dev_ = (w - exact).abs()
+        within = bool((dev_ <= width * 1.0001 + 1e-6).all())
+        errs[method] = float(torch.linalg.vector_norm(w - w_star))
+        out[method] = {"seconds": dt, "err": errs[method], "launches": launches,
+                       "max_dev_from_exact": float(dev_.max()),
+                       "max_bin_width": float(width.max()), "within_one_bin": within}
+        check(within, f"one round {method}: more than one bin width from the exact one_round")
+        for k in total:
+            check(launches[k] == chunks, f"one round {method}: {launches[k]} {k} launches, "
+                                         f"want {chunks} (one a chunk a pass)")
+            total[k] += launches[k]
+    prof = profile_summary(lambda: one_round_streaming(
+        quadratic_local_solver, data, OneRoundConfig("approx_median"), attack=atk,
+        chunk_workers=OR_CHUNK, nbins=OR_NBINS), out["approx_median"]["seconds"] * 1e3)
+    print(json.dumps({"profile_one_round_streaming": "approx_median", **prof}))
+    t0 = time.perf_counter()
+    w_mean = one_round(quadratic_local_solver, data, OneRoundConfig("mean"), attack=atk)
+    torch.cuda.synchronize()
+    out["mean (exact, vmap over 10^5)"] = {"seconds": time.perf_counter() - t0,
+                                            "err": float(torch.linalg.vector_norm(w_mean - w_star))}
+    err_mean = out["mean (exact, vmap over 10^5)"]["err"]
+    print(json.dumps({"one_round_streaming": out}))
+    print(f"phase 9: ||w - w*||: approx_median {errs['approx_median']:.4g}, approx_trimmed_mean "
+          f"{errs['approx_trimmed_mean']:.4g}, mean {err_mean:.4g}")
+    check(err_mean > 10 * errs["approx_median"],
+          f"one round: the median does not beat the mean by 10x ({errs}, mean {err_mean})")
+    return total
+
+
+# ------------------------------------------------------- local-update rounds
+
+
+def local_update_cnn(dev, card: str):
+    """Phase 10: local-update rounds on the Table 3 CNN (phase 4's setup:
+    m=10, sign_flip alpha 0.1 scale 20), median and trimmed mean.  tau = 1:
+    the weights after 5 rounds bitwise robust_gd's after 5 iterations on the
+    card, both run with cuDNN's deterministic algorithms (its default
+    convolution backward may sum in a run-dependent order, so two robust_gd
+    runs can differ in the last bits; the line says whether they did here).
+    With the default algorithms too, tau = 1 must equal robust_gd bitwise
+    whenever two robust_gd runs do.
+    tau = 5: 10 rounds, the loss falls, one launch a round over all 8
+    leaves.  Then the steady-state round time at tau = 5 and a profile of one
+    round.  Returns the launches on this path."""
+    import torch
+
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.core.robust_gd import robust_gd
+    from repro_torch.kernels import robust_agg
+    from repro_torch.models.paper_models import cnn_loss
+    from repro_torch.rounds import engine
+    from repro_torch.rounds.local_update import (LocalUpdateConfig, local_update_gd,
+                                                 make_local_update_stages)
+
+    shards, params = cnn_setup(dev)
+    pooled = {"x": shards["x"].reshape(-1, 784), "y": shards["y"].reshape(-1)}
+    attack = AttackConfig(**CNN_ATTACK)
+    loss0 = float(cnn_loss(params, pooled))
+    total = {"median": 0, "trimmed_mean": 0}
+    lu = lambda method, tau, rounds: LocalUpdateConfig(  # noqa: E731
+        method=method, beta=0.1, step_size=0.05, tau=tau, num_rounds=rounds)
+    for method in ("median", "trimmed_mean"):
+        w_a, _ = robust_gd(cnn_loss, params, shards, cnn_config(method, 5), attack)
+        w_b, _ = robust_gd(cnn_loss, params, shards, cnn_config(method, 5), attack)
+        repeat = all(torch.equal(w_a[k], w_b[k]) for k in params)
+        w_lu0, _ = local_update_gd(cnn_loss, params, shards, lu(method, 1, 5), attack)
+        same_default = all(torch.equal(w_a[k], w_lu0[k]) for k in params)
+        torch.backends.cudnn.deterministic = True
+        try:
+            w_gd, _ = robust_gd(cnn_loss, params, shards, cnn_config(method, 5), attack)
+            torch.cuda.synchronize()
+            robust_agg.reset_launches()  # zeroed just before the tau = 1 run
+            w_lu, _ = local_update_gd(cnn_loss, params, shards, lu(method, 1, 5), attack)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        ran1, leaves1 = robust_agg.LAUNCHES[method], robust_agg.LEAVES[method]
+        same = all(torch.equal(w_gd[k], w_lu[k]) for k in params)
+        print(f"phase 10: {method:13s} tau=1, 5 rounds: bitwise robust_gd's 5 iterations "
+              f"(deterministic cuDNN): {same} ({ran1} launches, {leaves1} leaves); with "
+              f"cuDNN's default algorithms: two robust_gd runs bitwise equal: {repeat}, "
+              f"tau=1 bitwise the first: {same_default}")
+        check(same, f"local update {method}: tau=1 is not bitwise robust_gd on the card")
+        check(same_default or not repeat,
+              f"local update {method}: with cuDNN's default algorithms two robust_gd runs "
+              f"agree bitwise but tau=1 differs from them")
+        check(ran1 == 5 and leaves1 == 5 * CNN_LEAVES, f"local update {method} tau=1: "
+              f"{ran1} launches for {leaves1} leaves, want 5 for {5 * CNN_LEAVES}")
+        robust_agg.reset_launches()  # zeroed just before the tau = 5 run
+        t0 = time.perf_counter()
+        w5, losses = local_update_gd(cnn_loss, params, shards, lu(method, 5, 10), attack,
+                                     trajectory_fn=lambda w: cnn_loss(w, pooled))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ran5, leaves5 = robust_agg.LAUNCHES[method], robust_agg.LEAVES[method]
+        losses = [float(v) for v in losses]
+        print(f"phase 10: {method:13s} tau=5, 10 rounds: loss {loss0:.4f} -> {losses[-1]:.4f} "
+              f"({dt:.2f} s, {ran5} launches, {leaves5} leaves)")
+        check(all(v == v and abs(v) != float("inf") for v in losses),
+              f"local update {method}: loss not finite")
+        check(losses[-1] < loss0, f"local update {method}: loss did not fall")
+        check(ran5 == 10 and leaves5 == 10 * CNN_LEAVES, f"local update {method} tau=5: "
+              f"{ran5} launches for {leaves5} leaves, want 10 for {10 * CNN_LEAVES}")
+        total[method] = ran1 + ran5
+        # steady-state tau = 5 round time and one profiled round
+        body = engine.make_round_body(make_local_update_stages(
+            cnn_loss, shards, lu(method, 5, 10), attack))
+        state = engine.make_state(params)
+        state, _ = body(state, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in range(1, 6):
+            state, _ = body(state, r)
+        torch.cuda.synchronize()
+        round_ms = (time.perf_counter() - t0) / 5 * 1e3
+        prof = profile_summary(lambda: body(state, 6), round_ms)
+        print(json.dumps({"local_update_round_tau5": method, "card": card, **prof}))
+    return total
+
+
+# ------------------------------------------------ compressed federated rounds
+
+# tests/test_compression.py's population (d=8, noise 0.5, 3 clients per
+# cohort slot) and round knobs (lr 0.3, beta 0.1, 256 bins), at a 10^4 cohort
+# in fed_scale's chunks of 512
+COMP_POP = dict(num_clients=30_000, samples_per_client=16, dim=8, alpha=0.1, noise=0.5, seed=0)
+COMP_COHORT, COMP_CHUNK, COMP_ROUNDS = 10_000, 512, 5
+CONVERGED = 0.9  # a run converges when its last ||w - w*|| < CONVERGED x its first
+NO_CONVERGENCE = {("topk", "approx_median")}
+
+
+def compressed_fed_rounds(dev):
+    """Phase 11: each codec (int8, topk, count_sketch) for 5 rounds of
+    fed.rounds.run_rounds at a 10^4 cohort under sign_flip alpha 0.1, with
+    tests/test_compression.py's population and round knobs (COMP_POP),
+    approx_median and approx_trimmed_mean: ||w - w*|| after the last round
+    below CONVERGED times the first round's.  topk with the coordinate
+    median does not converge, on the card, on the CPU and in the reference
+    (NO_CONVERGENCE): a top quarter leaves ~3/4 of each coordinate's
+    payloads at 0, so the median sits near 0; that run is reported, held to
+    finite values and its launch counts, and not counted as converging.
+    Returns the sketch kernels' launches."""
+    import math
+
+    import torch
+
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.fed.population import ClientPopulation, PopulationConfig
+    from repro_torch.fed.rounds import AttackMixture, RoundConfig, run_rounds
+    from repro_torch.kernels import histogram_agg as H
+
+    pop = ClientPopulation(PopulationConfig(**COMP_POP), device=dev)
+    mix = AttackMixture((AttackConfig("sign_flip", alpha=0.1),))
+    chunks = math.ceil(COMP_COHORT / COMP_CHUNK)
+    total = {"minmax": 0, "histogram": 0}
+    for comp in ("int8", "topk", "count_sketch"):
+        for method in ("approx_median", "approx_trimmed_mean"):
+            rcfg = RoundConfig(num_rounds=COMP_ROUNDS, cohort_size=COMP_COHORT,
+                               chunk_clients=COMP_CHUNK, method=method, lr=0.3, seed=0,
+                               compression=comp)
+            torch.cuda.synchronize()
+            H.reset_launches()  # zeroed just before this run
+            t0 = time.perf_counter()
+            _, hist = run_rounds(pop, rcfg, mix)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(H.LAUNCHES)  # read just after
+            errs = [h["err"] for h in hist]
+            print(json.dumps({"compressed_fed_run": comp, "method": method,
+                              "rounds": COMP_ROUNDS, "seconds": dt, "err": errs,
+                              "launches": launches}))
+            check(all(math.isfinite(e) for e in errs), f"{comp} {method}: err not finite")
+            converged = errs[-1] < CONVERGED * errs[0]
+            print(f"phase 11: {comp:12s} {method:19s} ||w - w*|| {errs[0]:.4f} -> "
+                  f"{errs[-1]:.4f} (x{errs[-1] / errs[0]:.3f}): "
+                  f"{'converges' if converged else 'does NOT converge'}")
+            if (comp, method) not in NO_CONVERGENCE:
+                check(converged, f"{comp} {method}: did not converge (last ||w - w*|| not "
+                                 f"below {CONVERGED} x the first): {errs}")
+            for k in total:
+                check(launches[k] == chunks * COMP_ROUNDS,
+                      f"{comp} {method}: {launches[k]} {k} launches, want "
+                      f"{chunks * COMP_ROUNDS}")
+                total[k] += launches[k]
+    print(f"phase 11: under sign_flip int8 and count_sketch converge for both robust "
+          f"methods, topk for approx_trimmed_mean only ({chunks} chunks a round)")
+    return total
 
 
 def main() -> None:
@@ -1162,20 +1751,45 @@ def main() -> None:
     print(f"phase 2b: {time.perf_counter() - t0:.1f} s")
     approx_repeatable(dev)
     quickstart(dev)
-    launches = main_path(dev)
+
+    def on_path(label, fn, counts_of):
+        """fn() with its kernel inputs recorded; then every kernel that
+        launched on it is held against its plain version on them."""
+        with PathInputs() as rec:
+            out = fn()
+        held = rec.hold(label, worst)
+        ran = {k for k, v in counts_of(out).items() if k in worst and v}
+        check(ran <= held, f"{label}: {sorted(ran - held)} launched but not held on the "
+                           f"path's inputs")
+        return out
+
+    launches = on_path("phase 4", lambda: main_path(dev), lambda c: c)
     cpu_agreement(dev)
     table2_linreg(dev)
     rows = timings(dev, card)
     sketch_rows_ = sketch_timings(dev, card)
     cnn_step_time(dev)
     t0 = time.perf_counter()
-    pop, fed_launches = fed_path(dev)
+    pop, fed_launches = on_path("phase 6", lambda: fed_path(dev), lambda r: r[1])
     launches.update(fed_launches)
     fed_sketch_vs_exact(pop)
     fed_cpu_agreement(dev)
     fed_cli(dev)
     fed_profile(pop)
     print(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    c1_on_card(dev, worst)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    # launches per kernel on each path this slice added, each path's counts
+    # zeroed just before it and read just after
+    new_paths = {}
+    for phase, (path, fn) in enumerate((("table4_one_round", table4_one_round),
+                                        ("one_round_streaming", one_round_at_scale),
+                                        ("local_update", lambda d: local_update_cnn(d, card)),
+                                        ("compressed_fed_rounds", compressed_fed_rounds)), 8):
+        t0 = time.perf_counter()
+        new_paths[path] = on_path(f"phase {phase}", lambda: fn(dev), lambda c: c)
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")
@@ -1192,6 +1806,7 @@ def main() -> None:
             "generator": "src/repro_torch/kernels/select_codegen.py",
             "replaces": f"src/repro/kernels/robust_agg.py:{lines[name]}",
             "launches": launches[name], "leaves": launches[name + "_leaves"],
+            "launches_new_paths": {p: c.get(name, 0) for p, c in new_paths.items()},
             "max_abs_err": worst[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
@@ -1204,7 +1819,9 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/histogram_agg.cu",
             "replaces": f"src/repro/kernels/histogram_agg.py:{line}",
-            "launches": launches[name], "max_abs_err": worst[name],
+            "launches": launches[name],
+            "launches_new_paths": {p: c.get(name, 0) for p, c in new_paths.items()},
+            "max_abs_err": worst[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(card)

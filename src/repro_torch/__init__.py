@@ -6,10 +6,12 @@ tensors take ``device=`` (default ``"cuda"``) and raise when CUDA is
 missing rather than carrying on on the CPU; functions that receive
 tensors compute on the tensors' device.
 
-Ported so far: Algorithm 1 (robust distributed GD) on one device —
-kernels (selection network, the hand-written CUDA order-statistic
-kernels), core (aggregators, attacks shim, robust_gd, theory), attacks,
-data, models, checkpoint and the round engine.
+Ported so far, on one device: Algorithm 1 (robust distributed GD) —
+kernels (selection network, the hand-written CUDA order-statistic and
+sketch kernels), core (aggregators, attacks shim, robust_gd, theory),
+attacks, data, models, checkpoint and the round engine; synchronous
+federated rounds (``fed``); and the round programs (``rounds``: Algorithm
+2, local-update rounds, payload compression, communication accounting).
 """
 import torch
 

@@ -12,7 +12,7 @@ rounds) is not ported here.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 
 class GreedyScheduler:
@@ -73,3 +73,24 @@ class GreedyScheduler:
         self.reexplore = int(state["reexplore"])
         self._damage = [float(d) for d in state["damage"]]
         self._picked = {int(r): int(i) for r, i in state["picked"].items()}
+
+
+def schedule_indices(
+    schedule: str, num_attacks: int, num_rounds: int,
+    damages: Optional[Sequence[float]] = None,
+) -> list:
+    """The attack index each round of ``schedule`` (fixed, cycle or greedy)
+    picks against a fixed per-attack damage profile ``damages``."""
+    if schedule == "fixed":
+        return [0] * num_rounds
+    if schedule == "cycle":
+        return [r % num_attacks for r in range(num_rounds)]
+    if schedule == "greedy":
+        sched = GreedyScheduler(num_attacks)
+        out = []
+        for r in range(num_rounds):
+            i = sched.pick(r)
+            out.append(i)
+            sched.feedback(r, damages[i] if damages is not None else 0.0)
+        return out
+    raise ValueError(f"unknown schedule {schedule!r}")

@@ -102,6 +102,17 @@ def coordinate_trimmed_mean(x: torch.Tensor, beta: float) -> torch.Tensor:
     return kept.float().mean(dim=0).to(x.dtype)
 
 
+def coordinate_quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """Coordinate-wise empirical q-quantile over the worker axis
+    (nearest rank ``round(q * (m - 1))``, Python's rounding, no
+    interpolation)."""
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f"q must be in [0, 1], got {q}")
+    m = x.shape[0]
+    idx = min(m - 1, int(round(q * (m - 1))))
+    return torch.sort(x, dim=0).values[idx]
+
+
 def geometric_median(x: torch.Tensor, iters: int = 8, eps: float = 1e-6) -> torch.Tensor:
     """Geometric median over the worker axis via Weiszfeld iterations
     (rotation-equivariant vector median; gather-only)."""
@@ -236,11 +247,13 @@ def aggregate_leaves(leaves, method: str, beta: float = 0.1) -> list:
     ``[get_aggregator(method, beta)(x) for x in leaves]``.
 
     The median, and the trimmed mean with a trim of at least 1, over
-    2 <= m <= NETWORK_MAX_M rows of float32 / bfloat16 leaves take one call
-    of :func:`robust_agg.median_many` / :func:`robust_agg.trimmed_mean_many`
-    per (m, dtype, device) group: on the card one kernel launch covers the
-    group's leaves; on the CPU that call runs the plain version leaf by
-    leaf, which is what the per-leaf path runs too."""
+    2 <= m <= NETWORK_MAX_M rows of float32 / bfloat16 / float16 leaves with
+    at least one coordinate take one call of :func:`robust_agg.median_many` /
+    :func:`robust_agg.trimmed_mean_many` per (m, dtype, device) group: on the
+    card one kernel launch covers the group's leaves; on the CPU that call
+    runs the plain version leaf by leaf, which is what the per-leaf path runs
+    too.  Other leaves (float64, zero-width) take the per-leaf path, whose
+    route :func:`repro_torch.kernels.ops.auto_backend` states."""
     agg = get_aggregator(method, beta)
     out = [None] * len(leaves)
     groups: Dict[tuple, list] = {}
@@ -249,7 +262,7 @@ def aggregate_leaves(leaves, method: str, beta: float = 0.1) -> list:
             m = x.shape[0] if x.dim() else 0
             trim = int(beta * m) if method == "trimmed_mean" else 0
             if (2 <= m <= NETWORK_MAX_M and x.numel() > 0
-                    and x.dtype in (torch.float32, torch.bfloat16)
+                    and x.dtype in robust_agg.DTYPES
                     and x.device.type in ("cpu", "cuda")
                     and (method == "median" or 1 <= trim and 2 * trim < m)):
                 groups.setdefault((m, trim, x.dtype, x.device), []).append(i)

@@ -4,7 +4,8 @@ card) and synchronous cohort rounds.
 
 - population: lazily generated linear-regression clients
 - streaming:  the two-pass chunked sketch aggregator
-- rounds:     cohort sampling -> chunked robust aggregation -> optimizer
+- rounds:     cohort sampling -> (payload codec) -> chunked robust
+              aggregation -> optimizer
 - run:        the CLI, ``python -m repro_torch.fed.run``
 
 The reference's buffered async rounds (``async_rounds``, ``staleness``

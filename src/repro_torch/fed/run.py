@@ -17,6 +17,10 @@ Clean 10⁴-client population, 2048-client cohorts, histogram median::
 Attack mixture cycling sign_flip and alie each round::
 
     python -m repro_torch.fed.run --alpha 0.1 --attack sign_flip,alie
+
+int8-compressed client payloads (also topk, count_sketch)::
+
+    python -m repro_torch.fed.run --alpha 0.1 --compression int8
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.core import theory
 from repro_torch.core.attacks import AttackConfig
 from repro_torch.fed.population import ClientPopulation, PopulationConfig
 from repro_torch.fed.rounds import AttackMixture, RoundConfig, run_rounds
+from repro_torch.rounds import compression
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,6 +70,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tau: local SGD steps per round (1 = FedSGD)")
     p.add_argument("--local-lr", type=float, default=0.1,
                    help="local SGD lr used when --local-steps > 1")
+    p.add_argument("--compression", default="none",
+                   choices=list(compression.registered_compressions()),
+                   help="payload codec on the transmitted client "
+                        "gradients/deltas (rounds.compression); attacks "
+                        "observe and replace the DECODED wire values, and "
+                        "topk keeps per-client error-feedback residuals")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
@@ -99,7 +110,7 @@ def main(argv=None) -> int:
         chunk_clients=args.chunk, method=args.method, beta=args.beta,
         nbins=args.nbins, optimizer=args.optimizer,
         lr=args.lr, seed=args.seed, local_steps=args.local_steps,
-        local_lr=args.local_lr)
+        local_lr=args.local_lr, compression=args.compression)
     attacks = ()
     if args.alpha > 0:
         attacks = tuple(
@@ -112,7 +123,8 @@ def main(argv=None) -> int:
           f"heterogeneity={pcfg.heterogeneity}")
     print(f"rounds: {rcfg.num_rounds} x cohort {rcfg.cohort_size} "
           f"(chunks of {rcfg.chunk_clients}), method={rcfg.method}, "
-          f"nbins={rcfg.nbins}, tau={rcfg.local_steps}, device={pop.device}")
+          f"nbins={rcfg.nbins}, tau={rcfg.local_steps}, "
+          f"compression={rcfg.compression}, device={pop.device}")
     mixture = AttackMixture(attacks, schedule=args.schedule)
     if args.ckpt_dir:
         print(f"checkpoint: dir={args.ckpt_dir} every={args.ckpt_every} "

@@ -16,16 +16,16 @@
 // generated .cu files are written under build/repro_torch/ and built with
 // nvcc, many programs to a library (robust_agg.prepare).
 //
-// Bound: memory for f32, the integer units for bf16.  A call reads m*n*s
+// Bound: memory for f32, the integer units for bf16 and f16.  A call reads m*n*s
 // bytes and writes n*s per output (s the element size; B3 writes two).
 // The work is one integer min and one max per comparator per coordinate
-// (per two coordinates for bf16, whose 16-bit keys are packed two to a
+// (per two coordinates for bf16 and f16, whose 16-bit keys are packed two to a
 // register) plus a few integer operations per element for the keys and the
 // NaN flag.  Hopper issues 32-bit and packed 16x2 integer min/max (VIMNMX,
 // VIMNMX.S16x2) at one rate (scripts/select_variants.py measures it).  At
 // m = 32 the median program has 157 comparators: in f32 ~440 operations a
 // coordinate against 130 bytes, which the integer units finish in less
-// time than HBM takes to deliver the bytes; in bf16 the bytes halve, and
+// time than HBM takes to deliver the bytes; in bf16 and f16 the bytes halve, and
 // packing halves the exchanges, so both limits stay close.
 //
 // B3: fused_program(m, trim) has the same comparators and ranks as
@@ -38,26 +38,29 @@
 //
 // Design:
 // - Keys.  Each f32 value's bits b map to the int32 key
-//   b ^ ((b >> 31) & 0x7fffffff); each bf16 value's 16 bits h to the int16
-//   key h ^ ((h >> 15) & 0x7fff), two to a register (coordinate 2j in the
-//   low half).  On non-NaN values the key order is exactly jnp.minimum /
-//   jnp.maximum's order: -0 < +0, and +-inf and subnormals fall in place.
+//   b ^ ((b >> 31) & 0x7fffffff); each bf16 or f16 value's 16 bits h to the
+//   int16 key h ^ ((h >> 15) & 0x7fff), two to a register (coordinate 2j in
+//   the low half).  On non-NaN values the key order is exactly jnp.minimum /
+//   jnp.maximum's order in every one of the three types (sign-magnitude
+//   bits, the same map): -0 < +0, and +-inf and subnormals fall in place.
 //   A comparator is one integer min and one max in registers (__vmins2 /
-//   __vmaxs2 on a bf16 pair); decoding is the same map.
+//   __vmaxs2 on a 16-bit pair); decoding is the same map, then the exact
+//   widening to f32 (a shift for bf16, __half2float for f16, subnormals
+//   included).
 // - NaN.  Under jnp.minimum/maximum a NaN spreads to both outputs of every
 //   comparator it touches, and in every program every input wire reaches
 //   every requested rank wire (tests/test_torch_select_codegen.py checks
 //   this for m in 1..64, every trim), so a column holding a NaN gives NaN
 //   at every requested rank.  The flag is the column's largest |bits|
-//   (NaN iff above +inf's bits), taken at load time; the output is NaN
-//   there.
+//   (NaN iff above +inf's bits: 0x7f800000 f32, 0x7f80 bf16, 0x7c00 f16),
+//   taken at load time; the output is NaN there.
 // - Registers.  A thread owns V coordinates (select_codegen.coords_per_
 //   thread: at most 64 registers of keys, m * V for f32, m * V / 2 for
-//   bf16) and holds all its keys in registers: the program's indices are
-//   compile-time constants.
+//   bf16 and f16) and holds all its keys in registers: the program's
+//   indices are compile-time constants.
 // - Loads.  A leaf whose pointers are V-element aligned and whose n is a
 //   multiple of V takes one V-wide load per row (16 bytes at V = 4 f32 or
-//   V = 8 bf16) of V neighbouring coordinates; all m loads of a thread are
+//   V = 8 bf16 / f16) of V neighbouring coordinates; all m loads of a thread are
 //   issued before the first compare.  Otherwise the leaf takes the scalar
 //   path: thread t of a tile owns coordinates t, t + kThreads, ..., each
 //   load coalesced across the warp, with the ragged edge masked.
@@ -70,7 +73,9 @@
 // - Arithmetic, as the plain version's (selection_network.median_from_rows
 //   and band_mean_from_rows): even-m median (lo + hi) * 0.5 in f32; the band
 //   summed in rank order in f32 and divided truly (__fdiv_rn, after all the
-//   loads); bf16 rounded once with __float2bfloat16_rn.  B3 computes each
+//   loads); bf16 and f16 rounded once, with __float2bfloat16_rn /
+//   __float2half_rn (round to nearest even, to a subnormal where the value
+//   is one, as torch's .to(dtype) rounds).  B3 computes each
 //   output exactly as B1 and B2 do, from the same keys and NaN flag.  The
 //   _rn intrinsics keep the compiler from contracting or reassociating any
 //   of it, and the build does not flush subnormals.
@@ -78,6 +83,7 @@
 
 #include <climits>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -113,14 +119,15 @@ __device__ __forceinline__ float value_of(int key) {
   return __uint_as_float((uint32_t)key ^ ((uint32_t)(key >> 31) >> 1));
 }
 
-// bf16: two 16-bit keys a register (coordinate 2j in the low half)
+// bf16 and f16: two 16-bit keys a register (coordinate 2j in the low half)
 __device__ __forceinline__ uint32_t keys2_of(uint32_t w) {
   return w ^ (((w >> 15) & 0x00010001u) * 0x7fffu);
 }
 
-__device__ __forceinline__ float value_of_half(uint32_t w, int half) {
+// the 16 bits of the key in half `half` of w (the same map undoes itself)
+__device__ __forceinline__ uint32_t bits_of_half(uint32_t w, int half) {
   const uint32_t key = half ? w >> 16 : w & 0xffffu;
-  return __uint_as_float((key ^ ((key >> 15) * 0x7fffu)) << 16);
+  return key ^ ((key >> 15) * 0x7fffu);
 }
 
 template <int W>
@@ -148,8 +155,11 @@ __device__ __forceinline__ void exchange(uint32_t (&a)[W], uint32_t (&b)[W]) {
 
 template <typename T> struct Elem;
 
+// kInf: +inf's bits (above them |bits| is a NaN); widen: 16 bits -> the
+// exact f32 value; bits: f32 -> the type's bits, rounded once to nearest even
 template <> struct Elem<float> {
   static constexpr int kSize = 4;
+  static constexpr uint32_t kInf = 0x7f800000u;
   using Key = int;  // one key a register
   static __device__ uint32_t raw(const void* p, long long i) {
     return __ldg((const unsigned int*)p + i);
@@ -159,18 +169,37 @@ template <> struct Elem<float> {
 
 template <> struct Elem<__nv_bfloat16> {
   static constexpr int kSize = 2;
+  static constexpr uint32_t kInf = 0x7f80u;
   using Key = uint32_t;  // two keys a register
   static __device__ uint32_t raw(const void* p, long long i) {
     return __ldg((const unsigned short*)p + i);
+  }
+  static __device__ float widen(uint32_t h) { return __uint_as_float(h << 16); }
+  static __device__ uint32_t bits(float r) {
+    return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(r));
   }
   static __device__ void put(void* p, long long i, float r) {
     ((__nv_bfloat16*)p)[i] = __float2bfloat16_rn(r);
   }
 };
 
-__device__ __forceinline__ uint32_t bf16_bits(float r) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(r));
-}
+template <> struct Elem<__half> {
+  static constexpr int kSize = 2;
+  static constexpr uint32_t kInf = 0x7c00u;
+  using Key = uint32_t;  // two keys a register
+  static __device__ uint32_t raw(const void* p, long long i) {
+    return __ldg((const unsigned short*)p + i);
+  }
+  static __device__ float widen(uint32_t h) {
+    return __half2float(__ushort_as_half((unsigned short)h));
+  }
+  static __device__ uint32_t bits(float r) {
+    return (uint32_t)__half_as_ushort(__float2half_rn(r));
+  }
+  static __device__ void put(void* p, long long i, float r) {
+    ((__half*)p)[i] = __float2half_rn(r);
+  }
+};
 
 // W 32-bit words from one 4*W-byte load
 template <int W>
@@ -196,7 +225,7 @@ __device__ __forceinline__ void store_vec(void* p, long long i, const float (&r)
     if constexpr (Elem<T>::kSize == 4) {
       w[j] = __float_as_uint(r[j]);
     } else {
-      w[j] = bf16_bits(r[2 * j]) | (bf16_bits(r[2 * j + 1]) << 16);
+      w[j] = Elem<T>::bits(r[2 * j]) | (Elem<T>::bits(r[2 * j + 1]) << 16);
     }
   }
   char* a = (char*)p + i * Elem<T>::kSize;
@@ -209,54 +238,54 @@ __device__ __forceinline__ void store_vec(void* p, long long i, const float (&r)
   }
 }
 
-// the value of wire i at coordinate v
-template <typename K, int M, int W>
+// the value of wire i at coordinate v, as f32 (exact)
+template <typename T, typename K, int M, int W>
 __device__ __forceinline__ float value(const K (&k)[M][W], int i, int v) {
   if constexpr (std::is_same_v<K, int>) {  // one key a register
     return value_of(k[i][v]);
   } else {
-    return value_of_half(k[i][v / 2], v & 1);
+    return Elem<T>::widen(bits_of_half(k[i][v / 2], v & 1));
   }
 }
 
 // the median at coordinate v: the middle wire, or the f32 midpoint of the
 // two middle wires
-template <int M, typename K, int W>
+template <typename T, int M, typename K, int W>
 __device__ __forceinline__ float median_of(const K (&k)[M][W], int v) {
   if constexpr (M & 1) {
-    return value(k, M / 2, v);
+    return value<T>(k, M / 2, v);
   } else {
-    return __fmul_rn(__fadd_rn(value(k, M / 2 - 1, v), value(k, M / 2, v)), 0.5f);
+    return __fmul_rn(__fadd_rn(value<T>(k, M / 2 - 1, v), value<T>(k, M / 2, v)), 0.5f);
   }
 }
 
 // the band [kTrim, M - kTrim) at coordinate v, summed in rank order and
 // divided truly
-template <int M, int kTrim, typename K, int W>
+template <typename T, int M, int kTrim, typename K, int W>
 __device__ __forceinline__ float band_mean_of(const K (&k)[M][W], int v) {
-  float acc = value(k, kTrim, v);
+  float acc = value<T>(k, kTrim, v);
 #pragma unroll
-  for (int i = kTrim + 1; i < M - kTrim; ++i) acc = __fadd_rn(acc, value(k, i, v));
+  for (int i = kTrim + 1; i < M - kTrim; ++i) acc = __fadd_rn(acc, value<T>(k, i, v));
   return __fdiv_rn(acc, (float)(M - 2 * kTrim));
 }
 
 // the requested ranks' keys -> the output values (r; r2 for kFused), NaN
 // where the column held one
-template <int M, int V, int kKind, int kTrim, typename K, int W>
+template <typename T, int M, int V, int kKind, int kTrim, typename K, int W>
 __device__ __forceinline__ void finish(const K (&k)[M][W], const uint32_t (&mag)[W],
                                        float (&r)[V], float (&r2)[V]) {
   constexpr bool kPacked = W != V;
   const float qnan = __uint_as_float(0x7fc00000u);
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    const bool nan = kPacked ? ((v & 1 ? mag[v / 2] >> 16 : mag[v / 2] & 0xffffu) > 0x7f80u)
-                             : mag[v] > 0x7f800000u;
+    const bool nan = (kPacked ? (v & 1 ? mag[v / 2] >> 16 : mag[v / 2] & 0xffffu) : mag[v])
+                     > Elem<T>::kInf;
     if constexpr (kKind == kTrimmed) {
-      r[v] = nan ? qnan : band_mean_of<M, kTrim>(k, v);
+      r[v] = nan ? qnan : band_mean_of<T, M, kTrim>(k, v);
     } else {
-      r[v] = nan ? qnan : median_of(k, v);
+      r[v] = nan ? qnan : median_of<T>(k, v);
     }
-    if constexpr (kKind == kFused) r2[v] = nan ? qnan : band_mean_of<M, kTrim>(k, v);
+    if constexpr (kKind == kFused) r2[v] = nan ? qnan : band_mean_of<T, M, kTrim>(k, v);
   }
 }
 
@@ -267,7 +296,7 @@ leaf_select_kernel(const __grid_constant__ Batch batch) {
   constexpr bool kPacked = Elem<T>::kSize == 2;
   constexpr int W = kPacked ? V / 2 : V;  // key registers a row
   using K = typename Elem<T>::Key;
-  static_assert(!kPacked || V % 2 == 0, "bf16 keys come in pairs");
+  static_assert(!kPacked || V % 2 == 0, "16-bit keys come in pairs");
   const long long b = blockIdx.x;
   int l = 0;
 #pragma unroll
@@ -281,7 +310,7 @@ leaf_select_kernel(const __grid_constant__ Batch batch) {
                            : tile * kThreads * V + threadIdx.x;
   if (c0 >= n) return;  // no barrier below
 
-  // raw words: f32 bits of coordinate w, or bf16 bits of coordinates 2w
+  // raw words: f32 bits of coordinate w, or 16-bit bits of coordinates 2w
   // (low half) and 2w + 1 (high half); all loads before the first compare
   uint32_t raw[M][W];
   if (vec) {
@@ -325,7 +354,7 @@ leaf_select_kernel(const __grid_constant__ Batch batch) {
   }
   P::template run<K, W>(k);
   float r[V], r2[V];  // r2: kFused's trimmed mean
-  finish<M, V, kKind, kTrim>(k, mag, r, r2);
+  finish<T, M, V, kKind, kTrim>(k, mag, r, r2);
   if (vec) {
     store_vec<T, V>(leaf.out, c0, r);
     if constexpr (kKind == kFused) store_vec<T, V>(leaf.out2, c0, r2);

@@ -11,8 +11,14 @@ Backends:
 - ``sort``     the ``torch.sort`` oracle (:mod:`ref`), and the path for
   m above the network limit.
 
-``auto`` picks ``cuda`` for CUDA tensors with m <= NETWORK_MAX_M,
-``network`` for CPU tensors with 2 <= m <= NETWORK_MAX_M, else ``sort``.
+``auto`` decides by shape, dtype and device alone, before any kernel runs
+(:func:`route`): ``empty`` (no coordinates: an empty result, no
+launch), ``sort`` above NETWORK_MAX_M rows, ``cuda`` for CUDA tensors of the
+kernels' dtypes (f32, bf16, f16), ``network`` for every other tensor with
+m >= 2 (the CPU, and float64 on the card: the reference, too, aggregates
+float64 only through its jnp selection network, never a kernel), else
+``sort``.  A kernel that fails to build or launch raises; nothing falls
+back.
 ``fused_median_trimmed`` returns median AND trimmed mean from one pass.
 """
 from __future__ import annotations
@@ -35,14 +41,27 @@ def _check_network_m(m: int) -> None:
             "use backend='sort' (or 'auto') for larger worker counts")
 
 
+def route(m: int, n: int, dtype: torch.dtype, device_type: str) -> str:
+    """The route ``backend="auto"`` takes for m rows of n coordinates of
+    ``dtype`` on a ``device_type`` ("cpu" or "cuda") tensor."""
+    if n == 0:
+        return "empty"
+    if m > NETWORK_MAX_M:
+        return "sort"
+    if device_type == "cuda" and dtype in robust_agg.DTYPES:
+        return "cuda"
+    return "network" if m >= 2 else "sort"
+
+
+def auto_backend(x: torch.Tensor) -> str:
+    """The route ``backend="auto"`` takes for the (m, ...) tensor ``x``."""
+    return route(x.shape[0], x[0].numel(), x.dtype, x.device.type)
+
+
 def _backend(backend: str, x: torch.Tensor) -> str:
     m = x.shape[0]
     if backend == "auto":
-        if m > NETWORK_MAX_M:
-            return "sort"
-        if x.is_cuda:
-            return "cuda"
-        return "network" if m >= 2 else "sort"
+        return auto_backend(x)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; want one of {BACKENDS}")
     if backend in ("cuda", "network"):
@@ -62,8 +81,10 @@ def robust_aggregate(
 ) -> torch.Tensor:
     """Aggregate (m, ...) -> (...) coordinate-wise with the given method."""
     m = x.shape[0]
-    flat = x.reshape(m, -1).contiguous()
     backend = _backend(backend, x)
+    if backend == "empty" and method in ("median", "trimmed_mean", "mean"):
+        return torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    flat = x.reshape(m, -1).contiguous()
     if method == "median":
         if backend == "cuda":
             out = robust_agg.median(flat)
@@ -99,8 +120,11 @@ def fused_median_trimmed(
     """
     m = x.shape[0]
     trim = int(beta * m)
-    flat = x.reshape(m, -1).contiguous()
     backend = _backend(backend, x)
+    if backend == "empty":
+        return (torch.empty(x.shape[1:], dtype=x.dtype, device=x.device),
+                torch.empty(x.shape[1:], dtype=x.dtype, device=x.device))
+    flat = x.reshape(m, -1).contiguous()
     if backend == "cuda":
         med, tm = robust_agg.fused_median_trimmed(flat, trim)
     elif backend == "network":

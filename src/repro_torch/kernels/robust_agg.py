@@ -22,8 +22,10 @@ kernel's program with a second output (the median, from the same keys).
 each, in parallel); a program not prepared is built at its first use.
 Everything is built by :mod:`repro_torch.kernels.build` into
 ``build/repro_torch/`` at the repository root and loaded with ctypes.
-Bound: memory — m*n*s bytes read and n*s written per output (s the element
-size); the header says what the design does about it.
+The kernels take float32, bfloat16 and float16 leaves (float16 keys are
+packed two to a register, as bfloat16's).  Bound: memory — m*n*s bytes read
+and n*s written per output (s the element size); the header says what the
+design does about it.
 
 Device rule: a CPU tensor takes the plain version (the torch executor of
 the same comparator program in :mod:`selection_network`); a CUDA tensor
@@ -49,6 +51,8 @@ from repro_torch.kernels import selection_network as SN
 
 BUILD_DIR = _build.BUILD_DIR
 FUSED = "fused_median_trimmed"
+#: the element types the kernels take
+DTYPES = G.DTYPES
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {k: 0 for k in G.KINDS}
@@ -130,8 +134,8 @@ def _handle(kind: str, m: int, trim: int, dtype: torch.dtype):
 def _check(x: torch.Tensor) -> None:
     if x.dim() != 2:
         raise ValueError(f"expected an (m, n) matrix, got shape {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"expected float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"expected float32, bfloat16 or float16, got {x.dtype}")
     m, n = x.shape
     if not 1 <= m <= SN.NETWORK_MAX_M:
         raise ValueError(f"the kernels take 1 <= m <= {SN.NETWORK_MAX_M}, got m={m}")

@@ -6,7 +6,7 @@ Each comparator program of :mod:`selection_network` (``median_program(m)``,
 the generator emits one ``CX(i, j)`` per comparator, in the program's
 order, into a struct whose ``run`` works on the thread's key registers
 ``k[m][W]`` (an int32 key per f32 coordinate, two 16-bit keys per register
-for bf16) with compile-time indices, so the column lives in registers and
+for bf16 and f16) with compile-time indices, so the column lives in registers and
 no comparator list lives in memory.  The fused program has the trimmed program's comparators and
 ranks (the band [trim, m - trim) holds the median ranks, as 2·trim < m),
 so B3 is B2 with a second output read from the same keys.
@@ -42,11 +42,14 @@ THREADS = 128
 #: leaves one launch takes, passed by value in the kernel's parameters
 #: (``sel::kMaxLeaves`` in the header)
 MAX_LEAVES = 16
-#: 32-bit registers of keys a thread holds: m * V (f32) or m * V / 2 (bf16,
-#: two 16-bit keys a register) <= KEY_BUDGET
+#: 32-bit registers of keys a thread holds: m * V (f32) or m * V / 2 (bf16
+#: and f16, two 16-bit keys a register) <= KEY_BUDGET
 KEY_BUDGET = 64
 
-_DTYPES = {torch.float32: ("f32", "float"), torch.bfloat16: ("bf16", "__nv_bfloat16")}
+_DTYPES = {torch.float32: ("f32", "float"), torch.bfloat16: ("bf16", "__nv_bfloat16"),
+           torch.float16: ("f16", "__half")}
+#: the element types the kernels take
+DTYPES = tuple(_DTYPES)
 
 
 class Spec(NamedTuple):
@@ -64,7 +67,7 @@ def spec(kind: str, m: int, trim: int, dtype: torch.dtype) -> Spec:
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}; want one of {KINDS}")
     if dtype not in _DTYPES:
-        raise TypeError(f"expected float32 or bfloat16, got {dtype}")
+        raise TypeError(f"expected float32, bfloat16 or float16, got {dtype}")
     if not 1 <= m <= SN.NETWORK_MAX_M:
         raise ValueError(f"the kernels take 1 <= m <= {SN.NETWORK_MAX_M}, got m={m}")
     if kind == "median":
@@ -86,9 +89,9 @@ def program(kind: str, m: int, trim: int) -> SN.SelectionProgram:
 @functools.lru_cache(maxsize=None)
 def coords_per_thread(m: int, dtype: torch.dtype) -> int:
     """V, the coordinates a thread owns: the widest load (16 bytes: 4 f32
-    or 8 bf16) halved until the thread's key registers (m * V for f32,
-    m * V / 2 for bf16) fit KEY_BUDGET.  bf16 keeps V >= 2: its keys come in
-    pairs."""
+    or 8 bf16 / f16) halved until the thread's key registers (m * V for f32,
+    m * V / 2 for the 16-bit types) fit KEY_BUDGET.  The 16-bit types keep
+    V >= 2: their keys come in pairs."""
     if dtype == torch.float32:
         v, per_register, least = 4, 1, 1
     else:

@@ -8,12 +8,14 @@ round, worker, ...), on every device.
 
 - :func:`generator` — a ``torch.Generator`` seeded from a hash of
   (seed, data...), for draws made once per round or chunk;
-- :func:`normal` — a counter-based normal draw keyed by (seed, stream
-  tag, id, element index), vectorised over a whole tensor of ids on their
-  device.  The virtual clients of :mod:`repro_torch.fed.population` draw
-  their shards from it: a client's numbers are a pure function of (seed,
-  client id), whichever chunk it is computed in, and a chunk of 512
-  clients is one batch of elementwise ops instead of 512 generators.
+- :func:`normal` / :func:`uniform` — counter-based normal and uniform
+  draws keyed by (seed, stream tag, id, element index), vectorised over a
+  whole tensor of ids on their device.  The virtual clients of
+  :mod:`repro_torch.fed.population` draw their shards from ``normal``, and
+  the federated int8 codec its dither from ``uniform``: a client's numbers
+  are a pure function of (seed, client id), whichever chunk it is computed
+  in, and a chunk of 512 clients is one batch of elementwise ops instead
+  of 512 generators.
 """
 from __future__ import annotations
 
@@ -82,3 +84,13 @@ def normal(seed: int, tag: int, ids: torch.Tensor, count: int) -> torch.Tensor:
     theta = (2.0 * math.pi) * u2
     z = torch.stack((r * torch.cos(theta), r * torch.sin(theta)), dim=-1)
     return z.reshape(ids.shape[0], 2 * pairs)[:, :count].to(torch.float32)
+
+
+def uniform(seed: int, tag: int, ids: torch.Tensor, count: int) -> torch.Tensor:
+    """``(len(ids), count)`` float32 uniforms in [0, 1) on ``ids``' device,
+    with 24-bit resolution (exact in float32, the same bits on every
+    device).  Element ``j`` of row ``i`` depends only on (seed, tag,
+    ids[i], j)."""
+    ctr = torch.arange(count, dtype=torch.int64, device=ids.device)
+    h = _bits(seed, tag, ids, ctr)
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))

@@ -1,7 +1,9 @@
-"""Round bodies shared by the round programs.  So far only the local-SGD
-scan that local-update rounds and the federated ``client_deltas`` run;
-the reference's ``torch.distributed`` strategies come with the multi-GPU
-port."""
+"""Round bodies shared by the round programs: the local-SGD scan that the
+federated ``client_deltas`` run.  Single-device local-update rounds live in
+:mod:`repro_torch.rounds.local_update` (their first local step keeps
+robust_gd's vmap layout, which holds τ = 1 bit for bit to Algorithm 1).
+The reference's ``torch.distributed`` strategies, ``make_local_update_round``
+and ``one_round_distributed`` come with the multi-GPU port."""
 from __future__ import annotations
 
 from typing import Callable

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
+import torch
+
 
 def tree_map(fn: Callable, tree, *rest):
     """Apply ``fn`` leaf-wise over ``tree`` and structurally identical
@@ -36,3 +38,31 @@ def tree_leaves_with_path(tree) -> List[Tuple[str, Any]]:
 
 def tree_leaves(tree) -> list:
     return [x for _, x in tree_leaves_with_path(tree)]
+
+
+def tree_unflatten_like(tree, leaves: list):
+    """A tree shaped like ``tree`` whose leaves are ``leaves``, in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def ravel(tree) -> Tuple[torch.Tensor, Callable]:
+    """Flatten a tree of tensors into one 1-D tensor (leaves in
+    :func:`tree_leaves` order, each row-major), and the inverse, which
+    restores every leaf's shape and dtype — the port's
+    ``jax.flatten_util.ravel_pytree``, except that dict leaves come in
+    insertion order (JAX sorts the keys).  The flat vector takes the
+    leaves' common dtype (torch's type promotion)."""
+    leaves = tree_leaves(tree)
+    shapes = [t.shape for t in leaves]
+    dtypes = [t.dtype for t in leaves]
+    sizes = [t.numel() for t in leaves]
+    flat = torch.cat([t.reshape(-1) for t in leaves])
+
+    def unravel(v: torch.Tensor):
+        parts = torch.split(v, sizes)
+        return tree_unflatten_like(tree, [p.reshape(shape).to(dt) for p, shape, dt
+                                          in zip(parts, shapes, dtypes)])
+
+    return flat, unravel

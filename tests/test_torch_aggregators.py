@@ -122,3 +122,110 @@ def test_sketch_counts_exact_and_estimators_match():
         np.asarray(JH.trimmed_mean_from_hist(jc, js, jlo, jw, 33, 0.2)), **TOL)
     c2, s2 = H.hist_update(counts, None, torch.from_numpy(x), lo, width)
     assert s2 is None and torch.equal(c2, 2 * counts)
+
+
+# --------------------------------------- float16, float64 and empty leaves
+#
+# The route of the exact median / trimmed mean is decided by shape, dtype
+# and device before any kernel runs (ops.route).  float16 takes the kernels
+# on the card and the network on the CPU; float64 takes the network on both
+# (the reference aggregates float64 only through its jnp network); a leaf
+# with no coordinates takes no launch at all.  Parity is bitwise: the
+# reference runs the same selection network on the same inputs.
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16,
+                                   torch.float64])
+@pytest.mark.parametrize("m,n", [(1, 5), (10, 5), (64, 5), (65, 5), (10, 0), (70, 0)])
+def test_auto_route_by_dtype_device_and_width(device, dtype, m, n):
+    from repro_torch.kernels import ops
+
+    if n == 0:
+        want = "empty"
+    elif m > 64:
+        want = "sort"
+    elif device == "cuda" and dtype != torch.float64:
+        want = "cuda"
+    else:
+        want = "network" if m >= 2 else "sort"
+    assert ops.route(m, n, dtype, device) == want
+    if device == "cpu":
+        assert ops.auto_backend(torch.zeros((m, n, 1), dtype=dtype)) == want
+
+
+def _as_jax(x, dtype):
+    return jnp.asarray(x, dtype={torch.float16: jnp.float16, torch.float64: jnp.float64}[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+@pytest.mark.parametrize("m", [2, 3, 10, 31, 64])
+@pytest.mark.parametrize("name,beta", [("median", 0.1), ("trimmed_mean", 0.1),
+                                       ("trimmed_mean", 0.3)])
+def test_half_and_double_match_reference_bitwise(dtype, m, name, beta):
+    import jax
+
+    x = _x(m, shape=(5, 9), seed=m)
+    x[0, 0, 0] = np.nan
+    x[:, 0, 1] = 0.0
+    x[: m // 2, 0, 1] = -0.0
+    x[: max(1, m // 4), 0, 2] = np.inf
+    x[:, 0, 3] = 3e-5 * np.sign(x[:, 0, 3])  # f16 subnormals
+    t = torch.from_numpy(x).to(dtype)
+    got = A.get_aggregator(name, beta)(t)
+    with jax.enable_x64(True):
+        want = np.asarray(JA.get_aggregator(name, beta)(_as_jax(x, dtype)))
+    assert got.dtype == dtype and got.shape == want.shape == (5, 9)
+    g, w = got.numpy(), want
+    assert np.array_equal(np.isnan(g), np.isnan(w))
+    if name == "trimmed_mean" and int(beta * m) == 0:  # the plain mean: a sum's order
+        np.testing.assert_allclose(g, w, **TOL)
+        return
+    ints = np.int16 if dtype == torch.float16 else np.int64
+    assert np.array_equal(np.where(np.isnan(g), 0, g).view(ints),
+                          np.where(np.isnan(w), 0, w).astype(g.dtype).view(ints))
+
+
+@pytest.mark.parametrize("name", ["median", "trimmed_mean"])
+def test_empty_leaf_takes_no_kernel_and_matches_reference(name, monkeypatch):
+    from repro_torch.kernels import robust_agg
+    from repro_torch.kernels import selection_network as SN
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an empty leaf reached a kernel or the network")
+
+    for mod, fn in ((robust_agg, "median_many"), (robust_agg, "trimmed_mean_many"),
+                    (SN, "median_select"), (SN, "trimmed_mean_select")):
+        monkeypatch.setattr(mod, fn, refuse)
+    for m, shape in ((10, (0,)), (10, (3, 0)), (70, (0,))):
+        for dtype in (torch.float32, torch.float16, torch.float64):
+            x = torch.zeros((m,) + shape, dtype=dtype)
+            got = A.get_aggregator(name, 0.1)(x)
+            want = JA.get_aggregator(name, 0.1)(jnp.zeros((m,) + shape))
+            assert got.shape == tuple(want.shape) == shape and got.dtype == dtype
+    tree = {"e": torch.zeros(10, 0), "f": torch.zeros(10, 4, 0, dtype=torch.float16)}
+    out = A.tree_aggregate(tree, name, 0.1)
+    assert out["e"].shape == (0,) and out["f"].shape == (4, 0)
+    assert out["f"].dtype == torch.float16
+
+
+@pytest.mark.parametrize("name", ["median", "trimmed_mean"])
+def test_mixed_dtype_tree_matches_reference_bitwise(name):
+    import jax
+
+    rng = np.random.default_rng(11)
+    leaves = {"h": (rng.standard_normal((10, 7)), torch.float16),
+              "d": (rng.standard_normal((10, 3, 2)), torch.float64),
+              "f": (rng.standard_normal((10, 33)), torch.float32),
+              "e": (np.zeros((10, 0)), torch.float16)}
+    tree = {k: torch.from_numpy(v).to(dt) for k, (v, dt) in leaves.items()}
+    got = A.tree_aggregate(tree, name, 0.1)
+    with jax.enable_x64(True):
+        want = JA.tree_aggregate(
+            {k: jnp.asarray(v, dtype={torch.float16: jnp.float16, torch.float64: jnp.float64,
+                                      torch.float32: jnp.float32}[dt])
+             for k, (v, dt) in leaves.items()}, name, 0.1)
+        want = {k: np.asarray(v) for k, v in want.items()}
+    for k in tree:
+        assert got[k].dtype == tree[k].dtype and got[k].shape == want[k].shape
+        assert np.array_equal(got[k].numpy(), want[k]), k

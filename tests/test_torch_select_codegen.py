@@ -12,13 +12,13 @@ bitwise against the plain versions there).  Here:
   wire reaches every requested rank wire, so one NaN in a column makes every
   requested rank NaN under jnp.minimum/maximum;
 - a torch emulation of the kernels' arithmetic (int32 keys for f32, int16
-  keys for bf16, integer min/max through the program, the NaN flag,
+  keys for bf16 and f16, integer min/max through the program, the NaN flag,
   decoding, the f32 midpoint, the rank-order band sum with true division,
-  one rounding to bf16) equals
+  one rounding to bf16 / f16) equals
   ``SN.median_select`` / ``SN.trimmed_mean_select`` bitwise, and B3's two
   outputs from one set of keys equal ``SN.median_and_trimmed_select``
   bitwise (NaN matched by position), on rows with NaN, ±0, ±inf, ±1e30 and
-  subnormals;
+  subnormals (f16's own: ±65504, its subnormals and its smallest normal);
 - the launch plan and the kernels' block-to-leaf mapping are pinned;
 - the grouped ``tree_aggregate`` equals the per-leaf one and the
   reference's ``repro.core.aggregators.tree_aggregate`` bitwise.
@@ -40,7 +40,8 @@ torch.set_num_threads(2)
 
 ALL_M = list(range(1, SN.NETWORK_MAX_M + 1))
 EMULATED_M = [1, 2, 3, 5, 8, 10, 16, 17, 31, 32, 40, 63, 64]
-DTYPES = [torch.float32, torch.bfloat16]
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+DTYPE_IDS = ["f32", "bf16", "f16"]
 
 
 def _programs(m):
@@ -123,6 +124,9 @@ def test_fused_spec_symbol_and_entry():
     assert f'extern "C" int ra_sel_fu_m32_t3_bf16(' in src
     assert "sel::launch<__nv_bfloat16, fu_m32_t3, 4, sel::kFused, 3>" in src
     assert "// median and trim-3 band of m=32" in src
+    h = G.spec("fused_median_trimmed", 32, 3, torch.float16)
+    assert G.symbol(h) == "ra_sel_fu_m32_t3_f16"
+    assert "sel::launch<__half, fu_m32_t3, 4, sel::kFused, 3>" in G.emit_source([h])
     assert G.cost(s) == G.cost(G.spec("trimmed_mean", 32, 3, torch.bfloat16))
 
 
@@ -136,7 +140,7 @@ def test_source_defines_each_struct_once_across_kinds_and_dtypes():
     assert sorted(structs) == ["fu_m10_t1", "med_m10", "tm_m10_t1"]
     entries = re.findall(r'^extern "C" int (ra_sel_\w+)\(', src, flags=re.M)
     assert sorted(entries) == sorted(G.symbol(s) for s in specs)
-    for d, v in (("float", 4), ("__nv_bfloat16", 8)):
+    for d, v in (("float", 4), ("__nv_bfloat16", 8), ("__half", 8)):
         assert f"sel::launch<{d}, fu_m10_t1, {v}, sel::kFused, 1>" in src
         assert f"sel::launch<{d}, tm_m10_t1, {v}, sel::kTrimmed, 1>" in src
 
@@ -159,7 +163,8 @@ def test_partition_covers_each_spec_once_and_balances():
 
 def test_coords_per_thread_keeps_the_keys_in_budget():
     for m in ALL_M:
-        for dtype, widest, per_register in ((torch.float32, 4, 1), (torch.bfloat16, 8, 2)):
+        for dtype, widest, per_register in ((torch.float32, 4, 1), (torch.bfloat16, 8, 2),
+                                            (torch.float16, 8, 2)):
             v = G.coords_per_thread(m, dtype)
             registers = m * v // per_register
             assert v in (1, 2, 4, 8) and v <= widest and v >= per_register
@@ -167,8 +172,9 @@ def test_coords_per_thread_keeps_the_keys_in_budget():
             assert v == widest or 2 * registers > G.KEY_BUDGET
     assert [G.coords_per_thread(m, torch.float32) for m in (1, 16, 17, 32, 33, 64)] == \
         [4, 4, 2, 2, 1, 1]
-    assert [G.coords_per_thread(m, torch.bfloat16) for m in (1, 16, 17, 32, 33, 64)] == \
-        [8, 8, 4, 4, 2, 2]
+    for dtype in (torch.bfloat16, torch.float16):
+        assert [G.coords_per_thread(m, dtype) for m in (1, 16, 17, 32, 33, 64)] == \
+            [8, 8, 4, 4, 2, 2]
 
 
 @pytest.mark.parametrize("m,n,dtype,aligned,plan", [
@@ -184,6 +190,8 @@ def test_coords_per_thread_keeps_the_keys_in_budget():
     (32, 1 << 24, torch.bfloat16, True, G.SelectPlan(4, 8, 128, False)),
     (64, 1 << 20, torch.bfloat16, True, G.SelectPlan(2, 4, 128, False)),
     (16, 4097, torch.bfloat16, True, G.SelectPlan(8, 2, 128, True)),
+    (32, 1 << 24, torch.float16, True, G.SelectPlan(4, 8, 128, False)),
+    (10, 50176, torch.float16, False, G.SelectPlan(8, 2, 128, True)),
 ])
 def test_select_plan_pinned(m, n, dtype, aligned, plan):
     assert G.select_plan(m, n, dtype, aligned) == plan
@@ -228,18 +236,21 @@ def test_blocks_cover_every_coordinate_of_every_leaf_once(coords):
 
 def _keys(x):
     """Signed keys (held in int64) and |bits| of each value: int32 keys of
-    f32 bits, int16 keys of bf16 bits."""
-    width = 16 if x.dtype == torch.bfloat16 else 32
+    f32 bits, int16 keys of bf16 and f16 bits."""
+    width = 32 if x.dtype == torch.float32 else 16
     ints = x.view(torch.int16 if width == 16 else torch.int32).to(torch.int64)
     mask = (1 << (width - 1)) - 1  # 0x7fff or 0x7fffffff
     return ints ^ ((ints >> (width - 1)) & mask), ints & mask
 
 
 def _value(key, dtype):
-    """The f32 value of a key (a bf16 value widened exactly)."""
+    """The f32 value of a key (a bf16 or f16 value widened exactly)."""
     if dtype == torch.bfloat16:
         bits = (key ^ ((key >> 15) & 0x7FFF)) & 0xFFFF
         return (bits << 16).to(torch.int32).view(torch.float32)  # wraps like a shift
+    if dtype == torch.float16:
+        bits = key ^ ((key >> 15) & 0x7FFF)  # the int16 bits, sign included
+        return bits.to(torch.int16).view(torch.float16).float()
     return (key ^ ((key >> 31) & 0x7FFFFFFF)).to(torch.int32).view(torch.float32)
 
 
@@ -248,7 +259,8 @@ def emulate(x, kind, trim):
     fused kernel gives (median, trimmed mean) from one set of keys."""
     m = x.shape[0]
     key, mag = _keys(x)
-    nan = (mag > (0x7F80 if x.dtype == torch.bfloat16 else 0x7F800000)).any(0)
+    inf = {torch.float32: 0x7F800000, torch.bfloat16: 0x7F80, torch.float16: 0x7C00}[x.dtype]
+    nan = (mag > inf).any(0)
     k = list(key.unbind(0))
     for i, j in G.program(kind, m, trim).comparators:
         k[i], k[j] = torch.minimum(k[i], k[j]), torch.maximum(k[i], k[j])
@@ -275,20 +287,25 @@ def emulate(x, kind, trim):
 
 SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, 1e30, -1e30, 1e-40, -1e-40, 1.4e-45, -1.4e-45,
                      1.1754944e-38, -3e-39, 1e-45], dtype=np.float32)
+# the same roles in f16: its largest finite value, its subnormals (down to
+# 2^-24) and its smallest normal 2^-14
+HALF_SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, 65504.0, -65504.0, 3e-5, -3e-5, 2 ** -24,
+                          -(2 ** -24), 2 ** -14, -4e-6, 1e-7], dtype=np.float32)
 
 
 def special_rows(m, n, seed, dtype):
     """N(0,1) rows; a quarter of the values drawn from ±0, ±inf, ±1e30 and
-    f32 subnormals; one NaN column, one all-±0 column, one column of
-    subnormals only and one of ±inf only."""
+    f32 subnormals (for f16: ±65504 and f16 subnormals); one NaN column, one
+    all-±0 column, one column of subnormals only and one of ±inf only."""
+    specials = HALF_SPECIALS if dtype == torch.float16 else SPECIALS
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((m, n)).astype(np.float32)
     pick = rng.random((m, n)) < 0.25
-    x[pick] = SPECIALS[rng.integers(0, len(SPECIALS), int(pick.sum()))]
+    x[pick] = specials[rng.integers(0, len(specials), int(pick.sum()))]
     x[m // 2, 0] = np.nan
     x[:, 1] = np.where(rng.random(m) < 0.5, -0.0, 0.0)
-    x[:, 2] = rng.choice(SPECIALS[6:], m)
-    x[:, 3] = rng.choice(SPECIALS[2:4], m)
+    x[:, 2] = rng.choice(specials[6:], m)
+    x[:, 3] = rng.choice(specials[2:4], m)
     return torch.from_numpy(x).to(dtype)
 
 
@@ -302,7 +319,7 @@ def assert_bitwise(got, want, msg=""):
     assert bad.numel() == 0, f"{msg}: {bad.numel()} mismatches, first at {bad[:5].tolist()}"
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("m", EMULATED_M)
 def test_emulated_kernel_arithmetic_is_the_plain_version_bitwise(m, dtype):
     x = special_rows(m, 97, seed=m, dtype=dtype)
@@ -312,7 +329,7 @@ def test_emulated_kernel_arithmetic_is_the_plain_version_bitwise(m, dtype):
                        f"trimmed m={m} trim={trim}")
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("m", EMULATED_M)
 def test_emulated_fused_kernel_is_the_plain_version_bitwise(m, dtype):
     x = special_rows(m, 97, seed=100 + m, dtype=dtype)
@@ -327,8 +344,9 @@ def test_emulated_fused_kernel_is_the_plain_version_bitwise(m, dtype):
 
 
 def test_key_order_is_jnp_order_on_special_values():
-    vals = torch.tensor([-np.inf, -1e30, -1.0, -1.1754944e-38, -1e-40, -1.4e-45, -0.0, 0.0,
-                         1.4e-45, 1e-40, 1.1754944e-38, 1.0, 1e30, np.inf])
+    vals = torch.tensor([-np.inf, -1e30, -65504.0, -1.0, -2 ** -14, -3e-5, -(2 ** -24),
+                         -1.1754944e-38, -1e-40, -1.4e-45, -0.0, 0.0, 1.4e-45, 1e-40,
+                         1.1754944e-38, 2 ** -24, 3e-5, 2 ** -14, 1.0, 65504.0, 1e30, np.inf])
     for dtype in DTYPES:
         v = vals.to(dtype)
         keep = torch.cat([torch.tensor([True]), v[1:].float() != v[:-1].float()])
@@ -358,11 +376,12 @@ def _leaves(m, dtype, seed):
 
 
 def _to_jax(t):
-    return jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16 if t.dtype == torch.bfloat16
-                       else jnp.float32)
+    return jnp.asarray(t.float().numpy(), dtype={torch.bfloat16: jnp.bfloat16,
+                                                 torch.float16: jnp.float16}.get(t.dtype,
+                                                                                 jnp.float32))
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("method,beta", [("median", 0.1), ("trimmed_mean", 0.1),
                                          ("trimmed_mean", 0.25)])
 def test_grouped_tree_aggregate_equals_per_leaf_and_reference(method, beta, dtype):
