@@ -97,9 +97,26 @@ Phases (any failure exits non-zero before the final line):
    run_rounds at a 10^4 cohort under sign_flip for approx_median and
    approx_trimmed_mean, each converging (the last ||w - w*|| below 0.9x the
    first) but topk with the median, which does not converge (reported);
-The launch counters are zeroed before each of phases 8-11 and read after;
+12. buffered async federated rounds: fed.async_rounds.run_async_rounds at
+   phase 6's width (10^5-client cohorts in chunks of 512, 30 rounds) with a
+   5*10^4 buffer, lognormal stragglers, the damped policy, timeout 20,
+   beta 0.3 and stale_exploit alpha 0.1, approx_median and
+   approx_trimmed_mean: buffer_k = cohort with zero latency bitwise
+   run_rounds (the fast path every round, 196 + 196 launches a round);
+   ||w - w*|| < 0.5; every buffer 5*10^4 with stale rows and a pending
+   queue; 98 min/max and 98 histogram launches a round; >= 2x faster
+   simulated rounds than a buffer of the whole cohort; at a 10^4 cohort
+   the buffer composition equal on the card and the CPU and the iterates
+   within one bin; the wall time a round and a profile of one round;
+13. the robustness matrix, ``python -m repro_torch.attacks.matrix`` at the
+   default configs: exit 0, no violation, ROBUSTNESS.json's 276 / 40 / 64
+   / 42 cells with its bounds (1e-12 relative) and flags, the worst err /
+   bound beside the committed one, and B1 / B2 launched exactly
+   MATRIX_LAUNCHES times (one launch a step over all cells of a program);
+   its programs are built in phase 1, and phases 12-13 may build none.
+The launch counters are zeroed before each of phases 8-13 and read after;
 the kernels line gives each kernel's launches on them.  In phases 4, 6 and
-8-11 the inputs each kernel wrapper gets (the first call of each shape) are
+8-13 the inputs each kernel wrapper gets (the first call of each shape) are
 recorded, and after the path's counts were read each kernel is run again on
 them and held against its plain version, bitwise (PathInputs); a kernel that
 launched on a path and was not held fails.  Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
@@ -361,7 +378,8 @@ def select_specs():
     beta 0.3), the CNN (m=10, beta 0.1), linreg m=40 (beta 0.05) and phase
     5's shapes; the fused kernel at each (m, trim) of the trimmed mean.  In
     f16 only what phase 7 and phase 5 run: the three kinds at HALF_M with
-    sweep_trim(m), which is also int(0.1 * m) at the timed m = 31, 32."""
+    sweep_trim(m), which is also int(0.1 * m) at the timed m = 31, 32.  In f32
+    also the programs of phase 13's matrix (matrix_programs)."""
     import torch
 
     progs = {("median", 1, 0), ("trimmed_mean", 1, 0), ("median", 8, 0),
@@ -375,7 +393,8 @@ def select_specs():
     half = {(k, m, sweep_trim(m) if k != "median" else 0) for m in HALF_M
             for k in ("median", "trimmed_mean", "fused_median_trimmed")}
     return ([(k, m, t, d) for k, m, t in sorted(progs) for d in (torch.float32, torch.bfloat16)]
-            + [(k, m, t, torch.float16) for k, m, t in sorted(half)])
+            + [(k, m, t, torch.float16) for k, m, t in sorted(half)]
+            + [(k, m, t, torch.float32) for k, m, t in sorted(matrix_programs() - progs)])
 
 
 def ptxas_report(lib):
@@ -1700,6 +1719,343 @@ def compressed_fed_rounds(dev):
     return total
 
 
+# ------------------------------------------------ buffered async fed rounds
+
+# fed_scale's population and rounds (phase 6) with benchmarks/
+# async_throughput.py's knobs: half-cohort buffer, lognormal stragglers,
+# damped staleness policy, its timeout 20.0 and beta 0.3, stale_exploit
+ASYNC_ROUNDS = dict(FED_ROUNDS, beta=0.3)
+ASYNC_K, ASYNC_TIMEOUT, ASYNC_SPEEDUP_FLOOR = 50_000, 20.0, 2.0
+ASYNC_METHODS = ("approx_median", "approx_trimmed_mean")
+ASYNC_CPU_COHORT, ASYNC_CPU_ROUNDS = 10_000, 2
+HOST_FIELDS = ("round", "attack", "duration", "buffer", "pending", "staleness_mean", "timing")
+
+
+def async_setup(k=None):
+    """(AsyncConfig with a buffer of k (default ASYNC_K), ArrivalConfig,
+    AttackMixture) of phase 12."""
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.fed.async_rounds import AsyncConfig
+    from repro_torch.fed.population import ArrivalConfig
+    from repro_torch.fed.rounds import AttackMixture
+
+    return (AsyncConfig(buffer_k=ASYNC_K if k is None else k, max_staleness=4, policy="damped", timeout=ASYNC_TIMEOUT),
+            ArrivalConfig(latency="lognormal", spread=1.0),
+            AttackMixture((AttackConfig("stale_exploit", alpha=0.1),)))
+
+
+def async_sync_pin(pop):
+    """Phase 12a: buffer_k = the 10^5 cohort with zero latency under
+    sign_flip (scale 100), approx_median, 3 rounds: the fast path every
+    round, the iterate bitwise run_rounds's, 196 min/max and 196 histogram
+    launches a round."""
+    import math
+
+    import torch
+
+    from repro_torch.fed import async_rounds
+    from repro_torch.fed.async_rounds import AsyncConfig, run_async_rounds
+    from repro_torch.fed.population import ArrivalConfig
+    from repro_torch.fed.rounds import RoundConfig, run_rounds
+    from repro_torch.kernels import histogram_agg as H
+
+    rounds = 3
+    rcfg = RoundConfig(num_rounds=rounds, method="approx_median", **ASYNC_ROUNDS)
+    w_sync, h_sync = run_rounds(pop, rcfg, fed_attack())
+    calls = []
+    real = async_rounds.sync_rounds.aggregate_cohort
+    async_rounds.sync_rounds.aggregate_cohort = \
+        lambda *a, **kw: calls.append(kw["rnd"]) or real(*a, **kw)
+    try:
+        torch.cuda.synchronize()
+        H.reset_launches()  # zeroed just before the pinned run
+        w_async, h_async = run_async_rounds(
+            pop, rcfg, AsyncConfig(buffer_k=rcfg.cohort_size), ArrivalConfig(), fed_attack())
+        torch.cuda.synchronize()
+        launches = dict(H.LAUNCHES)  # read just after
+    finally:
+        async_rounds.sync_rounds.aggregate_cohort = real
+    chunks = math.ceil(rcfg.cohort_size / rcfg.chunk_clients)
+    same = torch.equal(w_sync, w_async) and all(
+        a["err"] == b["err"] for a, b in zip(h_sync, h_async))
+    print(f"phase 12a: buffer_k = cohort {rcfg.cohort_size}, zero latency, {rounds} rounds: "
+          f"bitwise run_rounds {same}, fast path in rounds {calls}, launches {launches}")
+    check(same, "async sync pin: the iterate is not bitwise run_rounds's on the card")
+    check(calls == list(range(rounds)), f"async sync pin: the fast path ran in rounds {calls}")
+    for k in launches:
+        check(launches[k] == chunks * rounds, f"async sync pin: {launches[k]} {k} launches, "
+                                              f"want {chunks * rounds}")
+
+
+def async_cpu_agreement(dev):
+    """Phase 12f: 2 async rounds at a 10^4 cohort on the card and on the CPU
+    (buffer half the cohort): the buffer composition is the same bits
+    (arrival times are drawn on the CPU), the host fields of the history
+    are equal, and the iterates agree within one bin width per coordinate
+    (the round-0 cohort's rows at w = 0 set the width; 2 steps of lr 0.3
+    move the iterate by less than one bin per changed bin)."""
+    import torch
+
+    from repro_torch.fed.async_rounds import run_async_rounds
+    from repro_torch.fed.population import ClientPopulation, PopulationConfig
+    from repro_torch.fed.rounds import RoundConfig, _chunk_bounds, _make_chunk_fn
+
+    pops = {d: ClientPopulation(PopulationConfig(**FED_POP), device=d) for d in (dev, "cpu")}
+    acfg, arr, mix = async_setup(ASYNC_CPU_COHORT // 2)
+    w0 = torch.zeros(FED_POP["dim"])
+    ids = pops["cpu"].sample_cohort(0, 0, ASYNC_CPU_COHORT)
+    fn = _make_chunk_fn(pops["cpu"], w0, ids, _chunk_bounds(ASYNC_CPU_COHORT, 512), None)
+    full = torch.cat([fn(j) for j in range(len(_chunk_bounds(ASYNC_CPU_COHORT, 512)))])
+    width = (full.amax(0) - full.amin(0)) / ASYNC_ROUNDS["nbins"]
+    for method in ASYNC_METHODS:
+        rcfg = RoundConfig(num_rounds=ASYNC_CPU_ROUNDS, method=method,
+                           **dict(ASYNC_ROUNDS, cohort_size=ASYNC_CPU_COHORT))
+        runs = {d: run_async_rounds(p, rcfg, acfg, arr, mix) for d, p in pops.items()}
+        host = {d: [{k: h[k] for k in HOST_FIELDS} for h in hist]
+                for d, (_, hist) in runs.items()}
+        diff = (runs[dev][0].cpu() - runs["cpu"][0]).abs()
+        print(f"phase 12f: {method}: host fields card == CPU: {host[dev] == host['cpu']} "
+              f"({host['cpu'][-1]}); iterate max |diff| {float(diff.max()):.3g}, "
+              f"min bin width {float(width.min()):.3g}")
+        check(host[dev] == host["cpu"], f"async {method}: the buffer composition differs "
+                                        f"between the card and the CPU")
+        check(bool((diff <= width * 1.0001 + 1e-6).all()),
+              f"async {method}: card and CPU iterates differ by more than one bin width")
+
+
+def async_profile(pop):
+    """Phase 12g: one async round with stale reports in its buffer (round
+    2, resumed from a snapshot written after round 1): its wall time, a
+    torch.profiler trace of it (profile_summary), then its host scheduling
+    timed alone."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.fed.async_rounds import run_async_rounds
+    from repro_torch.fed.rounds import RoundConfig
+
+    acfg, arr, mix = async_setup()
+    rcfg = RoundConfig(num_rounds=3, method="approx_median", **ASYNC_ROUNDS)
+    ck = ROOT / "build" / "chip_smoke_async_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    run_async_rounds(pop, rcfg, acfg, arr, mix, ckpt_every=2, ckpt_dir=str(ck))
+    one = lambda: run_async_rounds(pop, rcfg, acfg, arr, mix, ckpt_dir=str(ck),  # noqa: E731
+                                   resume=2)
+    one()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_summary(one, wall_ms, top=15, names=("minmax_kernel", "histogram_kernel"))
+    print(json.dumps({"profile_async_round": "approx_median", "round": hist[-1]["round"],
+                      "buffer": hist[-1]["buffer"], "pending": hist[-1]["pending"], **prof}))
+    shutil.rmtree(ck, ignore_errors=True)
+    # the round's host scheduling alone: the cohort, its arrival draws on the
+    # CPU, and the stable sort of the cohort plus the steady pending queue
+    # (~2.9 cohorts in phase 12's runs)
+    t0 = time.perf_counter()
+    ids = pop.sample_cohort(0, 2, rcfg.cohort_size)
+    t1 = time.perf_counter()
+    t = pop.arrival_times(0, 2, 0, ids, arr).numpy().astype(np.float64)
+    t2 = time.perf_counter()
+    cand = np.concatenate([t] * 4)
+    np.lexsort((np.arange(len(cand)), np.zeros(len(cand), np.int64), cand))
+    t3 = time.perf_counter()
+    print(json.dumps({"async_round_host_ms": {
+        "sample_cohort": (t1 - t0) * 1e3, "arrival_times": (t2 - t1) * 1e3,
+        f"lexsort of {len(cand)} candidates": (t3 - t2) * 1e3}}))
+
+
+def async_fed_rounds(dev):
+    """Phase 12: fed.async_rounds.run_async_rounds at fed_scale's width
+    (200,000 clients, cohorts of 10^5 in chunks of 512, d=32, n=16, 512
+    bins, lr 0.3, sgd, 30 rounds) with a 5*10^4 buffer, lognormal latency
+    (spread 1), the damped policy, timeout 20, beta 0.3 and stale_exploit
+    at alpha 0.1, for approx_median and approx_trimmed_mean.  (a) the sync
+    pin at full width; (b) each method's last ||w - w*|| < 0.5; (c) every
+    buffer 5*10^4, stale rows after round 0, a pending queue; (d) 98
+    min/max and 98 histogram launches a round (97 chunks of 512 rows, one of
+    336), the counters zeroed just before each method's run and read just
+    after; (e) the buffer closes rounds >= ASYNC_SPEEDUP_FLOOR x faster in
+    simulated time than k = the cohort over 5 rounds; (f) card vs CPU; (g)
+    the wall time a round, the device busy share and a profile.  Returns
+    the sketch kernels' launches on the 30-round runs."""
+    import math
+
+    import torch
+
+    from repro_torch.fed.async_rounds import run_async_rounds
+    from repro_torch.fed.population import ClientPopulation, PopulationConfig
+    from repro_torch.fed.rounds import RoundConfig
+    from repro_torch.kernels import histogram_agg as H
+
+    pop = ClientPopulation(PopulationConfig(**FED_POP), device=dev)
+    async_sync_pin(pop)
+    acfg, arr, mix = async_setup()
+    chunks = math.ceil(ASYNC_K / ASYNC_ROUNDS["chunk_clients"])
+    total = {"minmax": 0, "histogram": 0}
+    hists = {}
+    for method in ASYNC_METHODS:
+        rcfg = RoundConfig(num_rounds=FED_NUM_ROUNDS, method=method, **ASYNC_ROUNDS)
+        torch.cuda.synchronize()
+        H.reset_launches()  # zeroed just before this method's run
+        t0 = time.perf_counter()
+        _, hist = run_async_rounds(pop, rcfg, acfg, arr, mix)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(H.LAUNCHES)  # read just after it
+        hists[method] = hist
+        print(json.dumps({"async_fed_run": method, "rounds": FED_NUM_ROUNDS,
+                          "seconds": dt, "ms_per_round": dt / FED_NUM_ROUNDS * 1e3,
+                          "err_first": hist[0]["err"], "err_final": hist[-1]["err"],
+                          "buffer": sorted({h["buffer"] for h in hist}),
+                          "staleness_mean": [round(h["staleness_mean"], 4) for h in hist],
+                          "pending_max": max(h["pending"] for h in hist),
+                          "sim_time": sum(h["duration"] for h in hist), "launches": launches}))
+        check(all(math.isfinite(h["err"]) for h in hist), f"async {method}: err not finite")
+        check(hist[-1]["err"] < 0.5, f"async {method} is BROKEN: ||w - w*|| = "
+                                     f"{hist[-1]['err']}")
+        check(all(h["buffer"] == ASYNC_K for h in hist), f"async {method}: a buffer is not "
+                                                          f"{ASYNC_K}")
+        check(all(h["staleness_mean"] > 0 for h in hist[1:]) and
+              all(h["pending"] > 0 for h in hist), f"async {method}: no stale rows or no "
+                                                    f"pending queue")
+        for k in total:
+            check(launches[k] == chunks * FED_NUM_ROUNDS,
+                  f"async {method}: {launches[k]} {k} launches, want "
+                  f"{chunks * FED_NUM_ROUNDS} ({chunks} a round)")
+            total[k] += launches[k]
+    # (e) simulated round time against a buffer of the whole cohort
+    acfg_full, _, _ = async_setup(ASYNC_ROUNDS["cohort_size"])
+    _, hist_full = run_async_rounds(
+        pop, RoundConfig(num_rounds=5, method="approx_median", **ASYNC_ROUNDS),
+        acfg_full, arr, mix)
+    t_half = sum(h["duration"] for h in hists["approx_median"][:5])
+    t_full = sum(h["duration"] for h in hist_full)
+    print(f"phase 12e: simulated time of 5 rounds: k={ASYNC_K} {t_half:.4f}, "
+          f"k={ASYNC_ROUNDS['cohort_size']} {t_full:.4f}: speedup {t_full / t_half:.2f}x")
+    check(t_full >= ASYNC_SPEEDUP_FLOOR * t_half,
+          f"async: the half buffer closes rounds only {t_full / t_half:.2f}x faster")
+    print(f"phase 12: ||w - w*|| after {FED_NUM_ROUNDS} rounds: " + ", ".join(
+        f"{m} {hists[m][-1]['err']:.4f}" for m in ASYNC_METHODS))
+    async_cpu_agreement(dev)
+    async_profile(pop)
+    return total
+
+
+# ------------------------------------------------------- robustness matrix
+
+# B1 and B2 launches of `python -m repro_torch.attacks.matrix` at the
+# default configs (ROBUSTNESS.json's): every program launches once a step
+# (60 steps) when its aggregation runs the kernel: the median for 2 <= rows
+# <= 64, the trimmed mean when int(0.3 * rows) >= 1.
+#   sync:       (median, trimmed) x m in {16, 32}          2 programs each -> 120
+#   compressed: (median, trimmed) x 4 codecs at m = 16     4 programs each -> 240
+#   async:      one program per buffer size k_actual, {4, 8, 12, 13, 16} at m = 16
+#               and {8, 16, 24, 26, 32} at m = 32         10 programs each -> 600
+#   feedback:   (median, trimmed, mean) x m in {16, 32}    2 programs each -> 120
+# The mean launches nothing.
+MATRIX_LAUNCHES = {"median": 1080, "trimmed_mean": 1080}
+MATRIX_KEYS = ("attack", "aggregator", "alpha", "m", "strength", "compression", "k",
+               "dropout")
+
+
+def matrix_programs():
+    """(kind, rows, trim) of every B1/B2 program the default matrix runs."""
+    from repro_torch.attacks import matrix as M
+
+    progs = set()
+
+    def add(agg, rows, beta):
+        if agg == "median" and 2 <= rows:
+            progs.add(("median", rows, 0))
+        if agg == "trimmed_mean" and int(beta * rows) >= 1:
+            progs.add(("trimmed_mean", rows, int(beta * rows)))
+
+    for cfg in (M.MatrixConfig(), M.CompressedMatrixConfig(), M.FeedbackMatrixConfig()):
+        for m in cfg.ms:
+            for agg in cfg.aggregators:
+                add(agg, m, cfg.beta)
+    acfg = M.AsyncMatrixConfig()
+    for m in acfg.ms:
+        for agg in acfg.aggregators:
+            for rec, (_, _, h_buf) in M.async_cells(acfg, m, agg):
+                if h_buf >= 1:
+                    add(agg, rec["k_actual"], acfg.beta)
+    return progs
+
+
+def robustness_matrix(dev):
+    """Phase 13: python -m repro_torch.attacks.matrix on the card at the
+    default configs (its per-cell lines go to build/chip_smoke_matrix.log):
+    exit 0 and no violation; the committed ROBUSTNESS.json's 276 / 40 / 64
+    / 42 cells with the same keys, bounds within 1e-12 relative and the
+    same gated and feasible flags; the worst err / bound of each grid beside
+    the committed one (reported: the data comes from other generators);
+    B1 and B2 launched MATRIX_LAUNCHES times, the counters zeroed just
+    before and read just after; then a profile of its largest program.
+    Returns those launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.attacks import matrix as M
+    from repro_torch.kernels import robust_agg
+
+    out_path = ROOT / "build" / "chip_smoke_matrix.json"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    robust_agg.reset_launches()  # zeroed just before the matrix
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        rc = M.main(["--json", str(out_path), "--device", str(dev)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, leaves = dict(robust_agg.LAUNCHES), dict(robust_agg.LEAVES)  # read just after
+    (ROOT / "build" / "chip_smoke_matrix.log").write_text(log.getvalue())
+    check(rc == 0, f"matrix exited {rc}: {log.getvalue()[-2000:]}")
+    got = json.loads(out_path.read_text())
+    want = json.loads((ROOT / "ROBUSTNESS.json").read_text())
+    worst = {}
+    for grid in ("sync", "compressed", "async", "feedback"):
+        g, w = (got, want) if grid == "sync" else (got[grid], want[grid])
+        check(len(g["cells"]) == len(w["cells"]),
+              f"matrix {grid}: {len(g['cells'])} cells, want {len(w['cells'])}")
+        check(not g["violations"], f"matrix {grid}: violations {g['violations'][:3]}")
+        for a, b in zip(g["cells"], w["cells"]):
+            check(tuple(a.get(k) for k in MATRIX_KEYS) == tuple(b.get(k) for k in MATRIX_KEYS),
+                  f"matrix {grid}: cell {a} is not the committed {b}")
+            check(a["gated"] == b["gated"] and a.get("feasible") == b.get("feasible"),
+                  f"matrix {grid}: flags of {a} differ from the committed {b}")
+            check((a["bound"] is None) == (b["bound"] is None) and (
+                a["bound"] is None or abs(a["bound"] - b["bound"]) <= 1e-12 * abs(b["bound"])),
+                f"matrix {grid}: bound of {a} differs from the committed {b}")
+        ratio = lambda cells: max(c["err"] / c["bound"] for c in cells if c["gated"])  # noqa
+        worst[grid] = {"cells": len(g["cells"]), "programs": g["num_traces"],
+                       "worst_err_over_bound": ratio(g["cells"]),
+                       "committed_worst_err_over_bound": ratio(w["cells"])}
+    print(json.dumps({"robustness_matrix": worst, "seconds": dt, "launches": launches,
+                      "leaves": leaves}))
+    # the largest program alone (median, m = 32: 46 cells, 60 steps) and its profile
+    big = M.MatrixConfig(aggregators=("median",), ms=(32,))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M.evaluate(big, device=dev)
+    torch.cuda.synchronize()
+    prof = profile_summary(lambda: M.evaluate(big, device=dev),
+                           (time.perf_counter() - t0) * 1e3, top=10)
+    print(json.dumps({"profile_matrix_program": "sync median m=32", **prof}))
+    for k, n in MATRIX_LAUNCHES.items():
+        check(launches[k] == n and leaves[k] == n,
+              f"matrix: {launches[k]} {k} launches for {leaves[k]} leaves, want {n} for {n}")
+    return {k: launches[k] for k in MATRIX_LAUNCHES}
+
+
 def main() -> None:
     import torch
 
@@ -1786,10 +2142,16 @@ def main() -> None:
     for phase, (path, fn) in enumerate((("table4_one_round", table4_one_round),
                                         ("one_round_streaming", one_round_at_scale),
                                         ("local_update", lambda d: local_update_cnn(d, card)),
-                                        ("compressed_fed_rounds", compressed_fed_rounds)), 8):
+                                        ("compressed_fed_rounds", compressed_fed_rounds),
+                                        ("async_fed_rounds", async_fed_rounds),
+                                        ("robustness_matrix", robustness_matrix)), 8):
+        libs_before = len(robust_agg.select_libraries())
         t0 = time.perf_counter()
         new_paths[path] = on_path(f"phase {phase}", lambda: fn(dev), lambda c: c)
         print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+        if phase >= 12:  # phase 1 prepared their programs (select_specs)
+            check(len(robust_agg.select_libraries()) == libs_before,
+                  f"phase {phase} built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")

@@ -4,10 +4,9 @@
 - ``registry``  name -> Attack registration and lookup;
 - ``library``   the registered attacks;
 - ``engine``    applying attacks on the gathered-rows and statistics paths;
-- ``schedule``  the greedy adaptive attack scheduler.
-
-The reference's robustness matrix (``matrix``) is ported with the
-scenario-matrix slice.
+- ``schedule``  the greedy adaptive attack and arrival-timing schedulers;
+- ``matrix``    the robustness scenario matrix and its CI gate
+  (``python -m repro_torch.attacks.matrix``).
 """
 from repro_torch.attacks.base import (  # noqa: F401
     ACCESS_LEVELS,
@@ -23,6 +22,7 @@ from repro_torch.attacks.engine import (  # noqa: F401
     as_attack,
     build_context,
     byzantine_mask,
+    corrupt_feedback,
     corrupt_labels,
     honest_statistics,
     num_byzantine,

@@ -221,3 +221,25 @@ def corrupt_labels(
     if generator is None:
         generator = torch.Generator(device=y.device).manual_seed(0)
     return attack.corrupt_labels(y, generator, num_classes)
+
+
+def corrupt_feedback(
+    attack: AttackLike,
+    scores: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    strength=None,
+) -> torch.Tensor:
+    """Run a feedback attack's score corruption (identity otherwise).
+
+    ``scores`` are per-sequence feedback values in [-1, 1]; the corrupted
+    output is clipped back to that range.  A randomized feedback attack
+    without a generator gets one seeded 0 on the scores' device.
+    """
+    attack = as_attack(attack)
+    if attack.access != FEEDBACK:
+        return scores
+    if generator is None:
+        generator = torch.Generator(device=scores.device).manual_seed(0)
+    if strength is None:
+        strength = attack.strength
+    return torch.clamp(attack.corrupt_feedback(scores, generator, strength), -1.0, 1.0)

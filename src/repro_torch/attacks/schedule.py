@@ -6,9 +6,8 @@ scheduler instead adapts to the defence: it explores each candidate
 attack once, observes the damage the server's own broadcast state reveals
 (every worker sees the per-round aggregate, so the drift is public), and
 then replays the most damaging attack, re-exploring periodically.
-
-The reference's ``ArrivalScheduler`` (timing modes of buffered async
-rounds) is not ported here.
+:class:`ArrivalScheduler` runs the same search over the arrival-timing
+modes of buffered async rounds.
 """
 from __future__ import annotations
 
@@ -73,6 +72,51 @@ class GreedyScheduler:
         self.reexplore = int(state["reexplore"])
         self._damage = [float(d) for d in state["damage"]]
         self._picked = {int(r): int(i) for r, i in state["picked"].items()}
+
+
+# Arrival-timing modes a greedy async adversary explores.  "honest" keeps
+# the Byzantine clients' simulated latencies; "first" rushes the buffer
+# window; "last" lags into the buffer tail (maximum staleness that still
+# lands in the aggregate).  An attack declared ``greedy``
+# (attacks/base.ARRIVAL_BEHAVIOURS) searches over these at run time.
+ARRIVAL_MODES = ("honest", "first", "last")
+
+
+class ArrivalScheduler:
+    """Explore-then-exploit over arrival-timing modes: a
+    :class:`GreedyScheduler` whose candidates are ``ARRIVAL_MODES``.  The
+    async engine asks ``pick(r)`` for round r's Byzantine timing and
+    reports the realized damage (the public err drift) via ``feedback``;
+    deterministic and RNG-free.  ``state_dict`` has the reference's
+    layout."""
+
+    def __init__(self, modes: Sequence[str] = ARRIVAL_MODES, reexplore: int = 16):
+        self.modes = tuple(modes)
+        for m in self.modes:
+            if m not in ARRIVAL_MODES:
+                raise ValueError(
+                    f"unknown arrival mode {m!r}; want one of {ARRIVAL_MODES}")
+        self._sched = GreedyScheduler(len(self.modes), reexplore=reexplore)
+
+    def pick(self, r: int) -> str:
+        return self.modes[self._sched.pick(r)]
+
+    def feedback(self, r: int, damage: float) -> None:
+        self._sched.feedback(r, damage)
+
+    def best(self) -> Optional[str]:
+        idx = self._sched.best()
+        return None if idx is None else self.modes[idx]
+
+    def state_dict(self) -> dict:
+        return {"modes": list(self.modes), "sched": self._sched.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        if tuple(state["modes"]) != self.modes:
+            raise ValueError(
+                f"arrival-scheduler snapshot has modes {state['modes']}, "
+                f"this run has {list(self.modes)}")
+        self._sched.load_state_dict(state["sched"])
 
 
 def schedule_indices(

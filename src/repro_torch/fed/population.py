@@ -22,8 +22,15 @@ Byzantine (which ids is immaterial to permutation-invariant
 aggregators); the round loop (:mod:`repro_torch.fed.rounds`) replaces
 their gradients.
 
-The reference's arrival model (``ArrivalConfig``, ``arrival_times``) is
-part of its buffered async rounds and is not ported here.
+Arrival model of buffered async rounds (:class:`ArrivalConfig`,
+:meth:`ClientPopulation.arrival_times`): a client's report time is a
+fresh latency draw times a persistent per-client speed, with honest
+no-shows at ``inf``.  Every draw is a counter-based :mod:`repro_torch.rng`
+draw keyed by (seed, stream tag, round, client id), so a client's time
+does not depend on its position in the cohort or on chunking, and it is
+drawn on the CPU: arrival times are host scheduling state, and drawing
+them there makes the buffer composition the same bits on the card and on
+the CPU (as ``w*`` is).
 """
 from __future__ import annotations
 
@@ -37,6 +44,62 @@ from repro_torch.device import resolve
 
 _TAG_W_STAR = 0x57A2  # counter-stream tags of the population's draws
 _TAG_CLIENT = 0x5EED
+_TAG_SPEED = 0x510  # persistent client speed, keyed by client id alone
+_TAG_LATENCY = 0x1A7E  # per-round latency and dropout draws
+_TAG_DROPOUT = 0xD809
+#: stream tag of the arrival draws, folded with the run seed and the round
+#: (the reference's ``async_rounds._ARRIVAL_STREAM``); streams 0 (the
+#: cohort's times), 1 (churn joiners' ids) and 2 (their times) under it
+ARRIVAL_STREAM = 0xA54C
+LATENCIES = ("zero", "uniform", "exponential", "lognormal")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArrivalConfig:
+    """Arrival-time model for buffered async rounds.
+
+    A client's report time is ``latency_draw * client_speed``: the draw
+    is fresh every round, from ``latency`` scaled by ``scale``/``spread``;
+    ``client_speed`` is a PERSISTENT per-client lognormal multiplier
+    (``client_spread`` > 0 makes some clients chronically slow).
+    ``dropout`` is the per-round probability that an HONEST client never
+    reports (Byzantine clients always report).  ``churn`` is the fraction
+    of the cohort size that joins mid-round as fresh clients.
+
+    ``latency``: zero | uniform | exponential | lognormal.  ``zero`` (the
+    default) makes every arrival instantaneous — the synchronous pin.
+    ``lognormal`` is the heavy-tailed straggler regime (sigma = spread).
+    """
+
+    latency: str = "zero"
+    scale: float = 1.0  # latency scale (time units are arbitrary)
+    spread: float = 1.0  # distribution shape: lognormal sigma, uniform width
+    dropout: float = 0.0  # per-round honest no-show probability
+    churn: float = 0.0  # mid-round joiners as a fraction of cohort size
+    client_spread: float = 0.0  # persistent per-client slowness (lognormal sigma)
+
+    def __post_init__(self):
+        if self.latency not in LATENCIES:
+            raise ValueError(f"unknown latency model {self.latency!r}")
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1), got {self.dropout}")
+        if self.churn < 0.0:
+            raise ValueError(f"churn must be >= 0, got {self.churn}")
+
+
+def sample_latencies(seed: int, ids: torch.Tensor, acfg: ArrivalConfig) -> torch.Tensor:
+    """One fresh float32 latency draw per id, keyed by (seed, id), on the
+    ids' device: ``scale * U[0, spread)``, ``scale * Exp(1)`` (as
+    ``-log1p(-u)``) or ``scale * exp(spread * N(0, 1))``."""
+    if acfg.latency == "zero":
+        return torch.zeros(ids.shape[0], dtype=torch.float32, device=ids.device)
+    if acfg.latency == "lognormal":
+        z = rng.normal(seed, _TAG_LATENCY, ids, 1)[:, 0]
+        return acfg.scale * torch.exp(acfg.spread * z)
+    u = rng.uniform(seed, _TAG_LATENCY, ids, 1)[:, 0]
+    if acfg.latency == "uniform":
+        return acfg.scale * (u * acfg.spread)
+    return acfg.scale * -torch.log1p(-u)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,3 +204,41 @@ class ClientPopulation:
                 f"cohort {cohort_size} > population {self.cfg.num_clients}")
         perm = torch.randperm(self.cfg.num_clients, generator=rng.generator(seed, rnd))
         return perm[:cohort_size].to(self.device)
+
+    def sample_joiners(self, seed: int, rnd: int, n: int) -> torch.Tensor:
+        """Round ``rnd``'s ``n`` churn joiners: (n,) int64 ids on the
+        population's device, drawn as a cohort is but from the arrival
+        stream, so they are not the cohort's own first ids."""
+        if n > self.cfg.num_clients:
+            raise ValueError(f"cohort {n} > population {self.cfg.num_clients}")
+        gen = rng.generator(seed, ARRIVAL_STREAM, rnd, 1)
+        return torch.randperm(self.cfg.num_clients, generator=gen)[:n].to(self.device)
+
+    # -------------------------------------------------------------- arrivals
+
+    def client_speed(self, client_ids: torch.Tensor, acfg: ArrivalConfig) -> torch.Tensor:
+        """Persistent per-client slowness multiplier, (k,) float32 on the
+        CPU: lognormal with sigma ``client_spread``, keyed by the
+        population seed and the client id alone, so the same client is
+        slow in every round."""
+        ids = client_ids.detach().to("cpu", torch.int64)
+        if acfg.client_spread <= 0.0:
+            return torch.ones(ids.shape[0], dtype=torch.float32)
+        z = rng.normal(self.cfg.seed, _TAG_SPEED, ids, 1)[:, 0]
+        return torch.exp(acfg.client_spread * z)
+
+    def arrival_times(self, seed: int, rnd: int, stream: int, client_ids: torch.Tensor,
+                      acfg: ArrivalConfig) -> torch.Tensor:
+        """Report times of round ``rnd``'s clients, (k,) float32 on the CPU;
+        ``inf`` = dropped.  ``seed`` is the run's seed and ``stream`` the
+        arrival stream (0: the cohort, 2: churn joiners); the draws are
+        keyed by (seed, ARRIVAL_STREAM, rnd, stream) and the client id, a
+        stream apart from the cohort and attack draws.  Honest clients
+        no-show with probability ``dropout`` (``u < dropout``)."""
+        ids = client_ids.detach().to("cpu", torch.int64)
+        key = rng.fold(seed, ARRIVAL_STREAM, rnd, stream)
+        t = sample_latencies(key, ids, acfg) * self.client_speed(ids, acfg)
+        if acfg.dropout > 0.0:
+            drop = rng.uniform(key, _TAG_DROPOUT, ids, 1)[:, 0] < acfg.dropout
+            t = torch.where(drop & ~self.is_byzantine(ids), torch.inf, t)
+        return t

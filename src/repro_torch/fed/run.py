@@ -2,6 +2,8 @@
 
 Runs synchronous rounds on the card by default (``--device cuda``);
 ``--device cpu`` runs them on the CPU with the kernels' plain versions.
+``--async-buffer K`` runs buffered asynchronous rounds instead
+(:mod:`repro_torch.fed.async_rounds`).
 
 Examples
 --------
@@ -21,6 +23,13 @@ Attack mixture cycling sign_flip and alie each round::
 int8-compressed client payloads (also topk, count_sketch)::
 
     python -m repro_torch.fed.run --alpha 0.1 --compression int8
+
+Buffered async rounds: close each round at the first 128 of 1024
+arrivals, heavy-tailed stragglers, 10%% dropout, a stale-replay adversary
+timed onto the buffer tail::
+
+    python -m repro_torch.fed.run --alpha 0.1 --attack stale_exploit \
+        --async-buffer 128 --latency lognormal --dropout 0.1
 """
 from __future__ import annotations
 
@@ -29,7 +38,9 @@ import hashlib
 
 from repro_torch.core import theory
 from repro_torch.core.attacks import AttackConfig
-from repro_torch.fed.population import ClientPopulation, PopulationConfig
+from repro_torch.fed.async_rounds import AsyncConfig, run_async_rounds
+from repro_torch.fed.population import (LATENCIES, ArrivalConfig, ClientPopulation,
+                                        PopulationConfig)
 from repro_torch.fed.rounds import AttackMixture, RoundConfig, run_rounds
 from repro_torch.rounds import compression
 
@@ -75,8 +86,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="payload codec on the transmitted client "
                         "gradients/deltas (rounds.compression); attacks "
                         "observe and replace the DECODED wire values, and "
-                        "topk keeps per-client error-feedback residuals")
+                        "topk keeps per-client error-feedback residuals "
+                        "(synchronous rounds only)")
     p.add_argument("--seed", type=int, default=0)
+    # buffered async rounds (fed/async_rounds.py)
+    p.add_argument("--async-buffer", type=int, default=0, metavar="K",
+                   help="close each round at the first K arrivals instead "
+                        "of waiting for the whole cohort (0 = synchronous)")
+    p.add_argument("--latency", default="zero", choices=list(LATENCIES),
+                   help="per-round client latency model (lognormal = "
+                        "heavy-tailed stragglers)")
+    p.add_argument("--latency-scale", type=float, default=1.0)
+    p.add_argument("--latency-spread", type=float, default=1.0,
+                   help="latency shape: lognormal sigma / uniform width")
+    p.add_argument("--client-spread", type=float, default=0.0,
+                   help="persistent per-client slowness (lognormal sigma; "
+                        "0 = no chronic stragglers)")
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="per-round honest no-show probability")
+    p.add_argument("--churn", type=float, default=0.0,
+                   help="mid-round joiners as a fraction of cohort size")
+    p.add_argument("--staleness-policy", default="damped",
+                   help="registered staleness policy: none|damped|"
+                        "trim_late|drop (fed/staleness.py)")
+    p.add_argument("--staleness-cap", type=int, default=4,
+                   help="max accepted report age in rounds (also bounds "
+                        "the iterate history the engine keeps)")
+    p.add_argument("--buffer-timeout", type=float, default=None,
+                   help="close an under-full buffer at this simulated "
+                        "time (default: wait for the K-th arrival)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
     p.add_argument("--ckpt-dir", default=None, metavar="DIR",
@@ -126,12 +164,37 @@ def main(argv=None) -> int:
           f"nbins={rcfg.nbins}, tau={rcfg.local_steps}, "
           f"compression={rcfg.compression}, device={pop.device}")
     mixture = AttackMixture(attacks, schedule=args.schedule)
+    ckpt_kwargs = dict(ckpt_dir=args.ckpt_dir,
+                       ckpt_every=args.ckpt_every if args.ckpt_dir else 0,
+                       resume=bool(args.resume))
     if args.ckpt_dir:
         print(f"checkpoint: dir={args.ckpt_dir} every={args.ckpt_every} "
               f"resume={args.resume}")
-    w, history = run_rounds(
-        pop, rcfg, mixture, ckpt_dir=args.ckpt_dir,
-        ckpt_every=args.ckpt_every if args.ckpt_dir else 0, resume=bool(args.resume))
+    if args.async_buffer > 0:
+        acfg = AsyncConfig(
+            buffer_k=args.async_buffer, max_staleness=args.staleness_cap,
+            policy=args.staleness_policy, timeout=args.buffer_timeout)
+        arr = ArrivalConfig(
+            latency=args.latency, scale=args.latency_scale,
+            spread=args.latency_spread, dropout=args.dropout,
+            churn=args.churn, client_spread=args.client_spread)
+        print(f"async: buffer k={acfg.buffer_k}, policy={acfg.policy}, "
+              f"latency={arr.latency}, dropout={arr.dropout}, "
+              f"churn={arr.churn}")
+        w, history = run_async_rounds(pop, rcfg, acfg, arr, mixture, **ckpt_kwargs)
+        for h in history:
+            print(f"  round {h['round']:3d}  attack={h['attack']:<12s} "
+                  f"|g|={h['grad_norm']:9.4f}  |w-w*|={h['err']:.4f}  "
+                  f"buf={h['buffer']:4d}  stale={h['staleness_mean']:.2f}  "
+                  f"t={h['duration']:.2f}")
+        rate = theory.async_optimal_rate(
+            args.alpha, args.samples_per_client, args.cohort,
+            min(args.async_buffer, args.cohort), dropout=args.dropout)
+        print(f"final |w-w*| = {history[-1]['err']:.4f}   "
+              f"(effective-m async rate = {rate:.4f})")
+        print(f"final iterate sha256 = {iterate_digest(w)}")
+        return 0
+    w, history = run_rounds(pop, rcfg, mixture, **ckpt_kwargs)
     for h in history:
         print(f"  round {h['round']:3d}  attack={h['attack']:<12s} "
               f"|g|={h['grad_norm']:9.4f}  |w-w*|={h['err']:.4f}")

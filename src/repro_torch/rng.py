@@ -6,8 +6,8 @@ the reference is held by feeding both packages the same numpy data; what
 this module guarantees is that the port is deterministic per (seed,
 round, worker, ...), on every device.
 
-- :func:`generator` — a ``torch.Generator`` seeded from a hash of
-  (seed, data...), for draws made once per round or chunk;
+- :func:`generator` — a ``torch.Generator`` seeded from :func:`fold`,
+  a hash of (seed, data...), for draws made once per round or chunk;
 - :func:`normal` / :func:`uniform` — counter-based normal and uniform
   draws keyed by (seed, stream tag, id, element index), vectorised over a
   whole tensor of ids on their device.  The virtual clients of
@@ -28,13 +28,18 @@ _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 
 
-def generator(seed: int, *data: int, device="cpu") -> torch.Generator:
-    """A fresh ``torch.Generator`` on ``device`` seeded with a 63-bit hash
-    of ``seed`` and the integers ``data``."""
+def fold(seed: int, *data: int) -> int:
+    """A 63-bit seed hashed from ``seed`` and the integers ``data`` (the
+    counterpart of nested ``fold_in``s)."""
     h = hashlib.blake2b(repr((int(seed),) + tuple(int(d) for d in data)).encode(),
                         digest_size=8)
-    return torch.Generator(device=device).manual_seed(
-        int.from_bytes(h.digest(), "little") & (2 ** 63 - 1))
+    return int.from_bytes(h.digest(), "little") & (2 ** 63 - 1)
+
+
+def generator(seed: int, *data: int, device="cpu") -> torch.Generator:
+    """A fresh ``torch.Generator`` on ``device`` seeded with
+    ``fold(seed, *data)``."""
+    return torch.Generator(device=device).manual_seed(fold(seed, *data))
 
 
 def _mul32(x, c: int):
