@@ -113,9 +113,27 @@ Phases (any failure exits non-zero before the final line):
    / 42 cells with its bounds (1e-12 relative) and flags, the worst err /
    bound beside the committed one, and B1 / B2 launched exactly
    MATRIX_LAUNCHES times (one launch a step over all cells of a program);
-   its programs are built in phase 1, and phases 12-13 may build none.
-The launch counters are zeroed before each of phases 8-13 and read after;
-the kernels line gives each kernel's launches on them.  In phases 4, 6 and
+   its programs are built in phase 1, and phases 12-14 may build none;
+14. robust serving (``repro_torch.serve``): (a) tests/test_serve.py's tiny
+   model in f32 on the card against the same run on the CPU (the engine's
+   tokens, teacher-forced logits within 1e-5, one adaptation round); (b)
+   llama3.2-3b's widths (d_model 3072, 24 heads, GQA kv 8, d_ff 8192,
+   vocab 128256, bf16) cut to 8 of its 28 layers (D = 1,593,363,456):
+   32 requests through a 4-slot pool (prompt 16, max_new 16) from 10^6
+   virtual users over 4 shards, one Byzantine (feedback_flip alpha 0.25),
+   served three times: without adaptation, and adapting every 8 ticks
+   (B = 2 a shard, sgd 0.1) with the median and with the trimmed mean
+   (beta 0.25).  The counters are zeroed before each run and read after:
+   every request served, >= 2 rounds, exactly one B1 (B2) launch over one
+   leaf a round and no other kernel; each round's aggregate is bitwise
+   the plain version on the adapter's (4, D) rows in column slices of
+   2^26; the served tensors keep their storage; tokens/s, latency in
+   ticks, peak memory, the round's split, B1/B2 at (4, D) against the HBM
+   bound and profiles of 8 ticks and of a round; (c) ``python -m
+   repro_torch.serve.run --smoke`` twice: one sha256.
+The launch counters are zeroed before each of phases 8-13 and each run of
+phase 14b and read after; the kernels line gives each kernel's launches on
+them (``launches_new_paths``).  In phases 4, 6 and
 8-13 the inputs each kernel wrapper gets (the first call of each shape) are
 recorded, and after the path's counts were read each kernel is run again on
 them and held against its plain version, bitwise (PathInputs); a kernel that
@@ -336,16 +354,18 @@ def time_pair(a, b, reps: int):
 
 def device_ms(fn, reps: int, name: str = ""):
     """Device time per call of the kernels whose name contains ``name``
-    (every kernel for ""), from torch.profiler (None when two traces show
-    no such kernel)."""
+    (every kernel for ""), from torch.profiler (None when three traces show
+    no such kernel).  The trace covers the host as well as the card: one of
+    the card alone now and then came back with some of the launches, or
+    with none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):  # a trace now and then comes back without the kernels
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -354,6 +374,11 @@ def device_ms(fn, reps: int, name: str = ""):
         if us:
             return us / 1e3 / reps
     return None
+
+
+def ms_text(x) -> str:
+    """A time for the log: ``not measured`` where the trace kept nothing."""
+    return "not measured" if x is None else f"{x:.5f}"
 
 
 # ------------------------------------------------------------------ phases
@@ -375,15 +400,16 @@ def sweep_trim(m: int) -> int:
 def select_specs():
     """Every (kind, m, trim, dtype) of the order-statistic kernels this
     script runs: in f32 and bf16, phase 2's sweeps, the quickstart (m=8,
-    beta 0.3), the CNN (m=10, beta 0.1), linreg m=40 (beta 0.05) and phase
-    5's shapes; the fused kernel at each (m, trim) of the trimmed mean.  In
+    beta 0.3), the CNN (m=10, beta 0.1), linreg m=40 (beta 0.05), phase
+    5's shapes and phase 14's serving rows (m=4: the median, beta 0.25); the fused kernel at each (m, trim) of the trimmed mean.  In
     f16 only what phase 7 and phase 5 run: the three kinds at HALF_M with
     sweep_trim(m), which is also int(0.1 * m) at the timed m = 31, 32.  In f32
     also the programs of phase 13's matrix (matrix_programs)."""
     import torch
 
     progs = {("median", 1, 0), ("trimmed_mean", 1, 0), ("median", 8, 0),
-             ("trimmed_mean", 8, int(0.3 * 8)), ("trimmed_mean", 40, int(0.05 * 40))}
+             ("trimmed_mean", 8, int(0.3 * 8)), ("trimmed_mean", 40, int(0.05 * 40)),
+             ("median", 4, 0), ("trimmed_mean", 4, int(0.25 * 4))}
     for m in SWEEP_M + MULTI_LEAF_M + tuple(s[1] for s in TIMING_SHAPES):
         progs |= {("median", m, 0), ("trimmed_mean", m, sweep_trim(m)),
                   ("trimmed_mean", m, int(0.1 * m))}
@@ -1080,9 +1106,8 @@ def sketch_timings(dev, card: str):
         if r["kernel"] == "minmax":
             print(f"phase 5b: minmax {r['shape']} {r['rows']} x {r['n']} {r['dtype']}: "
                   f"per call kernel {r['ms']:.5f} ms vs torch.aminmax {r['library_ms']:.5f} ms "
-                  f"({r['library_ms'] / r['ms']:.2f}x); device {r['device_ms']:.5f} vs "
-                  f"{r['library_device_ms']:.5f} ms "
-                  f"({r['library_device_ms'] / r['device_ms']:.2f}x); bound {r['bound_ms']:.5f} ms")
+                  f"({r['library_ms'] / r['ms']:.2f}x); device {ms_text(r['device_ms'])} vs "
+                  f"{ms_text(r['library_device_ms'])} ms; bound {r['bound_ms']:.5f} ms")
     return rows_out
 
 
@@ -2056,6 +2081,359 @@ def robustness_matrix(dev):
     return {k: launches[k] for k in MATRIX_LAUNCHES}
 
 
+# ------------------------------------------------------- robust serving
+
+# tests/test_serve.py's tiny model (phase 14a) and the full-width cell
+# (14b): llama3.2-3b's published widths (configs/llama3_2_3b.py) cut to 8 of
+# its 28 layers, so that the m = 4 f32 gradient rows (25.5 GB), the f32
+# aggregate (6.4 GB) and the served and adapted bf16 copies fit the card.
+SERVE_TINY = dict(name="serve-test", n_layers=1, d_model=64, n_heads=4, n_kv_heads=2,
+                  d_ff=128, vocab=128, dtype="float32")
+SERVE_LAYERS = 8
+SERVE_D = 1_593_363_456  # 2 * 128256 * 3072 + 3072 + 8 * 100,669,440
+SERVE_REQUESTS = 32
+SERVE_SLICE = 1 << 26  # coordinates a column slice of the plain version holds
+SERVE_LOGIT_TOL = 1e-5  # tests/test_torch_serve.py's float32 logit tolerance
+# serve/run.py's defaults apart from alpha (one Byzantine shard of four)
+SERVE_ENGINE = dict(slots=4, prompt_len=16, max_new=16)
+SERVE_TRAFFIC = dict(num_users=1_000_000, num_shards=4, alpha=0.25, attack="feedback_flip")
+SERVE_ADAPT = {"median": dict(method="median", beta=0.2),
+               "trimmed_mean": dict(method="trimmed_mean", beta=0.25)}
+
+
+def serve_cfg(tiny: bool):
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+
+    if tiny:
+        return dataclasses.replace(get_smoke_config("llama3_2_3b"), **SERVE_TINY)
+    return dataclasses.replace(get_config("llama3_2_3b"), n_layers=SERVE_LAYERS)
+
+
+def serve_traffic(cfg, scfg, **over):
+    from repro_torch.fed.population import ArrivalConfig
+    from repro_torch.serve.traffic import TrafficConfig
+
+    kw = dict(SERVE_TRAFFIC, prompt_len=scfg.prompt_len, min_gen=max(1, scfg.max_new // 4),
+              max_gen=scfg.max_new, vocab=cfg.vocab,
+              arrival=ArrivalConfig(latency="exponential", scale=2.0))
+    kw.update(over)
+    return TrafficConfig(**kw)
+
+
+def teacher_forced_logits(params, cfg, prompt, toks, cache_len):
+    """(len(toks), V) float32 logits of every generation step, fed ``toks``."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    dev = params["embed"].device
+    with torch.no_grad():
+        logits, cache = T.prefill(params, torch.as_tensor(prompt, dtype=torch.int64,
+                                                          device=dev)[None],
+                                  cfg, kv_block=0, cache_len=cache_len)
+        out = [logits[0, -1]]
+        for j, t in enumerate(toks[:-1]):
+            logits, cache = T.decode_step(params, torch.tensor([[int(t)]], device=dev), cache,
+                                          len(prompt) + j, cfg)
+            out.append(logits[0, 0])
+    return torch.stack(out).float().cpu()
+
+
+def serve_parity(dev):
+    """Phase 14a: the tiny model in f32 (TF32 off) on the card against the
+    same run on the CPU: the engine's tokens on the port's own requests
+    (equal wherever the CPU's top-2 logit gap exceeds 2e-5), teacher-forced
+    logits within 1e-5, and one adaptation round's iterate and grad_norm."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.adapt import AdaptConfig, FeedbackAdapter
+    from repro_torch.serve.engine import ServeConfig, ServeEngine, serve_stream
+    from repro_torch.serve.traffic import VirtualUsers
+    from repro_torch.tree import ravel, tree_map
+
+    cfg = serve_cfg(tiny=True)
+    scfg = ServeConfig(slots=3, prompt_len=8, max_new=6, window=16)
+    tcfg = serve_traffic(cfg, scfg, num_users=64, num_shards=2, alpha=0.5, min_gen=1)
+    cpu = T.init_params(cfg, seed=0, device="cpu")
+    on_card = tree_map(lambda t: t.to(dev), cpu)
+    reqs = VirtualUsers(tcfg).sample_requests(16)
+    done = {}
+    for name, params in (("card", on_card), ("cpu", cpu)):
+        out = serve_stream(ServeEngine(cfg, scfg, params), reqs)
+        check(len(out) == len(reqs), f"14a: {name} served {len(out)}/{len(reqs)}")
+        done[name] = {c.request.rid: c for c in out}
+    flips, worst = 0, 0.0
+    for req in reqs:
+        a, b = done["card"][req.rid].response, done["cpu"][req.rid].response
+        want = teacher_forced_logits(cpu, cfg, req.prompt, b, scfg.cache_len)
+        got = teacher_forced_logits(on_card, cfg, req.prompt, b, scfg.cache_len)
+        worst = max(worst, float((got - want).abs().max()))
+        top2 = torch.sort(want, dim=-1).values[:, -2:]
+        gap = top2[:, 1] - top2[:, 0]
+        for j, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                check(float(gap[j]) <= 2 * SERVE_LOGIT_TOL,
+                      f"14a: request {req.rid} step {j}: card token {x} != CPU {y} at a "
+                      f"top-2 gap of {float(gap[j])}")
+                flips += 1
+                break
+    check(worst <= SERVE_LOGIT_TOL, f"14a: card vs CPU teacher-forced logits differ by {worst}")
+    # one round on the CPU's traffic, on both devices
+    acfg = AdaptConfig(adapt_every=4, batch_per_shard=1, method="median")
+    users = VirtualUsers(tcfg)
+    per_shard = [[c for c in done["cpu"].values() if c.request.shard == s][:1] for s in range(2)]
+    check(all(len(p) == 1 for p in per_shard), "14a: a shard served no request")
+    batch = users.build_round(per_shard, 0)
+    rounds = {}
+    for name, params in (("card", on_card), ("cpu", cpu)):
+        ad = FeedbackAdapter(cfg, acfg, users, params)
+        entry = ad.run_round(batch)
+        rounds[name] = (ravel(ad.state["w"])[0].cpu(), entry["grad_norm"])
+    w_diff = float((rounds["card"][0] - rounds["cpu"][0]).abs().max())
+    g_rel = abs(rounds["card"][1] - rounds["cpu"][1]) / abs(rounds["cpu"][1])
+    print(f"phase 14a: tiny model f32: {len(reqs)} requests, tokens card == CPU "
+          f"({flips} near-tie flips), teacher-forced logits max |diff| {worst:.3g}; one "
+          f"median round: iterate max |diff| {w_diff:.3g}, grad_norm rel diff {g_rel:.3g}")
+    check(w_diff <= 1e-6 + 1e-4 * float(rounds["cpu"][0].abs().max()) and g_rel <= 1e-4,
+          "14a: the card's adaptation round differs from the CPU's")
+    check(flips <= 1, f"14a: {flips} token flips")
+
+
+def serve_round_split(adapter, batch):
+    """Wall ms of one adaptation round on ``batch`` (not kept), and of its
+    parts: the per-shard gradients, the aggregation and the update."""
+    import torch
+
+    state = adapter.state
+    fn = adapter.round_fn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(state, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stages = fn.stages(state, batch)
+    r = int(state["round"])
+    rows = stages.local_work(state["w"], r)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    agg = stages.aggregate(rows)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    stages.update(state["w"], state["opt_state"], agg, r)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    return {"round_ms": (t1 - t0) * 1e3, "grad_rows_ms": (t2 - t1) * 1e3,
+            "aggregate_ms": (t3 - t2) * 1e3, "update_ms": (t4 - t3) * 1e3}
+
+
+def hold_on_rows(kind, rows, agg, trim):
+    """The kernel's output ``agg`` against its plain version on ``rows``,
+    bitwise, in column slices of SERVE_SLICE coordinates."""
+    from repro_torch.kernels import selection_network as SN
+
+    n = rows.shape[1]
+    for a in range(0, n, SERVE_SLICE):
+        x = rows[:, a:a + SERVE_SLICE]
+        want = SN.median_select(x) if kind == "median" else SN.trimmed_mean_select(x, trim)
+        bad, err = compare(agg[a:a + SERVE_SLICE], want)
+        check(bad == 0, f"14b: {kind} rows[:, {a}:{a + x.shape[1]}]: {bad} mismatches vs the "
+                        f"plain version (max |err| {err})")
+
+
+def serve_cell(dev, card: str):
+    """Phase 14b: llama3.2-3b at full width with 8 layers on the card: three
+    runs of the 32-request stream (serve only, median, trimmed mean beta
+    0.25) with the launch counters zeroed just before each and read just
+    after; every request served, >= 2 rounds a robust method, one B1 / B2
+    launch over one leaf a round and no other kernel, each round's
+    aggregate bitwise the plain version on its rows (column slices), the
+    served tensors' storage kept across swaps; tokens/s, latency, memory,
+    the round's split, B1/B2 at (4, D) against the HBM bound and profiles
+    of a tick and a round.  Returns the B1 / B2 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.kernels import robust_agg
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.adapt import AdaptConfig, FeedbackAdapter
+    from repro_torch.serve.engine import ServeConfig, ServeEngine, latency_stats, serve_stream
+    from repro_torch.serve.traffic import VirtualUsers
+
+    class HeldAdapter(FeedbackAdapter):
+        """Holds the kernel against its plain version on every round's rows
+        (the adapter's own buffer), right after the round."""
+
+        held = 0
+        last_batch = None
+
+        def run_round(self, batch):
+            entry = super().run_round(batch)
+            kind = self.acfg.method
+            trim = int(self.acfg.beta * self.round_fn.rows.shape[0])
+            hold_on_rows(kind, self.round_fn.rows, self.state["prev_agg"], trim)
+            self.held += 1
+            self.last_batch = batch
+            return entry
+
+    cfg = serve_cfg(tiny=False)
+    check(T.count_params(cfg) == SERVE_D, f"14b: {T.count_params(cfg)} parameters")
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    scfg = ServeConfig(**SERVE_ENGINE)
+    users = VirtualUsers(serve_traffic(cfg, scfg))
+    reqs = users.sample_requests(SERVE_REQUESTS)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 14b: {cfg.name} width, {SERVE_LAYERS} layers: D = {SERVE_D:,} bf16 "
+          f"parameters made on the card in {time.perf_counter() - t0:.1f} s")
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    launches_all = {}
+    for run in ("serve_only", "median", "trimmed_mean"):
+        engine = ServeEngine(cfg, scfg, params)
+        adapter = None
+        if run != "serve_only":
+            acfg = AdaptConfig(adapt_every=8, batch_per_shard=2, optimizer="sgd", lr=0.1,
+                               **SERVE_ADAPT[run])
+            adapter = HeldAdapter(cfg, acfg, users, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        robust_agg.reset_launches()  # zeroed just before this run
+        H.reset_launches()
+        t0 = time.perf_counter()
+        done = serve_stream(engine, reqs, adapter=adapter)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**robust_agg.LAUNCHES, **H.LAUNCHES}  # read just after it
+        leaves = dict(robust_agg.LEAVES)
+        peak = torch.cuda.max_memory_allocated()
+        stats = latency_stats(done)
+        mt = engine.metrics
+        rounds = adapter.rounds_done if adapter else 0
+        line = {"serve_run": run, "requests": len(done), "ticks": engine.tick,
+                "tokens": mt.total_tokens, "tick_wall_s": mt.total_wall,
+                "tokens_per_s": mt.total_tokens / mt.total_wall, "stream_wall_s": wall,
+                "p50_latency_ticks": stats["p50_latency"],
+                "p95_latency_ticks": float(np.percentile([c.latency for c in done], 95)),
+                "p99_latency_ticks": stats["p99_latency"],
+                "rounds": rounds, "launches": launches, "leaves": leaves,
+                "max_memory_allocated_gb": peak / 1e9, "card_memory_gb": total_mem / 1e9,
+                "storage_kept": engine.storage_kept(), "card": card}
+        print(json.dumps({"serve": line}))
+        check(len(done) == SERVE_REQUESTS, f"14b {run}: served {len(done)}/{SERVE_REQUESTS}")
+        check(all(engine.storage_kept().values()), f"14b {run}: storage not kept")
+        check(peak < total_mem, f"14b {run}: peak {peak} >= the card's {total_mem}")
+        want = {k: 0 for k in launches}
+        if adapter is not None:
+            check(rounds >= 2, f"14b {run}: {rounds} adaptation rounds, want >= 2")
+            check(adapter.held == rounds, f"14b {run}: {adapter.held} of {rounds} rounds held")
+            check(engine.params_version == rounds, f"14b {run}: {engine.params_version} swaps")
+            want[run] = rounds
+            check(leaves[run] == rounds, f"14b {run}: {leaves[run]} leaves in {rounds} rounds")
+            print(f"phase 14b: {run}: {rounds} rounds, each one {run} launch over one leaf of "
+                  f"{SERVE_D:,} coordinates, bitwise the plain version on the round's rows "
+                  f"in {-(-SERVE_D // SERVE_SLICE)} column slices")
+        check(launches == want, f"14b {run}: launches {launches}, want {want}")
+        launches_all[run] = launches
+        if run == "median":
+            serve_kernel_timings(adapter.round_fn.rows, card)
+        if adapter is not None:
+            split = serve_round_split(adapter, adapter.last_batch)
+            print(json.dumps({"serve_round": run, **split, "card": card}))
+            prof = profile_summary(lambda: adapter.round_fn(adapter.state, adapter.last_batch),
+                                   split["round_ms"], top=10, names=("leaf_select_kernel",))
+            print(json.dumps({"profile_serve_round": run, **prof}))
+        else:
+            t0 = time.perf_counter()
+            for _ in range(8):
+                engine.step()
+            tick_ms = (time.perf_counter() - t0) * 1e3 / 8
+            prof = profile_summary(lambda: [engine.step() for _ in range(8)], tick_ms * 8,
+                                   top=10)
+            print(json.dumps({"profile_serve_ticks": 8, "tick_ms": tick_ms, **prof}))
+        del engine, adapter
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return {k: launches_all[k][k] for k in SERVE_ADAPT}
+
+
+def serve_kernel_timings(rows, card: str):
+    """B1 and B2 at the adapter's (4, D) f32 rows: CUDA-event and profiler
+    device ms against the HBM bound, the plain version timed over its
+    column slices; no single PyTorch call computes either (torch.quantile
+    takes at most 2^24 elements; torch.median gives the lower middle value
+    for even m)."""
+    import torch
+
+    from repro_torch.kernels import robust_agg
+    from repro_torch.kernels import selection_network as SN
+
+    m, n = rows.shape
+    for name, trim, kernel, plain in (
+            ("median", 0, lambda: robust_agg.median(rows),
+             lambda: [SN.median_select(rows[:, a:a + SERVE_SLICE])
+                      for a in range(0, n, SERVE_SLICE)]),
+            ("trimmed_mean", 1, lambda: robust_agg.trimmed_mean(rows, 1),
+             lambda: [SN.trimmed_mean_select(rows[:, a:a + SERVE_SLICE], 1)
+                      for a in range(0, n, SERVE_SLICE)])):
+        b_ms, b_by = bound(name, m, n, trim, 4)
+        row = {"shape": "serve rows", "kernel": name, "m": m, "n": n, "trim": trim,
+               "dtype": "float32", "ms": time_ms(kernel, 5),
+               "device_ms": device_ms(kernel, 5, KERNEL_NAMES[name]),
+               "plain_ms": time_ms(plain, 1), "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by, "card": card}
+        print(json.dumps({"timing": row}))
+        torch.cuda.empty_cache()
+
+
+def serve_cli(dev):
+    """Phase 14c: python -m repro_torch.serve.run --smoke twice on the card:
+    exit 0, every request served, rounds fired, one sha256."""
+    import os
+
+    args = [sys.executable, "-m", "repro_torch.serve.run", "--smoke", "--arch", "llama3_2_3b",
+            "--requests", "24", "--slots", "3", "--shards", "2", "--alpha", "0.5",
+            "--adapt-every", "8", "--method", "median"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    digests = []
+    for _ in range(2):
+        out = subprocess.run(args, env=env, capture_output=True, text=True, timeout=300,
+                             cwd=ROOT)
+        check(out.returncode == 0, f"serve CLI exited {out.returncode}: {out.stderr[-2000:]}")
+        check("served 24/24 requests" in out.stdout and "device cuda" in out.stdout,
+              f"serve CLI: {out.stdout[-2000:]}")
+        check("storage kept: {'params': True, 'pool': True}" in out.stdout,
+              "serve CLI: storage not kept")
+        line = [ln for ln in out.stdout.splitlines() if "final iterate sha256" in ln]
+        check(len(line) == 1, f"serve CLI printed no sha256 line: {out.stdout[-2000:]}")
+        digests.append(line[0].split("=")[-1].strip())
+    rounds = [ln for ln in out.stdout.splitlines() if ln.startswith("adaptation rounds")]
+    print(f"phase 14c: serve CLI twice on the card: {rounds[0] if rounds else '?'}; sha256 "
+          f"{digests[0]} / {digests[1]}")
+    check(digests[0] == digests[1], "the serve CLI is not deterministic on the card")
+
+
+def serving(dev, card: str):
+    """Phase 14: 14a, 14b and 14c; returns B1's and B2's launches on the
+    serving path."""
+    t0 = time.perf_counter()
+    serve_parity(dev)
+    print(f"phase 14a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = serve_cell(dev, card)
+    print(f"phase 14b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_cli(dev)
+    print(f"phase 14c: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2152,6 +2530,12 @@ def main() -> None:
         if phase >= 12:  # phase 1 prepared their programs (select_specs)
             check(len(robust_agg.select_libraries()) == libs_before,
                   f"phase {phase} built order-statistic programs that phase 1 did not")
+    libs_before = len(robust_agg.select_libraries())
+    t0 = time.perf_counter()
+    new_paths["serve"] = serving(dev, card)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    check(len(robust_agg.select_libraries()) == libs_before,
+          "phase 14 built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")

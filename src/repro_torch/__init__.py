@@ -10,8 +10,11 @@ Ported so far, on one device: Algorithm 1 (robust distributed GD) —
 kernels (selection network, the hand-written CUDA order-statistic and
 sketch kernels), core (aggregators, attacks shim, robust_gd, theory),
 attacks, data, models, checkpoint and the round engine; synchronous
-federated rounds (``fed``); and the round programs (``rounds``: Algorithm
-2, local-update rounds, payload compression, communication accounting).
+federated rounds (``fed``); the round programs (``rounds``: Algorithm
+2, local-update rounds, payload compression, communication accounting);
+buffered async rounds and the robustness matrix; and robust serving
+(``serve``: the continuous-batching engine over the dense transformer of
+``models.transformer``, with robust continual adaptation from feedback).
 """
 import torch
 

@@ -1,2 +1,3 @@
-"""The paper's experiment models and the weight carrier to/from the
-reference's parameter dicts."""
+"""The paper's experiment models, the dense transformer (``layers``,
+``attention``, ``transformer``) and the weight carrier to/from the
+reference's parameter trees."""

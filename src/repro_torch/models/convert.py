@@ -6,7 +6,11 @@ The port keeps the reference's parameter layout (HWIO conv weights,
 and dtypes and moves tensors; it never reshapes.  ``linreg`` parameters
 are a bare (d,) vector in both packages.  :func:`round_state_from_reference`
 carries a round engine state (iterate, previous aggregate, optimizer
-slots, round) across.
+slots, round) across.  :func:`transformer_from_reference` /
+:func:`transformer_to_reference` carry the dense transformer's tree
+(``blocks`` stacked), bfloat16 leaves included, with every dict's keys in
+sorted order: the order ``jax.flatten_util.ravel_pytree`` ravels in, which
+the port's :func:`repro_torch.tree.ravel` (insertion order) then follows.
 """
 from __future__ import annotations
 
@@ -105,3 +109,62 @@ def round_state_from_reference(state_np: dict, *, seed: int = 0, device="cuda") 
         raise ValueError(f"prev_agg has shape {tuple(prev.shape)}, w {tuple(w.shape)}")
     return engine.make_state(w, prev_agg=prev, opt_state=_opt_state(state_np["opt_state"], dev),
                              seed=seed, rnd=int(np.asarray(state_np["round"])))
+
+
+# ------------------------------------------------------- the transformer
+
+
+def _leaf_from_numpy(path: str, a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if dtype == torch.bfloat16:
+        if a.dtype.name != "bfloat16":
+            raise TypeError(f"{path}: expected bfloat16, got {a.dtype}")
+        bits = np.array(a.view(np.uint16), order="C").view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    want = str(dtype).removeprefix("torch.")
+    if a.dtype.name != want:
+        raise TypeError(f"{path}: expected {want}, got {a.dtype}")
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def transformer_from_reference(cfg, params_np, device="cuda") -> dict:
+    """The reference's transformer parameters (a tree of numpy arrays,
+    ``blocks`` stacked ``(n_layers, ...)``) as the port's tensors: keys,
+    shapes and dtypes checked against ``transformer.param_shapes(cfg)``,
+    every dict rebuilt with sorted keys."""
+    from repro_torch.models import transformer as T
+
+    dev = resolve(device)
+
+    def build(path, spec, tree):
+        if isinstance(spec, dict):
+            if not isinstance(tree, dict) or set(tree) != set(spec):
+                got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+                raise KeyError(f"{path or 'params'}: expected keys {sorted(spec)}, got {got}")
+            return {k: build(f"{path}/{k}" if path else k, spec[k], tree[k])
+                    for k in sorted(spec)}
+        shape, dtype = spec
+        if tuple(np.shape(tree)) != tuple(shape):
+            raise ValueError(f"{path}: shape {np.shape(tree)}, expected {tuple(shape)}")
+        return _leaf_from_numpy(path, tree, dtype, dev)
+
+    return build("", T.param_shapes(cfg), params_np)
+
+
+def transformer_to_reference(params) -> dict:
+    """The port's transformer parameters as numpy arrays (bfloat16 leaves as
+    ``ml_dtypes.bfloat16``, numpy's extension type that JAX uses)."""
+    def leaf(t: torch.Tensor):
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return t.view(torch.int16).numpy().view(np.uint16).view(ml_dtypes.bfloat16)
+        return t.numpy()
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return leaf(tree)
+
+    return walk(params)
