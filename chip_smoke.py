@@ -130,11 +130,31 @@ Phases (any failure exits non-zero before the final line):
    2^26; the served tensors keep their storage; tokens/s, latency in
    ticks, peak memory, the round's split, B1/B2 at (4, D) against the HBM
    bound and profiles of 8 ticks and of a round; (c) ``python -m
-   repro_torch.serve.run --smoke`` twice: one sha256.
-The launch counters are zeroed before each of phases 8-13 and each run of
-phase 14b and read after; the kernels line gives each kernel's launches on
-them (``launches_new_paths``).  In phases 4, 6 and
-8-13 the inputs each kernel wrapper gets (the first call of each shape) are
+   repro_torch.serve.run --smoke`` twice: one sha256;
+15. robust LM training (``repro_torch.launch.trainer`` with 4 in-process
+   workers, every window under ``torch.cuda.set_sync_debug_mode("error")``):
+   (a) tests/test_trainer.py's tiny llama in f32, gather and bucketed x
+   median and trimmed mean under alie alpha 0.25, 4 SGD steps on the card
+   and the CPU from the same params and batches (losses and params within
+   1e-5), every step's aggregate bitwise its plain version; (b)
+   llama3.2-3b's widths at 8 layers (D = 1,593,363,456 bf16), global batch
+   8, seq 128, AdamW 1e-4, 16 steps in windows of 4: gather / bucketed
+   median, gather trimmed mean beta 0.25 and psum mean under alie alpha
+   0.25, psum mean and gather median under sign_flip.  The counters are
+   zeroed before each run and read after: one B1 (B2) launch a step over
+   all 12 leaves of the (4, D) bf16 stack, none for psum; the last window's
+   aggregates bitwise their plain versions in 2^26 column slices; the
+   robust runs' loss falls; under sign_flip the median ends below the
+   mean; steps/s, tokens/s, the step's split, device busy share, peak
+   memory, and B1/B2 at (4, D) bf16 against the 4.76 ms HBM bound; (c) the
+   chunked strategy on one (4, 2^24) leaf (B4 once, B5 once a 2^20 chunk)
+   and two steps of the tiny llama, within one bin of the exact median /
+   trimmed mean, B4/B5 held on the path's inputs and timed at its shapes;
+   (d) ``python -m repro_torch.launch.train --smoke`` on the card.
+The launch counters are zeroed before each of phases 8-13, each run of
+phase 14b and 15b and phase 15c, and read after; the kernels line gives
+each kernel's launches on them (``launches_new_paths``).  In phases 4, 6,
+8-13 and 15c the inputs each kernel wrapper gets (the first call of each shape) are
 recorded, and after the path's counts were read each kernel is run again on
 them and held against its plain version, bitwise (PathInputs); a kernel that
 launched on a path and was not held fails.  Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
@@ -401,7 +421,7 @@ def select_specs():
     """Every (kind, m, trim, dtype) of the order-statistic kernels this
     script runs: in f32 and bf16, phase 2's sweeps, the quickstart (m=8,
     beta 0.3), the CNN (m=10, beta 0.1), linreg m=40 (beta 0.05), phase
-    5's shapes and phase 14's serving rows (m=4: the median, beta 0.25); the fused kernel at each (m, trim) of the trimmed mean.  In
+    5's shapes and phases 14-15's rows (m=4: the median, beta 0.25); the fused kernel at each (m, trim) of the trimmed mean.  In
     f16 only what phase 7 and phase 5 run: the three kinds at HALF_M with
     sweep_trim(m), which is also int(0.1 * m) at the timed m = 31, 32.  In f32
     also the programs of phase 13's matrix (matrix_programs)."""
@@ -1063,43 +1083,57 @@ SKETCH_SHAPES = (("fed chunk", 512, 32, 512), ("cli default", 256, 64, 256),
                  ("bandwidth", 256, 1 << 20, 128))
 
 
-def sketch_timings(dev, card: str):
-    """Phase 5b: min/max and histogram kernel / plain / library times."""
+def sketch_time_rows(label: str, x, nbins: int, card: str, kinds=None):
+    """Timing rows of min/max and the histogram (with and without sums) on
+    the chunk ``x``: kernel (CUDA events, and torch.aminmax in turns for
+    min/max), profiler device time, plain version, bound."""
     import torch
 
     from repro_torch.kernels import histogram_agg as H
+
+    rows, n = x.shape
+    lo, hi = H.minmax(x)
+    lo, width = H.edges(lo, hi, nbins)
+    big = n >= 1 << 20
+    fns = {
+        ("minmax", False): (lambda: H.minmax(x), lambda: H.minmax_plain(x),
+                            lambda: torch.aminmax(x.float(), dim=0), "minmax_kernel"),
+        ("histogram", True): (lambda: H.histogram(x, lo, width, nbins, True),
+                              lambda: H.histogram_plain(x, lo, width, nbins, True),
+                              None, "histogram_kernel"),
+        ("histogram", False): (lambda: H.histogram(x, lo, width, nbins, False),
+                               lambda: H.histogram_plain(x, lo, width, nbins, False),
+                               None, "histogram_kernel"),
+    }
+    out = []
+    for (name, sums), (kernel, plain, lib, kname) in fns.items():
+        if kinds is not None and (name, sums) not in kinds:
+            continue
+        b_ms, b_by = sketch_bound(name, rows, n, nbins, x.element_size(), sums)
+        reps = 20 if big else 200
+        ms, lib_ms = time_pair(kernel, lib, reps) if lib else (time_ms(kernel, reps), None)
+        row = {"shape": label, "kernel": name, "rows": rows, "n": n, "nbins": nbins,
+               "with_sums": sums, "dtype": str(x.dtype).removeprefix("torch."),
+               "ms": ms, "device_ms": device_ms(kernel, 20, kname),
+               "plain_ms": time_ms(plain, 2 if big else 10),
+               "library_ms": lib_ms,
+               "library_device_ms": device_ms(lib, 20) if lib else None,
+               "bound_ms": b_ms, "bound_by": b_by, "card": card}
+        out.append(row)
+        print(json.dumps({"timing": row}))
+    return out
+
+
+def sketch_timings(dev, card: str):
+    """Phase 5b: min/max and histogram kernel / plain / library times."""
+    import torch
 
     rows_out = []
     cases = [(label, r, n, nb, torch.float32) for label, r, n, nb in SKETCH_SHAPES]
     cases.append(("bandwidth", 256, 1 << 20, 128, torch.bfloat16))
     for label, rows, n, nbins, dtype in cases:
         x = (3 * torch.randn(rows, n, device=dev)).to(dtype)
-        lo, hi = H.minmax(x)
-        lo, width = H.edges(lo, hi, nbins)
-        big = n >= 1 << 20
-        fns = {
-            ("minmax", False): (lambda: H.minmax(x), lambda: H.minmax_plain(x),
-                                lambda: torch.aminmax(x.float(), dim=0), "minmax_kernel"),
-            ("histogram", True): (lambda: H.histogram(x, lo, width, nbins, True),
-                                  lambda: H.histogram_plain(x, lo, width, nbins, True),
-                                  None, "histogram_kernel"),
-            ("histogram", False): (lambda: H.histogram(x, lo, width, nbins, False),
-                                   lambda: H.histogram_plain(x, lo, width, nbins, False),
-                                   None, "histogram_kernel"),
-        }
-        for (name, sums), (kernel, plain, lib, kname) in fns.items():
-            b_ms, b_by = sketch_bound(name, rows, n, nbins, x.element_size(), sums)
-            reps = 20 if big else 200
-            ms, lib_ms = time_pair(kernel, lib, reps) if lib else (time_ms(kernel, reps), None)
-            row = {"shape": label, "kernel": name, "rows": rows, "n": n, "nbins": nbins,
-                   "with_sums": sums, "dtype": str(dtype).removeprefix("torch."),
-                   "ms": ms, "device_ms": device_ms(kernel, 20, kname),
-                   "plain_ms": time_ms(plain, 2 if big else 10),
-                   "library_ms": lib_ms,
-                   "library_device_ms": device_ms(lib, 20) if lib else None,
-                   "bound_ms": b_ms, "bound_by": b_by, "card": card}
-            rows_out.append(row)
-            print(json.dumps({"timing": row}))
+        rows_out += sketch_time_rows(label, x, nbins, card)
         del x
         torch.cuda.empty_cache()
     for r in rows_out:
@@ -2231,7 +2265,7 @@ def serve_round_split(adapter, batch):
             "aggregate_ms": (t3 - t2) * 1e3, "update_ms": (t4 - t3) * 1e3}
 
 
-def hold_on_rows(kind, rows, agg, trim):
+def hold_on_rows(kind, rows, agg, trim, label="14b"):
     """The kernel's output ``agg`` against its plain version on ``rows``,
     bitwise, in column slices of SERVE_SLICE coordinates."""
     from repro_torch.kernels import selection_network as SN
@@ -2241,7 +2275,7 @@ def hold_on_rows(kind, rows, agg, trim):
         x = rows[:, a:a + SERVE_SLICE]
         want = SN.median_select(x) if kind == "median" else SN.trimmed_mean_select(x, trim)
         bad, err = compare(agg[a:a + SERVE_SLICE], want)
-        check(bad == 0, f"14b: {kind} rows[:, {a}:{a + x.shape[1]}]: {bad} mismatches vs the "
+        check(bad == 0, f"{label}: {kind} rows[:, {a}:{a + x.shape[1]}]: {bad} mismatches vs the "
                         f"plain version (max |err| {err})")
 
 
@@ -2434,6 +2468,470 @@ def serving(dev, card: str):
     return launches
 
 
+# ----------------------------------------------- phase 15: robust LM training
+#
+# tests/test_trainer.py's tiny llama (15a, 15c) and the full-width cell (15b):
+# llama3.2-3b's published widths (configs/llama3_2_3b.py) cut to 8 of its 28
+# layers, as phase 14, so that the params (3.19 GB), AdamW's f32 moments
+# (12.7 GB), the m = 4 worker-stacked bf16 gradients (12.7 GB) and an attacked
+# copy of them fit the card; run settings are python -m repro.launch.train's
+# defaults (4 workers, global batch 8, seq 128, AdamW), 16 steps in windows of
+# 4, but lr 1e-4: at this width the default 1e-3 diverges within a few steps
+# without warmup (12.3 -> 16.9 under ALIE on the card; at one layer on the
+# CPU 8.94 -> 8.02 after falling to 7.71 even with no attack).
+TRAIN_TINY = dict(name="trainer-test-tiny", n_layers=1, d_model=64, n_heads=4, n_kv_heads=2,
+                  d_ff=172, vocab=128, dtype="float32")
+TRAIN_TINY_DATA = dict(vocab=128, seq_len=16, global_batch=4, num_workers=4, seed=0)
+TRAIN_TINY_TOL = 1e-5  # card vs CPU: losses relative, params absolute (f32, SGD 0.5)
+TRAIN_WORKERS = 4
+TRAIN_STEPS, TRAIN_DS = 16, 4
+TRAIN_LR = 1e-4
+TRAIN_DATA = dict(seq_len=128, global_batch=8, num_workers=TRAIN_WORKERS, seed=0)
+# (strategy, aggregator, attack): the robust runs, then the plain data-parallel mean
+TRAIN_RUNS = (("gather", "median", "alie"), ("bucketed", "median", "alie"),
+              ("gather", "trimmed_mean", "alie"), ("psum", "mean", "alie"),
+              ("psum", "mean", "sign_flip"), ("gather", "median", "sign_flip"))
+TRAIN_ALPHA, TRAIN_BETA = 0.25, 0.25
+CHUNKED_N = 1 << 24  # one leaf of 2^24 coordinates: 16 sketch chunks of 2^20
+
+
+class HeldAggregation:
+    """Inside ``with``: every call of ``aggregators.aggregate_leaves`` on
+    ``device`` with the median or the trimmed mean is held against the plain
+    selection network on the same rows, bitwise, in column slices of
+    SERVE_SLICE coordinates, when ``hold(call)`` says so (the call's index,
+    from 0).  The check suspends the sync-debug mode (it reads the card);
+    the aggregation it checks does not."""
+
+    def __init__(self, device, hold=lambda call: True, keep=lambda call: False):
+        self.device, self.hold, self.keep = device, hold, keep
+        self.calls = self.held = 0
+        self.kept = None
+
+    def __enter__(self):
+        from repro_torch.core import aggregators
+
+        self._real = aggregators.aggregate_leaves
+
+        def wrapped(leaves, method, beta=0.1):
+            outs = self._real(leaves, method, beta)
+            call, self.calls = self.calls, self.calls + 1
+            if method in ("median", "trimmed_mean") and leaves and \
+                    leaves[0].device == self.device:
+                if self.keep(call):
+                    self.kept = (list(leaves), method, beta)
+                if self.hold(call):
+                    self._check(leaves, outs, method, beta)
+            return outs
+
+        aggregators.aggregate_leaves = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import aggregators
+
+        aggregators.aggregate_leaves = self._real
+
+    def _check(self, leaves, outs, method, beta):
+        import torch
+
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            for x, out in zip(leaves, outs):
+                m = x.shape[0]
+                hold_on_rows(method, x.reshape(m, -1), out.reshape(-1), int(beta * m), "15")
+            self.held += 1
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+def sync_free_windows():
+    """Patch ``trainer.make_window_step`` so that every window runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a micro-step that waits for
+    the card raises.  Returns the function that undoes the patch."""
+    import torch
+
+    from repro_torch.launch import trainer
+
+    real = trainer.make_window_step
+
+    def make(*args, **kwargs):
+        window = real(*args, **kwargs)
+
+        def guarded(state, batches):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return window(state, batches)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        return guarded
+
+    trainer.make_window_step = make
+    return lambda: setattr(trainer, "make_window_step", real)
+
+
+def train_tiny_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config("llama3.2-3b"), **TRAIN_TINY)
+
+
+def train_parity(dev):
+    """Phase 15a: the tiny llama in f32 (TF32 off), 4 steps of SGD 0.5 on the
+    same batches on the card and on the CPU, gather and bucketed x median and
+    trimmed mean (beta 0.25) under alie alpha 0.25; losses and params within
+    TRAIN_TINY_TOL, every step's aggregate on the card bitwise its plain
+    version, and no window waits for the card."""
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import trainer
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = train_tiny_cfg()
+    dcfg = DataConfig(**TRAIN_TINY_DATA)
+    atk = AttackConfig("alie", TRAIN_ALPHA)
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    block = trainer.stack_window_batches(dcfg, 0, 4, mesh_lib.make_debug_mesh(4, device="cpu"),
+                                         atk, cfg)
+    undo = sync_free_windows()
+    worst_loss = worst_param = 0.0
+    try:
+        for strategy in ("gather", "bucketed"):
+            for method in ("median", "trimmed_mean"):
+                pcfg = ParallelConfig(agg_method=method, agg_strategy=strategy,
+                                      agg_beta=TRAIN_BETA, remat=False)
+                runs = {}
+                for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+                    mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, device=d)
+                    opt = get_optimizer("sgd", 0.5)
+                    state = trainer.init_state(cfg, mesh, opt, seed=0, pcfg=pcfg)
+                    state["params"] = tree_map(lambda t: t.to(d), cpu_params)
+                    state["opt_state"] = opt.init(state["params"])
+                    window = trainer.make_window_step(cfg, pcfg, mesh, opt, atk, 1)
+                    losses = []
+                    with HeldAggregation(dev) as held:
+                        for i in range(4):
+                            before = float(state["metrics"]["loss_sum"])
+                            state = window(state, {k: v[i:i + 1].to(d) for k, v in block.items()})
+                            losses.append(float(state["metrics"]["loss_sum"]) - before)
+                    if name == "card":
+                        check(held.held == 4, f"15a {strategy}/{method}: {held.held} of 4 "
+                                              "steps' aggregates held")
+                    runs[name] = (losses, [t.cpu() for t in tree_leaves(state["params"])])
+                (lc, pc), (lx, px) = runs["card"], runs["cpu"]
+                dl = max(abs(a - b) / abs(b) for a, b in zip(lc, lx))
+                dp = max(float((a - b).abs().max()) for a, b in zip(pc, px))
+                worst_loss, worst_param = max(worst_loss, dl), max(worst_param, dp)
+                check(dl <= TRAIN_TINY_TOL and dp <= TRAIN_TINY_TOL,
+                      f"15a {strategy}/{method}: card vs CPU losses {dl}, params {dp}")
+    finally:
+        undo()
+    print(f"phase 15a: tiny llama f32, gather and bucketed x median and trimmed mean under "
+          f"alie, 4 steps: card vs CPU losses rel {worst_loss:.3g}, params {worst_param:.3g} "
+          f"(tolerance {TRAIN_TINY_TOL}); every step's aggregate bitwise its plain version; "
+          f"no window waited for the card")
+
+
+def train_step_split(cfg, pcfg, mesh, attack, state, batch, step):
+    """Wall ms of one more step (not kept) and of its parts: the aggregation
+    (aggregate_by_strategy) and the update (AdamW), each closed by a
+    synchronize; the per-worker gradients are the rest."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.optim.optimizers import Optimizer, get_optimizer
+
+    opt = get_optimizer("adamw", TRAIN_LR)
+    parts = {"aggregate_ms": 0.0, "update_ms": 0.0}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    real_agg = steps.rounds_dist.aggregate_by_strategy
+    steps.rounds_dist.aggregate_by_strategy = timed("aggregate_ms", real_agg)
+    try:
+        sb = steps.make_step_body(cfg, pcfg, mesh,
+                                  Optimizer(opt.init, timed("update_ms", opt.update)), attack)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sb.body(state["params"], state["opt_state"], batch, step, 0)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        del out
+    finally:
+        steps.rounds_dist.aggregate_by_strategy = real_agg
+    parts["step_ms"] = total
+    parts["worker_grads_ms"] = total - parts["aggregate_ms"] - parts["update_ms"]
+    return parts
+
+
+def train_kernel_timings(kept, card: str):
+    """B1 and B2 at the worker-stacked bf16 gradients (4, D) of phase 15b's
+    last step, all leaves in one call: CUDA-event and profiler device ms
+    against the HBM bound, the plain version over column slices."""
+    import torch
+
+    from repro_torch.kernels import robust_agg
+    from repro_torch.kernels import selection_network as SN
+
+    leaves = [x.reshape(x.shape[0], -1) for x in kept[0]]
+    m, n = leaves[0].shape[0], sum(x.shape[1] for x in leaves)
+    for name, trim, kernel, plain in (
+            ("median", 0, lambda: robust_agg.median_many(leaves),
+             lambda: [SN.median_select(x[:, a:a + SERVE_SLICE]) for x in leaves
+                      for a in range(0, x.shape[1], SERVE_SLICE)]),
+            ("trimmed_mean", 1, lambda: robust_agg.trimmed_mean_many(leaves, 1),
+             lambda: [SN.trimmed_mean_select(x[:, a:a + SERVE_SLICE], 1) for x in leaves
+                      for a in range(0, x.shape[1], SERVE_SLICE)])):
+        b_ms, b_by = bound(name, m, n, trim, 2)
+        row = {"shape": "train grads", "kernel": name, "m": m, "n": n, "leaves": len(leaves),
+               "trim": trim, "dtype": "bfloat16", "ms": time_ms(kernel, 5),
+               "device_ms": device_ms(kernel, 5, KERNEL_NAMES[name]),
+               "plain_ms": time_ms(plain, 1), "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by, "card": card}
+        print(json.dumps({"timing": row}))
+        torch.cuda.empty_cache()
+
+
+def train_cell(dev, card: str):
+    """Phase 15b: llama3.2-3b's widths at 8 layers trained with 4 in-process
+    workers through ``trainer.train_loop`` (TRAIN_RUNS, 16 steps in windows
+    of 4), every window under the sync-debug "error" mode; the counters
+    zeroed just before each run and read just after.  Holds: the last
+    window's aggregates bitwise their plain versions (column slices), the
+    robust runs' loss falling, and under sign_flip the median's last loss
+    below the mean's; B1 / B2 timed on the gather/median run's last rows.
+    Returns the B1 / B2 launches."""
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.kernels import robust_agg
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, trainer
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import get_optimizer
+
+    cfg = serve_cfg(tiny=False)
+    check(T.count_params(cfg) == SERVE_D, f"15b: {T.count_params(cfg)} parameters")
+    torch.cuda.empty_cache()
+    mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, device=dev)
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=TRAIN_STEPS, device_steps=TRAIN_DS)
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    launches_all = {"median": 0, "trimmed_mean": 0}
+    last_loss = {}
+    undo = sync_free_windows()
+    try:
+        for strategy, method, attack in TRAIN_RUNS:
+            run = f"{strategy}/{method}/{attack}"
+            pcfg = ParallelConfig(agg_method=method, agg_strategy=strategy, agg_beta=TRAIN_BETA,
+                                  attn_chunk=0)
+            atk = AttackConfig(attack, TRAIN_ALPHA)
+            keep = run == "gather/median/alie"
+            first_held = TRAIN_STEPS - TRAIN_DS
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            robust_agg.reset_launches()  # zeroed just before this run
+            H.reset_launches()
+            t0 = time.perf_counter()
+            with HeldAggregation(dev, hold=lambda c: c >= first_held,
+                                 keep=lambda c: keep and c == TRAIN_STEPS - 1) as held:
+                result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**robust_agg.LAUNCHES, **H.LAUNCHES}  # read just after it
+            leaves = dict(robust_agg.LEAVES)
+            peak = torch.cuda.max_memory_allocated()
+            hist = result.history
+            robust = method != "mean"
+            want = {k: 0 for k in launches}
+            if robust:
+                want[method] = TRAIN_STEPS  # all leaves in one launch a step
+                check(held.held == TRAIN_DS, f"15b {run}: {held.held} of the last window's "
+                                             f"{TRAIN_DS} aggregates held")
+            check(launches == want, f"15b {run}: launches {launches}, want {want}")
+            for k in launches_all:
+                launches_all[k] += launches[k]
+            losses = [h["loss"] for h in hist]
+            check(all(map(lambda v: v == v and abs(v) < 1e4, losses)), f"15b {run}: {losses}")
+            if robust:
+                check(losses[-1] < losses[0], f"15b {run}: the loss did not fall: {losses}")
+            last_loss[(strategy, method, attack)] = losses[-1]
+            batch = {k: v[0] for k, v in trainer.stack_window_batches(
+                dcfg, TRAIN_STEPS, 1, mesh, atk, cfg).items()}
+            split = train_step_split(cfg, pcfg, mesh, atk, result.state, batch, TRAIN_STEPS)
+            sb = steps.make_step_body(cfg, pcfg, mesh, get_optimizer("adamw", TRAIN_LR), atk)
+            prof = profile_summary(lambda: sb.body(result.state["params"],
+                                                   result.state["opt_state"], batch,
+                                                   TRAIN_STEPS, 0),
+                                   split["step_ms"], top=10, names=("leaf_select_kernel",))
+            line = {"train_run": run, "steps": TRAIN_STEPS, "device_steps": TRAIN_DS,
+                    "workers": TRAIN_WORKERS, "tokens_per_step": dcfg.global_batch * dcfg.seq_len,
+                    "steps_per_s": result.steps_per_s, "tokens_per_s": result.tokens_per_s,
+                    "first_window_s": result.compile_s, "window_times_s": result.window_times_s,
+                    "run_wall_s": wall, "loss_first_window": losses[0],
+                    "loss_last_window": losses[-1], "losses": losses,
+                    "grad_norm_last_window": hist[-1]["grad_norm"],
+                    "launches": launches, "leaves": leaves,
+                    "b1_b2_launches_per_step": sum(launches[k] for k in launches_all) / TRAIN_STEPS,
+                    "max_memory_allocated_gb": peak / 1e9, "card_memory_gb": total_mem / 1e9,
+                    "split_ms": split, "device_busy_share": prof["device_busy_share"],
+                    "card": card}
+            print(json.dumps({"train": line}))
+            print(json.dumps({"profile_train_step": run, **prof}))
+            print(f"phase 15b: {run}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                  f"{result.steps_per_s:.3f} steps/s, {result.tokens_per_s:.0f} tokens/s, "
+                  f"step {split['step_ms']:.1f} ms (grads {split['worker_grads_ms']:.1f}, "
+                  f"aggregate {split['aggregate_ms']:.1f}, update {split['update_ms']:.1f}), "
+                  f"busy {prof['device_busy_share']:.3f}, peak {peak / 1e9:.2f} GB")
+            check(peak < total_mem, f"15b {run}: peak {peak} >= the card's {total_mem}")
+            if keep:
+                kept = held.kept
+            del result, sb, held, batch
+            torch.cuda.empty_cache()
+            if keep:
+                train_kernel_timings(kept, card)
+                del kept
+                torch.cuda.empty_cache()
+    finally:
+        undo()
+    med, mean = (last_loss[("gather", "median", "sign_flip")],
+                 last_loss[("psum", "mean", "sign_flip")])
+    print(f"phase 15b: under sign_flip the last window's loss: gather/median {med:.4f}, "
+          f"psum/mean {mean:.4f}")
+    check(med < mean, "15b: under sign_flip the median did not end below the mean")
+    return launches_all
+
+
+def train_chunked(dev):
+    """Phase 15c: the chunked strategy (B4 range, B5 counts and sums) on one
+    2^24-coordinate leaf of 4 workers' rows, median and trimmed mean (beta
+    0.25), within one bin width of the exact estimators (B1 / B2 on the same
+    rows), and two steps of the tiny llama through the trainer; B4/B5 are
+    held against their plain versions on the path's inputs by the caller.
+    Returns the B4 / B5 launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core import distributed as D
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.kernels import robust_agg
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import trainer
+
+    rng_ = np.random.default_rng(15)
+    rows = torch.from_numpy(rng_.standard_normal((TRAIN_WORKERS, CHUNKED_N))
+                            .astype(np.float32)).to(dev)
+    ax = D.InProcessAxes({"data": TRAIN_WORKERS}, dev)
+    robust_agg.reset_launches()
+    H.reset_launches()
+    out = {}
+    for method in ("median", "trimmed_mean"):
+        out[method] = D.robust_chunked_agg({"w": rows}, ax, ("data",), method,
+                                           beta=TRAIN_BETA)["w"]
+    mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, device=dev)
+    for method in ("median", "trimmed_mean"):
+        pcfg = ParallelConfig(agg_method=method, agg_strategy="chunked", agg_beta=TRAIN_BETA,
+                              remat=False)
+        r = trainer.train_loop(train_tiny_cfg(), pcfg,
+                               TrainConfig(optimizer="adamw", lr=1e-2, steps=2, device_steps=2),
+                               mesh, dcfg=DataConfig(**TRAIN_TINY_DATA))
+        check(all(np.isfinite(h["loss"]) for h in r.history), "15c: tiny llama losses")
+    torch.cuda.synchronize()
+    launches = dict(H.LAUNCHES)
+    check(sum(robust_agg.LAUNCHES.values()) == 0, "15c: an exact kernel ran on the sketch path")
+    chunks = -(-CHUNKED_N // D.COORD_CHUNK)
+    check(launches["minmax"] >= 2 and launches["histogram"] >= 2 * chunks,
+          f"15c: launches {launches}")
+    width = (rows.amax(0) - rows.amin(0)) / 256
+    exact = {"median": robust_agg.median(rows), "trimmed_mean": robust_agg.trimmed_mean(rows, 1)}
+    for method in out:
+        dev_ = (out[method] - exact[method]).abs()
+        check(bool((dev_ <= width * (1 + 1e-6)).all()),
+              f"15c: {method} off the exact one by more than a bin")
+        print(f"phase 15c: chunked {method} over (4, {CHUNKED_N}): max |sketch - exact| "
+              f"{float(dev_.max()):.4g}, bin width {float(width.mean()):.4g} on average")
+    print(f"phase 15c: {chunks} B5 launches a leaf of {CHUNKED_N} (chunks of {D.COORD_CHUNK}); "
+          f"launches {launches}")
+    return launches
+
+
+def chunked_timings(dev, card: str):
+    """B4 at 15c's leaf (4, 2^24) and B5 at its chunks (4, 2^20), 256 bins,
+    with and without sums: events, device, plain, bound (after the path's
+    counts were read)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as D
+
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal((TRAIN_WORKERS, CHUNKED_N))
+                         .astype(np.float32)).to(dev)
+    sketch_time_rows("chunked leaf", x, 256, card, kinds={("minmax", False)})
+    sketch_time_rows("chunked chunk", x[:, :D.COORD_CHUNK].contiguous(), 256, card,
+                     kinds={("histogram", True), ("histogram", False)})
+    del x
+    torch.cuda.empty_cache()
+
+
+def train_cli(dev):
+    """Phase 15d: python -m repro_torch.launch.train on the card: exit 0,
+    the window lines and the done line."""
+    import os
+
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--config", "llama3.2-3b",
+            "--smoke", "--steps", "4", "--device-steps", "2", "--workers", "4", "--seq-len",
+            "32", "--global-batch", "4", "--strategy", "bucketed", "--agg", "median",
+            "--attack", "alie", "--attack-alpha", "0.25"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(args, env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
+    check(out.returncode == 0, f"train CLI exited {out.returncode}: {out.stderr[-2000:]}")
+    check("device cuda" in out.stdout, f"train CLI: {out.stdout[-2000:]}")
+    done = [ln for ln in out.stdout.splitlines() if ln.startswith("done: 4 steps")]
+    check(len(done) == 1, f"train CLI printed no done line: {out.stdout[-2000:]}")
+    print(f"phase 15d: train CLI on the card: {done[0]}")
+
+
+def training(dev, card: str, on_path):
+    """Phase 15: 15a-15d; returns the launches of 15b's and 15c's paths."""
+    t0 = time.perf_counter()
+    train_parity(dev)
+    print(f"phase 15a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = train_cell(dev, card)
+    print(f"phase 15b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    chunked = on_path("phase 15c", lambda: train_chunked(dev), lambda c: c)
+    chunked_timings(dev, card)
+    print(f"phase 15c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_cli(dev)
+    print(f"phase 15d: {time.perf_counter() - t0:.1f} s")
+    return {"train": launches, "train_chunked": chunked}
+
+
 def main() -> None:
     import torch
 
@@ -2536,6 +3034,12 @@ def main() -> None:
     print(f"phase 14: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 14 built order-statistic programs that phase 1 did not")
+    libs_before = len(robust_agg.select_libraries())
+    t0 = time.perf_counter()
+    new_paths.update(training(dev, card, on_path))
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    check(len(robust_agg.select_libraries()) == libs_before,
+          "phase 15 built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")

@@ -55,6 +55,8 @@ def byzantine_mask(alpha, m: int, *, device="cuda") -> torch.Tensor:
     """(m,) bool mask, workers 0..q-1 Byzantine (which workers is
     immaterial to permutation-invariant aggregators)."""
     q = num_byzantine(alpha, m)
+    if isinstance(q, int):  # a host count: no copy to the device
+        return torch.arange(m, device=device) < q
     return torch.arange(m, device=device) < torch.as_tensor(q, device=device)
 
 

@@ -1,0 +1,564 @@
+"""Distributed robust reductions — the paper's aggregation as collectives
+over a worker axis (the reference's ``repro.core.distributed``).
+
+The reference's strategies run inside a ``jax.shard_map`` body whose
+manual axes are the worker axes (``('data',)`` or ``('pod', 'data')``)
+and talk to each other through ``jax.lax`` collectives.  Here every
+strategy body is written once over :class:`Collectives`, a small interface
+with the same calls (``size``, ``index``, ``all_gather``, ``all_to_all``,
+``psum``, ``pmin``, ``pmax``), and takes the implementation as an
+argument.  :class:`InProcessAxes` implements it for m workers that live in
+one process on one device: a value each worker holds for itself
+(*varying*) is one tensor whose leading dims index the workers
+(``vshape``: ``(m,)``, or ``(pods, data)`` for two axes) followed by the
+worker's own shape; a value every worker holds alike (*replicated*) has no
+worker dims.  A ``torch.distributed`` process group can implement the same
+interface (``vshape`` ``()``) without a body being rewritten.
+
+Strategies (identical estimators to the reference's; see its module doc
+for the byte costs on a real interconnect):
+
+``gather``        all-gather the m per-worker gradients, aggregate
+                  coordinate-wise.  In-process the gather is a view of the
+                  worker-stacked gradients, and all leaves take ONE
+                  aggregation call (one B1 / B2 launch for up to 16 leaves).
+``bucketed``      split the flat gradient into m buckets, ``all_to_all``
+                  them, aggregate your bucket over the m rows,
+                  ``all_gather`` the buckets.  In-process the
+                  ``all_to_all`` is a transpose of the (m, m, G/m) view, so
+                  every destination's bucket is a slice of one (m, G)
+                  buffer and the step is one aggregation of it.
+``rs``            ``bucketed`` without the final gather (the FSDP backward).
+``chunked``       histogram sketch: per-coordinate range by ``pmin`` /
+                  ``pmax`` (in-process: one B4 launch over the m rows),
+                  bin counts (and sums) psummed over the workers
+                  (in-process: one B5 launch over the m rows a chunk).
+                  Error <= one bin width.
+``psum``          the plain data-parallel mean, no robustness.
+``hierarchical``  median of medians: within the inner axis, then across
+                  the outer one (a different estimator).
+
+Byzantine simulation as in the reference: gradient-space attacks run where
+the per-worker rows are visible (after the gather / all_to_all), by the
+rows' worker index against the attack's Byzantine cut; the chunked and
+psum strategies replace a Byzantine worker's own row before the
+collective, with the honest statistics psummed over the honest workers.
+
+Attack keys are integer seeds: randomized payloads draw from
+``repro_torch.rng.generator(key[, worker])`` on the data's device.
+"""
+from __future__ import annotations
+
+import collections
+import itertools
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import rng
+from repro_torch.attacks import base as attack_base
+from repro_torch.attacks import engine as attack_engine
+from repro_torch.core import aggregators
+from repro_torch.core.attacks import AttackConfig, apply_gradient_attack, byzantine_payload
+from repro_torch.kernels import histogram_agg as H
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
+
+#: coordinates a chunk of the chunked strategy sketches at once: results do
+#: not depend on it (every coordinate is binned on its own), and far above
+#: the reference's 16,384 it keeps a full-width gradient to a few thousand
+#: B5 launches; the (nbins, chunk) f32 counts of 256 bins are 1 GiB.
+COORD_CHUNK = 1 << 20
+
+
+# --------------------------------------------------------------------------
+# the collective interface and its in-process implementation
+# --------------------------------------------------------------------------
+
+
+class Collectives:
+    """The worker-axis collectives the strategy bodies are written over.
+
+    ``names`` is a tuple of worker-axis names, outermost first.  A value
+    entering a collective over ``names`` varies over ``outer(names) +
+    names`` and is laid out with ``vshape`` of those axes in front of the
+    worker's own shape; the collective's result varies over
+    ``outer(names)`` only (``all_to_all`` keeps it varying over every axis
+    of its ``varying`` argument).
+    """
+
+    def size(self, names: Sequence[str]) -> int:
+        raise NotImplementedError
+
+    def vshape(self, names: Sequence[str]) -> Tuple[int, ...]:
+        """Leading dims of a value varying over ``names``."""
+        raise NotImplementedError
+
+    def outer(self, names: Sequence[str]) -> Tuple[str, ...]:
+        """The other axes a value entering a collective over ``names``
+        varies over."""
+        raise NotImplementedError
+
+    def index(self, names: Sequence[str]) -> torch.Tensor:
+        """Each worker's linear index over ``names`` (row-major, the order
+        ``all_gather`` stacks rows in), as an int64 varying value."""
+        raise NotImplementedError
+
+    def all_gather(self, x: torch.Tensor, names: Sequence[str], tiled: bool = False):
+        """Every worker's ``x`` stacked along a new dim 0 (``tiled``:
+        concatenated along dim 0)."""
+        raise NotImplementedError
+
+    def all_to_all(self, x: torch.Tensor, name: str, axis: int, varying: Sequence[str]):
+        """Tiled all-to-all over one axis: local dim ``axis`` is split into
+        ``size((name,))`` chunks, chunk j goes to worker j, and the chunks
+        received are concatenated in source order.  ``x`` varies over
+        ``varying``."""
+        raise NotImplementedError
+
+    def psum(self, x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+        raise NotImplementedError
+
+    def pminmax(self, x: torch.Tensor, names: Sequence[str]):
+        """Per-coordinate float32 (min, max) over the workers' ``x`` with
+        ``jnp.minimum`` / ``jnp.maximum`` rules (NaN propagates, -0 < +0)."""
+        raise NotImplementedError
+
+    def pmin(self, x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+        return self.pminmax(x, names)[0]
+
+    def pmax(self, x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+        return self.pminmax(x, names)[1]
+
+    def psum_histogram(self, x: torch.Tensor, lo, width, nbins: int, with_sums: bool,
+                       names: Sequence[str]):
+        """psum over the workers of each worker's one-hot bin counts (and
+        sums) of its row ``x`` (n,): two (nbins, n) float32 (sums None
+        without ``with_sums``)."""
+        raise NotImplementedError
+
+    def map_workers(self, fn: Callable, names: Sequence[str], *xs, out=None):
+        """``fn(worker, *locals)`` on each worker, ``xs`` trees of values
+        varying over ``outer(names) + names`` and ``worker`` the linear
+        index over ``names``.  Returns the results as varying values,
+        written into the tree ``out`` when given (same layout)."""
+        raise NotImplementedError
+
+
+class InProcessAxes(Collectives):
+    """m workers in one process on one device: varying values are
+    worker-stacked tensors.  A gather is a view of the stack, an
+    all-to-all a transpose, a psum a sum over the worker dims in worker
+    order; ``pminmax`` is one B4 launch and ``psum_histogram`` one B5
+    launch over the stacked rows.  ``calls`` counts the collectives by
+    name (the reference's tests count them in the jaxpr)."""
+
+    def __init__(self, sizes: Dict[str, int], device="cpu"):
+        self.sizes = dict(sizes)
+        self.order = tuple(self.sizes)
+        self.device = torch.device(device)
+        self.calls = collections.Counter()
+
+    def _axes(self, names) -> Tuple[str, ...]:
+        names = tuple(names)
+        pos = [self.order.index(a) for a in names]  # ValueError on an unknown axis
+        if pos and pos != list(range(pos[0], pos[0] + len(pos))):
+            raise ValueError(f"axes {names} are not consecutive mesh axes of {self.order}")
+        return names
+
+    def size(self, names) -> int:
+        return math.prod(self.sizes[a] for a in self._axes(names))
+
+    def vshape(self, names) -> Tuple[int, ...]:
+        return tuple(self.sizes[a] for a in self._axes(names))
+
+    def outer(self, names) -> Tuple[str, ...]:
+        names = self._axes(names)
+        return self.order[:self.order.index(names[0])] if names else ()
+
+    def _split(self, x, names):
+        """(outer vshape, size over names, the local shape) of ``x``."""
+        vo = self.vshape(self.outer(names))
+        vn = self.vshape(names)
+        if tuple(x.shape[:len(vo) + len(vn)]) != vo + vn:
+            raise ValueError(f"value of shape {tuple(x.shape)} does not vary over "
+                             f"{self.outer(names) + tuple(names)} {vo + vn}")
+        return vo, math.prod(vn), tuple(x.shape[len(vo) + len(vn):])
+
+    def index(self, names) -> torch.Tensor:
+        vs = self.vshape(self.outer(names) + self._axes(names))
+        idx = torch.arange(self.size(names), device=self.device)
+        return idx.reshape(self.vshape(names)).expand(vs)
+
+    def all_gather(self, x, names, tiled=False):
+        self.calls["all_gather"] += 1
+        vo, m, local = self._split(x, names)
+        if tiled:
+            return x.reshape(vo + (m * local[0],) + local[1:])
+        return x.reshape(vo + (m,) + local)
+
+    def all_to_all(self, x, name, axis, varying):
+        self.calls["all_to_all"] += 1
+        varying = self._axes(varying)
+        p, q = varying.index(name), len(varying) + axis
+        s = self.sizes[name]
+        if x.shape[q] % s:
+            raise ValueError(f"all_to_all: dim {axis} of size {x.shape[q]} does not split "
+                             f"over {s} workers")
+        return x.unflatten(q, (s, x.shape[q] // s)).transpose(p, q).flatten(q, q + 1)
+
+    def psum(self, x, names):
+        self.calls["psum"] += 1
+        vo, m, local = self._split(x, names)
+        rows = x.reshape(vo + (m,) + local).movedim(len(vo), 0)
+        acc = rows[0]
+        for i in range(1, m):  # in worker order
+            acc = acc + rows[i]
+        return acc
+
+    def _rows(self, x, names):
+        vo, m, local = self._split(x, names)
+        if vo:
+            raise ValueError("in-process pminmax / psum_histogram need every worker axis")
+        return x.reshape(m, -1).contiguous(), local
+
+    def pminmax(self, x, names):
+        self.calls["pminmax"] += 1
+        rows, local = self._rows(x, names)
+        lo, hi = H.minmax(rows if rows.dtype in (torch.float32, torch.bfloat16)
+                          else rows.float())
+        return lo.reshape(local), hi.reshape(local)
+
+    def psum_histogram(self, x, lo, width, nbins, with_sums, names):
+        self.calls["psum"] += 1
+        rows, _ = self._rows(x, names)
+        return H.histogram(rows, lo, width, nbins, with_sums)
+
+    def map_workers(self, fn, names, *xs, out=None):
+        names = self._axes(names)
+        vs = self.vshape(self.outer(names) + names)
+        results = []
+        for idx in itertools.product(*(range(s) for s in vs)):
+            w = 0
+            for a, i in zip(names, idx[len(idx) - len(names):]):
+                w = w * self.sizes[a] + i
+            res = fn(w, *(tree_map(lambda t: t[idx], x) for x in xs))
+            if out is not None:
+                tree_map(lambda o, r: o[idx].copy_(r), out, res)
+            else:
+                results.append(res)
+        if out is not None:
+            return out
+        leaves = [tree_leaves(r) for r in results]
+        stacked = [torch.stack(col).reshape(vs + tuple(col[0].shape)) for col in zip(*leaves)]
+        return tree_unflatten_like(results[0], stacked)
+
+
+# --------------------------------------------------------------------------
+# shared pieces
+# --------------------------------------------------------------------------
+
+
+def _active(attack: Optional[AttackConfig]) -> bool:
+    return attack is not None and attack.name != "none" and attack.alpha != 0.0
+
+
+def _generator(key, device, *data) -> torch.Generator:
+    return rng.generator(0 if key is None else key, *data, device=device)
+
+
+def _maybe_attack(ax: Collectives, outer, rows: torch.Tensor, attack, m: int, key):
+    """Byzantine rows of the gathered ``rows`` (m, ...) replaced, on each
+    worker of the axes ``outer`` the rows still vary over (every worker
+    draws from the same key, as in the reference)."""
+    if not _active(attack):
+        return rows
+    mask = attack_engine.byzantine_mask(attack.alpha, m, device=rows.device)
+    atk, _ = attack.resolve()
+
+    def one(_w, r):
+        gen = _generator(key, r.device) if atk.randomized else None
+        return apply_gradient_attack(attack, r, mask, generator=gen)
+
+    if not outer:
+        return one(0, rows)
+    return ax.map_workers(one, outer, rows, out=torch.empty_like(rows))
+
+
+def _aggregate_rows(ax: Collectives, outer, rows, method: str, beta: float):
+    """Aggregate each of ``rows`` ((m, ...) per worker of ``outer``) over
+    its m rows, all of them in one :func:`aggregators.aggregate_leaves`
+    call: one kernel launch for up to 16 same-dtype leaves on the card."""
+    k = len(ax.vshape(outer)) if outer else 0
+    return aggregators.aggregate_leaves([r.movedim(k, 0) for r in rows], method, beta)
+
+
+# --------------------------------------------------------------------------
+# gather strategy (paper-faithful Algorithm 1 aggregation)
+# --------------------------------------------------------------------------
+
+
+def robust_gather_agg(g, ax: Collectives, axis_names: Sequence[str], method: str = "median",
+                      beta: float = 0.1, attack: Optional[AttackConfig] = None,
+                      agg_dtype=None, attack_key=None):
+    """All-gather per-worker gradients over ``axis_names`` and aggregate.
+
+    ``g``: tree of varying gradient leaves.  Returns the aggregated tree,
+    replicated over ``axis_names``.  ``attack_key`` seeds randomized
+    attacks (fold the step index in per training step)."""
+    names = tuple(axis_names)
+    m = ax.size(names)
+    outer = ax.outer(names)
+    leaves = tree_leaves(g)
+    rows = []
+    for leaf in leaves:
+        stacked = ax.all_gather(leaf, names)
+        if agg_dtype is not None:
+            stacked = stacked.to(agg_dtype)
+        rows.append(_maybe_attack(ax, outer, stacked, attack, m, attack_key))
+    outs = _aggregate_rows(ax, outer, rows, method, beta)
+    return tree_unflatten_like(g, [o.to(leaf.dtype) for o, leaf in zip(outs, leaves)])
+
+
+# --------------------------------------------------------------------------
+# bucketed strategy (robust "all-reduce" via all_to_all)
+# --------------------------------------------------------------------------
+
+
+def _flat(ax: Collectives, names, x: torch.Tensor) -> torch.Tensor:
+    """A varying value raveled per worker."""
+    return x.reshape(ax.vshape(names) + (-1,))
+
+
+def _scatter_rows(ax: Collectives, flat: torch.Tensor, names) -> Tuple[torch.Tensor, int]:
+    """The all_to_all half of the bucketed strategies: local flat (G,) ->
+    (m, bs) rows, row i worker i's copy of this worker's bucket
+    (coordinates [j*bs, (j+1)*bs) for worker j), and G."""
+    m = ax.size(names)
+    size = flat.shape[-1]
+    bs = -(-size // m)
+    if bs * m - size:
+        flat = F.pad(flat, (0, bs * m - size))
+    # bucket (i_0, .., i_{k-1}) goes to the worker at that mesh coordinate
+    rows = flat.reshape(ax.vshape(names) + tuple(ax.size((a,)) for a in names) + (bs,))
+    for dim, a in enumerate(names):
+        rows = ax.all_to_all(rows, a, dim, names)
+    return rows.reshape(ax.vshape(names) + (m, bs)), size
+
+
+def _robust_scatter_flat(ax: Collectives, flat: torch.Tensor, axis_names, method: str,
+                         beta: float, attack, agg_dtype, attack_key=None):
+    """Core of the bucketed strategies: local flat gradient (G,) -> this
+    worker's aggregated bucket (ceil(G/m),), and G."""
+    names = tuple(axis_names)
+    rows, size = _scatter_rows(ax, flat, names)
+    if agg_dtype is not None:
+        rows = rows.to(agg_dtype)
+    rows = _maybe_attack(ax, names, rows, attack, ax.size(names), attack_key)
+    return _aggregate_rows(ax, names, [rows], method, beta)[0].to(flat.dtype), size
+
+
+#: element cap per coalesced super-bucket (16 MiB in f32)
+_COALESCE_MAX_ELEMS = 1 << 22
+
+
+def _coalesce_groups(leaves, max_elems: int = _COALESCE_MAX_ELEMS):
+    """Group leaf indices into size-binned super-buckets: binned by (dtype,
+    bit length of the size), packed greedily within a bin into groups of at
+    most ``max_elems`` elements (always >= 1 leaf).  ``leaves`` are one
+    worker's tensors (or anything with ``numel()`` and ``dtype``);
+    deterministic in leaf order."""
+    bins: Dict[tuple, list] = {}
+    for idx, leaf in enumerate(leaves):
+        key = (str(leaf.dtype), max(int(leaf.numel()), 1).bit_length())
+        bins.setdefault(key, []).append(idx)
+    groups = []
+    for key in sorted(bins):
+        cur, cur_elems = [], 0
+        for idx in bins[key]:
+            if cur and cur_elems + leaves[idx].numel() > max_elems:
+                groups.append(cur)
+                cur, cur_elems = [], 0
+            cur.append(idx)
+            cur_elems += leaves[idx].numel()
+        groups.append(cur)
+    return groups
+
+
+def robust_bucketed_agg(g, ax: Collectives, axis_names: Sequence[str], method: str = "median",
+                        beta: float = 0.1, attack: Optional[AttackConfig] = None,
+                        agg_dtype=None, granularity: str = "leaf", attack_key=None):
+    """Exact robust aggregation with all-reduce-like byte volume: per
+    super-bucket (``granularity='leaf'``, :func:`_coalesce_groups`) or for
+    the flat concat of every leaf (``'flat'``), all_to_all the buckets,
+    aggregate your own bucket, all_gather.  Returns the aggregated tree,
+    replicated.  Every group's buckets take one aggregation call between
+    them (exact: the aggregators are coordinate-wise)."""
+    names = tuple(axis_names)
+    m = ax.size(names)
+    k = len(ax.vshape(names))
+    leaves = tree_leaves(g)
+    if granularity == "leaf":
+        one = [leaf[(0,) * k] for leaf in leaves]  # one worker's leaves
+        groups = _coalesce_groups(one)
+    elif granularity == "flat":
+        groups = [list(range(len(leaves)))]
+    else:
+        raise ValueError(f"granularity must be 'leaf' or 'flat', got {granularity!r}")
+    flats, rows = [], []
+    for grp in groups:
+        flat = torch.cat([_flat(ax, names, leaves[i]) for i in grp], dim=-1) \
+            if len(grp) > 1 else _flat(ax, names, leaves[grp[0]])
+        r, size = _scatter_rows(ax, flat, names)
+        if agg_dtype is not None:
+            r = r.to(agg_dtype)
+        rows.append(_maybe_attack(ax, names, r, attack, m, attack_key))
+        flats.append((flat.dtype, size))
+    mines = _aggregate_rows(ax, names, rows, method, beta)
+    del rows
+    out = [None] * len(leaves)
+    for grp, mine, (dtype, size) in zip(groups, mines, flats):
+        full = ax.all_gather(mine.to(dtype), names, tiled=True)[:size]
+        off = 0
+        for i in grp:
+            local = leaves[i].shape[k:]
+            n = math.prod(local)
+            out[i] = full[off:off + n].reshape(local).to(leaves[i].dtype)
+            off += n
+    return tree_unflatten_like(g, out)
+
+
+def robust_reduce_scatter(flat: torch.Tensor, ax: Collectives, axis_names: Sequence[str],
+                          method: str = "median", beta: float = 0.1,
+                          attack: Optional[AttackConfig] = None, agg_dtype=None):
+    """Robust replacement for ``psum_scatter`` on a flat vector: only this
+    worker's aggregated bucket (padded bucket size), varying."""
+    return _robust_scatter_flat(ax, flat, axis_names, method, beta, attack, agg_dtype)[0]
+
+
+# --------------------------------------------------------------------------
+# chunked strategy (approximate: histogram sketch via psum, O(1) in m)
+# --------------------------------------------------------------------------
+
+
+def _maybe_attack_chunked(ax: Collectives, flat: torch.Tensor, attack, axis_names, m: int,
+                          key=None) -> torch.Tensor:
+    """Byzantine simulation without gathered rows: a worker's local flat
+    gradient is replaced iff its index is under the attack's Byzantine
+    cut.  Stats-level colluders get the honest mean (and variance) psummed
+    over the honest workers; local attacks use the worker's own row and a
+    worker-folded key; omniscient attacks cannot run here and raise."""
+    if not _active(attack) or attack.is_data_attack():
+        return flat
+    q = attack.num_byzantine(m)
+    if q == 0:
+        return flat
+    names = tuple(axis_names)
+    is_byz = (ax.index(names) < q)[..., None]
+    atk = attack.resolve()[0]
+    honest_mean = honest_var = None
+    if attack_base.access_rank(atk.access) >= attack_base.access_rank(attack_base.STATS):
+        honest_mean = ax.psum(torch.where(is_byz, 0.0, flat), names) / (m - q)
+        if atk.needs_variance:
+            dev = torch.where(is_byz, 0.0, (flat - honest_mean) ** 2)
+            honest_var = ax.psum(dev, names) / (m - q)
+
+    def payload(w, own):
+        gen = _generator(key, own.device, w) if atk.randomized else None
+        return byzantine_payload(attack, honest_mean, honest_var, m=m, own=own,
+                                 generator=gen).to(own.dtype)
+
+    bad = ax.map_workers(payload, names, flat, out=torch.empty_like(flat))
+    return torch.where(is_byz, bad, flat)
+
+
+def robust_chunked_agg(g, ax: Collectives, axis_names: Sequence[str], method: str = "median",
+                       beta: float = 0.1, attack: Optional[AttackConfig] = None,
+                       agg_dtype=None, nbins: int = 256, coord_chunk: int = COORD_CHUNK,
+                       attack_key=None):
+    """Approximate robust aggregation with m-independent collective volume.
+
+    Per leaf: (1) the per-coordinate range by pmin / pmax; (2) the psum of
+    every worker's one-hot counts (and sums, for the trimmed mean) of its
+    row, ``coord_chunk`` coordinates at a time, one collective a chunk;
+    (3) the CDF inverted locally, so every worker holds the same result.
+    ``method``: ``median`` | ``trimmed_mean`` (error <= one bin width
+    (max - min)/nbins per coordinate) | ``mean`` (exact: one psum)."""
+    method = {"approx_median": "median",
+              "approx_trimmed_mean": "trimmed_mean"}.get(method, method)
+    names = tuple(axis_names)
+    m = ax.size(names)
+    k = len(ax.vshape(names))
+
+    def agg_leaf(leaf):
+        local = leaf.shape[k:]
+        flat = _flat(ax, names, leaf)
+        if agg_dtype is not None:
+            flat = flat.to(agg_dtype)
+        flat = _maybe_attack_chunked(ax, flat.float(), attack, names, m, attack_key)
+        if method == "mean":
+            return (ax.psum(flat, names) / m).reshape(local).to(leaf.dtype)
+        if method not in ("median", "trimmed_mean"):
+            raise ValueError(
+                f"chunked strategy supports mean|median|trimmed_mean, got {method!r}")
+        with_sums = method == "trimmed_mean"
+        lo, width = H.edges(*ax.pminmax(flat, names), nbins)
+        outs = []
+        for a in range(0, flat.shape[-1], coord_chunk):
+            seg = flat[..., a:a + coord_chunk]
+            slo, sw = lo[a:a + coord_chunk], width[a:a + coord_chunk]
+            counts, sums = ax.psum_histogram(seg, slo, sw, nbins, with_sums, names)
+            if method == "median":
+                outs.append(H.median_from_hist(counts, slo, sw, m))
+            else:
+                outs.append(H.trimmed_mean_from_hist(counts, sums, slo, sw, m, beta))
+        return torch.cat(outs).reshape(local).to(leaf.dtype)
+
+    return tree_map(agg_leaf, g)
+
+
+# --------------------------------------------------------------------------
+# psum strategy (plain data-parallel all-reduce mean — no robustness)
+# --------------------------------------------------------------------------
+
+
+def robust_psum_agg(g, ax: Collectives, axis_names: Sequence[str], method: str = "mean",
+                    beta: float = 0.1, attack: Optional[AttackConfig] = None,
+                    agg_dtype=None, attack_key=None):
+    """Plain data-parallel mean: one psum per leaf, NO robustness — the
+    throughput baseline.  Rejects any ``method`` but ``mean`` (a psum cannot
+    compute order statistics).  Attacks are simulated row-free as in the
+    chunked strategy."""
+    names = tuple(axis_names)
+    if method != "mean":
+        raise ValueError(
+            f"psum strategy is the plain data-parallel mean baseline; it "
+            f"cannot compute {method!r} (use gather/bucketed/chunked)")
+    m = ax.size(names)
+    k = len(ax.vshape(names))
+
+    def agg_leaf(leaf):
+        flat = _flat(ax, names, leaf)
+        if agg_dtype is not None:
+            flat = flat.to(agg_dtype)
+        flat = _maybe_attack_chunked(ax, flat.float(), attack, names, m, attack_key)
+        return (ax.psum(flat, names) / m).reshape(leaf.shape[k:]).to(leaf.dtype)
+
+    return tree_map(agg_leaf, g)
+
+
+# --------------------------------------------------------------------------
+# hierarchical strategy (approximate: median-of-medians across pods)
+# --------------------------------------------------------------------------
+
+
+def robust_hierarchical_agg(g, ax: Collectives, inner_axis: str, outer_axis: str,
+                            method: str = "median", beta: float = 0.1,
+                            attack: Optional[AttackConfig] = None, attack_key=None):
+    """Two-level aggregation: within ``inner_axis``, then across
+    ``outer_axis``.  Median-of-medians is a different estimator from the
+    global median (DESIGN.md)."""
+    inner = robust_gather_agg(g, ax, (inner_axis,), method, beta, attack,
+                              attack_key=attack_key)
+    return robust_gather_agg(inner, ax, (outer_axis,), method, beta, attack=None)

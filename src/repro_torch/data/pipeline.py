@@ -1,9 +1,11 @@
-"""Worker-sharded classification data with Byzantine label corruption.
+"""Worker-sharded data with Byzantine label corruption.
 
-Worker model (the paper's): the data is split evenly over the m workers,
-each shard drawn from a generator derived from (seed, worker) and fixed
-for the whole run; Byzantine workers' labels are corrupted at source.
-The LM batches of the reference wait for the LM-training slice.
+Worker model (the paper's): the global batch is split evenly over the m
+workers, each shard drawn from a generator derived from (seed, worker) —
+for LM batches (seed, step, worker) — and Byzantine workers' labels are
+corrupted at source.  ``make_lm_batch`` lays worker w's shard out as rows
+[w·B/m : (w+1)·B/m] of the global batch, the rows worker w of the
+trainer's worker axis computes its gradient on.
 """
 from __future__ import annotations
 
@@ -19,10 +21,12 @@ from repro_torch.device import resolve
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    vocab: int = 32000  # LM batches
+    seq_len: int = 1024
     global_batch: int = 32
     num_workers: int = 4  # m
     seed: int = 0
-    d: int = 784  # feature dim
+    d: int = 784  # classification feature dim
 
 
 def _corrupt_labels(cfg: DataConfig, attack: Optional[AttackConfig],
@@ -37,6 +41,27 @@ def _corrupt_labels(cfg: DataConfig, attack: Optional[AttackConfig],
     if attack.name == "random_label":
         return random_label(labels, generator, attack.num_classes)
     return labels  # gradient attacks happen at the aggregation point
+
+
+def make_lm_batch(cfg: DataConfig, step: int, attack: Optional[AttackConfig] = None,
+                  *, device="cuda") -> Dict[str, torch.Tensor]:
+    """One global LM batch (B, S) with per-worker provenance: worker w's
+    rows come from the generator of (seed, step, w), and a Byzantine
+    worker's labels are corrupted by ``label_flip`` / ``random_label``
+    (its generator (seed, step, w, 999))."""
+    from repro_torch.data.synthetic import lm_batch
+
+    dev = resolve(device)
+    per = cfg.global_batch // cfg.num_workers
+    parts = []
+    for w in range(cfg.num_workers):
+        b = lm_batch(rng.generator(cfg.seed, step, w), per, cfg.seq_len, cfg.vocab,
+                     device="cpu")
+        if attack is not None and attack.name in ("label_flip", "random_label"):
+            b["labels"] = _corrupt_labels(cfg, attack, b["labels"], w,
+                                          rng.generator(cfg.seed, step, w, 999))
+        parts.append(b)
+    return {k: torch.cat([p[k] for p in parts]).to(dev) for k in ("tokens", "labels")}
 
 
 def make_classification_shards(cfg: DataConfig, attack: Optional[AttackConfig] = None,

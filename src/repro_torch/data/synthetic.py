@@ -2,6 +2,8 @@
 moved to ``device`` — so a run on the card and a run on the CPU see the
 same numbers.
 
+- ``lm_batch``: learnable token streams — next token = (5·tok + 7) % vocab
+  with probability 0.9, uniform noise otherwise.
 - ``mnist_analog``: 10-class Gaussian mixture in 784-d with spatially
   structured class means (7x7 blobs upsampled to 28x28) — stands in for
   MNIST in the paper-replication experiments.
@@ -18,6 +20,22 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.device import resolve
+
+
+def lm_batch(gen: torch.Generator, batch: int, seq: int, vocab: int, *,
+             device="cuda") -> Dict[str, torch.Tensor]:
+    """Learnable synthetic LM data, int32 (B, seq) ``tokens`` and ``labels``
+    (the stream shifted by one): next token = (5·tok + 7) % vocab with
+    probability 0.9, uniform noise otherwise."""
+    dev = resolve(device)
+    first = torch.randint(0, vocab, (batch,), generator=gen)
+    noise = torch.randint(0, vocab, (seq, batch), generator=gen)
+    pick = torch.rand((seq, batch), generator=gen) < 0.9
+    toks = [first]
+    for i in range(seq):
+        toks.append(torch.where(pick[i], (5 * toks[-1] + 7) % vocab, noise[i]))
+    stream = torch.stack(toks, dim=1).to(torch.int32)  # (B, seq + 1)
+    return {"tokens": stream[:, :-1].to(dev), "labels": stream[:, 1:].to(dev)}
 
 
 def mnist_analog(gen: torch.Generator, n: int, d: int = 784, num_classes: int = 10,

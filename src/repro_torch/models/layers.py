@@ -40,7 +40,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     hd = x.shape[-1]
     half = hd // 2
     exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32, device=x.device), exps)
     ang = positions.float()[..., None] * freqs  # (..., S, half)
     cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :]

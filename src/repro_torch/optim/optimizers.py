@@ -2,8 +2,9 @@
 
 The standard update rules on trees of tensors (dicts, tuples, lists).
 States are kept in float32 whatever the parameter dtype; AdamW keeps m/v,
-SGD keeps nothing, momentum keeps one slot.  ``step`` is an integer
-tensor (or int): AdamW's bias corrections use ``step + 1``.
+SGD keeps nothing, momentum keeps one slot.  ``step`` is an int or an
+integer tensor on the CPU: AdamW's bias corrections use ``step + 1``,
+computed on the host.
 
 Every optimizer works on *aggregated* gradients: the robust reduction
 has already happened upstream, so the update is the same for every
@@ -70,9 +71,11 @@ def adamw(
 
         def upd(p, m, v):
             # the corrections as 0-dim tensors on the leaf's device: a true
-            # division there (a host scalar would be a reciprocal multiply)
-            mh = m / c1.to(m.device)
-            vh = v / c2.to(v.device)
+            # division there (a host scalar would be a reciprocal multiply),
+            # filled in place rather than copied, so the card never waits
+            # for the host
+            mh = m / torch.full((), float(c1), device=m.device)
+            vh = v / torch.full((), float(c2), device=v.device)
             p32 = p.float()
             p32 = p32 - lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * p32)
             return p32.to(p.dtype)
