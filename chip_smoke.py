@@ -150,9 +150,27 @@ Phases (any failure exits non-zero before the final line):
    chunked strategy on one (4, 2^24) leaf (B4 once, B5 once a 2^20 chunk)
    and two steps of the tiny llama, within one bin of the exact median /
    trimmed mean, B4/B5 held on the path's inputs and timed at its shapes;
-   (d) ``python -m repro_torch.launch.train --smoke`` on the card.
+   (d) ``python -m repro_torch.launch.train --smoke`` on the card;
+16. the MoE, SSM and hybrid RG-LRU families, served: (a) granite-moe,
+   grok-1, mamba2 and recurrentgemma at their smoke widths in f32, card
+   against CPU as 14a (tokens, logits within 1e-5, one round; the round's
+   B1 bitwise its plain version); (b) three full-width cells in bf16 from
+   a seed, phase 14b's traffic and adaptation: granite-moe-1b-a400m at all
+   24 layers (D = 1,384,963,072; serve only, median, trimmed mean beta
+   0.25), mamba2-2.7b at 32 of 64 layers with 272-token prompts (D =
+   1,544,194,048; the prefill crosses the 256-token SSD chunk) and
+   recurrentgemma-2b at 5 of 26 layers (D = 1,751,221,760; serve only,
+   median), each run held as 14b (every request served, >= 2 rounds, one
+   B1 / B2 launch a round over the (4, D) f32 rows and no other kernel,
+   bitwise in 2^26 column slices, storage kept), with tokens/s, latency,
+   peak memory, the round's split, B1/B2 against the HBM bound and
+   profiles; (c) ``python -m repro_torch.serve.run --smoke --arch
+   <family>`` twice per family, all eight processes at once: one sha256
+   each; (d) ``python -m repro_torch.launch.train --smoke --arch
+   <family>`` in this process for granite, mamba2 and recurrentgemma: B1
+   launched once a step per dtype group and 16 leaves.
 The launch counters are zeroed before each of phases 8-13, each run of
-phase 14b and 15b and phase 15c, and read after; the kernels line gives
+phase 14b, 15b and 16b, phase 15c and each 16d run, and read after; the kernels line gives
 each kernel's launches on them (``launches_new_paths``).  In phases 4, 6,
 8-13 and 15c the inputs each kernel wrapper gets (the first call of each shape) are
 recorded, and after the path's counts were read each kernel is run again on
@@ -372,12 +390,14 @@ def time_pair(a, b, reps: int):
     return ta, tb
 
 
-def device_ms(fn, reps: int, name: str = ""):
+def device_ms(fn, reps: int, name: str = "", launches: int = 0):
     """Device time per call of the kernels whose name contains ``name``
     (every kernel for ""), from torch.profiler (None when three traces show
     no such kernel).  The trace covers the host as well as the card: one of
     the card alone now and then came back with some of the launches, or
-    with none."""
+    with none.  With ``launches`` (the kernel's launches per call), a trace
+    holding another count is not used: after many long launches a trace
+    has come back with two of five."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -389,9 +409,10 @@ def device_ms(fn, reps: int, name: str = ""):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and name in e.key)
-        if us:
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        us = sum(e.self_device_time_total for e in rows)
+        if us and (not launches or sum(e.count for e in rows) == launches * reps):
             return us / 1e3 / reps
     return None
 
@@ -1316,11 +1337,20 @@ def fed_profile(pop):
     print(json.dumps({"profile_fed_round": "approx_median", **prof}))
 
 
+#: the most kernel launches whose trace profile_summary builds the event tree of
+TREE_LAUNCHES = 12_000
+
+
 def profile_summary(fn, wall_ms: float, top: int = 8, names=()) -> dict:
     """One torch.profiler trace of ``fn()``: the device's busy ms, as a
     share of ``wall_ms`` (the same work timed unprofiled), the traced wall
-    ms, the kernel launches, the top kernels and the top ops by device time,
-    and the device ms of the kernels whose name holds each of ``names``."""
+    ms, the kernel launches, the top kernels, and the device ms of the
+    kernels whose name holds each of ``names``.  A trace of at most
+    TREE_LAUNCHES launches also ranks the ops by the device time of the
+    kernels they launched (``top_ops``), from the profiler's event tree; a
+    larger one (the ~30,000 launches of a full-width MoE round, whose tree
+    takes tens of seconds to build) sums its raw events instead and ranks
+    the ops by their inclusive host ms (``top_host_ops``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1330,6 +1360,9 @@ def profile_summary(fn, wall_ms: float, top: int = 8, names=()) -> dict:
         fn()
         torch.cuda.synchronize()
     profiled_ms = (time.perf_counter() - t0) * 1e3
+    raw = prof.profiler.kineto_results.events()
+    if sum(e.device_type() == DeviceType.CUDA for e in raw) > TREE_LAUNCHES:
+        return _raw_profile(raw, wall_ms, profiled_ms, top, names)
     events = prof.key_averages()
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.self_device_time_total, reverse=True)
@@ -1347,6 +1380,34 @@ def profile_summary(fn, wall_ms: float, top: int = 8, names=()) -> dict:
         out["device_ms_by_name"] = {
             name: sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
             for name in names}
+    return out
+
+
+def _raw_profile(events, wall_ms, profiled_ms, top, names) -> dict:
+    """profile_summary's numbers from the trace's raw events: device time
+    and launches by kernel name, and the host ops' inclusive ms by name."""
+    from torch.autograd import DeviceType
+
+    kernels, host = {}, {}
+    for e in events:
+        table = kernels if e.device_type() == DeviceType.CUDA else host
+        ms, calls = table.get(e.name(), (0.0, 0))
+        table[e.name()] = (ms + e.duration_ns() / 1e6, calls + 1)
+    busy = sum(ms for ms, _ in kernels.values())
+
+    def ranked(table):
+        return sorted(table.items(), key=lambda kv: kv[1][0], reverse=True)[:top]
+
+    out = {"wall_ms": wall_ms, "wall_ms_profiled": profiled_ms, "device_busy_ms": busy,
+           "device_busy_share": busy / wall_ms if wall_ms else None,
+           "launches": sum(calls for _, calls in kernels.values()),
+           "top_kernels": [{"kernel": k[:70], "device_ms": ms, "calls": c}
+                           for k, (ms, c) in ranked(kernels)],
+           "top_host_ops": [{"op": k[:60], "host_ms": ms, "calls": c}
+                            for k, (ms, c) in ranked(host) if k.startswith("aten::")]}
+    if names:
+        out["device_ms_by_name"] = {
+            name: sum(ms for k, (ms, _) in kernels.items() if name in k) for name in names}
     return out
 
 
@@ -2175,13 +2236,13 @@ def teacher_forced_logits(params, cfg, prompt, toks, cache_len):
     return torch.stack(out).float().cpu()
 
 
-def serve_parity(dev):
-    """Phase 14a: the tiny model in f32 (TF32 off) on the card against the
-    same run on the CPU: the engine's tokens on the port's own requests
-    (equal wherever the CPU's top-2 logit gap exceeds 2e-5), teacher-forced
-    logits within 1e-5, and one adaptation round's iterate and grad_norm."""
-    import dataclasses
-
+def serve_parity(dev, cfg=None, label="14a"):
+    """Phase 14a (and 16a with ``cfg``): the tiny model (or ``cfg``) in f32
+    (TF32 off) on the card against the same run on the CPU: the engine's
+    tokens on the port's own requests (equal wherever the CPU's top-2 logit
+    gap exceeds 2e-5), teacher-forced logits within 1e-5, and one adaptation
+    round's iterate and grad_norm; the card's round aggregate is bitwise the
+    plain version on its rows."""
     import torch
 
     from repro_torch.models import transformer as T
@@ -2190,7 +2251,7 @@ def serve_parity(dev):
     from repro_torch.serve.traffic import VirtualUsers
     from repro_torch.tree import ravel, tree_map
 
-    cfg = serve_cfg(tiny=True)
+    cfg = cfg or serve_cfg(tiny=True)
     scfg = ServeConfig(slots=3, prompt_len=8, max_new=6, window=16)
     tcfg = serve_traffic(cfg, scfg, num_users=64, num_shards=2, alpha=0.5, min_gen=1)
     cpu = T.init_params(cfg, seed=0, device="cpu")
@@ -2199,7 +2260,7 @@ def serve_parity(dev):
     done = {}
     for name, params in (("card", on_card), ("cpu", cpu)):
         out = serve_stream(ServeEngine(cfg, scfg, params), reqs)
-        check(len(out) == len(reqs), f"14a: {name} served {len(out)}/{len(reqs)}")
+        check(len(out) == len(reqs), f"{label}: {name} served {len(out)}/{len(reqs)}")
         done[name] = {c.request.rid: c for c in out}
     flips, worst = 0, 0.0
     for req in reqs:
@@ -2212,30 +2273,36 @@ def serve_parity(dev):
         for j, (x, y) in enumerate(zip(a, b)):
             if x != y:
                 check(float(gap[j]) <= 2 * SERVE_LOGIT_TOL,
-                      f"14a: request {req.rid} step {j}: card token {x} != CPU {y} at a "
+                      f"{label}: request {req.rid} step {j}: card token {x} != CPU {y} at a "
                       f"top-2 gap of {float(gap[j])}")
                 flips += 1
                 break
-    check(worst <= SERVE_LOGIT_TOL, f"14a: card vs CPU teacher-forced logits differ by {worst}")
+    check(worst <= SERVE_LOGIT_TOL,
+          f"{label}: card vs CPU teacher-forced logits differ by {worst}")
     # one round on the CPU's traffic, on both devices
     acfg = AdaptConfig(adapt_every=4, batch_per_shard=1, method="median")
     users = VirtualUsers(tcfg)
     per_shard = [[c for c in done["cpu"].values() if c.request.shard == s][:1] for s in range(2)]
-    check(all(len(p) == 1 for p in per_shard), "14a: a shard served no request")
+    check(all(len(p) == 1 for p in per_shard), f"{label}: a shard served no request")
     batch = users.build_round(per_shard, 0)
     rounds = {}
     for name, params in (("card", on_card), ("cpu", cpu)):
         ad = FeedbackAdapter(cfg, acfg, users, params)
         entry = ad.run_round(batch)
-        rounds[name] = (ravel(ad.state["w"])[0].cpu(), entry["grad_norm"])
+        rounds[name] = (ravel(ad.state["w"])[0].float().cpu(), entry["grad_norm"])
+        if name == "card":
+            hold_on_rows("median", ad.round_fn.rows, ad.state["prev_agg"], 0, label)
     w_diff = float((rounds["card"][0] - rounds["cpu"][0]).abs().max())
     g_rel = abs(rounds["card"][1] - rounds["cpu"][1]) / abs(rounds["cpu"][1])
-    print(f"phase 14a: tiny model f32: {len(reqs)} requests, tokens card == CPU "
+    print(f"phase {label}: {cfg.name} f32: {len(reqs)} requests, tokens card == CPU "
           f"({flips} near-tie flips), teacher-forced logits max |diff| {worst:.3g}; one "
-          f"median round: iterate max |diff| {w_diff:.3g}, grad_norm rel diff {g_rel:.3g}")
+          f"median round: iterate max |diff| {w_diff:.3g}, grad_norm rel diff {g_rel:.3g}; "
+          f"the round's B1 bitwise its plain version")
     check(w_diff <= 1e-6 + 1e-4 * float(rounds["cpu"][0].abs().max()) and g_rel <= 1e-4,
-          "14a: the card's adaptation round differs from the CPU's")
-    check(flips <= 1, f"14a: {flips} token flips")
+          f"{label}: the card's adaptation round differs from the CPU's")
+    check(flips <= 1, f"{label}: {flips} token flips")
+    return {"logits_max_abs_diff": worst, "flips": flips, "iterate_max_abs_diff": w_diff,
+            "grad_norm_rel_diff": g_rel}
 
 
 def serve_round_split(adapter, batch):
@@ -2282,13 +2349,28 @@ def hold_on_rows(kind, rows, agg, trim, label="14b"):
 def serve_cell(dev, card: str):
     """Phase 14b: llama3.2-3b at full width with 8 layers on the card: three
     runs of the 32-request stream (serve only, median, trimmed mean beta
-    0.25) with the launch counters zeroed just before each and read just
-    after; every request served, >= 2 rounds a robust method, one B1 / B2
-    launch over one leaf a round and no other kernel, each round's
-    aggregate bitwise the plain version on its rows (column slices), the
-    served tensors' storage kept across swaps; tokens/s, latency, memory,
-    the round's split, B1/B2 at (4, D) against the HBM bound and profiles
-    of a tick and a round.  Returns the B1 / B2 launches."""
+    0.25).  Returns the B1 / B2 launches."""
+    from repro_torch.serve.engine import ServeConfig
+
+    launches = serve_runs(dev, card, serve_cfg(tiny=False), SERVE_D,
+                          ("serve_only", "median", "trimmed_mean"),
+                          ServeConfig(**SERVE_ENGINE), "14b")
+    return {k: launches[k][k] for k in SERVE_ADAPT}
+
+
+def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
+               requests: int = SERVE_REQUESTS):
+    """``cfg`` (bf16, random weights from seed 0) on the card: one run of a
+    ``requests``-request stream per entry of ``runs`` ("serve_only", or an
+    aggregator of SERVE_ADAPT adapting every 8 ticks) with the launch
+    counters zeroed just before each and read just after; every request
+    served, >= 2 rounds a robust method, one B1 / B2 launch over one leaf a
+    round and no other kernel, each round's aggregate bitwise the plain
+    version on its rows (column slices), the served tensors' storage kept
+    across swaps; tokens/s, latency, memory, B1/B2 at (4, D) against the
+    HBM bound (the median run), the round's split and a profile of a round
+    (every robust run), and a profile of 8 ticks (serve only).  Returns
+    each run's launches."""
     import numpy as np
     import torch
 
@@ -2296,7 +2378,7 @@ def serve_cell(dev, card: str):
     from repro_torch.kernels import robust_agg
     from repro_torch.models import transformer as T
     from repro_torch.serve.adapt import AdaptConfig, FeedbackAdapter
-    from repro_torch.serve.engine import ServeConfig, ServeEngine, latency_stats, serve_stream
+    from repro_torch.serve.engine import ServeEngine, latency_stats, serve_stream
     from repro_torch.serve.traffic import VirtualUsers
 
     class HeldAdapter(FeedbackAdapter):
@@ -2310,25 +2392,25 @@ def serve_cell(dev, card: str):
             entry = super().run_round(batch)
             kind = self.acfg.method
             trim = int(self.acfg.beta * self.round_fn.rows.shape[0])
-            hold_on_rows(kind, self.round_fn.rows, self.state["prev_agg"], trim)
+            hold_on_rows(kind, self.round_fn.rows, self.state["prev_agg"], trim, label)
             self.held += 1
             self.last_batch = batch
             return entry
 
-    cfg = serve_cfg(tiny=False)
-    check(T.count_params(cfg) == SERVE_D, f"14b: {T.count_params(cfg)} parameters")
+    check(T.count_params(cfg) == d_want, f"{label}: {T.count_params(cfg)} parameters")
     torch.cuda.empty_cache()  # the earlier phases' cached blocks
-    scfg = ServeConfig(**SERVE_ENGINE)
     users = VirtualUsers(serve_traffic(cfg, scfg))
-    reqs = users.sample_requests(SERVE_REQUESTS)
+    reqs = users.sample_requests(requests)
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    print(f"phase 14b: {cfg.name} width, {SERVE_LAYERS} layers: D = {SERVE_D:,} bf16 "
-          f"parameters made on the card in {time.perf_counter() - t0:.1f} s")
+    print(f"phase {label}: {cfg.name} width, {cfg.n_layers} layers: D = {d_want:,} "
+          f"{cfg.dtype} parameters made on the card in {time.perf_counter() - t0:.1f} s; "
+          f"prompt {scfg.prompt_len}, max_new {scfg.max_new}")
     total_mem = torch.cuda.get_device_properties(0).total_memory
     launches_all = {}
-    for run in ("serve_only", "median", "trimmed_mean"):
+    for run in runs:
+        t_run = time.perf_counter()
         engine = ServeEngine(cfg, scfg, params)
         adapter = None
         if run != "serve_only":
@@ -2349,7 +2431,8 @@ def serve_cell(dev, card: str):
         stats = latency_stats(done)
         mt = engine.metrics
         rounds = adapter.rounds_done if adapter else 0
-        line = {"serve_run": run, "requests": len(done), "ticks": engine.tick,
+        line = {"serve_run": run, "model": cfg.name, "layers": cfg.n_layers, "params": d_want,
+                "prompt_len": scfg.prompt_len, "requests": len(done), "ticks": engine.tick,
                 "tokens": mt.total_tokens, "tick_wall_s": mt.total_wall,
                 "tokens_per_s": mt.total_tokens / mt.total_wall, "stream_wall_s": wall,
                 "p50_latency_ticks": stats["p50_latency"],
@@ -2359,45 +2442,51 @@ def serve_cell(dev, card: str):
                 "max_memory_allocated_gb": peak / 1e9, "card_memory_gb": total_mem / 1e9,
                 "storage_kept": engine.storage_kept(), "card": card}
         print(json.dumps({"serve": line}))
-        check(len(done) == SERVE_REQUESTS, f"14b {run}: served {len(done)}/{SERVE_REQUESTS}")
-        check(all(engine.storage_kept().values()), f"14b {run}: storage not kept")
-        check(peak < total_mem, f"14b {run}: peak {peak} >= the card's {total_mem}")
+        check(len(done) == requests, f"{label} {run}: served {len(done)}/{requests}")
+        check(all(engine.storage_kept().values()), f"{label} {run}: storage not kept")
+        check(peak < total_mem, f"{label} {run}: peak {peak} >= the card's {total_mem}")
         want = {k: 0 for k in launches}
         if adapter is not None:
-            check(rounds >= 2, f"14b {run}: {rounds} adaptation rounds, want >= 2")
-            check(adapter.held == rounds, f"14b {run}: {adapter.held} of {rounds} rounds held")
-            check(engine.params_version == rounds, f"14b {run}: {engine.params_version} swaps")
+            check(rounds >= 2, f"{label} {run}: {rounds} adaptation rounds, want >= 2")
+            check(adapter.held == rounds, f"{label} {run}: {adapter.held} of {rounds} rounds "
+                                          "held")
+            check(engine.params_version == rounds,
+                  f"{label} {run}: {engine.params_version} swaps")
             want[run] = rounds
-            check(leaves[run] == rounds, f"14b {run}: {leaves[run]} leaves in {rounds} rounds")
-            print(f"phase 14b: {run}: {rounds} rounds, each one {run} launch over one leaf of "
-                  f"{SERVE_D:,} coordinates, bitwise the plain version on the round's rows "
-                  f"in {-(-SERVE_D // SERVE_SLICE)} column slices")
-        check(launches == want, f"14b {run}: launches {launches}, want {want}")
+            check(leaves[run] == rounds,
+                  f"{label} {run}: {leaves[run]} leaves in {rounds} rounds")
+            print(f"phase {label}: {cfg.name} {run}: {rounds} rounds, each one {run} launch "
+                  f"over one leaf of {d_want:,} coordinates, bitwise the plain version on the "
+                  f"round's rows in {-(-d_want // SERVE_SLICE)} column slices")
+        check(launches == want, f"{label} {run}: launches {launches}, want {want}")
         launches_all[run] = launches
         if run == "median":
-            serve_kernel_timings(adapter.round_fn.rows, card)
+            serve_kernel_timings(adapter.round_fn.rows, card, cfg.name)
         if adapter is not None:
             split = serve_round_split(adapter, adapter.last_batch)
-            print(json.dumps({"serve_round": run, **split, "card": card}))
+            print(json.dumps({"serve_round": run, "model": cfg.name, **split, "card": card}))
             prof = profile_summary(lambda: adapter.round_fn(adapter.state, adapter.last_batch),
                                    split["round_ms"], top=10, names=("leaf_select_kernel",))
-            print(json.dumps({"profile_serve_round": run, **prof}))
+            print(json.dumps({"profile_serve_round": run, "model": cfg.name, **prof}))
         else:
             t0 = time.perf_counter()
             for _ in range(8):
                 engine.step()
+            torch.cuda.synchronize()
             tick_ms = (time.perf_counter() - t0) * 1e3 / 8
             prof = profile_summary(lambda: [engine.step() for _ in range(8)], tick_ms * 8,
                                    top=10)
-            print(json.dumps({"profile_serve_ticks": 8, "tick_ms": tick_ms, **prof}))
+            print(json.dumps({"profile_serve_ticks": 8, "model": cfg.name, "tick_ms": tick_ms,
+                              **prof}))
         del engine, adapter
         torch.cuda.empty_cache()
+        print(f"phase {label}: {run}: {time.perf_counter() - t_run:.1f} s")
     del params
     torch.cuda.empty_cache()
-    return {k: launches_all[k][k] for k in SERVE_ADAPT}
+    return launches_all
 
 
-def serve_kernel_timings(rows, card: str):
+def serve_kernel_timings(rows, card: str, model: str):
     """B1 and B2 at the adapter's (4, D) f32 rows: CUDA-event and profiler
     device ms against the HBM bound, the plain version timed over its
     column slices; no single PyTorch call computes either (torch.quantile
@@ -2417,9 +2506,10 @@ def serve_kernel_timings(rows, card: str):
              lambda: [SN.trimmed_mean_select(rows[:, a:a + SERVE_SLICE], 1)
                       for a in range(0, n, SERVE_SLICE)])):
         b_ms, b_by = bound(name, m, n, trim, 4)
-        row = {"shape": "serve rows", "kernel": name, "m": m, "n": n, "trim": trim,
+        row = {"shape": "serve rows", "model": model, "kernel": name, "m": m, "n": n,
+               "trim": trim,
                "dtype": "float32", "ms": time_ms(kernel, 5),
-               "device_ms": device_ms(kernel, 5, KERNEL_NAMES[name]),
+               "device_ms": device_ms(kernel, 5, KERNEL_NAMES[name], launches=1),
                "plain_ms": time_ms(plain, 1), "library_ms": None,
                "bound_ms": b_ms, "bound_by": b_by, "card": card}
         print(json.dumps({"timing": row}))
@@ -2703,7 +2793,7 @@ def train_kernel_timings(kept, card: str):
         b_ms, b_by = bound(name, m, n, trim, 2)
         row = {"shape": "train grads", "kernel": name, "m": m, "n": n, "leaves": len(leaves),
                "trim": trim, "dtype": "bfloat16", "ms": time_ms(kernel, 5),
-               "device_ms": device_ms(kernel, 5, KERNEL_NAMES[name]),
+               "device_ms": device_ms(kernel, 5, KERNEL_NAMES[name], launches=1),
                "plain_ms": time_ms(plain, 1), "library_ms": None,
                "bound_ms": b_ms, "bound_by": b_by, "card": card}
         print(json.dumps({"timing": row}))
@@ -2932,6 +3022,178 @@ def training(dev, card: str, on_path):
     return {"train": launches, "train_chunked": chunked}
 
 
+# ------------------------------ phase 16: the MoE, SSM and hybrid families
+#
+# (a) each family's smoke config in f32, card against CPU; (b) three
+# full-width cells, random weights from seed 0, bf16, cut in depth so that
+# the adapter's (4, D) f32 rows sit beside the served and adapted copies
+# (at full depth mamba2-2.7b's rows are 45.3 GB and recurrentgemma-2b's
+# 56.8 GB): granite-moe-1b-a400m at all 24 layers, mamba2-2.7b at 32 of 64
+# with 272-token prompts (its prefill crosses the 256-token SSD chunk and
+# takes the padded path), recurrentgemma-2b at 5 of 26 (one (rec, rec,
+# attn) super-block and the 2-layer rec tail, the smoke config's
+# structure); phase 14b's traffic and adaptation.  grok-1-314b
+# (316·10^9 parameters) is held at its smoke width only.
+FAMILY_SMOKE = ("granite_moe_1b_a400m", "grok_1_314b", "mamba2_2_7b", "recurrentgemma_2b")
+FAMILY_CELLS = (  # (config, layers, D, prompt length, runs)
+    ("granite_moe_1b_a400m", 24, 1_384_963_072, 16, ("serve_only", "median", "trimmed_mean")),
+    ("mamba2_2_7b", 32, 1_544_194_048, 272, ("serve_only", "median")),
+    ("recurrentgemma_2b", 5, 1_751_221_760, 16, ("serve_only", "median")))
+# phase 14b's 32 requests cut to 24 (66 ticks, 2 rounds a robust run, not
+# 87 and 3) to keep phase 16 near its time budget; widths are never cut
+FAMILY_REQUESTS = 24
+FAMILY_TRAIN = ("granite_moe_1b_a400m", "mamba2_2_7b", "recurrentgemma_2b")
+
+
+def family_parity(dev):
+    """Phase 16a: serve_parity on each family's smoke config in f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    for arch in FAMILY_SMOKE:
+        serve_parity(dev, dataclasses.replace(get_smoke_config(arch), dtype="float32"),
+                     f"16a {arch}")
+
+
+def family_cells(dev, card: str):
+    """Phase 16b: the three full-width cells; returns each kernel's launches
+    over their runs, as measured in each run."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeConfig
+
+    total = {}
+    for arch, layers, d, prompt, runs in FAMILY_CELLS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        t0 = time.perf_counter()
+        launches = serve_runs(dev, card, cfg, d, runs,
+                              ServeConfig(slots=4, prompt_len=prompt, max_new=16),
+                              f"16b {arch}", requests=FAMILY_REQUESTS)
+        for counts in launches.values():
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        print(f"phase 16b: {arch}: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def family_serve_cli():
+    """Phase 16c: python -m repro_torch.serve.run --smoke --arch <family>
+    twice per family, all eight processes started together on the card:
+    exit 0, every request served, rounds fired, the storage kept, one
+    sha256 per family."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    try:
+        for arch in FAMILY_SMOKE:
+            args = [sys.executable, "-m", "repro_torch.serve.run", "--smoke", "--arch", arch,
+                    "--requests", "12", "--slots", "3", "--shards", "2", "--alpha", "0.5",
+                    "--adapt-every", "6", "--batch-per-shard", "1", "--method", "median"]
+            for _ in range(2):
+                procs.append((arch, subprocess.Popen(args, env=env, cwd=ROOT, text=True,
+                                                     stdout=subprocess.PIPE,
+                                                     stderr=subprocess.PIPE)))
+        digests = {}
+        for arch, proc in procs:
+            out, err = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"16c: serve CLI {arch} exited {proc.returncode}: "
+                                        f"{err[-2000:]}")
+            check("served 12/12 requests" in out and "device cuda" in out,
+                  f"16c: serve CLI {arch}: {out[-2000:]}")
+            check("storage kept: {'params': True, 'pool': True}" in out,
+                  f"16c: serve CLI {arch}: storage not kept")
+            check("adaptation rounds: 0" not in out, f"16c: serve CLI {arch}: no round")
+            line = [ln for ln in out.splitlines() if "final iterate sha256" in ln]
+            check(len(line) == 1, f"16c: serve CLI {arch} printed no sha256: {out[-2000:]}")
+            digests.setdefault(arch, []).append(line[0].split("=")[-1].strip())
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for arch, (a, b) in digests.items():
+        check(a == b, f"16c: the serve CLI is not deterministic on the card for {arch}")
+    print(f"phase 16c: serve CLI twice per family on the card, one sha256 each: "
+          f"{json.dumps({k: v[0][:16] for k, v in digests.items()})}")
+
+
+def family_train_cli(dev):
+    """Phase 16d: python -m repro_torch.launch.train --smoke --arch <family>
+    (run in this process, on the card) for granite, mamba2 and
+    recurrentgemma, 2 steps of gather median under alie: B1's launches
+    counted per dtype group (MAX_LEAVES leaves a launch) against the
+    aggregation calls' leaves, and no other kernel launched.  Returns each
+    kernel's launches over the three runs."""
+    import contextlib
+    import io
+
+    from repro_torch.core import aggregators
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.kernels import robust_agg
+    from repro_torch.kernels import select_codegen as G
+    from repro_torch.launch import train
+
+    real = aggregators.aggregate_leaves
+    total = {}
+    for arch in FAMILY_TRAIN:
+        groups = []
+
+        def counted(leaves, method, beta=0.1):
+            by = {}
+            for x in leaves:
+                by[str(x.dtype).removeprefix("torch.")] = by.get(
+                    str(x.dtype).removeprefix("torch."), 0) + 1
+            groups.append(by)
+            return real(leaves, method, beta)
+
+        aggregators.aggregate_leaves = counted
+        robust_agg.reset_launches()  # zeroed just before this run
+        H.reset_launches()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = train.main(["--config", arch, "--smoke", "--steps", "2", "--device-steps",
+                                 "1", "--workers", "4", "--seq-len", "32", "--global-batch", "4",
+                                 "--strategy", "gather", "--agg", "median", "--attack", "alie",
+                                 "--attack-alpha", "0.25"])
+        finally:
+            aggregators.aggregate_leaves = real
+        launches = {**robust_agg.LAUNCHES, **H.LAUNCHES}  # read just after it
+        out = buf.getvalue()
+        check(rc == 0 and "device cuda" in out and "done: 2 steps" in out,
+              f"16d: train CLI {arch}: {out[-2000:]}")
+        want = sum(-(-n // G.MAX_LEAVES) for g in groups for n in g.values())
+        check(len(groups) == 2 and launches["median"] == want and
+              sum(v for k, v in launches.items() if k != "median") == 0,
+              f"16d: {arch}: launches {launches} for groups {groups}, want {want} medians")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"phase 16d: train CLI {arch} on the card: {out.splitlines()[-1]}; per step the "
+              f"dtype groups {groups[0]}: {want // 2} B1 launches a step")
+    return total
+
+
+def families(dev, card: str):
+    """Phase 16: 16a-16d; returns each kernel's launches on 16b's and 16d's
+    paths."""
+    t0 = time.perf_counter()
+    family_parity(dev)
+    print(f"phase 16a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve = family_cells(dev, card)
+    print(f"phase 16b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    family_serve_cli()
+    print(f"phase 16c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_launches = family_train_cli(dev)
+    print(f"phase 16d: {time.perf_counter() - t0:.1f} s")
+    return {"families_serve": serve, "families_train_cli": train_launches}
+
+
 def main() -> None:
     import torch
 
@@ -3040,6 +3302,12 @@ def main() -> None:
     print(f"phase 15: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 15 built order-statistic programs that phase 1 did not")
+    libs_before = len(robust_agg.select_libraries())
+    t0 = time.perf_counter()
+    new_paths.update(families(dev, card))
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    check(len(robust_agg.select_libraries()) == libs_before,
+          "phase 16 built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")

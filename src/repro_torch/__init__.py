@@ -12,9 +12,11 @@ sketch kernels), core (aggregators, attacks shim, robust_gd, theory),
 attacks, data, models, checkpoint and the round engine; synchronous
 federated rounds (``fed``); the round programs (``rounds``: Algorithm
 2, local-update rounds, payload compression, communication accounting);
-buffered async rounds and the robustness matrix; and robust serving
-(``serve``: the continuous-batching engine over the dense transformer of
-``models.transformer``, with robust continual adaptation from feedback).
+buffered async rounds and the robustness matrix; robust serving
+(``serve``: the continuous-batching engine over the decoder families of
+``models.transformer`` (dense, MoE, SSM, hybrid RG-LRU), with robust
+continual adaptation from feedback); and robust LM training (``launch``)
+over in-process workers.
 """
 import torch
 

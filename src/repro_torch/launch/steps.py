@@ -19,9 +19,10 @@ mesh; here a step is a plain function on tensors on one device, run
 eagerly.  Its pool is a vmap of batch-1 decodes over a leading slot axis,
 because a batched cache shares one ``kpos`` across its rows.  The port
 batches the slots directly instead: the pool's caches carry the slot axis
-as their batch axis and a position per slot (``kpos`` (n_layers, slots,
-eff)), and one tick is ONE batched decode of every slot, each at its own
-position, updating the pool in place.  A slot's tokens are the same as in
+as their batch axis and a position per slot (``kpos`` (n_super, slots,
+eff) in the blocks, (slots, eff) in the tail), and one tick is ONE
+batched decode of every slot, each at its own position, updating the
+pool in place.  A slot's tokens are the same as in
 a batch-1 decode (pinned in tests/test_torch_serve.py).
 
 FSDP (``param_mode='fsdp'``) and the dry-run ``input_specs`` wait for
@@ -81,10 +82,11 @@ class StepBody:
 def _pieces(params):
     """``params`` with every stacked block leaf given as its per-layer views
     (so each layer's gradient comes out at its own size, not as a
-    stacked-size zero tensor per layer); the other leaves as they are."""
+    stacked-size zero tensor per layer); the other leaves, the tail's
+    included, as they are."""
     out = dict(params)
-    out["blocks"] = {T.LAYER: {k: tuple(v.unbind(0))
-                               for k, v in params["blocks"][T.LAYER].items()}}
+    out["blocks"] = {key: {k: tuple(v.unbind(0)) for k, v in group.items()}
+                     for key, group in params["blocks"].items()}
     return out
 
 
@@ -92,8 +94,8 @@ def _stacked_pieces(buf, k: int):
     """The worker-stacked gradient buffer in :func:`_pieces` form: per-layer
     views of its block leaves (the layer dim follows the ``k`` worker dims)."""
     out = dict(buf)
-    out["blocks"] = {T.LAYER: {n: tuple(v.unbind(k))
-                               for n, v in buf["blocks"][T.LAYER].items()}}
+    out["blocks"] = {key: {n: tuple(v.unbind(k)) for n, v in group.items()}
+                     for key, group in buf["blocks"].items()}
     return out
 
 
@@ -292,21 +294,39 @@ def make_decode_pool_step(cfg: ModelConfig) -> Callable:
 def make_slot_admit_step() -> Callable:
     """``admit(pool, one, slot) -> pool``: copy a freshly prefilled batch-1
     cache (:func:`transformer.prefill`'s layout) into slot ``slot`` of the
-    pool, in place."""
+    pool, in place: every leaf of the slot (attention keys, values and
+    positions, recurrent states) is replaced wholesale."""
+
+    def put(dst, src, slot: int, lead: int):
+        for name, d in dst.items():  # the slot axis follows ``lead`` block dims
+            s = src[name] if name == "kpos" else src[name].select(lead, 0)
+            d.select(lead, slot).copy_(s)
 
     def admit(pool, one, slot: int):
-        dst, src = pool["blocks"][T.LAYER], one["blocks"][T.LAYER]
-        dst["k"][:, slot].copy_(src["k"][:, 0])
-        dst["v"][:, slot].copy_(src["v"][:, 0])
-        dst["kpos"][:, slot].copy_(src["kpos"])
+        for key, group in pool["blocks"].items():
+            put(group, one["blocks"][key], slot, 1)
+        for dst, src in zip(pool.get("tail", []), one.get("tail", [])):
+            put(dst, src, slot, 0)
         return pool
 
     return admit
 
 
 def init_slot_pool(cfg: ModelConfig, slots: int, cache_len: int, device="cuda"):
-    """Empty pool caches: k/v (n_layers, slots, eff, KV, hd), kpos
-    (n_layers, slots, eff) = -1, so an un-admitted slot attends to nothing."""
-    one = T.init_cache(cfg, slots, cache_len, device=device)["blocks"][T.LAYER]
-    kpos = one["kpos"][:, None, :].expand(-1, slots, -1).contiguous()
-    return {"blocks": {T.LAYER: {"k": one["k"], "kpos": kpos, "v": one["v"]}}}
+    """Empty pool caches, :func:`transformer.init_cache` with the slots as its
+    batch and a position row per slot: kpos (n_super, slots, eff) in the
+    blocks and (slots, eff) in the tail, = -1, so an un-admitted slot
+    attends to nothing."""
+    pool = T.init_cache(cfg, slots, cache_len, device=device)
+
+    def per_slot(group, lead: int):
+        kp = group.get("kpos")
+        if kp is not None:
+            group["kpos"] = kp.unsqueeze(lead).expand(
+                kp.shape[:lead] + (slots,) + kp.shape[lead:]).contiguous()
+
+    for group in pool["blocks"].values():
+        per_slot(group, 1)
+    for group in pool.get("tail", []):
+        per_slot(group, 0)
+    return pool

@@ -137,7 +137,7 @@ def stack_window_batches(dcfg: DataConfig, start_step: int, device_steps: int,
     micro-step's batch is ``make_lm_batch`` at its step index (per-worker
     provenance and label corruption included)."""
     if cfg is not None:
-        T.check_supported(cfg)  # dense decoders only: no frontend inputs
+        T.check_supported(cfg)  # decoders only: no frontend inputs
     per_step = [make_lm_batch(dcfg, start_step + i, attack, device="cpu")
                 for i in range(device_steps)]
     return {k: torch.stack([b[k] for b in per_step]).to(mesh.device)

@@ -7,10 +7,11 @@ and dtypes and moves tensors; it never reshapes.  ``linreg`` parameters
 are a bare (d,) vector in both packages.  :func:`round_state_from_reference`
 carries a round engine state (iterate, previous aggregate, optimizer
 slots, round) across.  :func:`transformer_from_reference` /
-:func:`transformer_to_reference` carry the dense transformer's tree
-(``blocks`` stacked), bfloat16 leaves included, with every dict's keys in
-sorted order: the order ``jax.flatten_util.ravel_pytree`` ravels in, which
-the port's :func:`repro_torch.tree.ravel` (insertion order) then follows.
+:func:`transformer_to_reference` carry the transformer's tree
+(``blocks`` stacked, the ``tail`` a list), bfloat16 leaves and float32
+leaves of bfloat16 models included, with every dict's keys in sorted
+order: the order ``jax.flatten_util.ravel_pytree`` ravels in, which the
+port's :func:`repro_torch.tree.ravel` (insertion order) then follows.
 """
 from __future__ import annotations
 
@@ -129,7 +130,7 @@ def _leaf_from_numpy(path: str, a, dtype: torch.dtype, device: torch.device) -> 
 
 def transformer_from_reference(cfg, params_np, device="cuda") -> dict:
     """The reference's transformer parameters (a tree of numpy arrays,
-    ``blocks`` stacked ``(n_layers, ...)``) as the port's tensors: keys,
+    ``blocks`` stacked ``(n_super, ...)``, ``tail`` a list) as the port's tensors: keys,
     shapes and dtypes checked against ``transformer.param_shapes(cfg)``,
     every dict rebuilt with sorted keys."""
     from repro_torch.models import transformer as T
@@ -143,6 +144,11 @@ def transformer_from_reference(cfg, params_np, device="cuda") -> dict:
                 raise KeyError(f"{path or 'params'}: expected keys {sorted(spec)}, got {got}")
             return {k: build(f"{path}/{k}" if path else k, spec[k], tree[k])
                     for k in sorted(spec)}
+        if isinstance(spec, list):  # the unrolled tail
+            if not isinstance(tree, (list, tuple)) or len(tree) != len(spec):
+                raise KeyError(f"{path}: expected a list of {len(spec)} layers, got "
+                               f"{type(tree).__name__}")
+            return [build(f"{path}/{i}", sp, t) for i, (sp, t) in enumerate(zip(spec, tree))]
         shape, dtype = spec
         if tuple(np.shape(tree)) != tuple(shape):
             raise ValueError(f"{path}: shape {np.shape(tree)}, expected {tuple(shape)}")
@@ -165,6 +171,8 @@ def transformer_to_reference(params) -> dict:
     def walk(tree):
         if isinstance(tree, dict):
             return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
         return leaf(tree)
 
     return walk(params)

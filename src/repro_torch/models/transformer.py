@@ -1,21 +1,32 @@
-"""The dense decoder of the reference's unified model stack
+"""The decoder families of the reference's unified model stack
 (``repro.models.transformer``), on tensors.
 
-embed → attention layers (GQA + RoPE, optional qk-norm / sliding window,
-SwiGLU FFN) → final norm → lm head.
+embed → layers → final norm → lm head.  Layer kinds
+(``ModelConfig.layer_kind``):
+  ``attn`` — GQA + RoPE (optional qk-norm / sliding or local window) + FFN
+             (SwiGLU dense, or the top-k MoE of :mod:`.moe`);
+  ``ssm``  — the Mamba-2 SSD mixer of :mod:`.ssm` (no FFN);
+  ``rec``  — the RecurrentGemma block: conv1d + RG-LRU (:mod:`.rglru`),
+             gated by a GeLU branch, then a GeGLU FFN.
 
-Parameters are the reference's tree: ``{"blocks": {"p0_attn": {...}},
-"embed", "final_norm", "lm_head"}`` with every block leaf stacked
-``(n_layers, ...)``, the same shapes (``x @ w`` with ``w`` (in, out)) and
-dtypes.  Every dict is built with its keys in sorted order, so
+Layers come in groups (:func:`layer_groups`): one pattern (a single kind,
+or a hybrid pattern such as ``(rec, rec, attn)``) repeated ``n_super``
+times, then an unrolled tail of the remaining layers.  Parameters are the
+reference's tree: ``{"blocks": {"p{i}_{kind}": {...}}, "embed",
+"final_norm", "lm_head", "tail": [{...}, ...]}`` with every block leaf
+stacked ``(n_super, ...)``, the same shapes (``x @ w`` with ``w`` (in,
+out)) and dtypes (the SSM's ``A_log`` / ``dt_bias`` / ``D_skip`` and the
+RG-LRU's ``b_a`` / ``b_x`` / ``lam`` are float32 in a bfloat16 model).
+Every dict is built with its keys in sorted order, so
 :func:`repro_torch.tree.ravel` (insertion order) lays the coordinates out
 as ``jax.flatten_util.ravel_pytree`` does (sorted keys): the adapter's
 (m, D) gradient rows, the codecs' coordinate maps and the served
-iterate's sha256 depend on it.
+iterate's sha256 depend on it.  Caches mirror the tree (``blocks``
+stacked, ``tail`` a list).
 
-The port covers the dense family only.  A configuration with MoE, SSM or
-RG-LRU layers, a hybrid pattern, an audio/vision frontend or an encoder
-raises ``NotImplementedError`` (ROADMAP queue A item 8).
+The audio and vision frontends, the encoder and cross-attention (whisper,
+internvl2) are not ported: such a configuration raises
+``NotImplementedError`` (ROADMAP queue A item 8).
 
 Entry points:
   init_params(cfg, seed, device)             -> params tree
@@ -29,142 +40,237 @@ from __future__ import annotations
 
 import math
 import zlib
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import rng
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 
 Params = Dict[str, Any]
-
-#: the one layer group of a dense stack (the reference's ``p{i}_{kind}``)
-LAYER = "p0_attn"
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port lacks."""
     missing = []
-    if cfg.family != "dense":
-        missing.append(f"family {cfg.family!r}")
-    if cfg.moe is not None:
-        missing.append("MoE layers (models/moe.py)")
-    if cfg.ssm is not None:
-        missing.append("SSM layers (models/ssm.py)")
-    if cfg.hybrid_pattern:
-        missing.append(f"hybrid pattern {cfg.hybrid_pattern} (models/rglru.py)")
     if cfg.frontend != "none":
         missing.append(f"the {cfg.frontend} frontend")
     if cfg.n_enc_layers or cfg.cross_attention:
         missing.append("the encoder / cross-attention")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port has the dense decoder only; not ported: "
-            f"{', '.join(missing)} (ROADMAP queue A item 8)")
+            f"{cfg.name}: not ported: {', '.join(missing)} (ROADMAP queue A item 8)")
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 # ---------------------------------------------------------------------------
-# init
+# structure and init
 # ---------------------------------------------------------------------------
 
 
-def _layer_specs(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], float]]:
-    """One attention layer's leaves: name -> (shape, init std; 0 = zeros)."""
+def layer_groups(cfg: ModelConfig):
+    """([(pattern, n_super)], tail kinds): the pattern repeated n_super times,
+    then the layers left over, unrolled."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    if not cfg.hybrid_pattern:
+        return [((kinds[0],), cfg.n_layers)], []
+    plen = len(cfg.hybrid_pattern)
+    n_super = cfg.n_layers // plen
+    return [(tuple(cfg.hybrid_pattern), n_super)], kinds[n_super * plen:]
+
+
+class Where(NamedTuple):
+    """A layer's place in the tree: ``blocks[key]`` at super-block ``s``, or
+    ``tail[key]`` (``s`` None)."""
+
+    part: str
+    key: Any
+    s: Optional[int]
+    kind: str
+
+
+def layer_slots(cfg: ModelConfig) -> List[Where]:
+    """Every layer in execution order: the super-blocks, then the tail."""
+    [(pattern, n_super)], tail = layer_groups(cfg)
+    out = [Where("blocks", f"p{i}_{kind}", s, kind)
+           for s in range(n_super) for i, kind in enumerate(pattern)]
+    return out + [Where("tail", j, None, kind) for j, kind in enumerate(tail)]
+
+
+def layer_at(tree: Params, where: Where) -> Params:
+    """One layer's leaves of a params or cache tree: views of the stacked
+    blocks (or the s-th entry where a block leaf is a sequence of per-layer
+    tensors, as the adapter and the trainer differentiate it, so that each
+    layer's gradient comes out at its own size), or the tail's dict."""
+    if where.part == "tail":
+        return tree["tail"][where.key]
+    return {k: v[where.s] for k, v in tree["blocks"][where.key].items()}
+
+
+class Spec(NamedTuple):
+    """A parameter leaf: N(0, std^2) draws where ``std`` > 0, else filled
+    with ``fill``; float32 where ``f32``, else the model's dtype."""
+
+    shape: Tuple[int, ...]
+    std: float = 0.0
+    fill: float = 0.0
+    f32: bool = False
+
+
+def _attn_specs(cfg: ModelConfig, std: float, out_std: float) -> Dict[str, Spec]:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    std = 0.02
-    out_std = std / math.sqrt(2.0 * cfg.n_layers)
-    specs = {"ln1": ((d,), 0.0), "ln2": ((d,), 0.0),
-             "wq": ((d, h * hd), std), "wk": ((d, kv * hd), std), "wv": ((d, kv * hd), std),
-             "wo": ((h * hd, d), out_std)}
+    specs = {"ln1": Spec((d,)), "ln2": Spec((d,)),
+             "wq": Spec((d, h * hd), std), "wk": Spec((d, kv * hd), std),
+             "wv": Spec((d, kv * hd), std), "wo": Spec((h * hd, d), out_std)}
     if cfg.qk_norm:
-        specs["q_norm"] = ((hd,), 0.0)
-        specs["k_norm"] = ((hd,), 0.0)
-    if cfg.d_ff:
-        specs["wg"] = ((d, cfg.d_ff), std)
-        specs["wu"] = ((d, cfg.d_ff), std)
-        specs["wd"] = ((cfg.d_ff, d), out_std)
+        specs["q_norm"] = Spec((hd,))
+        specs["k_norm"] = Spec((hd,))
+    if cfg.moe is not None:
+        e, fe = cfg.moe.num_experts, cfg.moe.d_expert
+        specs["router"] = Spec((d, e), std)
+        specs["we_g"] = Spec((e, d, fe), std)
+        specs["we_u"] = Spec((e, d, fe), std)
+        specs["we_d"] = Spec((e, fe, d), out_std)
+    elif cfg.d_ff:
+        specs["wg"] = Spec((d, cfg.d_ff), std)
+        specs["wu"] = Spec((d, cfg.d_ff), std)
+        specs["wd"] = Spec((cfg.d_ff, d), out_std)
+    return specs
+
+
+def _ssm_dims(cfg: ModelConfig):
+    """(SSMConfig, d_inner, heads, conv channels)."""
+    s = cfg.ssm or SSMConfig()
+    di = s.expand * cfg.d_model
+    return s, di, di // s.head_dim, di + 2 * s.d_state
+
+
+def _ssm_specs(cfg: ModelConfig, std: float, out_std: float) -> Dict[str, Spec]:
+    s, di, nheads, conv_dim = _ssm_dims(cfg)
+    d = cfg.d_model
+    return {"ln1": Spec((d,)),
+            "w_in": Spec((d, 2 * di + 2 * s.d_state + nheads), std),
+            "conv_w": Spec((s.conv_width, conv_dim), std),
+            "A_log": Spec((nheads,), f32=True),  # A = -exp(A_log) = -1
+            "dt_bias": Spec((nheads,), fill=-2.0, f32=True),
+            "D_skip": Spec((nheads,), fill=1.0, f32=True),
+            "out_norm": Spec((di,)),
+            "w_out": Spec((di, d), out_std)}
+
+
+def _rec_specs(cfg: ModelConfig, std: float, out_std: float) -> Dict[str, Spec]:
+    d = c = cfg.d_model  # the LRU's width is d_model
+    return {"ln1": Spec((d,)), "ln2": Spec((d,)),
+            "w_bx": Spec((d, c), std), "w_bg": Spec((d, c), std),
+            "conv_w": Spec((4, c), std),
+            "w_a": Spec((c, c), std), "b_a": Spec((c,), f32=True),
+            "w_xg": Spec((c, c), std), "b_x": Spec((c,), f32=True),
+            "lam": Spec((c,), fill=0.5, f32=True),
+            "w_ro": Spec((c, d), out_std),
+            "wg": Spec((d, cfg.d_ff), std), "wu": Spec((d, cfg.d_ff), std),
+            "wd": Spec((cfg.d_ff, d), out_std)}
+
+
+_SPECS = {"attn": _attn_specs, "ssm": _ssm_specs, "rec": _rec_specs}
+
+
+def _layer_specs(kind: str, cfg: ModelConfig) -> Dict[str, Spec]:
+    std = 0.02
+    specs = _SPECS[kind](cfg, std, std / math.sqrt(2.0 * cfg.n_layers))
     return dict(sorted(specs.items()))
 
 
 def _param_specs(cfg: ModelConfig) -> Params:
-    """The parameter tree as (shape, std) leaves, keys sorted at every level."""
+    """The parameter tree as :class:`Spec` leaves, keys sorted at every level."""
     check_supported(cfg)
-    std = 0.02
-    layer = {k: ((cfg.n_layers,) + shape, s) for k, (shape, s) in _layer_specs(cfg).items()}
-    return {"blocks": {LAYER: layer},
-            "embed": ((cfg.vocab, cfg.d_model), std),
-            "final_norm": ((cfg.d_model,), 0.0),
-            "lm_head": ((cfg.d_model, cfg.vocab), std)}
-
-
-def _is_spec(x) -> bool:
-    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
+    [(pattern, n_super)], tail = layer_groups(cfg)
+    blocks = {f"p{i}_{kind}": {k: sp._replace(shape=(n_super,) + sp.shape)
+                               for k, sp in _layer_specs(kind, cfg).items()}
+              for i, kind in enumerate(pattern)}
+    tree = {"blocks": dict(sorted(blocks.items())),
+            "embed": Spec((cfg.vocab, cfg.d_model), 0.02),
+            "final_norm": Spec((cfg.d_model,)),
+            "lm_head": Spec((cfg.d_model, cfg.vocab), 0.02)}
+    if tail:
+        tree["tail"] = [_layer_specs(kind, cfg) for kind in tail]
+    return tree
 
 
 def _map_specs(fn, tree, path=""):
-    if _is_spec(tree):
-        return fn(path, *tree)
-    return {k: _map_specs(fn, v, f"{path}/{k}" if path else k) for k, v in tree.items()}
+    if isinstance(tree, Spec):
+        return fn(path, tree)
+    join = (lambda k: f"{path}/{k}") if path else str
+    if isinstance(tree, list):
+        return [_map_specs(fn, v, join(i)) for i, v in enumerate(tree)]
+    return {k: _map_specs(fn, v, join(k)) for k, v in tree.items()}
+
+
+def _leaf_dtype(cfg: ModelConfig, spec: Spec) -> torch.dtype:
+    return torch.float32 if spec.f32 else _dt(cfg)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Random parameters: N(0, std^2) in float32, cast to ``cfg.dtype``
-    (norm scales zero), each leaf drawn on ``device`` from a generator
+    """Random parameters: N(0, std^2) in float32 cast to the leaf's dtype,
+    or the reference's constants (zero norm scales, A_log 0, dt_bias -2,
+    D_skip 1, lam 0.5), each drawn leaf on ``device`` from a generator
     seeded with (seed, leaf path).  The draws differ from the reference's
     threefry and between devices; parity tests convert the reference's
     parameters instead (:mod:`repro_torch.models.convert`)."""
     dev = resolve(device)
-    dtype = _dt(cfg)
 
-    def leaf(path, shape, std):
-        if std == 0.0:
-            return torch.zeros(shape, dtype=dtype, device=dev)
+    def leaf(path, spec):
+        dtype = _leaf_dtype(cfg, spec)
+        if spec.std == 0.0:
+            return torch.full(spec.shape, spec.fill, dtype=dtype, device=dev)
         g = rng.generator(seed, zlib.crc32(path.encode()), device=dev)
-        x = torch.randn(shape, generator=g, dtype=torch.float32, device=dev)
-        return x.mul_(std).to(dtype)
+        x = torch.randn(spec.shape, generator=g, dtype=torch.float32, device=dev)
+        return x.mul_(spec.std).to(dtype)
 
     return _map_specs(leaf, _param_specs(cfg))
 
 
 def param_shapes(cfg: ModelConfig) -> Params:
     """The parameter tree as ``(shape, dtype)`` leaves, nothing allocated."""
-    dtype = _dt(cfg)
-    return _map_specs(lambda path, shape, std: (shape, dtype), _param_specs(cfg))
+    return _map_specs(lambda path, spec: (spec.shape, _leaf_dtype(cfg, spec)),
+                      _param_specs(cfg))
 
 
 def count_params(cfg: ModelConfig) -> int:
     total = 0
 
-    def add(path, shape, std):
+    def add(path, spec):
         nonlocal total
-        total += math.prod(shape)
+        total += math.prod(spec.shape)
 
     _map_specs(add, _param_specs(cfg))
     return total
 
 
-def num_layers(params: Params) -> int:
-    return len(params["blocks"][LAYER]["ln1"])
-
-
-def layer_params(params: Params, i: int) -> Params:
-    """Layer ``i``'s leaves: views of the stacked blocks, or the i-th entry
-    where a block leaf is given as a sequence of per-layer tensors (what
-    the adapter differentiates, so that each layer's gradient comes out
-    at its own size instead of as a stacked-size zero tensor per layer)."""
-    return {k: v[i] for k, v in params["blocks"][LAYER].items()}
+def count_active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token: an MoE counts top_k of num_experts."""
+    total = count_params(cfg)
+    if cfg.moe is None:
+        return total
+    e, k, fe, d = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.d_expert, cfg.d_model
+    return total - cfg.n_layers * e * 3 * d * fe + cfg.n_layers * k * 3 * d * fe
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (train / prefill)
+# layers over a full sequence (train / prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -189,17 +295,22 @@ def _qkv(p: Params, y: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     return q, k, v
 
 
-def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention layer's FFN half -> (x, the MoE's aux loss or 0)."""
     y = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if cfg.moe is not None:
+        f, aux = moe_lib.moe_ffn(y, p["router"], p["we_g"], p["we_u"], p["we_d"],
+                                 cfg.moe.top_k)
+        return x + f, aux
     if cfg.d_ff:
         x = x + (F.silu(y @ p["wg"]) * (y @ p["wu"])) @ p["wd"]
-    return x
+    return x, _zero(x)
 
 
 def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
                     window: int = 0, positions: Optional[torch.Tensor] = None,
-                    kv_block: int = 1024, return_kv: bool = False):
-    """One attention layer over a full sequence x (B, S, D) -> (x, aux[, (k, v)])."""
+                    kv_block: int = 1024):
+    """One attention layer over a full sequence x (B, S, D) -> (x, aux, (k, v))."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -207,16 +318,79 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
     q, k, v = _qkv(p, y, cfg, positions)
     o = attn_lib.attention(q, k, v, causal=causal, window=window, kv_block=kv_block)
     x = x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
-    x = _ffn(p, x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if return_kv:
-        return x, aux, (k, v)
-    return x, aux
+    x, aux = _ffn(p, x, cfg)
+    return x, aux, (k, v)
+
+
+def _ssm_in(p: Params, x: torch.Tensor, cfg: ModelConfig, prev: Optional[torch.Tensor]):
+    """The SSM layer's input side: (z, the dt-scaled heads x·dt, x, loga,
+    B, C, the conv's new window)."""
+    s_cfg, di, nheads, _ = _ssm_dims(cfg)
+    n = s_cfg.d_state
+    y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    z, xs, bm, cm, dt = torch.split(y @ p["w_in"], [di, di, n, n, nheads], dim=-1)
+    conv_out, conv_state = ssm_lib.causal_conv1d(torch.cat([xs, bm, cm], dim=-1),
+                                                 p["conv_w"], prev)
+    xs, bm, cm = torch.split(conv_out, [di, n, n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])  # (B, S, H)
+    loga = -torch.exp(p["A_log"]) * dt
+    xh = xs.reshape(xs.shape[:2] + (nheads, s_cfg.head_dim))
+    return z, xh * dt[..., None].to(xh.dtype), xh, loga, bm, cm, conv_state
+
+
+def _ssm_out(p: Params, x: torch.Tensor, y_ssd: torch.Tensor, xh: torch.Tensor,
+             z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    y_ssd = y_ssd + p["D_skip"][:, None].to(y_ssd.dtype) * xh
+    y_out = y_ssd.reshape(z.shape) * F.silu(z)
+    y_out = L.rms_norm(y_out, p["out_norm"], cfg.norm_eps)
+    return x + y_out @ p["w_out"]
+
+
+def _ssm_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """One SSM layer over a full sequence -> (x, aux 0, its final state)."""
+    z, xdt, xh, loga, bm, cm, conv_state = _ssm_in(p, x, cfg, None)
+    y_ssd, state = ssm_lib.ssd_chunked(xdt, loga, bm, cm, chunk=_ssm_dims(cfg)[0].chunk)
+    return _ssm_out(p, x, y_ssd, xh, z, cfg), _zero(x), {"conv": conv_state, "ssd": state}
+
+
+def _rec_in(p: Params, x: torch.Tensor, prev: Optional[torch.Tensor], cfg: ModelConfig):
+    y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    bg = F.gelu(y @ p["w_bg"], approximate="tanh")  # jax.nn.gelu's default
+    conv_out, conv_state = ssm_lib.causal_conv1d(y @ p["w_bx"], p["conv_w"], prev)
+    return bg, conv_out, conv_state
+
+
+def _rec_out(p: Params, x: torch.Tensor, r: torch.Tensor, bg: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    x = x + (r * bg) @ p["w_ro"]
+    y = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.geglu(y, p["wg"], p["wu"], p["wd"])
+
+
+def _rec_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """One recurrent layer over a full sequence -> (x, aux 0, its final state)."""
+    bg, conv_out, conv_state = _rec_in(p, x, None, cfg)
+    r, h = rglru_lib.rglru_scan(conv_out, p["w_a"], p["b_a"], p["w_xg"], p["b_x"], p["lam"])
+    return _rec_out(p, x, r, bg, cfg), _zero(x), {"conv": conv_state, "h": h}
 
 
 def _attn_window(cfg: ModelConfig) -> int:
-    """Training/prefill attention window: native SWA, else full (0)."""
-    return cfg.sliding_window or 0
+    """Training/prefill attention window: native SWA, or the hybrid
+    pattern's local-attention window (0 = full attention)."""
+    if cfg.sliding_window:
+        return cfg.sliding_window
+    return cfg.local_window if cfg.hybrid_pattern else 0
+
+
+def _layer_fwd(where: Where, p: Params, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, kv_block: int):
+    """-> (x, aux, the layer's state: (k, v) for attention)."""
+    if where.kind == "attn":
+        return _attn_layer_fwd(p, x, cfg, window=_attn_window(cfg), positions=positions,
+                               kv_block=kv_block)
+    if where.kind == "ssm":
+        return _ssm_layer_fwd(p, x, cfg)
+    return _rec_layer_fwd(p, x, cfg)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -225,10 +399,9 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     check_supported(cfg)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(num_layers(params)):
-        x, a = _attn_layer_fwd(layer_params(params, i), x, cfg, window=_attn_window(cfg),
-                               positions=positions, kv_block=kv_block)
+    aux = _zero(x)
+    for where in layer_slots(cfg):
+        x, a, _ = _layer_fwd(where, layer_at(params, where), x, cfg, positions, kv_block)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"], aux
@@ -247,22 +420,64 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def cache_window(cfg: ModelConfig, cache_len: int) -> int:
     """Slots of an attention layer's cache: ``cache_len``, capped by the
-    sliding window (native or the long-context variant) — a ring buffer."""
-    cap = cfg.sliding_window or cfg.long_context_window
+    hybrid pattern's local window, else the sliding window (native or the
+    long-context variant) — a ring buffer."""
+    cap = cfg.local_window if cfg.hybrid_pattern else (
+        cfg.sliding_window or cfg.long_context_window)
     return min(cache_len, cap) if cap else cache_len
 
 
+def decode_window(cfg: ModelConfig) -> int:
+    """The window a decode step attends over (0 = the whole cache)."""
+    if cfg.hybrid_pattern:
+        return cfg.local_window
+    return cfg.sliding_window or cfg.long_context_window or 0
+
+
+def _stack_layers(cfg: ModelConfig, per_layer: List[Params]) -> Params:
+    """A cache tree from one dict per layer (:func:`layer_slots` order):
+    block entries stacked over the super-blocks, the tail a list."""
+    blocks: Dict[str, List[Params]] = {}
+    tail = []
+    for where, c in zip(layer_slots(cfg), per_layer):
+        if where.part == "tail":
+            tail.append(c)
+        else:
+            blocks.setdefault(where.key, []).append(c)
+    cache: Params = {"blocks": {key: {leaf: torch.stack([c[leaf] for c in cs])
+                                      for leaf in sorted(cs[0])}
+                                for key, cs in sorted(blocks.items())}}
+    if tail:
+        cache["tail"] = tail
+    return cache
+
+
+def _empty_layer_cache(kind: str, cfg: ModelConfig, b: int, eff: int,
+                       dev: torch.device) -> Params:
+    dtype = _dt(cfg)
+    if kind == "attn":
+        shape = (b, eff, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "kpos": torch.full((eff,), -1, dtype=torch.int32, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if kind == "ssm":
+        s, _, nheads, conv_dim = _ssm_dims(cfg)
+        return {"conv": torch.zeros((b, s.conv_width - 1, conv_dim), dtype=dtype, device=dev),
+                "ssd": torch.zeros((b, nheads, s.head_dim, s.d_state), dtype=torch.float32,
+                                   device=dev)}
+    return {"conv": torch.zeros((b, 3, cfg.d_model), dtype=dtype, device=dev),
+            "h": torch.zeros((b, cfg.d_model), dtype=torch.float32, device=dev)}
+
+
 def init_cache(cfg: ModelConfig, b: int, cache_len: int, device="cuda") -> Params:
-    """Empty cache: k/v (n_layers, b, eff, KV, hd) and kpos (n_layers, eff)
-    = -1 (every slot masked), as the reference's."""
+    """Empty cache, the reference's tree: attention k/v (.., b, eff, KV, hd)
+    and kpos (.., eff) = -1 (every slot masked); SSM conv window and f32
+    state; RG-LRU conv window and f32 state; block leaves led by n_super."""
     check_supported(cfg)
     dev = resolve(device)
     eff = cache_window(cfg, cache_len)
-    shape = (cfg.n_layers, b, eff, cfg.n_kv_heads, cfg.hd)
-    return {"blocks": {LAYER: {
-        "k": torch.zeros(shape, dtype=_dt(cfg), device=dev),
-        "kpos": torch.full((cfg.n_layers, eff), -1, dtype=torch.int32, device=dev),
-        "v": torch.zeros(shape, dtype=_dt(cfg), device=dev)}}}
+    return _stack_layers(cfg, [_empty_layer_cache(w.kind, cfg, b, eff, dev)
+                               for w in layer_slots(cfg)])
 
 
 def _fill_attn_cache(k: torch.Tensor, v: torch.Tensor, eff: int, s: int) -> Params:
@@ -280,9 +495,9 @@ def _fill_attn_cache(k: torch.Tensor, v: torch.Tensor, eff: int, s: int) -> Para
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, kv_block: int = 1024,
             cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
-    """Full forward that also builds the serving cache, sized ``cache_len``
-    (prompt + generation budget; default the prompt): returns the last
-    token's logits (B, 1, V) and the cache."""
+    """Full forward that also builds the serving cache, attention caches
+    sized ``cache_len`` (prompt + generation budget; default the prompt):
+    returns the last token's logits (B, 1, V) and the cache."""
     check_supported(cfg)
     b, s = tokens.shape
     cache_len = cache_len or s
@@ -291,16 +506,12 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, kv_block: in
     eff = cache_window(cfg, cache_len)
     x = _embed(params, tokens, cfg)
     positions = torch.arange(s, device=x.device)[None, :]
-    layers = []
-    for i in range(num_layers(params)):
-        x, _, (k, v) = _attn_layer_fwd(layer_params(params, i), x, cfg,
-                                       window=_attn_window(cfg), positions=positions,
-                                       kv_block=kv_block, return_kv=True)
-        layers.append(_fill_attn_cache(k, v, eff, s))
-    cache = {"blocks": {LAYER: {key: torch.stack([c[key] for c in layers])
-                                for key in ("k", "kpos", "v")}}}
+    per_layer = []
+    for where in layer_slots(cfg):
+        x, _, state = _layer_fwd(where, layer_at(params, where), x, cfg, positions, kv_block)
+        per_layer.append(_fill_attn_cache(*state, eff, s) if where.kind == "attn" else state)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, -1:] @ params["lm_head"], cache
+    return x[:, -1:] @ params["lm_head"], _stack_layers(cfg, per_layer)
 
 
 def _cache_attention(q, k_cache, v_cache, kpos, pos, window: int):
@@ -339,24 +550,47 @@ def _attn_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
         lc["kpos"][rows, slot] = pos.to(torch.int32)
     o = _cache_attention(q, lc["k"], lc["v"], lc["kpos"], pos, window)
     x = x + o.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
-    return _ffn(p, x, cfg)
+    return _ffn(p, x, cfg)[0]
+
+
+def _ssm_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig) -> torch.Tensor:
+    """One-token SSM step; updates the layer cache's conv window and state
+    in place."""
+    z, xdt, xh, loga, bm, cm, conv_state = _ssm_in(p, x, cfg, lc["conv"])
+    yh, state = ssm_lib.ssd_decode_step(lc["ssd"], xdt[:, 0], loga[:, 0], bm[:, 0], cm[:, 0])
+    lc["conv"].copy_(conv_state)
+    lc["ssd"].copy_(state)
+    return _ssm_out(p, x, yh[:, None], xh, z, cfg)
+
+
+def _rec_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig) -> torch.Tensor:
+    """One-token recurrent step; updates the layer cache in place."""
+    bg, conv_out, conv_state = _rec_in(p, x, lc["conv"], cfg)
+    r, h = rglru_lib.rglru_decode_step(lc["h"], conv_out, p["w_a"], p["b_a"], p["w_xg"],
+                                       p["b_x"], p["lam"])
+    lc["conv"].copy_(conv_state)
+    lc["h"].copy_(h)
+    return _rec_out(p, x, r, bg, cfg)
 
 
 def decode_step(params: Params, token: torch.Tensor, cache: Params, pos,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
     """One decode step: token (B, 1) at absolute position ``pos`` (a scalar,
-    or (B,) positions for a cache whose kpos is (n_layers, B, eff)).
+    or (B,) positions for a cache whose kpos has a row per batch row).
 
     Returns (logits (B, 1, V), cache); the cache is updated IN PLACE (the
     reference donates it to the same effect)."""
     check_supported(cfg)
     x = _embed(params, token, cfg)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
-    window = cfg.sliding_window or cfg.long_context_window or 0
-    lcache = cache["blocks"][LAYER]
-    for i in range(num_layers(params)):
-        x = _attn_decode(layer_params(params, i), x, {k: t[i] for k, t in lcache.items()},
-                         cfg, pos, window)
+    window = decode_window(cfg)
+    for where in layer_slots(cfg):
+        p, lc = layer_at(params, where), layer_at(cache, where)
+        if where.kind == "attn":
+            x = _attn_decode(p, x, lc, cfg, pos, window)
+        elif where.kind == "ssm":
+            x = _ssm_decode(p, x, lc, cfg)
+        else:
+            x = _rec_decode(p, x, lc, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"], cache
-

@@ -98,9 +98,10 @@ def num_coordinates(params) -> int:
 
 def _grad_pieces(params):
     """``(tree, pieces)``: ``params`` with every stacked block leaf given as
-    its per-layer views (``unbind(0)``), each view and every other leaf a
-    detached tensor requiring grad; ``pieces`` in ravel order, where a
-    stacked leaf's coordinates are its layers' one after the other."""
+    its per-layer views (``unbind(0)``), each view and every other leaf (the
+    tail's included) a detached tensor requiring grad; ``pieces`` in ravel
+    order, where a stacked leaf's coordinates are its layers' one after the
+    other."""
     pieces = []
 
     def req(t):
@@ -111,8 +112,10 @@ def _grad_pieces(params):
     tree = {}
     for key, v in params.items():  # insertion order is ravel order
         if key == "blocks":
-            tree[key] = {T.LAYER: {k: tuple(req(x) for x in t.detach().unbind(0))
-                                   for k, t in v[T.LAYER].items()}}
+            tree[key] = {g: {k: tuple(req(x) for x in t.detach().unbind(0))
+                             for k, t in group.items()} for g, group in v.items()}
+        elif key == "tail":
+            tree[key] = [{k: req(t) for k, t in layer.items()} for layer in v]
         else:
             tree[key] = req(v)
     return tree, pieces

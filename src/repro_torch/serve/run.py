@@ -10,7 +10,11 @@ the running pool.  Runs on the card by default (``--device cuda``);
         --arch llama3_2_3b --requests 24 --slots 3 --shards 2 --alpha 0.5 \\
         --adapt-every 8 --method median
 
-``--adapt-every 0`` disables adaptation (the serve-only baseline).  The
+``--arch`` takes every decoder of ``repro_torch.configs``: the dense
+models, granite_moe_1b_a400m and grok_1_314b (MoE; grok at ``--smoke``
+only, its 316·10^9 parameters fit no card), mamba2_2_7b (SSM) and
+recurrentgemma_2b (hybrid RG-LRU).  ``--adapt-every 0`` disables
+adaptation (the serve-only baseline).  The
 last line prints ``final iterate sha256 = ...`` as ``fed/run.py`` does; two
 identical invocations print the same digest.  The reference's
 ``--mesh/--workers/--model-par`` wait for multi-GPU (ROADMAP queue A

@@ -1,0 +1,149 @@
+"""The port's MoE FFN (repro_torch.models.moe) against the reference's
+(repro.models.moe), on the CPU.
+
+Routing is held EXACTLY: the router probabilities are injected into the
+reference (its softmax returns them) and its dense dispatch / combine
+tensors are read from the einsums that consume them; the port's
+:func:`moe.route` on the same probabilities, expanded to the dense form,
+must equal both bit for bit (capacity drops included, top-k 1, 2 and 8).
+
+The layer end to end (y, the aux loss and their gradients) is held within
+the transformer tests' tolerances (f32 1e-5 absolute, bf16 1e-2; gradients
+in bf16 relative to their largest entry, 2e-2) on inputs whose top-k
+probabilities are separated by more than 1e-4 (asserted), so that a
+different expert order there would be a port fault, not rounding.
+"""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro.models import moe as RM
+from repro_torch import configs
+from repro_torch.models import moe
+
+torch.set_num_threads(2)
+
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+GRAD_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _ref_dispatch_combine(monkeypatch, probs, top_k, d=8, ffn=8):
+    """The reference's (dispatch, combine) for injected ``probs`` (B, S, E)."""
+    b, s, e = probs.shape
+    seen = {}
+    real_einsum = RM.jnp.einsum
+
+    def einsum(spec, *ops, **kw):
+        if spec == "bsec,bsd->ebcd":
+            seen["dispatch"] = np.asarray(ops[0])
+        if spec == "bsec,ebcd->bsd":
+            seen["combine"] = np.asarray(ops[0])
+        return real_einsum(spec, *ops, **kw)
+
+    monkeypatch.setattr(RM.jax.nn, "softmax", lambda logits, axis=-1: jnp.asarray(probs))
+    monkeypatch.setattr(RM.jnp, "einsum", einsum)
+    rs = np.random.default_rng(0)
+    w = [jnp.asarray(rs.standard_normal(sh).astype(np.float32))
+         for sh in ((d, e), (e, d, ffn), (e, d, ffn), (e, ffn, d))]
+    RM.moe_ffn(jnp.asarray(rs.standard_normal((b, s, d)).astype(np.float32)), *w, top_k)
+    monkeypatch.undo()
+    return seen["dispatch"], seen["combine"]
+
+
+def _dense(r: moe.Routing, e: int, cap: int):
+    b, s, k = r.expert.shape
+    dispatch = np.zeros((b, s, e, cap), np.float32)
+    combine = np.zeros((b, s, e, cap), np.float32)
+    for bi, si, ki in zip(*np.nonzero(r.keep.numpy())):
+        ex, sl = int(r.expert[bi, si, ki]), int(r.slot[bi, si, ki])
+        dispatch[bi, si, ex, sl] += 1.0
+        combine[bi, si, ex, sl] += float(r.weight[bi, si, ki])
+    return dispatch, combine
+
+
+def _probs(b, s, e, seed, skew=0.0):
+    """Softmax of N(0, 1) logits (numpy f64 -> f32); ``skew`` raises expert 0."""
+    logits = np.random.default_rng(seed).standard_normal((b, s, e))
+    logits[..., 0] += skew
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    return (p / p.sum(-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,s,e,top_k,skew", [
+    (2, 16, 4, 1, 0.0), (2, 32, 4, 1, 3.0),  # top-1, then most tokens on one expert
+    (2, 16, 4, 2, 0.0), (3, 24, 4, 2, 2.5),  # granite / grok smoke's top-2
+    (2, 32, 32, 8, 0.0), (1, 40, 32, 8, 4.0),  # granite's top-8 of 32
+    (4, 1, 32, 8, 0.0),  # a decode step: cap 1, nothing dropped
+])
+def test_route_equals_reference_dispatch_and_combine(monkeypatch, b, s, e, top_k, skew):
+    probs = _probs(b, s, e, seed=b * 100 + s + top_k, skew=skew)
+    cap = moe.capacity(s, e, top_k)
+    want_d, want_c = _ref_dispatch_combine(monkeypatch, probs, top_k)
+    assert want_d.shape == (b, s, e, cap)
+    r = moe.route(torch.from_numpy(probs), top_k, cap)
+    got_d, got_c = _dense(r, e, cap)
+    np.testing.assert_array_equal(got_d, want_d)
+    np.testing.assert_array_equal(got_c, want_c)
+    dropped = b * s * top_k - int(r.keep.sum())
+    if skew >= 3.0:
+        assert dropped > 0  # the capacity case is exercised
+    if s == 1:
+        assert cap == 1 and dropped == 0
+
+
+def _layer_inputs(arch, dtype, seed):
+    cfg = configs.get_smoke_config(arch)
+    d, e, f, k = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_expert, cfg.moe.top_k
+    rs = np.random.default_rng(seed)
+    x = rs.standard_normal((2, 16, d)).astype(np.float32)
+    ws = [(rs.standard_normal(sh) * sd).astype(np.float32)
+          for sh, sd in (((d, e), 0.05), ((e, d, f), 0.05), ((e, d, f), 0.05), ((e, f, d), 0.05))]
+    # the top-k experts (and the next one) are separated by more than 1e-4,
+    # on the inputs rounded to ``dtype``
+    rounded = [torch.from_numpy(a).to(getattr(torch, dtype)).double().numpy() for a in (x, ws[0])]
+    logits = rounded[0] @ rounded[1]
+    p = np.sort(np.exp(logits - logits.max(-1, keepdims=True)), axis=-1)[..., ::-1]
+    p /= p.sum(-1, keepdims=True)
+    assert np.diff(-p[..., :k + 1], axis=-1).min() > 1e-4
+    cot = rs.standard_normal((2, 16, d)).astype(np.float32)
+    return k, x, ws, cot
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "grok_1_314b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_values_and_gradients_match_reference(arch, dtype):
+    """y, aux, and the gradient of sum(y * cot) + aux w.r.t. x and the four
+    weights, against jax.value_and_grad, at the smoke widths."""
+    k, x, ws, cot = _layer_inputs(arch, dtype, seed=5)
+    jdt = jnp.dtype(dtype)
+
+    def ref_loss(x, *ws):
+        y, aux = RM.moe_ffn(x, *ws, k)
+        return jnp.sum(y.astype(jnp.float32) * cot) + aux, (y, aux)
+
+    (_, (y_r, aux_r)), g_r = jax.value_and_grad(ref_loss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+        *(jnp.asarray(a).astype(jdt) for a in [x] + ws))
+    tdt = getattr(torch, dtype)
+    leaves = [torch.from_numpy(a).to(tdt).requires_grad_(True) for a in [x] + ws]
+    y, aux = moe.moe_ffn(*leaves, k)
+    assert y.dtype == tdt and aux.dtype == torch.float32
+    (torch.sum(y.float() * torch.from_numpy(cot)) + aux).backward()
+    np.testing.assert_allclose(y.detach().float().numpy(),
+                               np.asarray(y_r.astype(jnp.float32)), atol=TOL[dtype], rtol=0)
+    np.testing.assert_allclose(float(aux.detach()), float(aux_r), atol=TOL[dtype], rtol=0)
+    for name, t, g in zip(("x", "w_router", "w_gate", "w_up", "w_down"), leaves, g_r):
+        want = np.asarray(g.astype(jnp.float32))
+        got = t.grad.float().numpy()
+        scale = max(np.abs(want).max(), 1.0)
+        np.testing.assert_allclose(got, want, atol=GRAD_RTOL[dtype] * scale, rtol=0,
+                                   err_msg=name)
+
+
+def test_capacity_formula():
+    """cap = min(S, max(4, round_up(int(cf·k·S/E), 4))), the reference's."""
+    for s, e, k in ((1, 32, 8), (16, 32, 8), (32, 32, 8), (288, 32, 8), (16, 4, 2),
+                    (7, 8, 2), (1024, 8, 2)):
+        want = min(s, max(4, RM._round_up(int(1.25 * k * s / e), 4)))
+        assert moe.capacity(s, e, k) == want

@@ -340,8 +340,8 @@ def test_rejections():
     with pytest.raises(ValueError, match="local_steps"):
         steps.make_step_body(cfg, ParallelConfig(local_steps=0), mesh, opt)
     with pytest.raises(NotImplementedError):
-        steps.make_step_body(dataclasses.replace(cfg, family="moe"), ParallelConfig(), mesh,
-                             opt)
+        steps.make_step_body(dataclasses.replace(cfg, frontend="vision"), ParallelConfig(),
+                             mesh, opt)
     for argv in (["--mesh", "single"], ["--model-par", "2"]):
         with pytest.raises(NotImplementedError):
             train.main(["--config", "llama3.2-3b", "--smoke", "--device", "cpu"] + argv)
