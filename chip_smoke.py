@@ -168,17 +168,45 @@ Phases (any failure exits non-zero before the final line):
    <family>`` twice per family, all eight processes at once: one sha256
    each; (d) ``python -m repro_torch.launch.train --smoke --arch
    <family>`` in this process for granite, mamba2 and recurrentgemma: B1
-   launched once a step per dtype group and 16 leaves.
+   launched once a step per dtype group and 16 leaves;
+17. the distributed round programs and the process group: (a)
+   ``rounds.one_round_distributed`` at phase 8's configuration on
+   make_debug_mesh(10, 1): the median on the clean and random_label shards
+   and under sign_flip alpha 0.1 scale 15 by gather, bucketed and chunked,
+   and gather's three mean rows: gather and bucketed bitwise equal and
+   within 1e-5 of phase 8's one_round, chunked within one bin of the exact
+   median of its rows, Table 4's claim_holds on the gather rows; one B1
+   launch a gather / bucketed call, 2 B4 + 2 B5 a chunked call; (b)
+   ``rounds.make_local_update_round`` on phase 10's CNN (m = 10, sign_flip
+   alpha 0.1 scale 20): gather, bucketed and chunked x median and trimmed
+   mean beta 0.1 x tau in {1, 5}, 5 rounds each: one B1 (B2) launch a round
+   for gather and bucketed and 8 B4 + 8 B5 a round for chunked, the same at
+   tau = 1 and 5; tau = 1 gather a round from the same iterate within 1e-4
+   of each leaf's scale of local_update_gd's (deterministic cuDNN); the
+   loss falls at tau = 5; the tau = 5 round ms and a profile of one round;
+   (c) ``python -m repro_torch.serve.run`` with the reference's CI smoke
+   flags (``--mesh debug --workers 2 --model-par 1``) twice: one sha256; (d)
+   ``python -m repro_torch.launch.train --mesh single`` under NCCL at world
+   size 1 (torchrun's environment variables set by hand): its loss lines
+   and params bitwise ``--mesh debug --workers 1``'s (these four processes
+   start together), then ``core.distributed.ProcessGroupAxes`` at world
+   size 1 in this process on a (1, 2^20) leaf: gather, bucketed and
+   chunked medians bitwise ``InProcessAxes({"data": 1})``'s (B4 + B5; the
+   median of one row takes the sort path, no B1).  NCCL refuses two ranks
+   on one card, so 4-rank runs are held on gloo on the CPU
+   (tests/test_torch_process_group.py).
 The launch counters are zeroed before each of phases 8-13, each run of
-phase 14b, 15b and 16b, phase 15c and each 16d run, and read after; the kernels line gives
+phase 14b, 15b and 16b, phase 15c, each 16d run and each call (17a), round
+(17b) or set of calls (17d) of phase 17, and read after; the kernels line gives
 each kernel's launches on them (``launches_new_paths``).  In phases 4, 6,
-8-13 and 15c the inputs each kernel wrapper gets (the first call of each shape) are
+8-13, 15c and 17 the inputs each kernel wrapper gets (the first call of each shape) are
 recorded, and after the path's counts were read each kernel is run again on
 them and held against its plain version, bitwise (PathInputs); a kernel that
 launched on a path and was not held fails.  Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -441,8 +469,10 @@ def sweep_trim(m: int) -> int:
 def select_specs():
     """Every (kind, m, trim, dtype) of the order-statistic kernels this
     script runs: in f32 and bf16, phase 2's sweeps, the quickstart (m=8,
-    beta 0.3), the CNN (m=10, beta 0.1), linreg m=40 (beta 0.05), phase
-    5's shapes and phases 14-15's rows (m=4: the median, beta 0.25); the fused kernel at each (m, trim) of the trimmed mean.  In
+    beta 0.3), the CNN (m=10, beta 0.1; also phase 17's rows), linreg
+    m=40 (beta 0.05), phase 5's shapes, phases 14-15's rows (m=4: the
+    median, beta 0.25) and m=1 (phase 2); the fused kernel at each (m, trim)
+    of the trimmed mean.  In
     f16 only what phase 7 and phase 5 run: the three kinds at HALF_M with
     sweep_trim(m), which is also int(0.1 * m) at the timed m = 31, 32.  In f32
     also the programs of phase 13's matrix (matrix_programs)."""
@@ -3194,6 +3224,392 @@ def families(dev, card: str):
     return {"families_serve": serve, "families_train_cli": train_launches}
 
 
+# ------------------ phase 17: distributed round programs and the process group
+#
+# (a) one_round_distributed at phase 8's Table 4 configuration and (b)
+# make_local_update_round on phase 10's CNN, both over the in-process debug
+# mesh at m = 10; (c) the serve CLI with the reference's CI smoke flags;
+# (d) the torch.distributed process group at world size 1 under NCCL (the
+# train CLI with --mesh single, and the strategies in this process).  NCCL
+# refuses two ranks on one card, so 4-rank runs are held on gloo on the CPU
+# (tests/test_torch_process_group.py).
+DIST_STRATEGIES = ("gather", "bucketed", "chunked")
+DIST_ROUNDS = 5
+# one_round_distributed vs one_round (map vs vmap solvers), the largest absolute
+# difference; read at 9.9e-8 on an H100 80GB HBM3 at 700 W
+DIST_ONE_ROUND_TOL = 1e-6
+# a tau = 1 round vs local_update_gd's from the same iterate, of each leaf's max |w|;
+# read at 2.0e-7 and 1.4e-7 (median, trimmed mean) on an H100 80GB HBM3 at 700 W
+DIST_TAU1_TOL = 2e-6
+PG_N = 1 << 20  # phase 17d's in-process leaf, (1, 2^20) f32
+SERVE_CI_ARGS = ["--smoke", "--arch", "llama3_2_3b", "--mesh", "debug", "--workers", "2",
+                 "--model-par", "1", "--requests", "24", "--alpha", "0.25", "--attack",
+                 "feedback_flip"]
+PG_TRAIN_ARGS = ["--config", "llama3.2-3b", "--smoke", "--steps", "4", "--seq-len", "32",
+                 "--global-batch", "4", "--strategy", "gather", "--agg", "median"]
+
+
+def _launches():
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.kernels import robust_agg
+
+    return {**robust_agg.LAUNCHES, **H.LAUNCHES}
+
+
+def _reset_launches():
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.kernels import robust_agg
+
+    robust_agg.reset_launches()
+    H.reset_launches()
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def distributed_one_round(dev):
+    """Phase 17a: one_round_distributed at phase 8's configuration (logistic
+    regression d = 784 x 10, m = 10, n = 500, 150 GD steps at lr 0.5) on
+    make_debug_mesh(10, 1): the median on the clean and the random_label
+    alpha 0.1 shards and under the sign_flip alpha 0.1 scale 15 weight
+    attack, by gather, bucketed and chunked, and the three mean rows by
+    gather.  Counters zeroed before each call and read after it: gather and
+    bucketed one B1 launch a call, chunked none and B4 / B5 once a leaf.
+    gather and bucketed bitwise equal; both within DIST_ONE_ROUND_TOL of
+    phase 8's one_round; chunked within one bin of the exact median of the
+    rows it sketched; Table 4's claim_holds on the gather rows.  Returns
+    the launches of every call."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig, make_classification_shards
+    from repro_torch.data.synthetic import mnist_analog
+    from repro_torch.kernels import selection_network as SN
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.paper_models import init_logreg, logreg_accuracy, logreg_loss
+    from repro_torch.rounds import (OneRoundConfig, make_gd_local_solver, one_round,
+                                    one_round_distributed)
+
+    cfg = DataConfig(global_batch=T4_M * T4_N, num_workers=T4_M, seed=0)
+    clean = make_classification_shards(cfg, None, device=dev)
+    attacked = make_classification_shards(cfg, AttackConfig("random_label", alpha=0.1),
+                                          device=dev)
+    test = mnist_analog(torch.Generator().manual_seed(1234), 2000, device=dev)
+    solver = make_gd_local_solver(logreg_loss, init_logreg(device=dev), steps=150, lr=0.5)
+    atk_w = AttackConfig("sign_flip", alpha=0.1, scale=15.0)
+    mesh = make_debug_mesh(T4_M, 1, device=dev)
+    rows = {"clean": (clean, None, "median"), "attacked": (attacked, None, "median"),
+            "weights_attacked": (clean, atk_w, "median")}
+    total, got, secs, per_call = {}, {}, {}, {}
+    runs = [(f"median_{row}", strat, *rows[row]) for row in rows for strat in DIST_STRATEGIES]
+    runs += [(f"mean_{row}", "gather", shards, atk, "mean")
+             for row, (shards, atk, _) in rows.items()]
+    for name, strat, shards, atk, method in runs:
+        torch.cuda.synchronize()
+        _reset_launches()  # zeroed just before the call
+        t0 = time.perf_counter()
+        w = one_round_distributed(solver, shards, mesh, OneRoundConfig(method), strategy=strat,
+                                  attack=atk)
+        torch.cuda.synchronize()
+        secs[f"{name}/{strat}"] = time.perf_counter() - t0
+        counts = _launches()  # read just after it
+        _add(total, counts)
+        per_call[f"{name}/{strat}"] = {k: v for k, v in counts.items() if v}
+        got[(name, strat)] = w
+        check(all(bool(torch.isfinite(v).all()) for v in w.values()),
+              f"17a: {name} {strat}: not finite")
+        if method == "mean":
+            want = {}
+        elif strat == "chunked":
+            want = {"minmax": 2, "histogram": 2}  # one a leaf: both leaves under 2^20
+        else:
+            want = {"median": 1}  # both leaves in one launch
+        check({k: v for k, v in counts.items() if v} == want,
+              f"17a: {name} {strat}: launches {counts}, want {want}")
+    acc = {name: float(logreg_accuracy(got[(name, "gather")], test))
+           for name in [r[0] for r in runs if r[1] == "gather"]}
+    ok = (acc["mean_clean"] - acc["mean_attacked"] > 0.01
+          and acc["median_weights_attacked"] - acc["mean_weights_attacked"] > 0.2
+          and acc["median_attacked"] > acc["mean_attacked"] - 0.03)
+    worst = {"vs_one_round": 0.0, "chunked_over_bin": 0.0}
+    for row, (shards, atk, _) in rows.items():
+        name = f"median_{row}"
+        g, b, c = (got[(name, s)] for s in DIST_STRATEGIES)
+        check(all(compare(g[k], b[k])[0] == 0 for k in g),
+              f"17a: {name}: gather and bucketed differ")
+        ref = one_round(solver, shards, OneRoundConfig("median"), attack=atk)
+        err = max(float((g[k] - ref[k]).abs().max()) for k in g)
+        worst["vs_one_round"] = max(worst["vs_one_round"], err)
+        check(err <= DIST_ONE_ROUND_TOL, f"17a: {name}: {err} from one_round")
+        # the rows the sketch saw: every worker's solution (vmapped: within the
+        # last bits of the mapped ones), the Byzantine workers' replaced by their
+        # payloads as the chunked strategy makes them
+        sols = torch.func.vmap(solver)(shards)
+        for k in g:
+            flat = sols[k].reshape(T4_M, -1).float()
+            flat = D._maybe_attack_chunked(mesh.axes, flat, atk, ("data",), T4_M)
+            width = (flat.amax(0) - flat.amin(0)) / 256
+            over = float(((c[k].reshape(-1) - SN.median_select(flat)).abs() - width).max())
+            worst["chunked_over_bin"] = max(worst["chunked_over_bin"], over)
+            check(over <= 1e-6, f"17a: {name} chunked {k}: {over} beyond one bin")
+    line = {"distributed_one_round": {k: round(v * 100, 2) for k, v in acc.items()},
+            "claim_holds": ok, "max_gather_vs_one_round": worst["vs_one_round"],
+            "chunked_max_beyond_one_bin": worst["chunked_over_bin"], "seconds": secs,
+            "launches_per_call": per_call}
+    print(json.dumps(line))
+    check(ok, f"17a: Table 4's claim does not hold on the gather rows: {acc}")
+    return total
+
+
+def distributed_local_update(dev, card: str):
+    """Phase 17b: make_local_update_round on phase 10's CNN (m = 10, sign_flip
+    alpha 0.1 scale 20): gather, bucketed and chunked x median and trimmed
+    mean beta 0.1 x tau in {1, 5}, 5 rounds each, on make_debug_mesh(10, 1).
+    Counters zeroed before each round and read after it: gather and bucketed
+    one B1 (B2) launch a round at either tau, chunked no B1/B2 and one B4
+    and one B5 launch a leaf a round at either tau.  tau = 1 gather against
+    local_update_gd (deterministic cuDNN), each round from the same iterate:
+    bitwise reported, held within DIST_TAU1_TOL of each leaf's scale (the
+    workers' gradients are taken one by one here, in one vmap there, and
+    differ in the last bits); the drift of the two 5-round trajectories is
+    reported, not held (ReLU kinks amplify last-bit differences from round
+    to round: ~1e-2 of the smallest leaf's scale after 5 rounds in a CPU
+    rehearsal).  The loss falls at tau = 5; the steady-state round ms at
+    tau = 5 and a profile of one gather-median round (after the path's
+    counts were read).  Returns the launches."""
+    import torch
+
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.paper_models import cnn_loss
+    from repro_torch.rounds import LocalUpdateConfig, local_update_gd, make_local_update_round
+
+    shards, params = cnn_setup(dev)
+    pooled = {"x": shards["x"].reshape(-1, 784), "y": shards["y"].reshape(-1)}
+    attack = AttackConfig(**CNN_ATTACK)
+    loss0 = float(cnn_loss(params, pooled))
+    mesh = make_debug_mesh(10, 1, device=dev)
+    total, per_round, round_ms, losses, tau1, steps = {}, {}, {}, {}, {}, {}
+    for strat in DIST_STRATEGIES:
+        for method in ("median", "trimmed_mean"):
+            for tau in (1, 5):
+                cfg = LocalUpdateConfig(method=method, beta=0.1, step_size=0.05, tau=tau,
+                                        num_rounds=DIST_ROUNDS)
+                step = make_local_update_round(cnn_loss, cfg, mesh, strategy=strat,
+                                               attack=attack)
+                deterministic = tau == 1 and strat == "gather"
+                one = dataclasses.replace(cfg, num_rounds=1)
+                torch.backends.cudnn.deterministic = deterministic
+                try:
+                    w, counts, times, errs, bitwise = params, [], [], [], True
+                    for r in range(DIST_ROUNDS):
+                        torch.cuda.synchronize()
+                        _reset_launches()  # zeroed just before the round
+                        t0 = time.perf_counter()
+                        w_new = step(w, shards, r)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                        counts.append({k: v for k, v in _launches().items() if v})
+                        _add(total, counts[-1])
+                        if deterministic:  # local_update_gd's round from the same iterate
+                            w_lu, _ = local_update_gd(cnn_loss, w, shards, one, attack)
+                            bitwise &= all(torch.equal(w_new[k], w_lu[k]) for k in params)
+                            errs.append(max(float((w_new[k] - w_lu[k]).abs().max()
+                                                  / w_lu[k].abs().max()) for k in params))
+                        w = w_new
+                    if deterministic:  # and its 5 rounds from the same start
+                        w_lu, _ = local_update_gd(cnn_loss, params, shards, cfg, attack)
+                        torch.cuda.synchronize()
+                finally:
+                    torch.backends.cudnn.deterministic = False
+                key = f"{strat}/{method}/tau{tau}"
+                per_round[key] = counts[0]
+                check(all(c == counts[0] for c in counts), f"17b: {key}: launches vary: {counts}")
+                if strat == "chunked":
+                    want = {"minmax": CNN_LEAVES, "histogram": CNN_LEAVES}
+                else:
+                    want = {method: 1}
+                check(counts[0] == want, f"17b: {key}: {counts[0]} a round, want {want}")
+                loss = float(cnn_loss(w, pooled))
+                losses[key] = loss
+                check(loss == loss and abs(loss) != float("inf"), f"17b: {key}: loss not finite")
+                if tau == 5:
+                    check(loss < loss0, f"17b: {key}: loss did not fall ({loss0} -> {loss})")
+                    round_ms[f"{strat}/{method}"] = sum(times[1:]) / (DIST_ROUNDS - 1) * 1e3
+                    steps[f"{strat}/{method}"] = step
+                if deterministic:
+                    drift = max(float((w[k] - w_lu[k]).abs().max() / w_lu[k].abs().max())
+                                for k in params)
+                    tau1[method] = {"rounds_bitwise": bitwise, "round_max_rel_err": max(errs),
+                                    "five_rounds_max_rel_err": drift}
+                    check(max(errs) <= DIST_TAU1_TOL, f"17b: {method} tau=1: a round is "
+                                                      f"{max(errs)} of the leaf scale from "
+                                                      f"local_update_gd's")
+    for strat in DIST_STRATEGIES:
+        for method in ("median", "trimmed_mean"):
+            a, b = (per_round[f"{strat}/{method}/tau{t}"] for t in (1, 5))
+            check(a == b, f"17b: {strat} {method}: launches a round {a} at tau=1, {b} at tau=5")
+    print(json.dumps({"distributed_local_update": {"loss0": loss0, "loss_after_5": losses},
+                      "tau1_vs_local_update_gd": tau1, "launches_per_round": per_round}))
+    print(json.dumps({"distributed_local_update_round_ms_tau5": round_ms, "card": card}))
+    prof = profile_summary(lambda: steps["gather/median"](params, shards, 0),
+                           round_ms["gather/median"])
+    print(json.dumps({"profile_distributed_local_update_round_tau5": "gather/median",
+                      "card": card, **prof}))
+    return total
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def distributed_clis():
+    """Phases 17c and 17d's CLI half, four processes started together on the
+    card: the serve CLI twice with the reference's CI smoke flags (one
+    sha256), and the train CLI with --mesh single (NCCL, world size 1) and
+    --mesh debug --workers 1 (the same loss lines and params, bitwise)."""
+    import os
+
+    import numpy as np
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    pg_env = dict(env, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                  MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    ckpt = ROOT / "build" / "chip_smoke_17d"
+    jobs = [("serve", env, ["-m", "repro_torch.serve.run"] + SERVE_CI_ARGS)] * 2
+    for mesh, e, extra in (("single", pg_env, ["--mesh", "single"]),
+                           ("debug", env, ["--mesh", "debug", "--workers", "1"])):
+        jobs.append((mesh, e, ["-m", "repro_torch.launch.train"] + PG_TRAIN_ARGS + extra
+                     + ["--ckpt", str(ckpt / mesh)]))
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for name, e, args in jobs:
+            procs.append((name, subprocess.Popen([sys.executable] + args, env=e, cwd=ROOT,
+                                                 text=True, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE)))
+        outs = []
+        for name, proc in procs:
+            out, err = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"17c/d: {name} CLI exited {proc.returncode}: "
+                                        f"{err[-2000:]}")
+            outs.append((name, out))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    digests = []
+    for name, out in outs[:2]:
+        check("mesh debug workers=2 model_par=1; device cuda" in out and
+              "served 24/24 requests" in out, f"17c: serve CLI: {out[-2000:]}")
+        digests += [ln for ln in out.splitlines() if ln.startswith("final iterate sha256")]
+    check(len(digests) == 2 and digests[0] == digests[1],
+          f"17c: the serve CLI with the reference's CI flags printed {digests}")
+    print(f"phase 17c: serve CLI with the reference's CI smoke flags (--mesh debug --workers 2 "
+          f"--model-par 1) twice on the card: one sha256 {digests[0].split('=')[-1][:16]}")
+    lines = {name: [ln for ln in out.splitlines() if ln.startswith("step ")]
+             for name, out in outs[2:]}
+    single = dict(outs[2:])["single"]
+    check("mesh={'data': 1, 'model': 1} workers=1" in single and "device cuda" in single,
+          f"17d: train CLI --mesh single: {single[-2000:]}")
+    check(len(lines["single"]) == 4 and lines["single"] == lines["debug"],
+          f"17d: loss lines --mesh single {lines['single']} vs debug {lines['debug']}")
+    files = sorted(p.name for p in (ckpt / "single").glob("*.npy"))
+    check(files and files == sorted(p.name for p in (ckpt / "debug").glob("*.npy")),
+          f"17d: checkpoints differ in their leaves: {files}")
+    same = all(np.load(ckpt / "single" / f).tobytes() == np.load(ckpt / "debug" / f).tobytes()
+               for f in files)
+    check(same, "17d: --mesh single's params are not bitwise --mesh debug --workers 1's")
+    print(f"phase 17d: train CLI --mesh single under NCCL at world size 1: its 4 loss lines "
+          f"and {len(files)} param leaves bitwise --mesh debug --workers 1's "
+          f"({lines['single'][-1]})")
+    return time.perf_counter() - t0
+
+
+def process_group_strategies(dev):
+    """Phase 17d's in-process half: a NCCL process group of world size 1 in
+    this process (file:// rendezvous under build/), ProcessGroupAxes({"data":
+    1}) against InProcessAxes({"data": 1}) on a (1, 2^20) f32 leaf: gather,
+    bucketed and chunked median bitwise, the collectives named in
+    ``calls``.  Counters zeroed before the process group's calls and read
+    after them: B4 and B5 once (chunked); no B1, since the median of one
+    row takes the aggregators' sort path.  Returns them."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.rounds import aggregate_by_strategy
+
+    rdv = ROOT / "build" / f"chip_smoke_pg_{os.getpid()}"
+    rdv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        ax = D.ProcessGroupAxes({"data": 1}, dev)
+        ref = D.InProcessAxes({"data": 1}, dev)
+        row = torch.from_numpy(np.random.default_rng(17).standard_normal((1, PG_N))
+                               .astype(np.float32)).to(dev)
+        torch.cuda.synchronize()
+        _reset_launches()  # zeroed just before the process group's calls
+        got = {s: aggregate_by_strategy({"w": row[0]}, ax, ("data",), s, "median")["w"]
+               for s in DIST_STRATEGIES}
+        torch.cuda.synchronize()
+        counts = _launches()  # read just after them
+        for s in DIST_STRATEGIES:
+            want = aggregate_by_strategy({"w": row}, ref, ("data",), s, "median")["w"]
+            bad, err = compare(got[s], want)
+            check(bad == 0, f"17d: {s} under the process group: {bad} mismatches ({err})")
+        check(dict(ax.calls) == dict(ref.calls), f"17d: calls {dict(ax.calls)} vs "
+                                                 f"{dict(ref.calls)}")
+        # the median of one row takes the aggregators' sort path (m < 2), as in
+        # the reference: B1 does not launch at world size 1; the sketch does
+        check({k: v for k, v in counts.items() if v} == {"minmax": 1, "histogram": 1},
+              f"17d: launches {counts}")
+    finally:
+        dist.destroy_process_group()
+        rdv.unlink(missing_ok=True)
+    print(f"phase 17d: ProcessGroupAxes (NCCL, world size 1) on a (1, {PG_N}) f32 leaf: "
+          f"gather, bucketed and chunked medians bitwise InProcessAxes({{'data': 1}}); "
+          f"collectives {json.dumps(dict(ax.calls))}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    print("phase 17d: 4 ranks on one card: NCCL refuses two ranks on one GPU (\"Duplicate GPU "
+          "detected\"); 4-rank runs are held on gloo on the CPU "
+          "(tests/test_torch_process_group.py, tier-1)")
+    return counts
+
+
+def distributed(dev, card: str, on_path):
+    """Phase 17: 17a-17d; returns the launches of 17a's, 17b's and 17d's
+    paths."""
+    t0 = time.perf_counter()
+    one = on_path("phase 17a", lambda: distributed_one_round(dev), lambda c: c)
+    print(f"phase 17a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    local = on_path("phase 17b", lambda: distributed_local_update(dev, card), lambda c: c)
+    print(f"phase 17b: {time.perf_counter() - t0:.1f} s")
+    cli_s = distributed_clis()
+    print(f"phase 17c + 17d CLIs (four processes at once): {cli_s:.1f} s")
+    t0 = time.perf_counter()
+    pg = on_path("phase 17d", lambda: process_group_strategies(dev), lambda c: c)
+    print(f"phase 17d in-process: {time.perf_counter() - t0:.1f} s")
+    return {"distributed_one_round": one, "distributed_local_update": local,
+            "process_group": pg}
+
+
 def main() -> None:
     import torch
 
@@ -3308,6 +3724,12 @@ def main() -> None:
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 16 built order-statistic programs that phase 1 did not")
+    libs_before = len(robust_agg.select_libraries())
+    t0 = time.perf_counter()
+    new_paths.update(distributed(dev, card, on_path))
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    check(len(robust_agg.select_libraries()) == libs_before,
+          "phase 17 built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")

@@ -7,13 +7,20 @@ and talk to each other through ``jax.lax`` collectives.  Here every
 strategy body is written once over :class:`Collectives`, a small interface
 with the same calls (``size``, ``index``, ``all_gather``, ``all_to_all``,
 ``psum``, ``pmin``, ``pmax``), and takes the implementation as an
-argument.  :class:`InProcessAxes` implements it for m workers that live in
-one process on one device: a value each worker holds for itself
-(*varying*) is one tensor whose leading dims index the workers
-(``vshape``: ``(m,)``, or ``(pods, data)`` for two axes) followed by the
-worker's own shape; a value every worker holds alike (*replicated*) has no
-worker dims.  A ``torch.distributed`` process group can implement the same
-interface (``vshape`` ``()``) without a body being rewritten.
+argument.  Two implementations:
+
+- :class:`InProcessAxes` — m workers that live in one process on one
+  device: a value each worker holds for itself (*varying*) is one tensor
+  whose leading dims index the workers (``vshape``: ``(m,)``, or ``(pods,
+  data)`` for two axes) followed by the worker's own shape; a value every
+  worker holds alike (*replicated*) has no worker dims.
+- :class:`ProcessGroupAxes` — one worker a process of a
+  ``torch.distributed`` process group (NCCL on the card, gloo on the CPU):
+  a varying value is the rank's own tensor (``vshape`` ``()``), and the
+  collectives are the backend's over one subgroup per slice of each
+  worker axis.  Order statistics are bitwise the in-process ones on the
+  same rows; sums (``psum``, the sketch's bin sums) are added in the
+  backend's order, so means agree to a tolerance.
 
 Strategies (identical estimators to the reference's; see its module doc
 for the byte costs on a real interconnect):
@@ -62,6 +69,7 @@ from repro_torch.attacks import base as attack_base
 from repro_torch.attacks import engine as attack_engine
 from repro_torch.core import aggregators
 from repro_torch.core.attacks import AttackConfig, apply_gradient_attack, byzantine_payload
+from repro_torch.device import resolve
 from repro_torch.kernels import histogram_agg as H
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
@@ -145,19 +153,21 @@ class Collectives:
         written into the tree ``out`` when given (same layout)."""
         raise NotImplementedError
 
+    def local_rows(self, x: torch.Tensor, names: Sequence[str]) -> torch.Tensor:
+        """Each worker's block of a global batch ``x`` (b, ...) every worker
+        holds alike: worker w (linear index over ``names``, every worker
+        axis) takes rows [w·b/m, (w+1)·b/m), as a value varying over
+        ``names``."""
+        raise NotImplementedError
 
-class InProcessAxes(Collectives):
-    """m workers in one process on one device: varying values are
-    worker-stacked tensors.  A gather is a view of the stack, an
-    all-to-all a transpose, a psum a sum over the worker dims in worker
-    order; ``pminmax`` is one B4 launch and ``psum_histogram`` one B5
-    launch over the stacked rows.  ``calls`` counts the collectives by
-    name (the reference's tests count them in the jaxpr)."""
 
-    def __init__(self, sizes: Dict[str, int], device="cpu"):
+class _NamedAxes(Collectives):
+    """Axis bookkeeping shared by the implementations: ``sizes`` maps the
+    worker axes, outermost first, to their sizes."""
+
+    def __init__(self, sizes: Dict[str, int]):
         self.sizes = dict(sizes)
         self.order = tuple(self.sizes)
-        self.device = torch.device(device)
         self.calls = collections.Counter()
 
     def _axes(self, names) -> Tuple[str, ...]:
@@ -170,12 +180,35 @@ class InProcessAxes(Collectives):
     def size(self, names) -> int:
         return math.prod(self.sizes[a] for a in self._axes(names))
 
-    def vshape(self, names) -> Tuple[int, ...]:
-        return tuple(self.sizes[a] for a in self._axes(names))
-
     def outer(self, names) -> Tuple[str, ...]:
         names = self._axes(names)
         return self.order[:self.order.index(names[0])] if names else ()
+
+    def _block(self, x, names) -> int:
+        """Rows a worker takes of the global batch ``x``."""
+        m, b = self.size(names), x.shape[0]
+        if b % m:
+            raise ValueError(f"global batch {b} does not split over {m} workers")
+        return b // m
+
+
+class InProcessAxes(_NamedAxes):
+    """m workers in one process on one device: varying values are
+    worker-stacked tensors.  A gather is a view of the stack, an
+    all-to-all a transpose, a psum a sum over the worker dims in worker
+    order; ``pminmax`` is one B4 launch and ``psum_histogram`` one B5
+    launch over the stacked rows.  ``calls`` counts the collectives by
+    name (the reference's tests count them in the jaxpr)."""
+
+    def __init__(self, sizes: Dict[str, int], device="cuda"):
+        super().__init__(sizes)
+        self.device = resolve(device)
+
+    def vshape(self, names) -> Tuple[int, ...]:
+        return tuple(self.sizes[a] for a in self._axes(names))
+
+    def local_rows(self, x, names):
+        return x.reshape(self.vshape(names) + (self._block(x, names),) + x.shape[1:])
 
     def _split(self, x, names):
         """(outer vshape, size over names, the local shape) of ``x``."""
@@ -253,6 +286,144 @@ class InProcessAxes(Collectives):
         leaves = [tree_leaves(r) for r in results]
         stacked = [torch.stack(col).reshape(vs + tuple(col[0].shape)) for col in zip(*leaves)]
         return tree_unflatten_like(results[0], stacked)
+
+
+class ProcessGroupAxes(_NamedAxes):
+    """One worker a rank of the initialised ``torch.distributed`` process
+    group: ``sizes`` lays the ranks out row-major over the worker axes
+    (``{"data": world}`` or ``{"pod": P, "data": D}``), and a varying value
+    is this rank's own tensor (``vshape`` ``()``).
+
+    The constructor makes one subgroup for every slice of every run of
+    consecutive axes, every rank calling ``new_group`` for every group in
+    the same order (made lazily they would deadlock), and runs one
+    all-reduce on each group this rank is in, so that NCCL's communicators
+    exist before any collective a caller times or guards.  ``all_gather``
+    and ``all_to_all`` move the bits as they are (``all_gather_single``
+    where torch has it, else ``all_gather_into_tensor``;
+    ``all_to_all_single``), so order statistics of gathered rows are
+    bitwise the in-process ones.  ``psum`` is a SUM all-reduce, whose order
+    the backend fixes, not the worker order.  ``pminmax`` gathers the rows
+    and runs :func:`histogram_agg.minmax` on them (B4 on the card): a
+    backend MIN / MAX does not promise ``jnp.minimum``'s NaN and ±0 rules.
+    ``psum_histogram`` bins this rank's own row (B5 on the card) and
+    all-reduces the counts (exact: integers below 2^24 in f32) and the
+    sums.  ``calls`` counts the collectives by name, as
+    :class:`InProcessAxes` does."""
+
+    def __init__(self, sizes: Dict[str, int], device="cuda"):
+        import torch.distributed as dist
+
+        super().__init__(sizes)
+        self.device = resolve(device)
+        self.rank, world = dist.get_rank(), dist.get_world_size()
+        if math.prod(self.sizes.values()) != world:
+            raise ValueError(f"axes {self.sizes} do not lay out a world of {world} ranks")
+        coords = [self._unravel(r) for r in range(world)]
+        self.coords = coords[self.rank]
+        self.groups = {}  # consecutive axes -> this rank's group over them
+        for i in range(len(self.order)):
+            for j in range(i + 1, len(self.order) + 1):
+                run = self.order[i:j]
+                slices: Dict[tuple, list] = {}  # the other axes' coordinates -> ranks
+                for r, c in enumerate(coords):
+                    key = tuple(c[a] for a in self.order if a not in run)
+                    slices.setdefault(key, []).append(r)
+                for ranks in slices.values():  # row-major over ``run``: ranks ascend
+                    group = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self.groups[run] = group
+        for group in self.groups.values():  # the same global order on every rank
+            dist.all_reduce(torch.zeros(1, device=self.device), group=group)
+
+    def _unravel(self, rank: int) -> Dict[str, int]:
+        out = {}
+        for a in reversed(self.order):
+            rank, out[a] = divmod(rank, self.sizes[a])
+        return out
+
+    def vshape(self, names) -> Tuple[int, ...]:
+        self._axes(names)
+        return ()
+
+    def _group(self, names):
+        return self.groups[self._axes(names)]
+
+    def _linear(self, names) -> int:
+        w = 0
+        for a in self._axes(names):
+            w = w * self.sizes[a] + self.coords[a]
+        return w
+
+    def index(self, names) -> torch.Tensor:
+        return torch.full((), self._linear(names), dtype=torch.int64, device=self.device)
+
+    def local_rows(self, x, names):
+        n = self._block(x, names)
+        w = self._linear(names)
+        return x[w * n:(w + 1) * n]
+
+    def _gather(self, x, names) -> torch.Tensor:
+        """(m, ...) every worker's ``x`` over ``names``, in worker order."""
+        import torch.distributed as dist
+
+        m = self.size(names)
+        x = x.contiguous()
+        out = torch.empty((m * x.numel(),), dtype=x.dtype, device=x.device)
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        gather(out, x.reshape(-1), group=self._group(names))
+        return out.reshape((m,) + tuple(x.shape))
+
+    def all_gather(self, x, names, tiled=False):
+        self.calls["all_gather"] += 1
+        rows = self._gather(x, names)
+        return rows.flatten(0, 1) if tiled else rows
+
+    def all_to_all(self, x, name, axis, varying):
+        import torch.distributed as dist
+
+        self.calls["all_to_all"] += 1
+        self._axes(varying)
+        s = self.sizes[name]
+        if x.shape[axis] % s:
+            raise ValueError(f"all_to_all: dim {axis} of size {x.shape[axis]} does not split "
+                             f"over {s} workers")
+        send = x.movedim(axis, 0).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self._group((name,)))
+        return recv.movedim(0, axis)
+
+    def psum(self, x, names):
+        import torch.distributed as dist
+
+        self.calls["psum"] += 1
+        acc = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=self._group(names))
+        return acc
+
+    def pminmax(self, x, names):
+        self.calls["pminmax"] += 1
+        rows = self._gather(x.reshape(-1), names)
+        lo, hi = H.minmax(rows if rows.dtype in (torch.float32, torch.bfloat16)
+                          else rows.float())
+        return lo.reshape(x.shape), hi.reshape(x.shape)
+
+    def psum_histogram(self, x, lo, width, nbins, with_sums, names):
+        import torch.distributed as dist
+
+        self.calls["psum"] += 1
+        counts, sums = H.histogram(x.reshape(1, -1).contiguous(), lo, width, nbins, with_sums)
+        group = self._group(names)
+        for t in (counts,) if sums is None else (counts, sums):
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return counts, sums
+
+    def map_workers(self, fn, names, *xs, out=None):
+        res = fn(self._linear(names), *xs)
+        if out is None:
+            return res
+        tree_map(lambda o, r: o.copy_(r), out, res)
+        return out
 
 
 # --------------------------------------------------------------------------

@@ -1,2 +1,3 @@
-"""Step functions and entry points (the serving half of the reference's
-``repro.launch``; its training half waits for ROADMAP queue A items 6 and 8)."""
+"""Step functions and entry points (the reference's ``repro.launch``):
+meshes of workers, the training and serving steps, the device-steps
+trainer and the train and serve CLIs."""

@@ -25,8 +25,11 @@ batched decode of every slot, each at its own position, updating the
 pool in place.  A slot's tokens are the same as in
 a batch-1 decode (pinned in tests/test_torch_serve.py).
 
-FSDP (``param_mode='fsdp'``) and the dry-run ``input_specs`` wait for
-later slices (ROADMAP queue A items 6 and 10).
+The global batch every worker builds alike (``make_lm_batch``) is cut
+into the workers' shards by ``Collectives.local_rows``: worker-stacked on
+the in-process mesh, this rank's own rows under a process group.  FSDP
+(``param_mode='fsdp'``) and the dry-run ``input_specs`` wait for later
+slices (ROADMAP queue A item 6 step 3, item 10).
 """
 from __future__ import annotations
 
@@ -134,8 +137,9 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
                 "bucketed/chunked with param_mode='replicated'")
     if pcfg.param_mode == "fsdp":
         raise NotImplementedError(
-            "param_mode='fsdp' (the robust reduce-scatter in the backward) waits for the "
-            "torch.distributed slice (ROADMAP queue A item 6)")
+            "param_mode='fsdp' (the robust reduce-scatter in the backward over the "
+            "torch.distributed process group) is not ported yet (ROADMAP queue A item 6, "
+            "step 3)")
     if pcfg.param_mode != "replicated":
         raise ValueError(f"unknown param_mode {pcfg.param_mode!r}")
     T.check_supported(cfg)
@@ -169,10 +173,7 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
             buf["g"] = tree_map(lambda p: torch.empty(vs + p.shape, dtype=p.dtype,
                                                       device=p.device), params)
             buf["loss"] = torch.empty(vs, dtype=torch.float32, device=mesh.device)
-        b = batch["tokens"].shape[0]
-        if b % m:
-            raise ValueError(f"global batch {b} does not split over {m} workers")
-        vbatch = {k: v.reshape(vs + (b // m,) + v.shape[1:]) for k, v in batch.items()}
+        vbatch = {k: ax.local_rows(v, waxes) for k, v in batch.items()}
         pieces = _pieces(params)
         ax.map_workers(lambda w, bt: local(w, bt, pieces), waxes, vbatch,
                        out=(buf["loss"], _stacked_pieces(buf["g"], len(vs))))

@@ -2,19 +2,24 @@
 ``python -m repro.launch.train``).
 
 The front end of :mod:`repro_torch.launch.trainer`: windows of
-``--device-steps`` micro-steps over the robust train step, m in-process
-workers on one device (``--mesh debug --workers m``, the reference's
-default), engine attacks applied at the aggregation.  Runs on the card
-by default; ``--device cpu`` runs on the CPU with the kernels' plain
-versions::
+``--device-steps`` micro-steps over the robust train step, engine attacks
+applied at the aggregation.  ``--mesh debug --workers m`` (the
+reference's default) runs m in-process workers on one device; ``--mesh
+single`` runs one worker a process over a ``torch.distributed`` process
+group, one card a rank (``--mesh multi``: a pod a host), launched by
+``torchrun``; the mesh and window lines print on rank 0.  Runs on the
+card by default; ``--device cpu`` runs on the CPU with the kernels' plain
+versions (gloo under a process group)::
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --config llama3.2-3b --smoke --steps 4 --device-steps 2 --workers 4 \\
       --seq-len 32 --global-batch 4 --strategy bucketed --agg median \\
       --attack alie --attack-alpha 0.25
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh single \\
+      --config llama3.2-3b --smoke --steps 4 --global-batch 4 --seq-len 32
 
-``--mesh single|multi`` and ``--model-par`` > 1 raise: they need the
-``torch.distributed`` and tensor-parallel slices (ROADMAP queue A item 6).
+``--model-par`` > 1 raises: tensor parallelism is ROADMAP queue A item 6,
+step 4.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--mesh", default="debug", choices=["debug", "single", "multi"])
     ap.add_argument("--workers", type=int, default=4, help="debug mesh data axis")
-    ap.add_argument("--model-par", type=int, default=1, help="debug mesh model axis")
+    ap.add_argument("--model-par", type=int, default=1, help="model axis (only 1 is ported)")
     ap.add_argument("--strategy", default="gather",
                     choices=["gather", "bucketed", "hierarchical", "chunked", "psum"])
     ap.add_argument("--agg", default="median",
@@ -76,19 +81,33 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
     cfg = get_smoke_config(args.config) if args.smoke else get_config(args.config)
+    own_group = args.mesh != "debug" and not dist.is_initialized()
     if args.mesh == "debug":
         mesh = make_debug_mesh(args.workers, args.model_par, device=args.device)
     else:
-        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"))
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"), model=args.model_par,
+                                    device=args.device)
+    try:
+        _train(args, cfg, mesh)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    return 0
+
+
+def _train(args, cfg, mesh) -> None:
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
     m = num_workers(mesh)
-    print(f"mesh={mesh_shape_dict(mesh)} workers={m} device_steps={args.device_steps} "
-          f"device {mesh.device.type}")
+    say(f"mesh={mesh_shape_dict(mesh)} workers={m} device_steps={args.device_steps} "
+        f"device {mesh.device.type}")
 
     attack = AttackConfig(args.attack, args.attack_alpha)
     if args.strategy == "psum" and args.agg != "mean":
-        print(f"note: --strategy psum forces --agg mean (was {args.agg})")
+        say(f"note: --strategy psum forces --agg mean (was {args.agg})")
         args.agg = "mean"
     pcfg = ParallelConfig(agg_method=args.agg, agg_beta=args.beta,
                           agg_strategy=args.strategy, remat=True,
@@ -100,21 +119,20 @@ def main(argv=None) -> int:
                       global_batch=args.global_batch, num_workers=m, seed=args.seed)
 
     def on_window(w, met):
-        print(f"step {met['step']:5d}  loss {met['loss']:.4f}  |g| {met['grad_norm']:.3f}")
+        say(f"step {met['step']:5d}  loss {met['loss']:.4f}  |g| {met['grad_norm']:.3f}")
 
     result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=attack,
                                 log_every=args.log_every, on_window=on_window,
                                 ckpt_every=args.ckpt_every if args.ckpt_dir else 0,
                                 ckpt_dir=args.ckpt_dir, resume=bool(args.resume))
-    print(f"done: {result.steps} steps in windows of {result.device_steps}  "
-          f"first window {result.compile_s:.2f}s  "
-          f"steady {result.steps_per_s:.2f} steps/s  "
-          f"{result.tokens_per_s:.0f} tokens/s")
-    if args.ckpt:
+    say(f"done: {result.steps} steps in windows of {result.device_steps}  "
+        f"first window {result.compile_s:.2f}s  "
+        f"steady {result.steps_per_s:.2f} steps/s  "
+        f"{result.tokens_per_s:.0f} tokens/s")
+    if args.ckpt and mesh.rank == 0:  # the params are replicated: one writer
         save_ckpt(args.ckpt, {"params": result.state["params"]}, step=result.steps,
                   extra={"arch": cfg.name, "agg": args.agg, "strategy": args.strategy})
-        print(f"saved checkpoint to {args.ckpt}")
-    return 0
+        say(f"saved checkpoint to {args.ckpt}")
 
 
 if __name__ == "__main__":

@@ -48,7 +48,8 @@ def init_state(cfg: ModelConfig, mesh: mesh_lib.Mesh, opt: Optimizer, seed: int 
     base ``seed`` and zeroed metric sums."""
     if pcfg is not None and pcfg.param_mode == "fsdp":
         raise NotImplementedError(
-            "param_mode='fsdp' waits for the torch.distributed slice (ROADMAP queue A item 6)")
+            "param_mode='fsdp' over the torch.distributed process group is not ported yet "
+            "(ROADMAP queue A item 6, step 3)")
     params = T.init_params(cfg, seed=seed, device=mesh.device)
     return {
         "params": params,
@@ -196,12 +197,16 @@ def train_loop(
     ``ckpt_every`` / ``ckpt_dir`` write a rounds.engine snapshot of the
     whole state every ``ckpt_every`` windows; ``resume=True`` (or a step
     index) restores one and continues bit for bit (batch blocks are pure
-    functions of the step index).
+    functions of the step index).  The snapshots go to
+    ``mesh.snapshot_dir(ckpt_dir)``: ``ckpt_dir/rank{r}`` under a process
+    group.
     """
     ds = tcfg.device_steps
     if tcfg.steps % ds != 0:
         raise ValueError(f"steps ({tcfg.steps}) must be a multiple of device_steps ({ds})")
     m = mesh_lib.num_workers(mesh)
+    if ckpt_dir is not None:
+        ckpt_dir = mesh.snapshot_dir(ckpt_dir)
     if dcfg is None:
         dcfg = DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=4 * m,
                           num_workers=m, seed=tcfg.seed)

@@ -1,4 +1,4 @@
-"""repro_torch.rounds — the communication-round subsystem on one device.
+"""repro_torch.rounds — the communication-round subsystem.
 
 - ``comm``         per-strategy byte accounting (:class:`CommBudget`, the
                    StrategySpec registry), attack-vs-strategy access
@@ -13,10 +13,11 @@
 - ``local_update`` robust local-update GD — τ local steps per robust
                    aggregation, from Algorithm 1 (τ = 1, bit for bit
                    robust_gd) to the one-round algorithm (τ = ∞);
-- ``distributed``  the local-SGD round body the federated rounds share.
-
-The collective strategies' ``torch.distributed`` bodies and
-``one_round_distributed`` come with the multi-GPU port.
+- ``distributed``  the round programs over a worker axis (Algorithm 2 and
+                   local-update rounds as distributed programs over any
+                   ``core.distributed.Collectives``: the in-process mesh or
+                   a ``torch.distributed`` process group) and the
+                   strategy-name dispatcher the train step shares.
 """
 from repro_torch.rounds.comm import (  # noqa: F401
     CommBudget,
@@ -39,6 +40,11 @@ from repro_torch.rounds.compression import (  # noqa: F401
     registered_compressions,
     roundtrip,
     validate_compression_context,
+)
+from repro_torch.rounds.distributed import (  # noqa: F401
+    aggregate_by_strategy,
+    make_local_update_round,
+    one_round_distributed,
 )
 from repro_torch.rounds.engine import (  # noqa: F401
     RoundStages,

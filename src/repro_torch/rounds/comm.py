@@ -20,8 +20,9 @@ programs.
 
 Byte counts are per device and count collective payload only: an
 accounting model for comparing strategies, not a wire measurement.  The
-strategies' collective bodies (``torch.distributed``) come with the
-multi-GPU port; their registry entries and byte models are here.
+strategies' collective bodies are in :mod:`repro_torch.core.distributed`
+(over the in-process axes or a ``torch.distributed`` process group);
+their registry entries and byte models are here.
 """
 from __future__ import annotations
 

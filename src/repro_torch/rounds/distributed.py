@@ -1,18 +1,33 @@
-"""Distributed round programs: the strategy dispatch over a worker axis and
-the local-SGD scan (the reference's ``repro.rounds.distributed``).
+"""Distributed round programs over a worker axis (the reference's
+``repro.rounds.distributed``).
 
 - :func:`aggregate_by_strategy` — the single name -> collective dispatcher
   for the :mod:`repro_torch.core.distributed` strategies (gather /
   bucketed / chunked / psum / hierarchical), with the stateless payload
   codecs run on each worker's contribution first.  ``launch/steps.py``
-  calls it; the worker axis is any
+  and the round programs below call it; the worker axis is any
   :class:`~repro_torch.core.distributed.Collectives`.
 - :func:`scan_local_sgd` — the local-SGD scan shared by the train step's
-  τ > 1 rounds and the federated ``client_deltas``.
+  τ > 1 rounds, :func:`make_local_update_round` and the federated
+  ``client_deltas``.
+- :func:`make_local_update_round` — local-update rounds as a distributed
+  program: each worker runs τ local GD steps on its own shard with no
+  collective, and the accumulated local gradients meet in ONE
+  aggregation a round, whatever τ.
+- :func:`one_round_distributed` — Algorithm 2 as a distributed program:
+  each worker solves on its own shard, and the m local minimizers meet in
+  one aggregation (``strategy='chunked'``: the histogram sketch, whose
+  collective bytes do not grow with m).
 
-``make_local_update_round`` and ``one_round_distributed`` come with the
-``torch.distributed`` slice (ROADMAP queue A item 6); single-device
-local-update rounds live in :mod:`repro_torch.rounds.local_update`.
+Both programs run over a ``launch.mesh.Mesh``, so over either
+``Collectives``: on the in-process debug mesh the worker data's leaves are
+``(m, n, ...)`` (``core.robust_gd.make_worker_shards``' layout) and the
+workers run one after the other; under a process group
+(``make_production_mesh``, ``vshape`` ``()``) each rank passes its own
+``(n, ...)`` shard.  Their build-time refusals are the reference's: an
+attack the strategy cannot reproduce (``comm.validate_attack_strategy``),
+an adaptive attack, an error-feedback codec.  Single-device local-update
+rounds live in :mod:`repro_torch.rounds.local_update`.
 """
 from __future__ import annotations
 
@@ -22,11 +37,16 @@ import torch
 
 from repro_torch import rng
 from repro_torch.core import distributed
+from repro_torch.rounds import comm
 from repro_torch.rounds import compression as comp_lib
+from repro_torch.rounds.one_round import OneRoundConfig
 from repro_torch.tree import tree_leaves, tree_map
 
 #: the codecs' key base when the caller gives none (the reference's PRNGKey(13))
 _COMP_KEY = 13
+#: the round programs' key bases: attacks fold the round into _ATTACK_KEY,
+#: codecs into _ROUND_COMP_KEY (the reference's PRNGKey(0) and PRNGKey(11))
+_ATTACK_KEY, _ROUND_COMP_KEY = 0, 11
 
 
 def compress_workers(ax: distributed.Collectives, axis_names: Sequence[str], g, name: str,
@@ -129,3 +149,114 @@ def scan_local_sgd(value_and_grad_fn: Callable, w, tau: int, eta):
         acc = tree_map(lambda a, b: a + b, acc, g)
         p = tree_map(lambda a, b: a - eta * b, p, g)
     return acc, loss0
+
+
+def _refuse(attack, strategy: str, compression: str, where: str, adaptive: str) -> None:
+    """The round programs' build-time refusals, as the reference's."""
+    comm.validate_attack_strategy(attack, strategy)
+    comp_lib.validate_compression_context(compression, stateful=False, where=where)
+    spec = comm.resolve_attack(attack)[0]
+    if spec is not None and spec.adaptive:
+        raise ValueError(f"attack {spec.name!r} is adaptive{adaptive}")
+
+
+def _worker_shards(ax: distributed.Collectives, names, worker_data):
+    """The worker data as values varying over ``names``: (m, n, ...) leaves
+    reshaped to the in-process ``vshape``; a rank's own (n, ...) shard as
+    it is under a process group."""
+    if ax.outer(names):
+        raise ValueError(f"the round programs need every worker axis in axis_names, "
+                         f"got {names}")
+    vs, m = ax.vshape(names), ax.size(names)
+    if not vs:
+        return worker_data
+
+    def one(t):
+        if t.shape[0] != m:
+            raise ValueError(f"worker data of leading dim {t.shape[0]}, want the {m} workers")
+        return t.reshape(vs + t.shape[1:])
+
+    return tree_map(one, worker_data)
+
+
+def make_local_update_round(
+    loss_fn: Callable,
+    cfg,  # rounds.local_update.LocalUpdateConfig
+    mesh,
+    strategy: str = "gather",
+    attack=None,
+    axis_names: Sequence[str] = ("data",),
+    agg_dtype=None,
+    compression: str = "none",
+):
+    """Build the distributed local-update round step.
+
+    Returns ``round_step(w, worker_data, r) -> w_new``: each worker runs
+    ``cfg.tau`` local GD steps at ``cfg.step_size`` on its own shard
+    (:func:`scan_local_sgd`; no collective inside the τ loop), the
+    accumulated local gradients meet in exactly ONE
+    :func:`aggregate_by_strategy` call, and every worker applies
+    w - η · agg.  The round ``r`` folds into the attack key
+    (``rng.fold(0, r)``) and the codec key (``rng.fold(11, r)``), so
+    randomized attacks and codecs draw afresh each round.  ``loss_fn(w,
+    batch) -> scalar``, ``w`` a tensor or a tree of them.
+
+    Refused at build time, as in the reference: an attack the strategy
+    cannot reproduce, an adaptive attack (no previous aggregate is
+    threaded; use ``rounds.local_update.local_update_gd``) and an
+    error-feedback codec (the step carries no residual)."""
+    _refuse(attack, strategy, compression, "the distributed round step",
+            " (reads the previous aggregate), which the distributed round step does not "
+            "thread; use rounds.local_update.local_update_gd")
+    names = tuple(axis_names)
+    ax = mesh.axes
+    eta = cfg.step_size
+    grad_and_value = torch.func.grad_and_value(loss_fn)
+
+    def local(w, batch):
+        delta, _ = scan_local_sgd(lambda p: grad_and_value(p, batch)[::-1], w, cfg.tau, eta)
+        return delta
+
+    def round_step(w, worker_data, r):
+        r = int(r)
+        data = _worker_shards(ax, names, worker_data)
+        deltas = ax.map_workers(lambda _, batch: local(w, batch), names, data)
+        d_agg = aggregate_by_strategy(
+            deltas, ax, names, strategy, cfg.method, cfg.beta, attack, agg_dtype,
+            attack_key=rng.fold(_ATTACK_KEY, r), compression=compression,
+            comp_key=rng.fold(_ROUND_COMP_KEY, r))
+        return tree_map(lambda p, dd: p - eta * dd, w, d_agg)
+
+    return round_step
+
+
+def one_round_distributed(
+    local_solver: Callable,
+    worker_data,
+    mesh,
+    cfg: OneRoundConfig = OneRoundConfig(),
+    strategy: str = "gather",
+    attack=None,
+    attack_key=None,
+    axis_names: Sequence[str] = ("data",),
+    compression: str = "none",
+):
+    """Algorithm 2 over the mesh's workers: each solves on its own shard
+    (``local_solver(batch) -> w_hat``, through ``map_workers``: no
+    collective), the m local minimizers meet in ONE
+    :func:`aggregate_by_strategy` call, and the replicated aggregate tree
+    is returned.  ``attack_key`` seeds randomized attacks; codecs draw
+    from the key 11 (the reference's PRNGKey(11)).  Refused at build time,
+    as in the reference: an attack the strategy cannot reproduce (an
+    omniscient one on ``chunked``), an adaptive attack, an error-feedback
+    codec (with one round its residual would never be replayed)."""
+    _refuse(attack, strategy, compression, "the one-round program",
+            "; the one-round algorithm has no previous round to read — use "
+            "rounds.local_update")
+    names = tuple(axis_names)
+    ax = mesh.axes
+    data = _worker_shards(ax, names, worker_data)
+    w_hats = ax.map_workers(lambda _, batch: local_solver(batch), names, data)
+    return aggregate_by_strategy(w_hats, ax, names, strategy, cfg.method, cfg.beta, attack,
+                                 attack_key=attack_key, compression=compression,
+                                 comp_key=_ROUND_COMP_KEY)

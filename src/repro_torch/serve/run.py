@@ -16,9 +16,20 @@ only, its 316·10^9 parameters fit no card), mamba2_2_7b (SSM) and
 recurrentgemma_2b (hybrid RG-LRU).  ``--adapt-every 0`` disables
 adaptation (the serve-only baseline).  The
 last line prints ``final iterate sha256 = ...`` as ``fed/run.py`` does; two
-identical invocations print the same digest.  The reference's
-``--mesh/--workers/--model-par`` wait for multi-GPU (ROADMAP queue A
-item 6).
+identical invocations print the same digest.
+
+``--mesh/--workers/--model-par`` are the reference's: ``debug`` places the
+params on ``make_debug_mesh(workers, model_par)``'s device, ``single`` /
+``multi`` on this rank's card of a ``torch.distributed`` process group
+(``make_production_mesh``; every rank serves the same stream, rank 0
+prints).  The mesh only places the params: serving spreads no work over
+its workers.  And ``--model-par`` > 1 raises (tensor parallelism, ROADMAP queue
+A item 6, step 4).  The reference's CI smoke command runs as it is, with
+``--device cpu`` on the CPU::
+
+    PYTHONPATH=src python -m repro_torch.serve.run --device cpu --smoke \\
+        --arch llama3_2_3b --workers 2 --model-par 1 --requests 24 \\
+        --alpha 0.25 --attack feedback_flip
 """
 from __future__ import annotations
 
@@ -72,6 +83,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt-dir", default=None, metavar="DIR",
                    help="snapshot the adaptation RoundState after every "
                         "round (rounds.engine atomic LATEST)")
+    # mesh
+    p.add_argument("--mesh", default="debug", choices=["debug", "single", "multi"],
+                   help="debug: one process; single|multi: join a torch.distributed "
+                        "process group, every rank serving the whole stream (rank 0 "
+                        "prints)")
+    p.add_argument("--workers", type=int, default=1,
+                   help="debug mesh data axis; it only places the params, serving does "
+                        "not spread work over it")
+    p.add_argument("--model-par", type=int, default=1, help="model axis (only 1 is ported)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
@@ -94,15 +114,34 @@ def iterate_digest(w) -> str:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+
+    own_group = args.mesh != "debug" and not dist.is_initialized()
+    if args.mesh == "debug":
+        mesh = make_debug_mesh(args.workers, args.model_par, device=args.device)
+    else:
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"), model=args.model_par,
+                                    device=args.device)
+    try:
+        _serve(args, mesh)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    return 0
+
+
+def _serve(args, mesh) -> None:
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.device import resolve
     from repro_torch.fed.population import ArrivalConfig
     from repro_torch.models import transformer as T
     from repro_torch.serve.adapt import AdaptConfig, FeedbackAdapter
     from repro_torch.serve.engine import ServeConfig, ServeEngine, latency_stats, serve_stream
     from repro_torch.serve.traffic import TrafficConfig, VirtualUsers
 
-    dev = resolve(args.device)
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    dev = mesh.device
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     scfg = ServeConfig(slots=args.slots, prompt_len=args.prompt_len,
                        max_new=args.max_new, eos_id=args.eos_id, window=args.window)
@@ -116,13 +155,14 @@ def main(argv=None) -> int:
         seed=args.seed)
     users = VirtualUsers(tcfg)
 
-    print(f"model: {cfg.name} (vocab {cfg.vocab}); device {dev}")
-    print(f"engine: {scfg.slots} slots, prompt bucket {scfg.prompt_len}, "
-          f"max_new {scfg.max_new} (cache {scfg.cache_len})")
-    print(f"traffic: {args.requests} requests from {tcfg.num_users} users "
-          f"over {tcfg.num_shards} shards "
-          f"({tcfg.num_byz_shards} Byzantine via {tcfg.attack!r} at "
-          f"alpha={tcfg.alpha}), latency={args.latency}")
+    say(f"model: {cfg.name} (vocab {cfg.vocab}); mesh {args.mesh} workers={args.workers} "
+        f"model_par={args.model_par}; device {dev}")
+    say(f"engine: {scfg.slots} slots, prompt bucket {scfg.prompt_len}, "
+        f"max_new {scfg.max_new} (cache {scfg.cache_len})")
+    say(f"traffic: {args.requests} requests from {tcfg.num_users} users "
+        f"over {tcfg.num_shards} shards "
+        f"({tcfg.num_byz_shards} Byzantine via {tcfg.attack!r} at "
+        f"alpha={tcfg.alpha}), latency={args.latency}")
 
     params = T.init_params(cfg, seed=args.seed, device=dev)
     engine = ServeEngine(cfg, scfg, params)
@@ -133,38 +173,37 @@ def main(argv=None) -> int:
             compression=args.compression, batch_per_shard=args.batch_per_shard,
             adapt_every=args.adapt_every, seed=args.seed)
         adapter = FeedbackAdapter(cfg, acfg, users, params, ckpt_dir=args.ckpt_dir)
-        print(f"adaptation: every {acfg.adapt_every} ticks, "
-              f"B={acfg.batch_per_shard}/shard, method={acfg.method}, "
-              f"opt={acfg.optimizer}@{acfg.lr}, compression={acfg.compression}"
-              + (f", ckpt={args.ckpt_dir}" if args.ckpt_dir else ""))
+        say(f"adaptation: every {acfg.adapt_every} ticks, "
+            f"B={acfg.batch_per_shard}/shard, method={acfg.method}, "
+            f"opt={acfg.optimizer}@{acfg.lr}, compression={acfg.compression}"
+            + (f", ckpt={args.ckpt_dir}" if args.ckpt_dir else ""))
     del params
 
     requests = users.sample_requests(args.requests)
     completed = serve_stream(engine, requests, adapter=adapter)
 
     for w in engine.metrics.windows:
-        print(f"  window {w['window']:3d}  {w['tokens']:5d} tok "
-              f"{w['tok_per_s']:9.1f} tok/s  occ={w['occupancy']:.2f}  "
-              f"p50={w['p50_latency']:.1f} p99={w['p99_latency']:.1f} ticks "
-              f"({w['completed']} done)")
+        say(f"  window {w['window']:3d}  {w['tokens']:5d} tok "
+            f"{w['tok_per_s']:9.1f} tok/s  occ={w['occupancy']:.2f}  "
+            f"p50={w['p50_latency']:.1f} p99={w['p99_latency']:.1f} ticks "
+            f"({w['completed']} done)")
     stats = latency_stats(completed)
     mt = engine.metrics
-    print(f"served {len(completed)}/{args.requests} requests, "
-          f"{mt.total_tokens} tokens in {mt.total_wall:.2f}s "
-          f"({mt.total_tokens / mt.total_wall:.1f} tok/s), {engine.tick} ticks")
-    print(f"latency p50={stats['p50_latency']:.1f} p99={stats['p99_latency']:.1f} ticks "
-          f"(queue wait p50={stats['p50_wait']:.1f} p99={stats['p99_wait']:.1f})")
-    print(f"storage kept: {engine.storage_kept()}")
+    say(f"served {len(completed)}/{args.requests} requests, "
+        f"{mt.total_tokens} tokens in {mt.total_wall:.2f}s "
+        f"({mt.total_tokens / mt.total_wall:.1f} tok/s), {engine.tick} ticks")
+    say(f"latency p50={stats['p50_latency']:.1f} p99={stats['p99_latency']:.1f} ticks "
+        f"(queue wait p50={stats['p50_wait']:.1f} p99={stats['p99_wait']:.1f})")
+    say(f"storage kept: {engine.storage_kept()}")
     if adapter is not None:
         for h in adapter.history:
-            print(f"  round {h['round']:3d}  |g|={h['grad_norm']:9.4f}  "
-                  f"score={h['score_mean']:+.3f} (honest {h['score_honest_mean']:+.3f})")
-        print(f"adaptation rounds: {adapter.rounds_done} (params v{engine.params_version})")
+            say(f"  round {h['round']:3d}  |g|={h['grad_norm']:9.4f}  "
+                f"score={h['score_mean']:+.3f} (honest {h['score_honest_mean']:+.3f})")
+        say(f"adaptation rounds: {adapter.rounds_done} (params v{engine.params_version})")
         w = adapter.state["w"]
     else:
         w = engine.params
-    print(f"final iterate sha256 = {iterate_digest(w)}")
-    return 0
+    say(f"final iterate sha256 = {iterate_digest(w)}")
 
 
 if __name__ == "__main__":

@@ -148,7 +148,7 @@ def ref(tmp_path_factory):
 
 
 def _ax():
-    return D.InProcessAxes({"data": M})
+    return D.InProcessAxes({"data": M}, "cpu")
 
 
 def _tree(data, keys):
@@ -243,7 +243,7 @@ def test_bucketed_is_one_aggregation_of_the_stacked_rows(monkeypatch):
 
 def test_multi_axis_bucketed_is_the_global_median(ref):
     data, out = ref
-    ax = D.InProcessAxes({"pod": 2, "data": 4})
+    ax = D.InProcessAxes({"pod": 2, "data": 4}, "cpu")
     got = D.robust_bucketed_agg({"g2": torch.from_numpy(data["g2"]).reshape(2, 4, 26)}, ax,
                                 ("pod", "data"), "median")["g2"]
     assert _bits_equal(got.numpy(), out["multi_axis/g2"])
@@ -252,7 +252,7 @@ def test_multi_axis_bucketed_is_the_global_median(ref):
 
 def test_hierarchical_median_of_medians(ref):
     data, out = ref
-    ax = D.InProcessAxes({"pod": 2, "data": 4})
+    ax = D.InProcessAxes({"pod": 2, "data": 4}, "cpu")
     got = D.robust_hierarchical_agg({"g2": torch.from_numpy(data["g2"]).reshape(2, 4, 26)}, ax,
                                     "data", "pod", "median")["g2"]
     assert _bits_equal(got.numpy(), out["hierarchical/g2"])
@@ -409,7 +409,7 @@ def test_stateless_dispatch_rejects_error_feedback_and_unknown_strategies(ref):
 
 
 def test_in_process_collectives_are_views_and_transposes():
-    ax = D.InProcessAxes({"pod": 2, "data": 3})
+    ax = D.InProcessAxes({"pod": 2, "data": 3}, "cpu")
     x = torch.arange(2 * 3 * 6 * 4, dtype=torch.float32).reshape(2, 3, 6, 4)
     g = ax.all_gather(x, ("pod", "data"))
     assert g.shape == (6, 6, 4) and g.data_ptr() == x.data_ptr()

@@ -326,8 +326,8 @@ def test_rejections():
     opt = get_optimizer("adamw", LR)
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         mesh_lib.make_debug_mesh(4, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        mesh_lib.make_production_mesh()
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        mesh_lib.make_production_mesh(model=2, device="cpu")
     with pytest.raises(NotImplementedError, match="torch.distributed"):
         steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), mesh, opt)
     with pytest.raises(ValueError, match="adaptive"):
@@ -342,7 +342,7 @@ def test_rejections():
     with pytest.raises(NotImplementedError):
         steps.make_step_body(dataclasses.replace(cfg, frontend="vision"), ParallelConfig(),
                              mesh, opt)
-    for argv in (["--mesh", "single"], ["--model-par", "2"]):
+    for argv in (["--mesh", "single", "--model-par", "2"], ["--model-par", "2"]):
         with pytest.raises(NotImplementedError):
             train.main(["--config", "llama3.2-3b", "--smoke", "--device", "cpu"] + argv)
 
