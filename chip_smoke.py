@@ -168,7 +168,7 @@ Phases (any failure exits non-zero before the final line):
    <family>`` twice per family, all eight processes at once: one sha256
    each; (d) ``python -m repro_torch.launch.train --smoke --arch
    <family>`` in this process for granite, mamba2 and recurrentgemma: B1
-   launched once a step per dtype group and 16 leaves;
+   launched once a step per dtype group and MAX_LEAVES (32) leaves;
 17. the distributed round programs and the process group: (a)
    ``rounds.one_round_distributed`` at phase 8's configuration on
    make_debug_mesh(10, 1): the median on the clean and random_label shards
@@ -194,12 +194,38 @@ Phases (any failure exits non-zero before the final line):
    chunked medians bitwise ``InProcessAxes({"data": 1})``'s (B4 + B5; the
    median of one row takes the sort path, no B1).  NCCL refuses two ranks
    on one card, so 4-rank runs are held on gloo on the CPU
-   (tests/test_torch_process_group.py).
+   (tests/test_torch_process_group.py);
+18. the audio and vision frontends, the whisper encoder and its
+   cross-attention: (a) whisper-smoke and internvl2-smoke in f32, card
+   against CPU from one set of params and one frontend: forward logits,
+   loss and every gradient leaf, whisper's prefill and 4 decode steps,
+   internvl2's prefill (within 1e-5); the cross blocks' FFN gradients
+   exactly 0 on both; decode on a vision prefill's cache raising on both;
+   one m = 4 window each under alie (one B1 launch, bitwise); (b)
+   whisper-small (12 + 12 layers, 1500 stub frames, D = 419,460,096 in 31
+   leaves) and internvl2-1b (24 layers, 256 stub patches, D = 629,636,224
+   in 12 leaves) at full width and depth in bf16, trained as 15b (4
+   workers, batch 8, seq 128, AdamW 1e-4) for 8 steps in windows of 4:
+   gather median and gather trimmed mean beta 0.25 under alie alpha 0.25,
+   and gather median without an attack.  One B1 (B2) launch a step over
+   every leaf and no other kernel; the last window's aggregates bitwise
+   their plain versions in 2^26 column slices; the cross FFN coordinates
+   of every aggregate exactly 0; the losses finite, falling in the clean
+   run (alie stalls internvl2-1b's at m = 4; reported); steps/s, tokens/s,
+   the step's split (gradients, attack, B1/B2, AdamW), device busy share,
+   peak memory, and B1/B2 against the HBM bound (1.252 / 1.880 ms); (c)
+   the cache paths at full width in f32 against the teacher-forced
+   forward (2e-3, tests/test_models_smoke.py's): whisper-small's prefill
+   of 4 prompts of 16 tokens (1500 frames, the chunked attention) and 16
+   decode steps; internvl2-1b's prefill, its decode raising; (d)
+   ``python -m repro_torch.launch.train --smoke`` for both in this
+   process: one B1 launch a step.
 The launch counters are zeroed before each of phases 8-13, each run of
-phase 14b, 15b and 16b, phase 15c, each 16d run and each call (17a), round
-(17b) or set of calls (17d) of phase 17, and read after; the kernels line gives
-each kernel's launches on them (``launches_new_paths``).  In phases 4, 6,
-8-13, 15c and 17 the inputs each kernel wrapper gets (the first call of each shape) are
+phase 14b, 15b, 16b and 18b, phase 15c, each 16d and 18d run and each call
+(17a), round (17b) or set of calls (17d) of phase 17, and read after; the
+kernels line gives each kernel's launches on them (``launches_new_paths``).
+In phases 4, 6, 8-13, 15c, 17 and 18 the inputs each kernel wrapper gets
+(the first call of each shape) are
 recorded, and after the path's counts were read each kernel is run again on
 them and held against its plain version, bitwise (PathInputs); a kernel that
 launched on a path and was not held fails.  Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
@@ -585,7 +611,7 @@ def kernel_sweep(dev, leaf_sizes):
 def multi_leaf_sweep(dev, worst):
     """Phase 2: multi-leaf median, trimmed-mean and fused calls vs the
     per-leaf plain versions, bitwise (both of the fused kernel's outputs);
-    one launch per 16 leaves; both load paths run."""
+    one launch per MAX_LEAVES (32) leaves; both load paths run."""
     import torch
 
     from repro_torch.kernels import robust_agg
@@ -2765,14 +2791,19 @@ def train_parity(dev):
 def train_step_split(cfg, pcfg, mesh, attack, state, batch, step):
     """Wall ms of one more step (not kept) and of its parts: the aggregation
     (aggregate_by_strategy) and the update (AdamW), each closed by a
-    synchronize; the per-worker gradients are the rest."""
+    synchronize; the per-worker gradients are the rest.  Inside the
+    aggregation, the attack on the gathered rows (``attack_ms``) and the
+    robust aggregation call (``b1_b2_ms``: B1 / B2 and their output
+    views) are timed too."""
     import torch
 
+    from repro_torch.core import aggregators
+    from repro_torch.core import distributed as D
     from repro_torch.launch import steps
     from repro_torch.optim.optimizers import Optimizer, get_optimizer
 
     opt = get_optimizer("adamw", TRAIN_LR)
-    parts = {"aggregate_ms": 0.0, "update_ms": 0.0}
+    parts = {"aggregate_ms": 0.0, "update_ms": 0.0, "attack_ms": 0.0, "b1_b2_ms": 0.0}
 
     def timed(key, fn):
         def run(*args, **kwargs):
@@ -2785,7 +2816,10 @@ def train_step_split(cfg, pcfg, mesh, attack, state, batch, step):
         return run
 
     real_agg = steps.rounds_dist.aggregate_by_strategy
+    real_attack, real_leaves = D._maybe_attack, aggregators.aggregate_leaves
     steps.rounds_dist.aggregate_by_strategy = timed("aggregate_ms", real_agg)
+    D._maybe_attack = timed("attack_ms", real_attack)
+    aggregators.aggregate_leaves = timed("b1_b2_ms", real_leaves)
     try:
         sb = steps.make_step_body(cfg, pcfg, mesh,
                                   Optimizer(opt.init, timed("update_ms", opt.update)), attack)
@@ -2797,15 +2831,16 @@ def train_step_split(cfg, pcfg, mesh, attack, state, batch, step):
         del out
     finally:
         steps.rounds_dist.aggregate_by_strategy = real_agg
+        D._maybe_attack, aggregators.aggregate_leaves = real_attack, real_leaves
     parts["step_ms"] = total
     parts["worker_grads_ms"] = total - parts["aggregate_ms"] - parts["update_ms"]
     return parts
 
 
-def train_kernel_timings(kept, card: str):
-    """B1 and B2 at the worker-stacked bf16 gradients (4, D) of phase 15b's
-    last step, all leaves in one call: CUDA-event and profiler device ms
-    against the HBM bound, the plain version over column slices."""
+def train_kernel_timings(kept, card: str, shape: str = "train grads"):
+    """B1 and B2 at the worker-stacked bf16 gradients (4, D) of a trained
+    cell's last step, all leaves in one call: CUDA-event and profiler device
+    ms against the HBM bound, the plain version over column slices."""
     import torch
 
     from repro_torch.kernels import robust_agg
@@ -2821,7 +2856,7 @@ def train_kernel_timings(kept, card: str):
              lambda: [SN.trimmed_mean_select(x[:, a:a + SERVE_SLICE], 1) for x in leaves
                       for a in range(0, x.shape[1], SERVE_SLICE)])):
         b_ms, b_by = bound(name, m, n, trim, 2)
-        row = {"shape": "train grads", "kernel": name, "m": m, "n": n, "leaves": len(leaves),
+        row = {"shape": shape, "kernel": name, "m": m, "n": n, "leaves": len(leaves),
                "trim": trim, "dtype": "bfloat16", "ms": time_ms(kernel, 5),
                "device_ms": device_ms(kernel, 5, KERNEL_NAMES[name], launches=1),
                "plain_ms": time_ms(plain, 1), "library_ms": None,
@@ -3157,6 +3192,13 @@ def family_train_cli(dev):
     counted per dtype group (MAX_LEAVES leaves a launch) against the
     aggregation calls' leaves, and no other kernel launched.  Returns each
     kernel's launches over the three runs."""
+    return train_cli_counted(FAMILY_TRAIN, "16d")
+
+
+def train_cli_counted(archs, label: str, one_launch: bool = False):
+    """The train CLI in this process for each of ``archs`` (see
+    family_train_cli); with ``one_launch`` every step must be one B1
+    launch.  Returns each kernel's launches over the runs."""
     import contextlib
     import io
 
@@ -3168,7 +3210,7 @@ def family_train_cli(dev):
 
     real = aggregators.aggregate_leaves
     total = {}
-    for arch in FAMILY_TRAIN:
+    for arch in archs:
         groups = []
 
         def counted(leaves, method, beta=0.1):
@@ -3194,15 +3236,17 @@ def family_train_cli(dev):
         launches = {**robust_agg.LAUNCHES, **H.LAUNCHES}  # read just after it
         out = buf.getvalue()
         check(rc == 0 and "device cuda" in out and "done: 2 steps" in out,
-              f"16d: train CLI {arch}: {out[-2000:]}")
+              f"{label}: train CLI {arch}: {out[-2000:]}")
         want = sum(-(-n // G.MAX_LEAVES) for g in groups for n in g.values())
         check(len(groups) == 2 and launches["median"] == want and
               sum(v for k, v in launches.items() if k != "median") == 0,
-              f"16d: {arch}: launches {launches} for groups {groups}, want {want} medians")
+              f"{label}: {arch}: launches {launches} for groups {groups}, want {want} medians")
+        check(not one_launch or want == 2, f"{label}: {arch}: {want} B1 launches in 2 steps")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-        print(f"phase 16d: train CLI {arch} on the card: {out.splitlines()[-1]}; per step the "
-              f"dtype groups {groups[0]}: {want // 2} B1 launches a step")
+        print(f"phase {label}: train CLI {arch} on the card: {out.splitlines()[0]} ... "
+              f"{out.splitlines()[-1]}; per step the dtype groups {groups[0]}: {want // 2} B1 "
+              f"launches a step")
     return total
 
 
@@ -3610,6 +3654,397 @@ def distributed(dev, card: str, on_path):
             "process_group": pg}
 
 
+# ------------- phase 18: the audio and vision frontends, encoder, cross-attention
+#
+# (a) whisper-smoke and internvl2-smoke in f32, card against CPU; (b)
+# whisper-small and internvl2-1b at full width AND depth in bf16, trained
+# with 4 in-process workers (gather median and gather trimmed mean beta 0.25
+# under alie alpha 0.25); (c) the cache paths at full width in f32 against
+# the teacher-forced forward (tests/test_models_smoke.py's consistency check
+# at its 2e-3); (d) the train CLI for both.
+FRONTEND_ARCHS = ("whisper-small", "internvl2-1b")
+FRONTEND_TOL = 1e-5  # card vs CPU at smoke width in f32 (TF32 off)
+FRONTEND_CACHE_TOL = 2e-3  # tests/test_models_smoke.py's prefill/decode tolerance
+FRONTEND_CELLS = (("whisper-small", 419_460_096, 31), ("internvl2-1b", 629_636_224, 12))
+FRONTEND_STEPS, FRONTEND_DS = 8, 4
+# (aggregator, attack), gather strategy: the two robust runs under alie alpha
+# 0.25, then a clean control run (at m = 4 alie stalls internvl2-1b's loss)
+FRONTEND_RUNS = (("median", "alie"), ("trimmed_mean", "alie"), ("median", "none"))
+CROSS_FFN = ("ln2", "wd", "wg", "wu")  # cross-block leaves no computation reads
+
+
+def flat_tree(tree, prefix=""):
+    """{path: tensor} of a params or gradient tree; per-layer tuples (the
+    trainer's pieces) stacked back."""
+    import torch
+
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, (dict, list)):
+            out.update(flat_tree(v, path))
+        else:
+            out[path] = torch.stack(v) if isinstance(v, tuple) else v
+    return out
+
+
+def cross_ffn_leaves(cfg):
+    """Indices, in the parameter tree's leaf order, of the cross blocks' FFN
+    leaves, and their coordinates."""
+    import math
+
+    from repro_torch.models import transformer as T
+
+    specs = T._param_specs(cfg)
+    paths = list(flat_tree(T._map_specs(lambda path, spec: path, specs)).values())
+    idx = [i for i, p in enumerate(paths)
+           if p.startswith("cross_blocks/") and p.split("/")[-1] in CROSS_FFN]
+    return idx, sum(math.prod(specs["cross_blocks"][paths[i].split("/")[-1]].shape)
+                    for i in idx)
+
+
+def frontend_parity(dev):
+    """Phase 18a: each smoke config in f32 from one set of params and one
+    frontend, card against CPU: forward logits, loss and every gradient leaf
+    (the trainer's per-layer pieces; kv_block 16, the encoder's and the
+    cross-attention's frames on the chunked path), the cross FFN gradients
+    exactly 0 on both; whisper's prefill and 4 decode steps; internvl2's
+    prefill, and its decode raising on both devices.  Then one m = 4 window
+    (gather median under alie alpha 0.25, SGD 0.5) on the card: one B1
+    launch, bitwise its plain version.  Returns the windows' launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.kernels import robust_agg
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, trainer
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.tree import tree_map
+
+    worst_all, total = 0.0, {}
+    for arch in FRONTEND_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        cpu_params = T.init_params(cfg, seed=0, device="cpu")
+        r = np.random.default_rng(18)
+        tok = torch.from_numpy(r.integers(0, cfg.vocab, (2, 12)).astype(np.int64))
+        lab = torch.from_numpy(r.integers(0, cfg.vocab, (2, 12)).astype(np.int64))
+        fe = torch.from_numpy(r.standard_normal((2, cfg.n_frontend_tokens, cfg.d_model))
+                              .astype(np.float32))
+        out = {}
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            params = tree_map(lambda t: t.to(d), cpu_params)
+            batch = {"tokens": tok.to(d), "labels": lab.to(d), "frontend": fe.to(d)}
+            logits, _ = T.forward(params, batch["tokens"], cfg, frontend=batch["frontend"],
+                                  kv_block=16)
+            loss, grads = steps._value_and_grad(cfg, 16)(steps._pieces(params), batch)
+            res = {"logits": logits, "loss": loss,
+                   **{f"grad/{p}": g for p, g in flat_tree(grads).items()}}
+            with torch.no_grad():
+                pl, cache = T.prefill(params, batch["tokens"][:, :8], cfg,
+                                      frontend=batch["frontend"], kv_block=16, cache_len=12)
+                res["prefill"] = pl
+                if cfg.frontend == "audio":
+                    for i in range(4):
+                        res[f"decode{i}"], cache = T.decode_step(
+                            params, batch["tokens"][:, 8 + i:9 + i], cache, 8 + i, cfg)
+                else:
+                    try:
+                        T.decode_step(params, batch["tokens"][:, 8:9], cache, 8, cfg)
+                        raised = False
+                    except ValueError:
+                        raised = True
+                    check(raised, f"18a {arch}: decode on a vision prefill's cache did not "
+                                  f"raise on {name}")
+            out[name] = {k: v.detach().cpu() for k, v in res.items()}
+            if cfg.frontend == "audio":
+                for leaf in CROSS_FFN:
+                    check(not bool(out[name][f"grad/cross_blocks/{leaf}"].any()),
+                          f"18a {arch}: cross_blocks/{leaf} gradient not 0 on {name}")
+        check(set(out["card"]) == set(out["cpu"]), f"18a {arch}: output trees differ")
+        worst = max(float((out["card"][k] - out["cpu"][k]).abs().max()) for k in out["cpu"])
+        check(worst <= FRONTEND_TOL, f"18a {arch}: card vs CPU {worst} > {FRONTEND_TOL}")
+        worst_all = max(worst_all, worst)
+        # one m = 4 window on the card: its B1 launch held bitwise
+        mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, device=dev)
+        pcfg = ParallelConfig(agg_method="median", agg_strategy="gather", agg_beta=TRAIN_BETA,
+                              remat=False)
+        opt = get_optimizer("sgd", 0.5)
+        state = trainer.init_state(cfg, mesh, opt, seed=0, pcfg=pcfg)
+        atk = AttackConfig("alie", TRAIN_ALPHA)
+        block = trainer.stack_window_batches(DataConfig(**(TRAIN_TINY_DATA | {
+            "vocab": cfg.vocab})), 0, 1, mesh, atk, cfg)
+        undo = sync_free_windows()
+        try:
+            window = trainer.make_window_step(cfg, pcfg, mesh, opt, atk, 1)
+            robust_agg.reset_launches()
+            H.reset_launches()
+            with HeldAggregation(dev) as held:
+                state = window(state, block)
+            torch.cuda.synchronize()
+            launches = {**robust_agg.LAUNCHES, **H.LAUNCHES}
+        finally:
+            undo()
+        want = {k: int(k == "median") for k in launches}
+        check(launches == want and held.held == 1,
+              f"18a {arch}: window launches {launches}, {held.held} held")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        check(bool(torch.isfinite(state["metrics"]["loss_sum"])), f"18a {arch}: window loss")
+    print(f"phase 18a: whisper-smoke and internvl2-smoke f32, card vs CPU: forward, loss, every "
+          f"gradient leaf, prefill and decode within {worst_all:.3g} (tolerance "
+          f"{FRONTEND_TOL}); cross FFN gradients exactly 0 on both; decode after the vision "
+          f"prefill raises on both; one m = 4 window each: one B1 launch, bitwise its plain "
+          f"version")
+    return total
+
+
+def frontend_cell(dev, card: str, arch: str, d_want: int, n_leaves: int):
+    """Phase 18b, one cell: ``arch`` at full width and depth in bf16 from
+    seed 0, trained through ``trainer.train_loop`` with 4 in-process
+    workers, FRONTEND_STEPS steps in windows of FRONTEND_DS, AdamW 1e-4,
+    global batch 8, seq 128, FRONTEND_RUNS (gather median and gather
+    trimmed mean beta 0.25 under alie alpha 0.25, then the median without
+    an attack); every window under the sync-debug "error" mode.  Holds:
+    one B1 (B2) launch a step over all ``n_leaves`` leaves and no other
+    kernel; the last window's aggregates bitwise their plain versions
+    (column slices); the cross FFN coordinates of every aggregate exactly
+    0; the loss finite, and falling in the clean run (under alie it is
+    reported: alie may stall it).  The robust runs' step split and
+    profile; B1 and B2 timed on the alie median run's last rows.  Returns
+    the launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.kernels import robust_agg
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, trainer
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import get_optimizer
+
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    total = {"median": 0, "trimmed_mean": 0}
+    cfg = get_config(arch)
+    check(T.count_params(cfg) == d_want, f"18b {arch}: {T.count_params(cfg)} parameters")
+    cross_idx, cross_n = cross_ffn_leaves(cfg)
+    mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, device=dev)
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=FRONTEND_STEPS,
+                       device_steps=FRONTEND_DS)
+    undo = sync_free_windows()
+    try:
+        for method, attack in FRONTEND_RUNS:
+            run = f"{arch} gather/{method}/{attack}"
+            pcfg = ParallelConfig(agg_method=method, agg_strategy="gather", agg_beta=TRAIN_BETA,
+                                  attn_chunk=0)
+            atk = AttackConfig(attack, TRAIN_ALPHA if attack != "none" else 0.0)
+            nonzero = []  # device counts of nonzero cross FFN coordinates, a step each
+            first_held = FRONTEND_STEPS - FRONTEND_DS
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            robust_agg.reset_launches()  # zeroed just before this run
+            H.reset_launches()
+            t0 = time.perf_counter()
+            with HeldAggregation(dev, hold=lambda c: c >= first_held,
+                                 keep=lambda c: c == FRONTEND_STEPS - 1) as held:
+                unhook = count_nonzero_aggregates(cross_idx, nonzero)
+                try:
+                    result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk)
+                finally:
+                    unhook()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {**robust_agg.LAUNCHES, **H.LAUNCHES}  # read just after it
+            leaves = dict(robust_agg.LEAVES)
+            peak = torch.cuda.max_memory_allocated()
+            want = {k: 0 for k in launches}
+            want[method] = FRONTEND_STEPS  # every leaf in one launch a step
+            check(launches == want, f"18b {run}: launches {launches}, want {want}")
+            check(leaves[method] == FRONTEND_STEPS * n_leaves,
+                  f"18b {run}: leaves {leaves}, want {FRONTEND_STEPS * n_leaves}")
+            check(held.held == FRONTEND_DS, f"18b {run}: {held.held} of the last window's "
+                                            f"{FRONTEND_DS} aggregates held")
+            nz = [int(v) for v in nonzero]
+            check(len(nz) == FRONTEND_STEPS and not any(nz),
+                  f"18b {run}: nonzero cross FFN coordinates in the aggregates: {nz}")
+            for k in total:
+                total[k] += launches[k]
+            hist = result.history
+            losses = [h["loss"] for h in hist]
+            check(all(v == v and abs(v) < 1e4 for v in losses), f"18b {run}: {losses}")
+            if attack == "none":
+                check(losses[-1] < losses[0], f"18b {run}: the loss did not fall: {losses}")
+            line = {"frontend_run": run, "d": d_want, "leaves": n_leaves,
+                    "cross_ffn_coordinates": cross_n, "steps": FRONTEND_STEPS,
+                    "device_steps": FRONTEND_DS, "workers": TRAIN_WORKERS,
+                    "tokens_per_step": dcfg.global_batch * dcfg.seq_len,
+                    "frontend_tokens": cfg.n_frontend_tokens,
+                    "steps_per_s": result.steps_per_s, "tokens_per_s": result.tokens_per_s,
+                    "first_window_s": result.compile_s, "window_times_s": result.window_times_s,
+                    "run_wall_s": wall, "losses": losses, "loss_falls": losses[-1] < losses[0],
+                    "grad_norm_last_window": hist[-1]["grad_norm"], "launches": launches,
+                    "leaves_aggregated": leaves, "max_memory_allocated_gb": peak / 1e9,
+                    "card_memory_gb": total_mem / 1e9, "card": card}
+            text = ""
+            if attack != "none":  # the step's split and profile
+                batch = {k: v[0] for k, v in trainer.stack_window_batches(
+                    dcfg, FRONTEND_STEPS, 1, mesh, atk, cfg).items()}
+                split = train_step_split(cfg, pcfg, mesh, atk, result.state, batch,
+                                         FRONTEND_STEPS)
+                sb = steps.make_step_body(cfg, pcfg, mesh, get_optimizer("adamw", TRAIN_LR),
+                                          atk)
+                prof = profile_summary(lambda: sb.body(result.state["params"],
+                                                       result.state["opt_state"], batch,
+                                                       FRONTEND_STEPS, 0),
+                                       split["step_ms"], top=10, names=("leaf_select_kernel",))
+                line.update(split_ms=split, device_busy_share=prof["device_busy_share"])
+                print(json.dumps({"profile_frontend_step": run, **prof}))
+                text = (f", step {split['step_ms']:.1f} ms (grads "
+                        f"{split['worker_grads_ms']:.1f}, attack {split['attack_ms']:.1f}, "
+                        f"B1/B2 {split['b1_b2_ms']:.1f}, update {split['update_ms']:.1f}), busy "
+                        f"{prof['device_busy_share']:.3f}")
+                del sb, batch
+            print(json.dumps({"frontend_train": line}))
+            print(f"phase 18b: {run}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+                  f"{result.steps_per_s:.3f} steps/s, {result.tokens_per_s:.0f} tokens/s"
+                  f"{text}, peak {peak / 1e9:.2f} GB")
+            check(peak < total_mem, f"18b {run}: peak {peak} >= the card's {total_mem}")
+            kept = held.kept
+            del result, held
+            torch.cuda.empty_cache()
+            if (method, attack) == ("median", "alie"):
+                train_kernel_timings(kept, card, f"{arch} train grads")
+            del kept
+            torch.cuda.empty_cache()
+    finally:
+        undo()
+    return total
+
+
+def count_nonzero_aggregates(idx, nonzero):
+    """Inside the window: after every aggregation call with the leaves of a
+    parameter tree, the count of nonzero coordinates of the outputs at leaf
+    indices ``idx`` appended to ``nonzero`` as a device scalar (read after
+    the run: no sync in the window).  Returns the undo."""
+    from repro_torch.core import aggregators
+
+    real = aggregators.aggregate_leaves
+
+    def wrapped(leaves, method, beta=0.1):
+        outs = real(leaves, method, beta)
+        nonzero.append(sum((outs[i] != 0).sum() for i in idx))
+        return outs
+
+    aggregators.aggregate_leaves = wrapped
+    return lambda: setattr(aggregators, "aggregate_leaves", real)
+
+
+def frontend_caches(dev):
+    """Phase 18c: the cache paths at full width in f32 (params from seed 0,
+    one frontend), tests/test_models_smoke.py's consistency check at its
+    2e-3: whisper-small (24 layers and 12 cross blocks, 1500 frames, the
+    default kv_block 1024: the chunked path), 4 prompts of 16 tokens with
+    cache_len 32: the prefill's last logits equal forward's at position 15,
+    and 16 decode steps with the true next tokens equal the teacher-forced
+    logits; internvl2-1b: forward returns (B, S, V) with the 256-patch prefix
+    stripped, the prefill's last logits equal forward's last, and decode on
+    that cache raises."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    report = {}
+    for arch in FRONTEND_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        params = T.init_params(cfg, seed=0, device=dev)
+        r = np.random.default_rng(1818)
+        toks = torch.from_numpy(r.integers(0, cfg.vocab, (4, 32)).astype(np.int64)).to(dev)
+        fe = torch.from_numpy(r.standard_normal((4, cfg.n_frontend_tokens, cfg.d_model))
+                              .astype(np.float32)).to(dev)
+        with torch.no_grad():
+            if cfg.frontend == "audio":
+                full, _ = T.forward(params, toks, cfg, frontend=fe)
+                pl, cache = T.prefill(params, toks[:, :16], cfg, frontend=fe, cache_len=32)
+                want = (cfg.n_layers, 4, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.hd)
+                check(tuple(cache["cross"]["k"].shape) == want,
+                      f"18c {arch}: cross cache {tuple(cache['cross']['k'].shape)}, want {want}")
+                errs = [float((pl[:, 0] - full[:, 15]).abs().max())]
+                for i in range(16, 32):
+                    lg, cache = T.decode_step(params, toks[:, i:i + 1], cache, i, cfg)
+                    errs.append(float((lg[:, 0] - full[:, i]).abs().max()))
+                check(all(np.isfinite(errs)) and max(errs) <= FRONTEND_CACHE_TOL,
+                      f"18c {arch}: prefill / decode vs forward {errs}")
+                report[arch] = {"prefill_err": errs[0], "decode_max_err": max(errs[1:]),
+                                "steps": 16}
+            else:
+                full, _ = T.forward(params, toks[:, :16], cfg, frontend=fe)
+                check(tuple(full.shape) == (4, 16, cfg.vocab), f"18c {arch}: {full.shape}")
+                pl, cache = T.prefill(params, toks[:, :16], cfg, frontend=fe, cache_len=32)
+                err = float((pl[:, 0] - full[:, -1]).abs().max())
+                check(np.isfinite(err) and err <= FRONTEND_CACHE_TOL,
+                      f"18c {arch}: prefill vs forward {err}")
+                try:
+                    T.decode_step(params, toks[:, 16:17], cache, 16, cfg)
+                    raised = False
+                except ValueError:
+                    raised = True
+                check(raised, f"18c {arch}: decode on the vision prefill's cache did not raise")
+                report[arch] = {"prefill_err": err, "decode": "raises (reference property)"}
+        del params, cache, full
+        torch.cuda.empty_cache()
+    print(json.dumps({"frontend_caches": report, "tolerance": FRONTEND_CACHE_TOL}))
+    print(f"phase 18c: whisper-small prefill + 16 decode steps within "
+          f"{report['whisper-small']['decode_max_err']:.3g} of forward, internvl2-1b prefill "
+          f"within {report['internvl2-1b']['prefill_err']:.3g} (tolerance "
+          f"{FRONTEND_CACHE_TOL}); decode after the vision prefill raises")
+
+
+def frontends(dev, card: str, on_path):
+    """Phase 18: 18a-18d, each training path under ``on_path``; returns the
+    launches of 18a's windows, 18b's cells and 18d's CLI runs."""
+    t0 = time.perf_counter()
+    out = {"frontends_windows": on_path("phase 18a", lambda: frontend_parity(dev),
+                                        lambda c: c)}
+    print(f"phase 18a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cells = {}
+    for arch, d, n_leaves in FRONTEND_CELLS:
+        t1 = time.perf_counter()
+        for k, v in on_path(f"phase 18b {arch}",
+                            lambda: frontend_cell(dev, card, arch, d, n_leaves),
+                            lambda c: c).items():
+            cells[k] = cells.get(k, 0) + v
+        print(f"phase 18b: {arch}: {time.perf_counter() - t1:.1f} s")
+    out["frontends_train"] = cells
+    print(f"phase 18b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    frontend_caches(dev)
+    print(f"phase 18c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["frontends_train_cli"] = on_path(
+        "phase 18d", lambda: train_cli_counted(FRONTEND_ARCHS, "18d", one_launch=True),
+        lambda c: c)
+    print(f"phase 18d: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3730,6 +4165,12 @@ def main() -> None:
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 17 built order-statistic programs that phase 1 did not")
+    libs_before = len(robust_agg.select_libraries())
+    t0 = time.perf_counter()
+    new_paths.update(frontends(dev, card, on_path))
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    check(len(robust_agg.select_libraries()) == libs_before,
+          "phase 18 built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")

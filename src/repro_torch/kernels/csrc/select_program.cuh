@@ -92,7 +92,7 @@
 namespace sel {
 
 constexpr int kThreads = 128;   // select_codegen.THREADS
-constexpr int kMaxLeaves = 16;  // select_codegen.MAX_LEAVES
+constexpr int kMaxLeaves = 32;  // select_codegen.MAX_LEAVES
 constexpr int kMedian = 0;
 constexpr int kTrimmed = 1;
 constexpr int kFused = 2;  // out: the median, out2: the trimmed mean

@@ -41,7 +41,7 @@ KINDS = ("median", "trimmed_mean", "fused_median_trimmed")
 THREADS = 128
 #: leaves one launch takes, passed by value in the kernel's parameters
 #: (``sel::kMaxLeaves`` in the header)
-MAX_LEAVES = 16
+MAX_LEAVES = 32
 #: 32-bit registers of keys a thread holds: m * V (f32) or m * V / 2 (bf16
 #: and f16, two 16-bit keys a register) <= KEY_BUDGET
 KEY_BUDGET = 64

@@ -25,7 +25,8 @@ batched decode of every slot, each at its own position, updating the
 pool in place.  A slot's tokens are the same as in
 a batch-1 decode (pinned in tests/test_torch_serve.py).
 
-The global batch every worker builds alike (``make_lm_batch``) is cut
+The global batch every worker builds alike (``make_lm_batch``, and a
+frontend configuration's ``frontend`` embeddings) is cut on its batch dim
 into the workers' shards by ``Collectives.local_rows``: worker-stacked on
 the in-process mesh, this rank's own rows under a process group.  FSDP
 (``param_mode='fsdp'``) and the dry-run ``input_specs`` wait for later
@@ -82,23 +83,28 @@ class StepBody:
     comp_body: Any = None
 
 
+#: the stacked layer groups of a parameter tree: each leaf (n_layers, ...)
+_STACKED = ("enc_blocks", "cross_blocks")
+
+
 def _pieces(params):
-    """``params`` with every stacked block leaf given as its per-layer views
-    (so each layer's gradient comes out at its own size, not as a
-    stacked-size zero tensor per layer); the other leaves, the tail's
-    included, as they are."""
-    out = dict(params)
-    out["blocks"] = {key: {k: tuple(v.unbind(0)) for k, v in group.items()}
-                     for key, group in params["blocks"].items()}
-    return out
+    """``params`` with every stacked layer leaf (the blocks', the encoder's
+    and the cross-attention's) given as its per-layer views (so each
+    layer's gradient comes out at its own size, not as a stacked-size zero
+    tensor per layer); the other leaves, the tail's included, as they are."""
+    return _stacked_pieces(params, 0)
 
 
 def _stacked_pieces(buf, k: int):
-    """The worker-stacked gradient buffer in :func:`_pieces` form: per-layer
-    views of its block leaves (the layer dim follows the ``k`` worker dims)."""
+    """A parameter tree, or the worker-stacked gradient buffer, in
+    :func:`_pieces` form: per-layer views of its stacked leaves (the layer
+    dim follows the ``k`` worker dims)."""
     out = dict(buf)
     out["blocks"] = {key: {n: tuple(v.unbind(k)) for n, v in group.items()}
                      for key, group in buf["blocks"].items()}
+    for key in _STACKED:
+        if key in buf:
+            out[key] = {n: tuple(v.unbind(k)) for n, v in buf[key].items()}
     return out
 
 
@@ -142,7 +148,6 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
             "step 3)")
     if pcfg.param_mode != "replicated":
         raise ValueError(f"unknown param_mode {pcfg.param_mode!r}")
-    T.check_supported(cfg)
     spec = comp_lib.get_compression(pcfg.compression)  # validates the name
     ef = spec.error_feedback
     tau = pcfg.local_steps
@@ -251,11 +256,12 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
 
 def make_prefill_step(cfg: ModelConfig, kv_block: int = 1024,
                       cache_len: Optional[int] = None) -> Callable:
-    """``step(params, tokens) -> (last-token logits, cache)``."""
+    """``step(params, tokens, frontend=None) -> (last-token logits, cache)``."""
 
-    def step(params, tokens):
+    def step(params, tokens, frontend=None):
         with torch.no_grad():
-            return T.prefill(params, tokens, cfg, kv_block=kv_block, cache_len=cache_len)
+            return T.prefill(params, tokens, cfg, frontend=frontend, kv_block=kv_block,
+                             cache_len=cache_len)
 
     return step
 

@@ -18,8 +18,11 @@ versions (gloo under a process group)::
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh single \\
       --config llama3.2-3b --smoke --steps 4 --global-batch 4 --seq-len 32
 
-``--model-par`` > 1 raises: tensor parallelism is ROADMAP queue A item 6,
-step 4.
+Every configuration trains, whisper-small and internvl2-1b included: their
+stub frontends (``launch.trainer.frontend_batch``: 1500 audio frames /
+256 vision patches a row) ride each batch, and the startup line names
+them (``frontend=audio:1500``).  ``--model-par`` > 1 raises: tensor
+parallelism is ROADMAP queue A item 6, step 4.
 """
 from __future__ import annotations
 
@@ -102,8 +105,10 @@ def main(argv=None) -> int:
 def _train(args, cfg, mesh) -> None:
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
     m = num_workers(mesh)
+    frontend = (f" frontend={cfg.frontend}:{cfg.n_frontend_tokens}"
+                if cfg.frontend != "none" else "")
     say(f"mesh={mesh_shape_dict(mesh)} workers={m} device_steps={args.device_steps} "
-        f"device {mesh.device.type}")
+        f"device {mesh.device.type}{frontend}")
 
     attack = AttackConfig(args.attack, args.attack_alpha)
     if args.strategy == "psum" and args.agg != "mean":

@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch import rng
 from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.core.attacks import AttackConfig
 from repro_torch.data.pipeline import DataConfig, make_lm_batch
@@ -130,17 +131,29 @@ def make_window_step(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh
 # ---------------------------------------------------------------------------
 
 
+def frontend_batch(dcfg: DataConfig, step: int, cfg: ModelConfig) -> torch.Tensor:
+    """The stub frontend of step ``step``: (B, n_frontend_tokens, d_model)
+    float32 standard normals from the generator of (seed, step), cast to the
+    model's dtype (the reference draws its own from threefry)."""
+    x = torch.randn((dcfg.global_batch, cfg.n_frontend_tokens, cfg.d_model),
+                    generator=rng.generator(dcfg.seed, step), dtype=torch.float32)
+    return x.to(getattr(torch, cfg.dtype))
+
+
 def stack_window_batches(dcfg: DataConfig, start_step: int, device_steps: int,
                          mesh: mesh_lib.Mesh, attack: Optional[AttackConfig] = None,
                          cfg: Optional[ModelConfig] = None) -> Dict[str, torch.Tensor]:
     """The (device_steps, B, S) batch block of the window starting at
     ``start_step``, built on the host and moved to the mesh's device: each
     micro-step's batch is ``make_lm_batch`` at its step index (per-worker
-    provenance and label corruption included)."""
-    if cfg is not None:
-        T.check_supported(cfg)  # decoders only: no frontend inputs
+    provenance and label corruption included), with
+    :func:`frontend_batch`'s ``frontend`` (device_steps, B, T, D) for a
+    frontend configuration."""
     per_step = [make_lm_batch(dcfg, start_step + i, attack, device="cpu")
                 for i in range(device_steps)]
+    if cfg is not None and cfg.frontend != "none":
+        for i, b in enumerate(per_step):
+            b["frontend"] = frontend_batch(dcfg, start_step + i, cfg)
     return {k: torch.stack([b[k] for b in per_step]).to(mesh.device)
             for k in per_step[0]}
 

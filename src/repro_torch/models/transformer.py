@@ -1,7 +1,7 @@
-"""The decoder families of the reference's unified model stack
+"""The model families of the reference's unified model stack
 (``repro.models.transformer``), on tensors.
 
-embed → layers → final norm → lm head.  Layer kinds
+embed / frontend → layers → final norm → lm head.  Layer kinds
 (``ModelConfig.layer_kind``):
   ``attn`` — GQA + RoPE (optional qk-norm / sliding or local window) + FFN
              (SwiGLU dense, or the top-k MoE of :mod:`.moe`);
@@ -24,20 +24,29 @@ as ``jax.flatten_util.ravel_pytree`` does (sorted keys): the adapter's
 iterate's sha256 depend on it.  Caches mirror the tree (``blocks``
 stacked, ``tail`` a list).
 
-The audio and vision frontends, the encoder and cross-attention (whisper,
-internvl2) are not ported: such a configuration raises
-``NotImplementedError`` (ROADMAP queue A item 8).
+Frontends are the reference's stubs: precomputed frame or patch
+embeddings ``frontend`` (B, T, D) in the model's dtype.  ``audio``
+(whisper): an encoder (``enc_blocks``, non-causal attention layers over
+the frames plus a sinusoidal table, then ``enc_norm``) whose output every
+super-block's attention layer reads through cross-attention
+(``cross_blocks``, stacked (n_super, ...); only their ``ln1``/``wq``/``wk``/
+``wv``/``wo`` are used, so the gradient of their FFN leaves is exactly 0).
+``vision`` (internvl2): the patches are a prefix before the tokens,
+stripped before the lm head.  A frontend configuration without its
+``frontend`` input raises, as the reference's asserts do.
 
 Entry points:
   init_params(cfg, seed, device)             -> params tree
-  forward(params, tokens, cfg)               -> (logits, aux)
-  loss_fn(params, batch, cfg)                -> scalar loss
-  prefill(params, tokens, cfg, cache_len=)   -> (last-token logits, cache)
+  forward(params, tokens, cfg, frontend=)    -> (logits, aux)
+  loss_fn(params, batch, cfg)                -> scalar loss (batch["frontend"])
+  prefill(params, tokens, cfg, frontend=, cache_len=)
+                                             -> (last-token logits, cache)
   decode_step(params, token, cache, pos, cfg) -> (logits, cache), the cache
                                                 updated in place
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import zlib
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -55,18 +64,6 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 
 Params = Dict[str, Any]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port lacks."""
-    missing = []
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
-    if cfg.n_enc_layers or cfg.cross_attention:
-        missing.append("the encoder / cross-attention")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported: {', '.join(missing)} (ROADMAP queue A item 8)")
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -118,7 +115,13 @@ def layer_at(tree: Params, where: Where) -> Params:
     layer's gradient comes out at its own size), or the tail's dict."""
     if where.part == "tail":
         return tree["tail"][where.key]
-    return {k: v[where.s] for k, v in tree["blocks"][where.key].items()}
+    return _stacked_at(tree["blocks"][where.key], where.s)
+
+
+def _stacked_at(group: Params, s: int) -> Params:
+    """Layer ``s`` of a stacked group (views, or the s-th of per-layer
+    tensors as the trainer differentiates them)."""
+    return {k: v[s] for k, v in group.items()}
 
 
 class Spec(NamedTuple):
@@ -194,12 +197,17 @@ def _layer_specs(kind: str, cfg: ModelConfig) -> Dict[str, Spec]:
     return dict(sorted(specs.items()))
 
 
+def _stacked(specs: Dict[str, Spec], n: int) -> Dict[str, Spec]:
+    return {k: sp._replace(shape=(n,) + sp.shape) for k, sp in specs.items()}
+
+
 def _param_specs(cfg: ModelConfig) -> Params:
-    """The parameter tree as :class:`Spec` leaves, keys sorted at every level."""
-    check_supported(cfg)
+    """The parameter tree as :class:`Spec` leaves, keys sorted at every level.
+
+    The encoder and cross layers are attention layers of the reference's
+    ``enc_cfg`` (no MoE, no qk-norm), FFN leaves included."""
     [(pattern, n_super)], tail = layer_groups(cfg)
-    blocks = {f"p{i}_{kind}": {k: sp._replace(shape=(n_super,) + sp.shape)
-                               for k, sp in _layer_specs(kind, cfg).items()}
+    blocks = {f"p{i}_{kind}": _stacked(_layer_specs(kind, cfg), n_super)
               for i, kind in enumerate(pattern)}
     tree = {"blocks": dict(sorted(blocks.items())),
             "embed": Spec((cfg.vocab, cfg.d_model), 0.02),
@@ -207,7 +215,13 @@ def _param_specs(cfg: ModelConfig) -> Params:
             "lm_head": Spec((cfg.d_model, cfg.vocab), 0.02)}
     if tail:
         tree["tail"] = [_layer_specs(kind, cfg) for kind in tail]
-    return tree
+    if cfg.n_enc_layers:
+        enc = _layer_specs("attn", dataclasses.replace(cfg, moe=None, qk_norm=False))
+        tree["enc_blocks"] = _stacked(enc, cfg.n_enc_layers)
+        tree["enc_norm"] = Spec((cfg.d_model,))
+        if cfg.cross_attention:
+            tree["cross_blocks"] = _stacked(enc, n_super)
+    return dict(sorted(tree.items()))
 
 
 def _map_specs(fn, tree, path=""):
@@ -307,10 +321,29 @@ def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, to
     return x, _zero(x)
 
 
+def _cross_kv(cp: Params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention keys and values (B, T, KV, hd) of the encoder output."""
+    b, t, _ = enc_out.shape
+    return ((enc_out @ cp["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.hd),
+            (enc_out @ cp["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.hd))
+
+
+def _cross_q(cp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention queries (B, S, KV, G, hd): no qk-norm, no RoPE."""
+    b, s, _ = x.shape
+    kv = cfg.n_kv_heads
+    y = L.rms_norm(x, cp["ln1"], cfg.norm_eps)
+    return (y @ cp["wq"]).reshape(b, s, kv, cfg.n_heads // kv, cfg.hd)
+
+
 def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
                     window: int = 0, positions: Optional[torch.Tensor] = None,
-                    kv_block: int = 1024):
-    """One attention layer over a full sequence x (B, S, D) -> (x, aux, (k, v))."""
+                    kv_block: int = 1024, enc_out: Optional[torch.Tensor] = None,
+                    cross_p: Optional[Params] = None):
+    """One attention layer over a full sequence x (B, S, D) -> (x, aux, (k, v)).
+
+    With ``enc_out`` and ``cross_p`` it attends to the encoder output
+    (non-causal) between its self-attention and its FFN."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -318,6 +351,10 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
     q, k, v = _qkv(p, y, cfg, positions)
     o = attn_lib.attention(q, k, v, causal=causal, window=window, kv_block=kv_block)
     x = x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    if enc_out is not None and cross_p is not None:
+        oc = attn_lib.attention(_cross_q(cross_p, x, cfg), *_cross_kv(cross_p, enc_out, cfg),
+                                causal=False, kv_block=kv_block)
+        x = x + oc.reshape(b, s, cfg.n_heads * cfg.hd) @ cross_p["wo"]
     x, aux = _ffn(p, x, cfg)
     return x, aux, (k, v)
 
@@ -383,33 +420,81 @@ def _attn_window(cfg: ModelConfig) -> int:
 
 
 def _layer_fwd(where: Where, p: Params, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor, kv_block: int):
-    """-> (x, aux, the layer's state: (k, v) for attention)."""
+               positions: torch.Tensor, kv_block: int, cross=None):
+    """-> (x, aux, the layer's state: (k, v) for attention).  ``cross``:
+    (the encoder output, this block's cross-attention params) or None."""
     if where.kind == "attn":
+        enc_out, cross_p = cross if cross is not None else (None, None)
         return _attn_layer_fwd(p, x, cfg, window=_attn_window(cfg), positions=positions,
-                               kv_block=kv_block)
+                               kv_block=kv_block, enc_out=enc_out, cross_p=cross_p)
     if where.kind == "ssm":
         return _ssm_layer_fwd(p, x, cfg)
     return _rec_layer_fwd(p, x, cfg)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            kv_block: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux loss)."""
-    check_supported(cfg)
+def _encoder_fwd(params: Params, frontend: torch.Tensor, cfg: ModelConfig,
+                 kv_block: int = 1024) -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings (B, T, D): the
+    sinusoidal table added, ``n_enc_layers`` non-causal attention layers
+    (RoPE at the default positions on top of the table, as in the
+    reference), then ``enc_norm``."""
+    x = frontend + L.sinusoidal_positions(frontend.shape[1], cfg.d_model, frontend.dtype,
+                                          frontend.device)[None]
+    for i in range(cfg.n_enc_layers):
+        x, _, _ = _attn_layer_fwd(_stacked_at(params["enc_blocks"], i), x, cfg, causal=False,
+                                  kv_block=kv_block)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _frontend_in(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                 frontend: Optional[torch.Tensor], kv_block: int):
+    """The embedded tokens with the frontend applied -> (x, the encoder
+    output or None, the number of prefix positions)."""
     x = _embed(params, tokens, cfg)
+    if cfg.frontend == "none" or (cfg.frontend == "audio" and not cfg.n_enc_layers):
+        return x, None, 0
+    if frontend is None:
+        raise ValueError(f"{cfg.name}: the {cfg.frontend} frontend needs its embeddings "
+                         f"(frontend / batch['frontend'], (B, {cfg.n_frontend_tokens}, "
+                         f"{cfg.d_model}))")
+    if cfg.frontend == "vision":
+        return torch.cat([frontend.to(x.dtype), x], dim=1), None, frontend.shape[1]
+    if frontend.dtype != x.dtype:  # torch does not promote mixed matmuls as jnp does
+        raise ValueError(f"{cfg.name}: frame embeddings in {frontend.dtype}, the model in "
+                         f"{x.dtype}")
+    return x, _encoder_fwd(params, frontend, cfg, kv_block), 0
+
+
+def _cross_at(params: Params, where: Where, enc_out: Optional[torch.Tensor]):
+    """The ``cross`` argument of a layer: super-block ``s``'s cross-attention
+    params with the encoder output, for the blocks' attention layers."""
+    if enc_out is None or where.part != "blocks" or where.kind != "attn":
+        return None
+    return enc_out, _stacked_at(params["cross_blocks"], where.s)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            frontend: Optional[torch.Tensor] = None,
+            kv_block: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux loss);
+    a vision prefix is stripped before the lm head."""
+    x, enc_out, n_prefix = _frontend_in(params, tokens, cfg, frontend, kv_block)
+    if not cfg.cross_attention:
+        enc_out = None
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = _zero(x)
     for where in layer_slots(cfg):
-        x, a, _ = _layer_fwd(where, layer_at(params, where), x, cfg, positions, kv_block)
+        x, a, _ = _layer_fwd(where, layer_at(params, where), x, cfg, positions, kv_block,
+                             _cross_at(params, where, enc_out))
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"], aux
+    return x[:, n_prefix:] @ params["lm_head"], aux
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             kv_block: int = 1024, aux_weight: float = 0.01) -> torch.Tensor:
-    logits, aux = forward(params, batch["tokens"], cfg, kv_block=kv_block)
+    logits, aux = forward(params, batch["tokens"], cfg, frontend=batch.get("frontend"),
+                          kv_block=kv_block)
     return L.cross_entropy(logits, batch["labels"], batch.get("mask")) + aux_weight * aux
 
 
@@ -472,12 +557,18 @@ def _empty_layer_cache(kind: str, cfg: ModelConfig, b: int, eff: int,
 def init_cache(cfg: ModelConfig, b: int, cache_len: int, device="cuda") -> Params:
     """Empty cache, the reference's tree: attention k/v (.., b, eff, KV, hd)
     and kpos (.., eff) = -1 (every slot masked); SSM conv window and f32
-    state; RG-LRU conv window and f32 state; block leaves led by n_super."""
-    check_supported(cfg)
+    state; RG-LRU conv window and f32 state; block leaves led by n_super;
+    with cross-attention, ``cross`` k/v (n_super, b, n_frontend_tokens, KV,
+    hd)."""
     dev = resolve(device)
     eff = cache_window(cfg, cache_len)
-    return _stack_layers(cfg, [_empty_layer_cache(w.kind, cfg, b, eff, dev)
-                               for w in layer_slots(cfg)])
+    cache = _stack_layers(cfg, [_empty_layer_cache(w.kind, cfg, b, eff, dev)
+                                for w in layer_slots(cfg)])
+    if cfg.cross_attention and cfg.n_enc_layers:
+        [(_, n_super)], _ = layer_groups(cfg)
+        shape = (n_super, b, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.hd)
+        cache["cross"] = {k: torch.zeros(shape, dtype=_dt(cfg), device=dev) for k in "kv"}
+    return dict(sorted(cache.items()))
 
 
 def _fill_attn_cache(k: torch.Tensor, v: torch.Tensor, eff: int, s: int) -> Params:
@@ -493,25 +584,40 @@ def _fill_attn_cache(k: torch.Tensor, v: torch.Tensor, eff: int, s: int) -> Para
     return {"k": k[:, s - eff:][:, order], "kpos": pos[order], "v": v[:, s - eff:][:, order]}
 
 
-def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, kv_block: int = 1024,
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            frontend: Optional[torch.Tensor] = None, kv_block: int = 1024,
             cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
     """Full forward that also builds the serving cache, attention caches
     sized ``cache_len`` (prompt + generation budget; default the prompt):
-    returns the last token's logits (B, 1, V) and the cache."""
-    check_supported(cfg)
+    returns the last token's logits (B, 1, V) and the cache.
+
+    Audio: the encoder runs once and each super-block's cross keys and
+    values go to ``cache["cross"]``.  Vision: as in the reference, the
+    patch prefix stays in the attention caches while their ``kpos`` is
+    sized by the text alone, a cache :func:`decode_step` refuses."""
     b, s = tokens.shape
     cache_len = cache_len or s
     if cache_len < s:
         raise ValueError(f"cache_len {cache_len} < prompt length {s}")
     eff = cache_window(cfg, cache_len)
-    x = _embed(params, tokens, cfg)
-    positions = torch.arange(s, device=x.device)[None, :]
-    per_layer = []
+    x, enc_out, _ = _frontend_in(params, tokens, cfg, frontend, kv_block)
+    if not cfg.cross_attention:
+        enc_out = None
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    per_layer, cross = [], []
     for where in layer_slots(cfg):
-        x, _, state = _layer_fwd(where, layer_at(params, where), x, cfg, positions, kv_block)
+        cx = _cross_at(params, where, enc_out)
+        x, _, state = _layer_fwd(where, layer_at(params, where), x, cfg, positions, kv_block,
+                                 cx)
         per_layer.append(_fill_attn_cache(*state, eff, s) if where.kind == "attn" else state)
+        if cx is not None:
+            cross.append(_cross_kv(cx[1], enc_out, cfg))
+    cache = _stack_layers(cfg, per_layer)
+    if cross:
+        cache["cross"] = {"k": torch.stack([k for k, _ in cross]),
+                          "v": torch.stack([v for _, v in cross])}
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, -1:] @ params["lm_head"], _stack_layers(cfg, per_layer)
+    return x[:, -1:] @ params["lm_head"], dict(sorted(cache.items()))
 
 
 def _cache_attention(q, k_cache, v_cache, kpos, pos, window: int):
@@ -530,14 +636,23 @@ def _cache_attention(q, k_cache, v_cache, kpos, pos, window: int):
 
 
 def _attn_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
-                 pos: torch.Tensor, window: int) -> torch.Tensor:
+                 pos: torch.Tensor, window: int, cross=None) -> torch.Tensor:
     """One-token attention layer step; writes the new key/value and its
-    position into the layer cache ``lc`` in place (slot = pos % eff)."""
+    position into the layer cache ``lc`` in place (slot = pos % eff).
+    ``cross``: (this block's cross k/v cache, its cross-attention params)
+    or None."""
     b = x.shape[0]
+    eff = lc["k"].shape[1]
+    if lc["kpos"].shape[-1] != eff:
+        raise ValueError(
+            f"{cfg.name}: the cache holds {eff} key rows a layer but {lc['kpos'].shape[-1]} "
+            f"positions (kpos): the reference's vision prefill keeps the "
+            f"{eff - lc['kpos'].shape[-1]}-row patch prefix in the cache and sizes kpos by "
+            f"the text, and its decode_step cannot read such a cache (incompatible shapes), "
+            f"so neither does this one")
     y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     posv = pos.reshape(-1, 1)
     q, k, v = _qkv(p, y, cfg, posv)
-    eff = lc["k"].shape[1]
     slot = pos % eff
     if lc["kpos"].dim() == 1:  # one position for the whole batch
         lc["k"][:, slot] = k[:, 0]
@@ -550,6 +665,13 @@ def _attn_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
         lc["kpos"][rows, slot] = pos.to(torch.int32)
     o = _cache_attention(q, lc["k"], lc["v"], lc["kpos"], pos, window)
     x = x + o.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+    if cross is not None:  # every encoder slot valid: kpos 0..t-1, pos 2^30
+        ck, cp = cross
+        t = ck["k"].shape[1]
+        oc = _cache_attention(_cross_q(cp, x, cfg), ck["k"], ck["v"],
+                              torch.arange(t, dtype=torch.int32, device=x.device),
+                              torch.full((), 2 ** 30, dtype=torch.int64, device=x.device), 0)
+        x = x + oc.reshape(b, 1, cfg.n_heads * cfg.hd) @ cp["wo"]
     return _ffn(p, x, cfg)[0]
 
 
@@ -579,15 +701,21 @@ def decode_step(params: Params, token: torch.Tensor, cache: Params, pos,
     or (B,) positions for a cache whose kpos has a row per batch row).
 
     Returns (logits (B, 1, V), cache); the cache is updated IN PLACE (the
-    reference donates it to the same effect)."""
-    check_supported(cfg)
+    reference donates it to the same effect).  A cache whose attention
+    keys and positions differ in length (a vision prefill's) raises, as
+    the reference's decode does."""
     x = _embed(params, token, cfg)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     window = decode_window(cfg)
+    has_cross = cfg.cross_attention and "cross" in cache
     for where in layer_slots(cfg):
         p, lc = layer_at(params, where), layer_at(cache, where)
         if where.kind == "attn":
-            x = _attn_decode(p, x, lc, cfg, pos, window)
+            cross = None
+            if has_cross and where.part == "blocks":
+                cross = (_stacked_at(cache["cross"], where.s),
+                         _stacked_at(params["cross_blocks"], where.s))
+            x = _attn_decode(p, x, lc, cfg, pos, window, cross)
         elif where.kind == "ssm":
             x = _ssm_decode(p, x, lc, cfg)
         else:

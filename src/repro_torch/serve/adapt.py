@@ -46,6 +46,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.rounds import compression as comp_lib
 from repro_torch.rounds import engine as rounds_engine
+from repro_torch.serve.engine import refuse_frontend
 from repro_torch.tree import tree_leaves, tree_unflatten_like
 
 _COMP_KEY = 11  # the repo-wide compression key base
@@ -206,6 +207,7 @@ class RoundFn:
     (m, D) rows buffer, allocated at the first round and reused after."""
 
     def __init__(self, cfg: ModelConfig, acfg: AdaptConfig):
+        refuse_frontend(cfg)
         self.cfg = cfg
         self.acfg = acfg
         self.opt = get_optimizer(acfg.optimizer, acfg.lr)

@@ -24,6 +24,10 @@ no meaning without jit; its counterpart here is :meth:`ServeEngine.storage_kept`
 the served parameters and the pool keep their storage across admits,
 retires and swaps.
 
+A frontend configuration (whisper, internvl2) is refused
+(:func:`refuse_frontend`): the reference's engine prefills with no
+frontend, so it serves neither, and the port adds no such feature.
+
 Time model: arrivals are simulated times in ticks (one decode step = one
 time unit), made by :mod:`repro_torch.serve.traffic`.  When the pool is
 empty and no arrival is due, :func:`serve_stream` fast-forwards the clock
@@ -43,6 +47,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps
 from repro_torch.tree import tree_leaves, tree_map
+
+
+def refuse_frontend(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a frontend configuration (whisper,
+    internvl2): the reference's engine prefills every slot with no frontend
+    and its adapter's loss takes none, so it cannot serve these models, and
+    the port adds no serving feature the reference lacks."""
+    if cfg.frontend != "none":
+        raise ValueError(
+            f"{cfg.name}: a model with the {cfg.frontend} frontend cannot be served: the "
+            f"reference's serve engine prefills its slots with no frontend (frontend=None) "
+            f"and its feedback adapter's loss takes none; train it with "
+            f"repro_torch.launch.train")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +214,7 @@ class ServeEngine:
     copies a new iterate into it."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params):
+        refuse_frontend(cfg)
         self.cfg = cfg
         self.scfg = scfg
         self.params = tree_map(lambda t: t.detach().clone(), params)

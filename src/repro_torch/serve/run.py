@@ -137,12 +137,14 @@ def _serve(args, mesh) -> None:
     from repro_torch.fed.population import ArrivalConfig
     from repro_torch.models import transformer as T
     from repro_torch.serve.adapt import AdaptConfig, FeedbackAdapter
-    from repro_torch.serve.engine import ServeConfig, ServeEngine, latency_stats, serve_stream
+    from repro_torch.serve.engine import (ServeConfig, ServeEngine, latency_stats,
+                                          refuse_frontend, serve_stream)
     from repro_torch.serve.traffic import TrafficConfig, VirtualUsers
 
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
     dev = mesh.device
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    refuse_frontend(cfg)
     scfg = ServeConfig(slots=args.slots, prompt_len=args.prompt_len,
                        max_new=args.max_new, eos_id=args.eos_id, window=args.window)
     tcfg = TrafficConfig(

@@ -339,9 +339,12 @@ def test_rejections():
         trainer.train_loop(cfg, ParallelConfig(), TrainConfig(steps=5, device_steps=2), mesh)
     with pytest.raises(ValueError, match="local_steps"):
         steps.make_step_body(cfg, ParallelConfig(local_steps=0), mesh, opt)
-    with pytest.raises(NotImplementedError):
-        steps.make_step_body(dataclasses.replace(cfg, frontend="vision"), ParallelConfig(),
-                             mesh, opt)
+    vision = dataclasses.replace(cfg, frontend="vision", n_frontend_tokens=2)
+    sb = steps.make_step_body(vision, ParallelConfig(), mesh, opt)
+    with pytest.raises(ValueError, match="frontend needs its embeddings"):
+        params = trainer.init_state(vision, mesh, opt)["params"]
+        sb.body(params, opt.init(params), {k: v[0] for k, v in trainer.stack_window_batches(
+            pipeline.DataConfig(**DATA), 0, 1, mesh).items()}, 0, 0)
     for argv in (["--mesh", "single", "--model-par", "2"], ["--model-par", "2"]):
         with pytest.raises(NotImplementedError):
             train.main(["--config", "llama3.2-3b", "--smoke", "--device", "cpu"] + argv)

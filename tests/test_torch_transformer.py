@@ -200,16 +200,17 @@ def test_layers_match_reference():
         np.testing.assert_allclose(float(got), float(want), atol=1e-5)
 
 
-DECODERS = ("llama3.2-3b", "llama3-405b", "qwen3-14b", "h2o-danube-1.8b",
-            "granite-moe-1b-a400m", "grok-1-314b", "mamba2-2.7b", "recurrentgemma-2b")
-NOT_PORTED = ("whisper-small", "internvl2-1b")
+ARCHS = ("llama3.2-3b", "llama3-405b", "qwen3-14b", "h2o-danube-1.8b",
+         "granite-moe-1b-a400m", "grok-1-314b", "mamba2-2.7b", "recurrentgemma-2b",
+         "whisper-small", "internvl2-1b")
 
 
-@pytest.mark.parametrize("arch", DECODERS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_count_params_and_shapes_full_width(arch):
     """count_params and param_shapes at the published widths, nothing
     allocated, equal to the reference's eval_shape count and structure
-    (the SSM's and RG-LRU's float32 leaves of bf16 models included)."""
+    (the SSM's and RG-LRU's float32 leaves of bf16 models included; the
+    encoder and cross-attention groups of whisper)."""
     cfg, rcfg = configs.get_config(arch), ref_get_config(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
     assert T.count_params(cfg) == RT.count_params(rcfg)
@@ -239,17 +240,6 @@ def test_llama3_2_3b_width_at_8_layers():
     cfg = dataclasses.replace(configs.get_config("llama3.2-3b"), n_layers=8)
     assert T.count_params(cfg) == 1_593_363_456 == RT.count_params(
         dataclasses.replace(ref_get_config("llama3.2-3b"), n_layers=8))
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise(arch):
-    """The audio / vision frontends and the encoder with cross-attention
-    are not ported."""
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        T.param_shapes(cfg)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        T.forward({}, torch.zeros((1, 2), dtype=torch.int64), cfg)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
