@@ -219,12 +219,34 @@ Phases (any failure exits non-zero before the final line):
    of 4 prompts of 16 tokens (1500 frames, the chunked attention) and 16
    decode steps; internvl2-1b's prefill, its decode raising; (d)
    ``python -m repro_torch.launch.train --smoke`` for both in this
-   process: one B1 launch a step.
+   process: one B1 launch a step;
+19. FSDP (``param_mode='fsdp'``, the robust reduce-scatter in the
+   backward): (a) 15a's tiny llama in f32 over 4 in-process workers, gather
+   median under sign_flip alpha 0.25, 3 SGD steps on the card and the CPU
+   (within 1e-5) and the card's run bitwise its replicated run, one B1
+   launch a step; (b) 15b's cell (llama3.2-3b's widths at 8 of 28 layers,
+   D = 1,593,363,456 bf16, 4 workers, batch 8, seq 128, AdamW 1e-4) for 8
+   steps in windows of 4: gather median and trimmed mean beta 0.25 under
+   alie alpha 0.25, each with param_mode='fsdp' and then 'replicated'.  The
+   params after each window bitwise equal between the two (compared on the
+   host after the window's clock stopped); fsdp aggregates each ``blocks``
+   leaf once a layer (75 leaves, 3 B1 / B2 launches a step), replicated 12
+   leaves in one; the last step's aggregate bitwise its plain version in
+   column slices; steps/s, the step's split (gradients, attack,
+   reduce-scatter, B1/B2, AdamW), device busy share, peak memory, and B1/B2
+   over the fsdp rows against the 4.756 ms HBM bound; (c) the tiny llama's
+   fsdp train_loop over ProcessGroupAxes under NCCL at world size 1 (the
+   gathers and their reduce-scatter backward as NCCL collectives) bitwise
+   InProcessAxes({"data": 1}), no B1 (one row sorts); (d) the bytes of
+   params and AdamW moments a rank holds of llama3.2-3b at 28 layers, fsdp
+   over 4 ranks against replicated, computed from ``abstract_state``'s
+   shapes on the meta device (not measured).
 The launch counters are zeroed before each of phases 8-13, each run of
-phase 14b, 15b, 16b and 18b, phase 15c, each 16d and 18d run and each call
-(17a), round (17b) or set of calls (17d) of phase 17, and read after; the
-kernels line gives each kernel's launches on them (``launches_new_paths``).
-In phases 4, 6, 8-13, 15c, 17 and 18 the inputs each kernel wrapper gets
+phase 14b, 15b, 16b, 18b and 19b, phases 15c, 19a and 19c, each 16d and 18d
+run and each call (17a), round (17b) or set of calls (17d) of phase 17, and
+read after; the kernels line gives each kernel's launches on them
+(``launches_new_paths``).
+In phases 4, 6, 8-13, 15c, 17, 18 and 19 the inputs each kernel wrapper gets
 (the first call of each shape) are
 recorded, and after the path's counts were read each kernel is run again on
 them and held against its plain version, bitwise (PathInputs); a kernel that
@@ -2790,7 +2812,8 @@ def train_parity(dev):
 
 def train_step_split(cfg, pcfg, mesh, attack, state, batch, step):
     """Wall ms of one more step (not kept) and of its parts: the aggregation
-    (aggregate_by_strategy) and the update (AdamW), each closed by a
+    (aggregate_by_strategy; under fsdp the in-process robust reduce-scatter,
+    ``reduce_scatter_ms``) and the update (AdamW), each closed by a
     synchronize; the per-worker gradients are the rest.  Inside the
     aggregation, the attack on the gathered rows (``attack_ms``) and the
     robust aggregation call (``b1_b2_ms``: B1 / B2 and their output
@@ -2803,7 +2826,8 @@ def train_step_split(cfg, pcfg, mesh, attack, state, batch, step):
     from repro_torch.optim.optimizers import Optimizer, get_optimizer
 
     opt = get_optimizer("adamw", TRAIN_LR)
-    parts = {"aggregate_ms": 0.0, "update_ms": 0.0, "attack_ms": 0.0, "b1_b2_ms": 0.0}
+    parts = {"aggregate_ms": 0.0, "reduce_scatter_ms": 0.0, "update_ms": 0.0,
+             "attack_ms": 0.0, "b1_b2_ms": 0.0}
 
     def timed(key, fn):
         def run(*args, **kwargs):
@@ -2815,9 +2839,10 @@ def train_step_split(cfg, pcfg, mesh, attack, state, batch, step):
             return out
         return run
 
-    real_agg = steps.rounds_dist.aggregate_by_strategy
+    real_agg, real_rs = steps.rounds_dist.aggregate_by_strategy, D.robust_reduce_scatter_dims
     real_attack, real_leaves = D._maybe_attack, aggregators.aggregate_leaves
     steps.rounds_dist.aggregate_by_strategy = timed("aggregate_ms", real_agg)
+    D.robust_reduce_scatter_dims = timed("reduce_scatter_ms", real_rs)
     D._maybe_attack = timed("attack_ms", real_attack)
     aggregators.aggregate_leaves = timed("b1_b2_ms", real_leaves)
     try:
@@ -2831,23 +2856,30 @@ def train_step_split(cfg, pcfg, mesh, attack, state, batch, step):
         del out
     finally:
         steps.rounds_dist.aggregate_by_strategy = real_agg
+        D.robust_reduce_scatter_dims = real_rs
         D._maybe_attack, aggregators.aggregate_leaves = real_attack, real_leaves
     parts["step_ms"] = total
-    parts["worker_grads_ms"] = total - parts["aggregate_ms"] - parts["update_ms"]
+    parts["worker_grads_ms"] = (total - parts["aggregate_ms"] - parts["reduce_scatter_ms"]
+                                - parts["update_ms"])
     return parts
 
 
 def train_kernel_timings(kept, card: str, shape: str = "train grads"):
     """B1 and B2 at the worker-stacked bf16 gradients (4, D) of a trained
-    cell's last step, all leaves in one call: CUDA-event and profiler device
-    ms against the HBM bound, the plain version over column slices."""
+    cell's last step, all leaves in one call (one launch a MAX_LEAVES of
+    them): CUDA-event and profiler device ms against the HBM bound, the
+    plain version over column slices."""
     import torch
 
     from repro_torch.kernels import robust_agg
     from repro_torch.kernels import selection_network as SN
 
+    from repro_torch.kernels import select_codegen
+
     leaves = [x.reshape(x.shape[0], -1) for x in kept[0]]
     m, n = leaves[0].shape[0], sum(x.shape[1] for x in leaves)
+    launches = -(-len(leaves) // select_codegen.MAX_LEAVES)
+    rows = []
     for name, trim, kernel, plain in (
             ("median", 0, lambda: robust_agg.median_many(leaves),
              lambda: [SN.median_select(x[:, a:a + SERVE_SLICE]) for x in leaves
@@ -2857,12 +2889,15 @@ def train_kernel_timings(kept, card: str, shape: str = "train grads"):
                       for a in range(0, x.shape[1], SERVE_SLICE)])):
         b_ms, b_by = bound(name, m, n, trim, 2)
         row = {"shape": shape, "kernel": name, "m": m, "n": n, "leaves": len(leaves),
-               "trim": trim, "dtype": "bfloat16", "ms": time_ms(kernel, 5),
-               "device_ms": device_ms(kernel, 5, KERNEL_NAMES[name], launches=1),
+               "launches": launches, "trim": trim, "dtype": "bfloat16",
+               "ms": time_ms(kernel, 5),
+               "device_ms": device_ms(kernel, 5, KERNEL_NAMES[name], launches=launches),
                "plain_ms": time_ms(plain, 1), "library_ms": None,
                "bound_ms": b_ms, "bound_by": b_by, "card": card}
         print(json.dumps({"timing": row}))
+        rows.append(row)
         torch.cuda.empty_cache()
+    return rows
 
 
 def train_cell(dev, card: str):
@@ -4045,6 +4080,391 @@ def frontends(dev, card: str, on_path):
     return out
 
 
+# ------------------------------------ phase 19: FSDP, the robust reduce-scatter
+#
+# (a) 15a's tiny llama in f32 with param_mode='fsdp' over 4 in-process
+# workers, card against CPU and against the card's replicated gather; (b)
+# 15b's cell (llama3.2-3b's widths at 8 of 28 layers, D = 1,593,363,456 bf16,
+# m = 4, batch 8, seq 128, AdamW 1e-4) for 8 steps in windows of 4, each fsdp
+# run beside the same run replicated; (c) the process group at world size 1
+# under NCCL against InProcessAxes({"data": 1}); (d) the per-rank bytes of
+# llama3.2-3b at all 28 layers over 4 ranks, from the shapes.
+FSDP_TINY_STEPS = 3
+FSDP_STEPS, FSDP_DS = 8, 4
+FSDP_METHODS = ("median", "trimmed_mean")  # gather, under alie alpha 0.25, beta 0.25
+FSDP_RANKS = 4  # phase 19d's process group
+
+
+def window_state(holder):
+    """Patch ``trainer.make_window_step`` so that ``holder["state"]`` is the
+    state each window returns (a reference: the window replaces its entries
+    in place).  Returns the undo."""
+    from repro_torch.launch import trainer
+
+    real = trainer.make_window_step
+
+    def make(*args, **kwargs):
+        window = real(*args, **kwargs)
+
+        def kept(state, batches):
+            holder["state"] = window(state, batches)
+            return holder["state"]
+
+        return kept
+
+    trainer.make_window_step = make
+    return lambda: setattr(trainer, "make_window_step", real)
+
+
+def fsdp_pieces(cfg, mesh) -> int:
+    """The aggregation leaves of one fsdp step on the in-process mesh: each
+    ``blocks`` leaf once a layer, every other sharded leaf once."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    n = 0
+    for (path, d), leaf in zip(tree_leaves_with_path(steps.fsdp_dims(cfg, mesh)),
+                               tree_leaves(T.meta_params(cfg))):
+        if d >= 0:
+            n += leaf.shape[0] if path.startswith("blocks/") else 1
+    return n
+
+
+def fsdp_parity(dev):
+    """Phase 19a: the tiny llama in f32 (TF32 off) with param_mode='fsdp',
+    4 in-process workers, FSDP_TINY_STEPS steps of SGD 0.5 under sign_flip
+    alpha 0.25 (gather median) from one set of params on one batch block,
+    on the card and on the CPU (within TRAIN_TINY_TOL), and the card's run
+    bitwise the card's replicated run; no window waits for the card.  The
+    counters are zeroed just before the card's fsdp run and read just
+    after: one B1 launch a step over all the step's leaves.  Returns
+    them."""
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import robust_agg
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import trainer
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = train_tiny_cfg()
+    atk = AttackConfig("sign_flip", TRAIN_ALPHA)
+    cpu_params = T.init_params(cfg, seed=0, device="cpu")
+    block = trainer.stack_window_batches(DataConfig(**TRAIN_TINY_DATA), 0, FSDP_TINY_STEPS,
+                                         mesh_lib.make_debug_mesh(4, device="cpu"), atk, cfg)
+    runs, counts = {}, None
+    undo = sync_free_windows()
+    try:
+        for name, d, mode in (("card", dev, "fsdp"), ("cpu", torch.device("cpu"), "fsdp"),
+                              ("card replicated", dev, "replicated")):
+            pcfg = ParallelConfig(agg_method="median", agg_strategy="gather", param_mode=mode,
+                                  remat=False)
+            mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, device=d)
+            opt = get_optimizer("sgd", 0.5)
+            state = trainer.init_state(cfg, mesh, opt, seed=0, pcfg=pcfg)
+            state["params"] = tree_map(lambda t: t.to(d), cpu_params)
+            window = trainer.make_window_step(cfg, pcfg, mesh, opt, atk, 1)
+            losses = []
+            if name == "card":
+                torch.cuda.synchronize()
+                _reset_launches()  # zeroed just before the card's fsdp run
+            for i in range(FSDP_TINY_STEPS):
+                before = float(state["metrics"]["loss_sum"])
+                state = window(state, {k: v[i:i + 1].to(d) for k, v in block.items()})
+                losses.append(float(state["metrics"]["loss_sum"]) - before)
+            if name == "card":
+                torch.cuda.synchronize()
+                counts = _launches()  # read just after it
+                leaves = robust_agg.LEAVES["median"]
+            runs[name] = (losses, [t.cpu() for t in tree_leaves(state["params"])])
+    finally:
+        undo()
+    pieces = fsdp_pieces(cfg, mesh_lib.make_debug_mesh(TRAIN_WORKERS, device="cpu"))
+    want = {k: 0 for k in counts}
+    want["median"] = FSDP_TINY_STEPS  # every leaf of a step in one launch
+    check(counts == want and leaves == FSDP_TINY_STEPS * pieces,
+          f"19a: launches {counts} ({leaves} leaves), want {want} ({FSDP_TINY_STEPS * pieces})")
+    (lc, pc), (lx, px), (lr, pr) = runs["card"], runs["cpu"], runs["card replicated"]
+    dl = max(abs(a - b) / abs(b) for a, b in zip(lc, lx))
+    dp = max(float((a - b).abs().max()) for a, b in zip(pc, px))
+    check(dl <= TRAIN_TINY_TOL and dp <= TRAIN_TINY_TOL,
+          f"19a: card vs CPU losses {dl}, params {dp}")
+    bad = sum(compare(a, b)[0] for a, b in zip(pc, pr))
+    check(bad == 0 and lc == lr, f"19a: fsdp vs replicated on the card: {bad} param mismatches, "
+                                 f"losses {lc} vs {lr}")
+    print(f"phase 19a: tiny llama f32, fsdp gather median under sign_flip, {FSDP_TINY_STEPS} "
+          f"steps: card vs CPU losses rel {dl:.3g}, params {dp:.3g} (tolerance "
+          f"{TRAIN_TINY_TOL}); bitwise the card's replicated run; B1 {counts['median']} "
+          f"launches over {leaves} leaves; no window waited for the card")
+    return counts
+
+
+def fsdp_run(dev, card: str, cfg, mode: str, method: str, snaps: list):
+    """One of phase 19b's runs: ``trainer.train_loop`` with ``mode`` and
+    gather ``method`` under alie alpha 0.25, FSDP_STEPS steps in windows of
+    FSDP_DS, every window under the sync-debug "error" mode, the counters
+    zeroed just before and read just after.  After each window (outside the
+    timed window) the fsdp run copies its params to the host (``snaps``)
+    and the replicated run compares its own with them, bitwise.  Returns
+    {"launches", "line", "kept"} (kept: the last step's rows on the fsdp
+    median run)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import robust_agg, select_codegen
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, trainer
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.tree import tree_leaves
+
+    run = f"{mode} gather/{method}/alie"
+    mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, device=dev)
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=FSDP_STEPS, device_steps=FSDP_DS)
+    pcfg = ParallelConfig(agg_method=method, agg_strategy="gather", agg_beta=TRAIN_BETA,
+                          param_mode=mode, attn_chunk=0)
+    atk = AttackConfig("alie", TRAIN_ALPHA)
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    holder, mismatches = {}, []
+
+    def on_window(w, met):
+        params = tree_leaves(holder["state"]["params"])
+        if mode == "fsdp":
+            snaps.append([t.cpu() for t in params])
+        else:
+            mismatches.append(sum(compare(t, s.to(dev))[0] for t, s in zip(params, snaps[w])))
+
+    keep = mode == "fsdp" and method == "median"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # zeroed just before this run
+    undo = [sync_free_windows(), window_state(holder)]
+    t0 = time.perf_counter()
+    try:
+        with HeldAggregation(dev, hold=lambda c: c == FSDP_STEPS - 1,
+                             keep=lambda c: keep and c == FSDP_STEPS - 1) as held:
+            result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk,
+                                        on_window=on_window)
+    finally:
+        for u in reversed(undo):
+            u()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()  # read just after it
+    leaves = dict(robust_agg.LEAVES)
+    peak = torch.cuda.max_memory_allocated()
+    pieces = fsdp_pieces(cfg, mesh) if mode == "fsdp" else len(tree_leaves(result.state["params"]))
+    per_step = math.ceil(pieces / select_codegen.MAX_LEAVES)
+    want = {k: 0 for k in launches}
+    want[method] = FSDP_STEPS * per_step
+    check(launches == want and leaves[method] == FSDP_STEPS * pieces,
+          f"19b {run}: launches {launches} ({leaves}), want {want} ({FSDP_STEPS * pieces} "
+          f"leaves)")
+    check(held.held == 1, f"19b {run}: the last step's aggregate not held")
+    if mode == "replicated":
+        check(len(mismatches) == FSDP_STEPS // FSDP_DS and not any(mismatches),
+              f"19b {method}: fsdp vs replicated params after each window: {mismatches} "
+              "mismatches")
+    hist = result.history
+    losses = [h["loss"] for h in hist]
+    check(all(v == v and abs(v) < 1e4 for v in losses), f"19b {run}: {losses}")
+    batch = {k: v[0] for k, v in trainer.stack_window_batches(
+        dcfg, FSDP_STEPS, 1, mesh, atk, cfg).items()}
+    split = train_step_split(cfg, pcfg, mesh, atk, result.state, batch, FSDP_STEPS)
+    sb = steps.make_step_body(cfg, pcfg, mesh, get_optimizer("adamw", TRAIN_LR), atk)
+    prof = profile_summary(lambda: sb.body(result.state["params"], result.state["opt_state"],
+                                           batch, FSDP_STEPS, 0),
+                           split["step_ms"], top=10, names=("leaf_select_kernel",))
+    line = {"fsdp_run": run, "d": SERVE_D, "steps": FSDP_STEPS, "device_steps": FSDP_DS,
+            "workers": TRAIN_WORKERS, "tokens_per_step": dcfg.global_batch * dcfg.seq_len,
+            "steps_per_s": result.steps_per_s, "tokens_per_s": result.tokens_per_s,
+            "first_window_s": result.compile_s, "window_times_s": result.window_times_s,
+            "run_wall_s": wall, "losses": losses,
+            "grad_norm_last_window": hist[-1]["grad_norm"], "launches": launches,
+            "leaves_aggregated": leaves, "b1_b2_launches_per_step": per_step,
+            "aggregation_leaves_per_step": pieces, "window_mismatches": mismatches,
+            "max_memory_allocated_gb": peak / 1e9, "card_memory_gb": total_mem / 1e9,
+            "split_ms": split, "device_busy_share": prof["device_busy_share"], "card": card}
+    print(json.dumps({"fsdp_train": line}))
+    print(json.dumps({"profile_fsdp_step": run, **prof}))
+    print(f"phase 19b: {run}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{result.steps_per_s:.3f} steps/s, {result.tokens_per_s:.0f} tokens/s, step "
+          f"{split['step_ms']:.1f} ms (grads {split['worker_grads_ms']:.1f}, attack "
+          f"{split['attack_ms']:.1f}, reduce-scatter {split['reduce_scatter_ms']:.1f}, "
+          f"gather agg {split['aggregate_ms']:.1f}, B1/B2 {split['b1_b2_ms']:.1f}, update "
+          f"{split['update_ms']:.1f}), busy {prof['device_busy_share']:.3f}, {per_step} "
+          f"launches a step over {pieces} leaves, peak {peak / 1e9:.2f} GB")
+    check(peak < total_mem, f"19b {run}: peak {peak} >= the card's {total_mem}")
+    kept = held.kept
+    del result, sb, held, batch, holder
+    torch.cuda.empty_cache()
+    return {"launches": launches, "line": line, "kept": kept}
+
+
+def fsdp_cell(dev, card: str, on_path):
+    """Phase 19b: llama3.2-3b's widths at 8 layers, each of FSDP_METHODS
+    under fsdp and then replicated (:func:`fsdp_run`).  Each fsdp run is a
+    path of its own: its kernels held bitwise against their plain versions
+    on the run's recorded inputs (PathInputs: one copy of the (4, D) rows,
+    which the card holds beside the run); every run's last aggregate is
+    held in column slices (the replicated runs are 15b's path, there for
+    the comparison).  B1 and B2 timed on the fsdp median run's last rows
+    (three launches over its 75 leaves).  Returns the fsdp runs'
+    launches."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    cfg = serve_cfg(tiny=False)
+    check(T.count_params(cfg) == SERVE_D, f"19b: {T.count_params(cfg)} parameters")
+    total = {}
+    for method in FSDP_METHODS:
+        snaps = []
+        for mode in ("fsdp", "replicated"):
+            if mode == "fsdp":
+                out = on_path(f"phase 19b fsdp {method}",
+                              lambda: fsdp_run(dev, card, cfg, mode, method, snaps),
+                              lambda o: o["launches"])
+                _add(total, out["launches"])
+            else:
+                out = fsdp_run(dev, card, cfg, mode, method, snaps)
+            if out["kept"] is not None:
+                rows = train_kernel_timings(out["kept"], card, "fsdp reduce-scatter rows")
+                print(json.dumps({"fsdp_kernels": [
+                    {k: r[k] for k in ("kernel", "launches", "leaves", "ms", "device_ms",
+                                       "bound_ms", "plain_ms")} for r in rows], "card": card}))
+            del out
+            torch.cuda.empty_cache()
+        del snaps
+    print(f"phase 19b: fsdp params bitwise the replicated run's after each window, median and "
+          f"trimmed mean beta {TRAIN_BETA} under alie")
+    return total
+
+
+def fsdp_process_group(dev):
+    """Phase 19c: a NCCL process group of world size 1 in this process
+    (file:// rendezvous under build/): the tiny llama's fsdp train_loop
+    (gather median, AdamW 1e-2, FSDP_TINY_STEPS steps) over
+    ``make_production_mesh`` (ProcessGroupAxes: the autograd gathers and
+    their reduce-scatter backward as NCCL collectives) bitwise the same
+    run over make_debug_mesh(1) (InProcessAxes({"data": 1})).  Counters
+    zeroed before the process group's run and read after: no B1, the
+    median of one row takes the sort path.  Returns them."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = train_tiny_cfg()
+    pcfg = ParallelConfig(agg_method="median", agg_strategy="gather", param_mode="fsdp",
+                          remat=False)
+    tcfg = TrainConfig(optimizer="adamw", lr=1e-2, steps=FSDP_TINY_STEPS, device_steps=1)
+    dcfg = DataConfig(**dict(TRAIN_TINY_DATA, num_workers=1))
+    rdv = ROOT / "build" / f"chip_smoke_fsdp_pg_{os.getpid()}"
+    rdv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        pg = mesh_lib.make_production_mesh(device=dev)
+        check(pg.per_rank and mesh_lib.num_workers(pg) == 1, f"19c: mesh {pg}")
+        torch.cuda.synchronize()
+        _reset_launches()  # zeroed just before the process group's run
+        got = trainer.train_loop(cfg, pcfg, tcfg, pg, dcfg=dcfg)
+        torch.cuda.synchronize()
+        counts = _launches()  # read just after it
+        calls = dict(pg.axes.calls)
+    finally:
+        dist.destroy_process_group()
+        rdv.unlink(missing_ok=True)
+    ip = mesh_lib.make_debug_mesh(1, device=dev)
+    want = trainer.train_loop(cfg, pcfg, tcfg, ip, dcfg=dcfg)
+    bad = sum(compare(a, b)[0] for a, b in zip(tree_leaves(got.state["params"]),
+                                                tree_leaves(want.state["params"])))
+    check(bad == 0, f"19c: ProcessGroupAxes vs InProcessAxes params: {bad} mismatches")
+    check([h["loss"] for h in got.history] == [h["loss"] for h in want.history],
+          "19c: losses differ")
+    check(not any(counts.values()), f"19c: launches {counts}")
+    check(calls.get("all_gather", 0) > 0 and calls.get("all_to_all", 0) > 0,
+          f"19c: collectives {calls}")
+    print(f"phase 19c: fsdp over ProcessGroupAxes (NCCL, world size 1), {FSDP_TINY_STEPS} "
+          f"steps of the tiny llama: params and losses bitwise InProcessAxes({{'data': 1}}); "
+          f"collectives {json.dumps(calls)}; no kernel launched (one row sorts)")
+    return counts
+
+
+def fsdp_memory():
+    """Phase 19d: the bytes a rank holds of llama3.2-3b's params and AdamW
+    moments at all 28 layers, fsdp over FSDP_RANKS ranks against
+    replicated, from ``trainer.abstract_state`` on the meta device:
+    computed from the shapes, not measured."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import trainer
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("llama3.2-3b")
+    mesh = mesh_lib.Mesh(("data", "model"), (FSDP_RANKS, 1), torch.device("cpu"),
+                         D.InProcessAxes({"data": FSDP_RANKS}, "cpu"), rank=0, per_rank=True)
+    opt = get_optimizer("adamw", TRAIN_LR)
+    out = {}
+    for mode in ("fsdp", "replicated"):
+        st = trainer.abstract_state(cfg, mesh, opt, ParallelConfig(param_mode=mode))
+        out[mode] = {k: sum(t.numel() * t.element_size() for t in tree_leaves(st[k]))
+                     for k in ("params", "opt_state")}
+    d = T.count_params(cfg)
+    check(out["replicated"]["params"] == 2 * d and out["replicated"]["opt_state"] == 8 * d,
+          f"19d: {out}")
+    check(all(out["fsdp"][k] * FSDP_RANKS == out["replicated"][k] for k in out["fsdp"]),
+          f"19d: {out}")
+    print(json.dumps({"fsdp_rank_bytes": out, "d": d, "layers": cfg.n_layers,
+                      "ranks": FSDP_RANKS, "source": "computed from the shapes on the meta "
+                                                    "device, not measured"}))
+    gb = {m: (v["params"] + v["opt_state"]) / 1e9 for m, v in out.items()}
+    print(f"phase 19d: llama3.2-3b at {cfg.n_layers} layers (D = {d:,}), params + AdamW "
+          f"moments a rank: fsdp over {FSDP_RANKS} ranks {gb['fsdp']:.2f} GB, replicated "
+          f"{gb['replicated']:.2f} GB (computed from the shapes, not measured; gradients, the "
+          f"gathered weights autograd keeps and activations come on top)")
+
+
+def fsdp(dev, card: str, on_path):
+    """Phase 19: 19a-19d, each training path under ``on_path``; returns the
+    launches of 19a's, 19b's fsdp runs and 19c's."""
+    t0 = time.perf_counter()
+    out = {"fsdp_tiny": on_path("phase 19a", lambda: fsdp_parity(dev), lambda c: c)}
+    print(f"phase 19a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["fsdp_train"] = fsdp_cell(dev, card, on_path)
+    print(f"phase 19b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["fsdp_process_group"] = on_path("phase 19c", lambda: fsdp_process_group(dev),
+                                        lambda c: c)
+    print(f"phase 19c: {time.perf_counter() - t0:.1f} s")
+    fsdp_memory()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4171,6 +4591,12 @@ def main() -> None:
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 18 built order-statistic programs that phase 1 did not")
+    libs_before = len(robust_agg.select_libraries())
+    t0 = time.perf_counter()
+    new_paths.update(fsdp(dev, card, on_path))
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    check(len(robust_agg.select_libraries()) == libs_before,
+          "phase 19 built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")

@@ -45,6 +45,11 @@ for the byte costs on a real interconnect):
 ``hierarchical``  median of medians: within the inner axis, then across
                   the outer one (a different estimator).
 
+The robust FSDP parameter gather (:func:`make_robust_param_gather_dim`) is
+an autograd ``Function`` over the same interface: all_gather in the
+forward, ``rs`` of the cotangent (:func:`robust_reduce_scatter_dims`) in
+the backward.
+
 Byzantine simulation as in the reference: gradient-space attacks run where
 the per-worker rows are visible (after the gather / all_to_all), by the
 rows' worker index against the attack's Byzantine cut; the chunked and
@@ -606,6 +611,84 @@ def robust_reduce_scatter(flat: torch.Tensor, ax: Collectives, axis_names: Seque
     """Robust replacement for ``psum_scatter`` on a flat vector: only this
     worker's aggregated bucket (padded bucket size), varying."""
     return _robust_scatter_flat(ax, flat, axis_names, method, beta, attack, agg_dtype)[0]
+
+
+def robust_reduce_scatter_dims(cts: Sequence[torch.Tensor], dims: Sequence[int],
+                               ax: Collectives, axis_names: Sequence[str],
+                               method: str = "median", beta: float = 0.1,
+                               attack: Optional[AttackConfig] = None) -> list:
+    """The robust parameter gather's backward for each varying full-size
+    cotangent ``cts[i]`` along ``dims[i]``: the dim moved to the front, the
+    cotangent raveled and :func:`robust_reduce_scatter`-ed, so that every
+    worker gets its own shard (chunk ``w`` along the dim, varying) of the
+    robust aggregate of the m workers' cotangents.  Each cotangent is its
+    own bucket (the attack sees it alone); the buckets of all of them take
+    ONE aggregation call (one B1 / B2 launch for up to MAX_LEAVES leaves of
+    a dtype on the card).  The attack runs with no key, as the
+    reference's."""
+    names = tuple(axis_names)
+    m = ax.size(names)
+    vs = ax.vshape(names)
+    k = len(vs)
+    rows, shapes = [], []
+    for ct, dim in zip(cts, dims):
+        moved = ct.movedim(k + dim, k)
+        if moved.shape[k] % m:
+            raise ValueError(f"dim {dim} of size {moved.shape[k]} does not split over {m} "
+                             "workers")
+        r, _ = _scatter_rows(ax, _flat(ax, names, moved), names)
+        rows.append(_maybe_attack(ax, names, r, attack, m, None))
+        shapes.append((moved.shape[k] // m,) + tuple(moved.shape[k + 1:]))
+    mines = _aggregate_rows(ax, names, rows, method, beta)
+    del rows
+    return [mine.to(ct.dtype).reshape(vs + shape).movedim(k, k + dim)
+            for mine, shape, ct, dim in zip(mines, shapes, cts, dims)]
+
+
+class _RobustParamGather(torch.autograd.Function):
+    """Forward: every worker's shard all-gathered along ``dim`` (each
+    worker its own copy of the full tensor, varying, so that the
+    cotangents come back per worker), laid out contiguously as the full
+    parameter is (a transposed view would send the matmuls that read it
+    down another cuBLAS path, which rounds differently).  Backward:
+    :func:`robust_reduce_scatter_dims`, the shard of the robust aggregate
+    in place of the summed cotangent."""
+
+    @staticmethod
+    def forward(ctx, shard, ax, names, dim, method, beta, attack):
+        ctx.args = (ax, names, dim, method, beta, attack)
+        vo = len(ax.vshape(ax.outer(names)))
+        vn = ax.vshape(names)
+        front = vo + len(vn)
+        full = ax.all_gather(shard.movedim(front + dim, front), names, tiled=True)
+        full = full.movedim(vo, vo + dim).contiguous()
+        lead, local = full.shape[:vo], full.shape[vo:]
+        return full.reshape(lead + (1,) * len(vn) + local).expand(lead + vn + local)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ax, names, dim, method, beta, attack = ctx.args
+        (shard,) = robust_reduce_scatter_dims([ct], [dim], ax, names, method, beta, attack)
+        return shard, None, None, None, None, None, None
+
+
+def make_robust_param_gather_dim(ax: Collectives, axis_names: Sequence[str], dim: int,
+                                 method: str = "median", beta: float = 0.1,
+                                 attack: Optional[AttackConfig] = None) -> Callable:
+    """``gather(w_shard) -> w_full`` along tensor dim ``dim`` (the leaf's
+    FSDP dim) over ``axis_names``, whose backward is the robust
+    reduce-scatter in place of ``psum_scatter``: each worker's shard
+    gradient is its chunk of the exact coordinate-wise median / trimmed
+    mean of the m per-worker gradients of the full tensor."""
+    names = tuple(axis_names)
+    return lambda w: _RobustParamGather.apply(w, ax, names, dim, method, beta, attack)
+
+
+def make_robust_param_gather(ax: Collectives, axis_names: Sequence[str],
+                             method: str = "median", beta: float = 0.1,
+                             attack: Optional[AttackConfig] = None) -> Callable:
+    """:func:`make_robust_param_gather_dim` along dim 0."""
+    return make_robust_param_gather_dim(ax, axis_names, 0, method, beta, attack)
 
 
 # --------------------------------------------------------------------------

@@ -28,9 +28,25 @@ a batch-1 decode (pinned in tests/test_torch_serve.py).
 The global batch every worker builds alike (``make_lm_batch``, and a
 frontend configuration's ``frontend`` embeddings) is cut on its batch dim
 into the workers' shards by ``Collectives.local_rows``: worker-stacked on
-the in-process mesh, this rank's own rows under a process group.  FSDP
-(``param_mode='fsdp'``) and the dry-run ``input_specs`` wait for later
-slices (ROADMAP queue A item 6 step 3, item 10).
+the in-process mesh, this rank's own rows under a process group.
+
+FSDP (``param_mode='fsdp'``): each parameter leaf is split over the
+workers along its FSDP dim (:func:`fsdp_dims`), gathered for the forward,
+and the gather's backward is the robust reduce-scatter
+(:func:`repro_torch.core.distributed.make_robust_param_gather_dim`): a
+worker's shard gradient is its chunk of the exact median / trimmed mean
+of the m workers' gradients.  Under a process group a rank holds only its
+shards (and their optimizer state), the ``blocks`` group is gathered one
+super-block at a time and every other group whole, as the reference's
+providers do.  On the in-process mesh the workers run one after the
+other, so one worker's backward cannot meet the others' cotangents: the
+params stay the global view (worker w's shard is chunk w along the dim,
+as JAX holds a sharded global array), the per-worker gradients are
+computed as in the replicated mode, and each leaf (each layer of a
+``blocks`` leaf) is then robust-reduce-scattered along its dim, all of
+them in one aggregation call.  Both give the same shards bit for bit.
+The dry-run ``input_specs`` waits for a later slice (ROADMAP queue A
+item 10).
 """
 from __future__ import annotations
 
@@ -41,18 +57,128 @@ import torch
 
 from repro_torch import rng
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.core import distributed
 from repro_torch.core.attacks import AttackConfig
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.rounds import comm
 from repro_torch.rounds import compression as comp_lib
 from repro_torch.rounds import distributed as rounds_dist
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
+from repro_torch.tree import (tree_leaves, tree_leaves_with_path, tree_map,
+                              tree_map_with_path, tree_unflatten_like)
 
 #: key bases of the step: codecs fold the step into _COMP_KEY (the
 #: reference's PRNGKey(11)); attacks fold it into the run's base key
 _COMP_KEY = 11
+
+
+# ---------------------------------------------------------------------------
+# sharding helpers: one spec (a tuple, an axis name or None per dim) or one
+# FSDP dim per parameter leaf, in trees shaped like the params
+# ---------------------------------------------------------------------------
+
+
+def _batch_entry(axes: Tuple[str, ...]):
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _model_size(mesh: mesh_lib.Mesh) -> int:
+    return mesh_lib.mesh_shape_dict(mesh).get("model", 1)
+
+
+def param_shardings(cfg: ModelConfig, mesh: mesh_lib.Mesh):
+    """The replicated params' specs: the model-axis rules of
+    :mod:`repro_torch.models.sharding` at the mesh's model size."""
+    return sharding.tree_partition_specs(T.meta_params(cfg), "model", _model_size(mesh))
+
+
+def abstract_params(cfg: ModelConfig, mesh: mesh_lib.Mesh):
+    """The replicated params as tensors on the meta device."""
+    del mesh  # every worker holds them whole
+    return T.meta_params(cfg)
+
+
+def abstract_opt_state(opt: Optimizer, cfg: ModelConfig, mesh: mesh_lib.Mesh):
+    """The optimizer state of the replicated params on the meta device."""
+    return opt.init(abstract_params(cfg, mesh))
+
+
+def fsdp_dims(cfg: ModelConfig, mesh: mesh_lib.Mesh):
+    """The FSDP dim of every parameter leaf: its largest dim divisible by
+    the worker count (ties to the last), never dim 0 of a layer-stacked
+    group's leaf, and never the dim the model axis takes
+    (:func:`param_shardings`) unless no other dim qualifies; -1 where none
+    does (the leaf stays replicated)."""
+    m = mesh_lib.num_workers(mesh)
+    mm = _model_size(mesh)
+
+    def visit(path, leaf):
+        shape = tuple(leaf.shape)
+        stacked = path.split("/")[0] in ("blocks",) + _STACKED  # dim 0 the layers
+        spec = sharding.param_partition_spec(path, shape, "model", mm)
+        model_dim = next((i for i, e in enumerate(spec) if e == "model"), None)
+
+        def cands(avoid):
+            return [(size, d) for d, size in enumerate(shape)
+                    if size % m == 0 and size >= m and not (stacked and d == 0)
+                    and d != avoid]
+
+        best = cands(model_dim) or cands(None)  # the model dim yields last
+        return max(best)[1] if best else -1
+
+    return tree_map_with_path(visit, T.meta_params(cfg))
+
+
+def fsdp_param_shardings(cfg: ModelConfig, mesh: mesh_lib.Mesh):
+    """(specs, dims): the model-axis specs with the worker axes on each
+    leaf's FSDP dim (the model axis yields there), and :func:`fsdp_dims`."""
+    dims = fsdp_dims(cfg, mesh)
+    entry = _batch_entry(mesh_lib.worker_axes(mesh))
+    meta = T.meta_params(cfg)
+
+    def combine(leaf, spec, dim):
+        entries = list(spec)
+        if dim >= 0:
+            entries[dim] = entry
+        return tuple(entries)
+
+    return tree_map(combine, meta, param_shardings(cfg, mesh), dims), dims
+
+
+def fsdp_manual_specs(cfg: ModelConfig, mesh: mesh_lib.Mesh):
+    """The worker-axes-only specs of the FSDP params (the reference's
+    shard_map in_specs)."""
+    entry = _batch_entry(mesh_lib.worker_axes(mesh))
+    return tree_map(lambda leaf, dim: tuple(entry if d == dim else None
+                                            for d in range(leaf.dim())),
+                    T.meta_params(cfg), fsdp_dims(cfg, mesh))
+
+
+def fsdp_shard(tree, dims, index: int, m: int):
+    """Worker ``index``'s shards of a full parameter tree (or of a tree
+    shaped like it, the optimizer's moments): chunk ``index`` of m along
+    each leaf's FSDP dim, copied so the full tensor can be freed; a
+    replicated leaf (dim -1) as it is."""
+    return tree_map(lambda t, d: t if d < 0 else
+                    t.chunk(m, d)[index].clone(memory_format=torch.contiguous_format),
+                    tree, dims)
+
+
+def abstract_params_fsdp(cfg: ModelConfig, mesh: mesh_lib.Mesh):
+    """The FSDP params on the meta device: the global shapes on the
+    in-process mesh (its params are the global view), a rank's shard
+    shapes under a process group."""
+    meta = T.meta_params(cfg)
+    if not mesh.per_rank:
+        return meta
+    return fsdp_shard(meta, fsdp_dims(cfg, mesh), 0, mesh_lib.num_workers(mesh))
+
+
+def abstract_opt_state_fsdp(opt: Optimizer, cfg: ModelConfig, mesh: mesh_lib.Mesh):
+    """The optimizer state of :func:`abstract_params_fsdp`."""
+    return opt.init(abstract_params_fsdp(cfg, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -108,15 +234,62 @@ def _stacked_pieces(buf, k: int):
     return out
 
 
-def _value_and_grad(cfg: ModelConfig, kv_block: int):
+def _value_and_grad(cfg: ModelConfig, kv_block: int, transform: Optional[Callable] = None,
+                    block_provider: Optional[Callable] = None):
+    """``vg(pieces, batch) -> (loss, grads)``: the gradient of every leaf of
+    ``pieces`` (exact zeros where the loss does not read it, as JAX gives);
+    ``transform`` maps the leaves to the tree the model runs with."""
     def vg(pieces, batch):
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(pieces)]
-        loss = T.loss_fn(tree_unflatten_like(pieces, leaves), batch, cfg, kv_block=kv_block)
+        tree = tree_unflatten_like(pieces, leaves)
+        loss = T.loss_fn(tree if transform is None else transform(tree), batch, cfg,
+                         kv_block=kv_block, block_provider=block_provider)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
         return loss.detach(), tree_unflatten_like(pieces, grads)
 
     return vg
+
+
+def _fsdp_providers(ax, waxes, dims, pcfg: ParallelConfig, attack):
+    """(transform, block_provider) over a rank's shards, the reference's
+    ``_make_providers``: every group but ``blocks`` gathered whole by
+    ``transform`` (the stacked encoder and cross groups then unbound per
+    layer), each super-block of ``blocks`` by ``block_provider`` in the
+    forward (its dims lose the stacking dim).  A gathered tensor the loss
+    does not read never runs its backward, so its shard's gradient is the
+    trainer's exact zeros, with no collective on any rank."""
+    def gather(dim):
+        if dim < 0:
+            return lambda w: w
+        return distributed.make_robust_param_gather_dim(ax, waxes, dim, pcfg.agg_method,
+                                                        pcfg.agg_beta, attack)
+
+    def block_provider(block):
+        return {key: {n: gather(dims["blocks"][key][n] - 1 if dims["blocks"][key][n] >= 0
+                                else -1)(w) for n, w in group.items()}
+                for key, group in block.items()}
+
+    def transform(tree):
+        out = {}
+        for key, group in tree.items():
+            if key == "blocks":
+                out[key] = group  # gathered a super-block at a time in the forward
+                continue
+            full = tree_map(lambda w, d: gather(d)(w), group, dims[key])
+            out[key] = ({n: tuple(t.unbind(0)) for n, t in full.items()} if key in _STACKED
+                        else full)
+        return out
+
+    return transform, block_provider
+
+
+def _global_view(shards: torch.Tensor, k: int, dim: int) -> torch.Tensor:
+    """The tensor whose chunk w along ``dim`` is worker w's shard, from the
+    in-process shards of :func:`repro_torch.core.distributed.robust_reduce_scatter_dims`
+    (k worker dims, row-major = the bucket order): a view of them."""
+    rows = shards.flatten(0, k - 1) if k > 1 else shards
+    return rows.movedim(1 + dim, 1).flatten(0, 1).movedim(0, dim)
 
 
 def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
@@ -126,8 +299,19 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
 
     All build-time validation lives here (attack access vs strategy,
     adaptive and fsdp-randomized rejections, codec and local-steps
-    constraints), as in the reference.  ``pcfg.remat`` has no effect: the
-    port's forward keeps its activations."""
+    constraints, fsdp with a codec or local steps), as in the reference.
+    ``pcfg.remat`` has no effect: the port's forward keeps its activations,
+    so under fsdp autograd keeps every layer's gathered weights for the
+    backward.
+
+    ``param_mode='fsdp'`` (module docstring): the params (and the optimizer
+    state) are the global view on the in-process mesh and a rank's shards
+    under a process group.  Sharded leaves arrive aggregated by the robust
+    reduce-scatter; replicated ones (FSDP dim -1) take the gather strategy
+    with the step's attack key; ``grad_norm`` psums each worker's sum of
+    squares over the workers, so a replicated leaf counts m times, as in
+    the reference."""
+    fsdp = pcfg.param_mode == "fsdp"
     if attack is not None and attack.name != "none" and attack.alpha > 0:
         atk_spec, _ = attack.resolve()  # raises early on unknown names
         comm.validate_attack_strategy(attack, pcfg.agg_strategy)
@@ -136,28 +320,33 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
                 f"attack {attack.name!r} is adaptive (reads the previous "
                 "aggregate), which the distributed train step does not "
                 "thread; use core.robust_gd or repro_torch.fed for adaptive attacks")
-        if atk_spec.randomized and pcfg.param_mode == "fsdp":
+        if atk_spec.randomized and fsdp:
             raise ValueError(
                 f"attack {attack.name!r} is randomized; the fsdp backward-pass "
                 "attack path has no per-step key — use agg_strategy gather/"
                 "bucketed/chunked with param_mode='replicated'")
-    if pcfg.param_mode == "fsdp":
-        raise NotImplementedError(
-            "param_mode='fsdp' (the robust reduce-scatter in the backward over the "
-            "torch.distributed process group) is not ported yet (ROADMAP queue A item 6, "
-            "step 3)")
-    if pcfg.param_mode != "replicated":
+    if pcfg.param_mode not in ("replicated", "fsdp"):
         raise ValueError(f"unknown param_mode {pcfg.param_mode!r}")
     spec = comp_lib.get_compression(pcfg.compression)  # validates the name
     ef = spec.error_feedback
+    if pcfg.compression != "none" and fsdp:
+        raise ValueError(
+            "compression needs param_mode='replicated': the fsdp path fuses "
+            "robust aggregation into the parameter-gather backward, so there "
+            "is no transmitted gradient payload to encode")
     tau = pcfg.local_steps
     if tau < 1:
         raise ValueError(f"local_steps must be >= 1, got {tau}")
+    if tau > 1 and fsdp:
+        raise ValueError(
+            "local_steps > 1 needs param_mode='replicated': the fsdp "
+            "robust reduce-scatter fires a collective per local step")
     agg_dtype = getattr(torch, pcfg.agg_dtype) if pcfg.agg_dtype else None
     ax = mesh.axes
     waxes = mesh_lib.worker_axes(mesh)
     m = mesh_lib.num_workers(mesh)
     vs = ax.vshape(waxes)
+    k = len(vs)
     vg = _value_and_grad(cfg, pcfg.attn_chunk)
     buf = {}  # the worker-stacked gradients, allocated at the first step
 
@@ -178,7 +367,7 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
             buf["g"] = tree_map(lambda p: torch.empty(vs + p.shape, dtype=p.dtype,
                                                       device=p.device), params)
             buf["loss"] = torch.empty(vs, dtype=torch.float32, device=mesh.device)
-        vbatch = {k: ax.local_rows(v, waxes) for k, v in batch.items()}
+        vbatch = {key: ax.local_rows(v, waxes) for key, v in batch.items()}
         pieces = _pieces(params)
         ax.map_workers(lambda w, bt: local(w, bt, pieces), waxes, vbatch,
                        out=(buf["loss"], _stacked_pieces(buf["g"], len(vs))))
@@ -211,11 +400,94 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
             metrics = {"loss": ax.psum(losses, waxes) / m, "grad_norm": torch.sqrt(sq)}
         return new_params, new_opt, comp, metrics
 
+    if fsdp:
+        dims = fsdp_dims(cfg, mesh)
+        pg_vg = _value_and_grad(cfg, pcfg.attn_chunk,
+                                *_fsdp_providers(ax, waxes, dims, pcfg, attack))
+
+        def rank_grads(params, batch):
+            """This rank's loss and its shards' gradients: the sharded
+            leaves' already aggregated by the gathers' backward."""
+            pieces = dict(params)
+            pieces["blocks"] = {key: {n: tuple(v.unbind(0)) for n, v in group.items()}
+                                for key, group in params["blocks"].items()}
+            loss, g = pg_vg(pieces, {key: ax.local_rows(v, waxes) for key, v in batch.items()})
+            g["blocks"] = {key: {n: torch.stack(t) for n, t in group.items()}
+                           for key, group in g["blocks"].items()}
+            return loss, g
+
+        def sq_sum(t):
+            """Each worker's sum of squares of its shard ``t``."""
+            return (t.float() ** 2).reshape(vs + (-1,)).sum(-1)
+
+        def reduce_scatter_in_process(grads):
+            """The worker-stacked gradients' sharded leaves robust-reduce-
+            scattered along their dims (a ``blocks`` leaf layer by layer, as
+            the reference gathers them), all in one aggregation call: (the
+            global view of each leaf's aggregate, each worker's sum of
+            squares of its shards of it), by leaf index."""
+            leaves, dl = tree_leaves(grads), tree_leaves(dims)
+            paths = [p for p, _ in tree_leaves_with_path(grads)]
+            cts, cdims, owner = [], [], []
+            for i, (path, g, d) in enumerate(zip(paths, leaves, dl)):
+                if d < 0:
+                    continue
+                layers = range(g.shape[k]) if path.startswith("blocks/") else [None]
+                for s in layers:
+                    cts.append(g if s is None else g.select(k, s))
+                    cdims.append(d if s is None else d - 1)
+                    owner.append(i)
+            shards = distributed.robust_reduce_scatter_dims(
+                cts, cdims, ax, waxes, pcfg.agg_method, pcfg.agg_beta, attack)
+            views, sqs = {}, {}
+            for i, sh, d in zip(owner, shards, cdims):
+                views.setdefault(i, []).append(_global_view(sh, k, d))
+                sqs[i] = sqs[i] + sq_sum(sh) if i in sqs else sq_sum(sh)
+            for i, v in views.items():
+                views[i] = torch.stack(v) if paths[i].startswith("blocks/") else v[0]
+            return views, sqs
+
+        def fsdp_core(params, opt_state, comp, batch, step: int, atk_base: int):
+            if mesh.per_rank:
+                losses, grads = rank_grads(params, batch)
+            else:
+                losses, grads = worker_grads(params, batch)
+            with torch.no_grad():
+                leaves, dl = tree_leaves(grads), tree_leaves(dims)
+                rep = [i for i, d in enumerate(dl) if d < 0]
+                rep_agg = distributed.robust_gather_agg(
+                    [leaves[i] for i in rep], ax, waxes, pcfg.agg_method, pcfg.agg_beta,
+                    attack, agg_dtype, attack_key=rng.fold(atk_base, step)) if rep else []
+                if mesh.per_rank:
+                    views = {i: g for i, (g, d) in enumerate(zip(leaves, dl)) if d >= 0}
+                    sqs = {i: sq_sum(g) for i, g in views.items()}
+                else:
+                    views, sqs = reduce_scatter_in_process(grads)
+                    # the worker-stacked gradients are not read again this
+                    # step: released, so the update can use their memory
+                    buf.clear()
+                del grads, leaves
+                for i, a in zip(rep, rep_agg):
+                    views[i], sqs[i] = a, torch.sum(a.float() ** 2)
+                # each worker's sum of squares over its shards (a replicated
+                # leaf whole), psummed over the workers
+                sq = torch.zeros(vs, dtype=torch.float32, device=mesh.device)
+                for i in range(len(dl)):
+                    sq = sq + sqs[i]
+                agg = tree_unflatten_like(params, [views[i] for i in range(len(dl))])
+                del views
+                new_params, new_opt = opt.update(agg, opt_state, params, step)
+                metrics = {"loss": ax.psum(losses, waxes) / m,
+                           "grad_norm": torch.sqrt(ax.psum(sq, waxes))}
+            return new_params, new_opt, comp, metrics
+
+    core = fsdp_core if fsdp else _core
+
     def body(params, opt_state, batch, step: int, atk_base: int):
-        new_params, new_opt, _, metrics = _core(params, opt_state, None, batch, step, atk_base)
+        new_params, new_opt, _, metrics = core(params, opt_state, None, batch, step, atk_base)
         return new_params, new_opt, metrics
 
-    return StepBody(body=body, waxes=waxes, comp_body=_core if ef else None)
+    return StepBody(body=body, waxes=waxes, comp_body=core if ef else None)
 
 
 def comp_state_size(cfg: ModelConfig) -> int:

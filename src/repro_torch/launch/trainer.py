@@ -14,7 +14,11 @@ CUDA graphs of the window are later work.
 
 State: ``{"params", "opt_state", "comp" (error-feedback residuals or ()),
 "step" and "key" (int64 scalars on the CPU: the host knows them),
-"metrics" (running sums on the params' device)}``.
+"metrics" (running sums on the params' device)}``.  Under
+``param_mode='fsdp'`` a rank of a process group holds its shards of the
+params and of the optimizer state (:func:`init_state`), and the window and
+:func:`train_loop` run unchanged; :func:`abstract_state` gives the
+state's shapes on the meta device.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import Optimizer, get_optimizer
+from repro_torch.rounds import compression as comp_lib
 from repro_torch.rounds import engine as round_engine
 
 State = Dict[str, Any]
@@ -46,12 +51,14 @@ def init_state(cfg: ModelConfig, mesh: mesh_lib.Mesh, opt: Optimizer, seed: int 
                pcfg: Optional[ParallelConfig] = None) -> State:
     """Fresh training state on the mesh's device: params from ``seed``,
     optimizer state, the error-feedback residuals, step 0, the attack-key
-    base ``seed`` and zeroed metric sums."""
-    if pcfg is not None and pcfg.param_mode == "fsdp":
-        raise NotImplementedError(
-            "param_mode='fsdp' over the torch.distributed process group is not ported yet "
-            "(ROADMAP queue A item 6, step 3)")
+    base ``seed`` and zeroed metric sums.  Under ``param_mode='fsdp'`` on a
+    process group the seeded full params are built once and this rank
+    keeps its shards (:func:`steps.fsdp_shard`), and the optimizer state is
+    initialised on them; the in-process mesh keeps the global view."""
     params = T.init_params(cfg, seed=seed, device=mesh.device)
+    if pcfg is not None and pcfg.param_mode == "fsdp" and mesh.per_rank:
+        params = steps.fsdp_shard(params, steps.fsdp_dims(cfg, mesh), mesh.rank,
+                                  mesh_lib.num_workers(mesh))
     return {
         "params": params,
         "opt_state": opt.init(params),
@@ -60,6 +67,35 @@ def init_state(cfg: ModelConfig, mesh: mesh_lib.Mesh, opt: Optimizer, seed: int 
         "key": torch.tensor(seed, dtype=torch.int64),
         "metrics": zero_metrics(mesh.device),
     }
+
+
+def abstract_state(cfg: ModelConfig, mesh: mesh_lib.Mesh, opt: Optimizer,
+                   pcfg: Optional[ParallelConfig] = None) -> State:
+    """:func:`init_state`'s entries as tensors on the meta device, nothing
+    allocated: under fsdp the params and optimizer state of
+    :func:`steps.abstract_params_fsdp` (a rank's shard shapes under a
+    process group, the global ones in process)."""
+    fsdp = pcfg is not None and pcfg.param_mode == "fsdp"
+    if fsdp:
+        params = steps.abstract_params_fsdp(cfg, mesh)
+        opt_state = steps.abstract_opt_state_fsdp(opt, cfg, mesh)
+    else:
+        params = steps.abstract_params(cfg, mesh)
+        opt_state = steps.abstract_opt_state(opt, cfg, mesh)
+    comp = ()
+    if pcfg is not None and comp_lib.get_compression(pcfg.compression).error_feedback:
+        vs = mesh.axes.vshape(mesh_lib.worker_axes(mesh))
+        comp = torch.empty(vs + (steps.comp_state_size(cfg),), dtype=torch.float32,
+                           device="meta")
+
+    def scalar(dtype):
+        return torch.empty((), dtype=dtype, device="meta")
+
+    return {"params": params, "opt_state": opt_state, "comp": comp,
+            "step": scalar(torch.int64), "key": scalar(torch.int64),
+            "metrics": {"loss_sum": scalar(torch.float32),
+                        "grad_norm_sum": scalar(torch.float32),
+                        "micro_steps": scalar(torch.int32)}}
 
 
 def zero_metrics(device="cpu") -> Dict[str, torch.Tensor]:

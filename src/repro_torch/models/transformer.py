@@ -49,7 +49,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -263,6 +263,13 @@ def param_shapes(cfg: ModelConfig) -> Params:
                       _param_specs(cfg))
 
 
+def meta_params(cfg: ModelConfig) -> Params:
+    """The parameter tree as tensors on the meta device: shapes and dtypes,
+    nothing allocated."""
+    return _map_specs(lambda path, spec: torch.empty(spec.shape, dtype=_leaf_dtype(cfg, spec),
+                                                     device="meta"), _param_specs(cfg))
+
+
 def count_params(cfg: ModelConfig) -> int:
     total = 0
 
@@ -474,17 +481,31 @@ def _cross_at(params: Params, where: Where, enc_out: Optional[torch.Tensor]):
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            frontend: Optional[torch.Tensor] = None,
-            kv_block: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+            frontend: Optional[torch.Tensor] = None, kv_block: int = 1024,
+            block_provider: Optional[Callable[[Params], Params]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux loss);
-    a vision prefix is stripped before the lm head."""
+    a vision prefix is stripped before the lm head.
+
+    ``block_provider`` (FSDP, :mod:`repro_torch.launch.steps`) maps one
+    super-block of the ``blocks`` group, ``{key: {name: layer leaf}}``, to
+    the leaves its layers run with (the gathered weights), once a
+    super-block, as the reference applies it inside its layer scan."""
     x, enc_out, n_prefix = _frontend_in(params, tokens, cfg, frontend, kv_block)
     if not cfg.cross_attention:
         enc_out = None
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = _zero(x)
+    block = (None, None)  # (super-block index, its provided leaves)
     for where in layer_slots(cfg):
-        x, a, _ = _layer_fwd(where, layer_at(params, where), x, cfg, positions, kv_block,
+        if block_provider is not None and where.part == "blocks":
+            if block[0] != where.s:
+                block = (where.s, block_provider(
+                    {k: _stacked_at(g, where.s) for k, g in params["blocks"].items()}))
+            p = block[1][where.key]
+        else:
+            p = layer_at(params, where)
+        x, a, _ = _layer_fwd(where, p, x, cfg, positions, kv_block,
                              _cross_at(params, where, enc_out))
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -492,9 +513,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            kv_block: int = 1024, aux_weight: float = 0.01) -> torch.Tensor:
+            kv_block: int = 1024, aux_weight: float = 0.01,
+            block_provider: Optional[Callable[[Params], Params]] = None) -> torch.Tensor:
     logits, aux = forward(params, batch["tokens"], cfg, frontend=batch.get("frontend"),
-                          kv_block=kv_block)
+                          kv_block=kv_block, block_provider=block_provider)
     return L.cross_entropy(logits, batch["labels"], batch.get("mask")) + aux_weight * aux
 
 

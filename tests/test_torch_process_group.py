@@ -654,10 +654,13 @@ def test_later_steps_still_raise():
         mesh_lib.make_debug_mesh(2, 2, device="cpu")
     cfg, mesh = get_smoke_config("llama3.2-3b"), mesh_lib.make_debug_mesh(2, 1, device="cpu")
     opt = get_optimizer("adamw", 1e-3)
-    with pytest.raises(NotImplementedError, match="step 3"):
-        steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), mesh, opt)
-    with pytest.raises(NotImplementedError, match="step 3"):
-        trainer.init_state(cfg, mesh, opt, pcfg=ParallelConfig(param_mode="fsdp"))
+    # step 3 (fsdp) is ported: it refuses what the reference's refuses
+    with pytest.raises(ValueError, match="compression needs param_mode='replicated'"):
+        steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp", compression="int8"), mesh,
+                             opt)
+    with pytest.raises(ValueError, match="local_steps > 1 needs param_mode='replicated'"):
+        trainer.make_window_step(cfg, ParallelConfig(param_mode="fsdp", local_steps=2), mesh,
+                                 opt)
 
 
 def test_production_mesh_without_a_group_names_torchrun(monkeypatch):

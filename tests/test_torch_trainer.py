@@ -328,8 +328,9 @@ def test_rejections():
         mesh_lib.make_debug_mesh(4, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         mesh_lib.make_production_mesh(model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), mesh, opt)
+    with pytest.raises(ValueError, match="randomized"):  # fsdp: no per-step attack key
+        steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), mesh, opt,
+                             AttackConfig("gauss", 0.25))
     with pytest.raises(ValueError, match="adaptive"):
         steps.make_step_body(cfg, ParallelConfig(), mesh, opt, AttackConfig("stale", 0.25))
     with pytest.raises(ValueError, match="needs"):
