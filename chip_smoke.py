@@ -240,17 +240,46 @@ Phases (any failure exits non-zero before the final line):
    InProcessAxes({"data": 1}), no B1 (one row sorts); (d) the bytes of
    params and AdamW moments a rank holds of llama3.2-3b at 28 layers, fsdp
    over 4 ranks against replicated, computed from ``abstract_state``'s
-   shapes on the meta device (not measured).
+   shapes on the meta device (not measured);
+20. tensor parallelism (a model axis of 2 on the in-process mesh: each
+   layer's model ranks in turn, from chunks of the global view): (a)
+   llama3.2-3b's widths at 2 layers in f32, the logits, loss and every
+   gradient at make_debug_mesh(4, 2) against make_debug_mesh(4, 1) (within
+   1e-4 of each value's largest magnitude); (b) 15b's cell at (4, 2) beside
+   the same run at model 1: gather median and trimmed mean beta 0.25 under
+   alie alpha 0.25, 8 steps in windows of 4, each window's loss within 1e-3
+   of model 1's, the first window's grad norm within 1e-3 and the run's
+   update (final - initial params) within 0.6 of model 1's (limits set
+   between sound and frozen-leaf runs on the card by
+   scripts/tp_witness.py), one B1 (B2) launch a step over 12 leaves, every
+   step's aggregate bitwise its plain version (column slices), steps/s, the
+   step's split (gradients, model-axis sums, aggregation, B1/B2, AdamW),
+   launches a step, busy share, peak memory, and B1/B2 over the rows
+   against the 4.756 ms HBM bound; (c) granite-moe-1b-a400m at all 24
+   layers, expert-parallel (16 experts a shard, embed and lm head split
+   on d_model), 4 steps of gather median under alie at (4, 2) beside model
+   1, losses within 1e-3, grad norms within 1e-2 and the update within
+   0.6, every step's aggregate bitwise its plain version; (d) the bytes
+   of params and AdamW moments a rank holds of llama3.2-3b at 28 layers
+   over (data 4, model 2), computed from ``abstract_state``'s shapes (not
+   measured); (e) the chunked strategy (B4, B5) at (4, 2): 15a's tiny
+   llama, 2 steps of median and trimmed mean under alie, losses within
+   1e-4 of model 1's.  A process group with a
+   model axis needs a card a rank (NCCL refuses two ranks on one GPU);
+   the world-size-1 checks (17d, 19c) stand.
 The launch counters are zeroed before each of phases 8-13, each run of
-phase 14b, 15b, 16b, 18b and 19b, phases 15c, 19a and 19c, each 16d and 18d
-run and each call (17a), round (17b) or set of calls (17d) of phase 17, and
-read after; the kernels line gives each kernel's launches on them
+phase 14b, 15b, 16b, 18b, 19b, 20b and 20c, phases 15c, 19a, 19c and 20e, each 16d
+and 18d run and each call (17a), round (17b) or set of calls (17d) of phase
+17, and read after; the kernels line gives each kernel's launches on them
 (``launches_new_paths``).
-In phases 4, 6, 8-13, 15c, 17, 18 and 19 the inputs each kernel wrapper gets
+In phases 4, 6, 8-13, 15c, 17, 18, 19 and 20e the inputs each kernel wrapper gets
 (the first call of each shape) are
 recorded, and after the path's counts were read each kernel is run again on
 them and held against its plain version, bitwise (PathInputs); a kernel that
-launched on a path and was not held fails.  Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
+launched on a path and was not held fails.  Phase 20's model-2 runs hold
+every launch's output against the plain version on that launch's own rows
+instead (HeldAggregation; a recorded copy of the rows does not fit beside
+them).  Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -4465,6 +4494,438 @@ def fsdp(dev, card: str, on_path):
     return out
 
 
+# ------------------- phase 20: tensor parallelism over the model axis
+#
+# (a) llama3.2-3b's widths at 2 layers in f32 (TF32 off): the forward, loss
+# and every gradient at make_debug_mesh(4, 2)'s model axis against model 1;
+# (b) 15b's cell (8 of 28 layers, D = 1,593,363,456 bf16, m = 4, batch 8,
+# seq 128, AdamW 1e-4, alie alpha 0.25) at make_debug_mesh(4, 2) beside the
+# same run at model 1, gather median and trimmed mean beta 0.25, 8 steps in
+# windows of 4; (c) granite-moe-1b-a400m at all 24 layers, expert-parallel
+# (16 experts a shard), 4 steps at (4, 2) beside model 1; (d) the per-rank
+# bytes of llama3.2-3b at 28 layers over (data 4, model 2), from the shapes.
+# A process group with model > 1 needs a card a rank (NCCL refuses two ranks
+# on one GPU): the model ranks run in process, one after the other.
+TP_MODEL = 2
+TP_PARITY_LAYERS = 2
+TP_PARITY_TOL = 1e-4  # f32: |model 2 - model 1| / max |model 1|, loss, logits, each gradient
+# bf16, model 2 against model 1, each limit between the sound runs' largest
+# reading and what a model-2 run with its split leaves frozen reads
+# (scripts/tp_witness.py on the H100; PERF.md section 6, PR 24):
+# each window's loss, relative (sound <= 3.1e-4, frozen 1.7e-3 to 6.8e-3 at
+# the last window);
+TP_LOSS_RTOL = 1e-3
+# the run's update |u2 - u1| / |u1|, u = final - initial params (sound 0.087
+# in 20b, 0.33 in 20c: AdamW at lr 1e-4 moves a bf16 weight by 0 or 1 ulp;
+# frozen 1.0);
+TP_UPDATE_RTOL = 0.6
+# the grad norms of the windows within the first four steps, relative: 20b's
+# first window (sound 4.5e-5, frozen 5.7e-3) and 20c's four steps (sound
+# <= 2.5e-3, frozen >= 0.27 after the first update).  Later norms part
+# under ALIE's median without a fault (model 1's own step norms run
+# 62.3 -> 6.1 in 20b's second window): printed, not held.
+TP_NORM_RTOL = {"20b": 1e-3, "20c": 1e-2}
+TP_NORM_STEPS = 4
+TP_STEPS, TP_DS = 8, 4
+TP_METHODS = ("median", "trimmed_mean")  # gather, under alie alpha 0.25, beta 0.25
+TP_MOE_LAYERS, TP_MOE_D = 24, 1_384_963_072
+TP_MOE_STEPS = 4
+TP_DATA_RANKS = 4  # phase 20d's worker axis
+
+
+def tp_parity(dev):
+    """Phase 20a: llama3.2-3b's widths at TP_PARITY_LAYERS layers in f32
+    (TF32 off), one batch (2, 128) from one set of params: the forward's
+    logits, the loss and every gradient leaf over make_debug_mesh(4, 2)'s
+    model axis (every rank of a layer in turn, from chunks of the global
+    view) against make_debug_mesh(4, 1)'s (no model axis), each within
+    TP_PARITY_TOL of the model-1 value's largest magnitude."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_unflatten_like
+
+    cfg = dataclasses.replace(get_config("llama3_2_3b"), n_layers=TP_PARITY_LAYERS,
+                              dtype="float32")
+    params = T.init_params(cfg, seed=0, device=dev)
+    g = torch.Generator().manual_seed(20)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 128), generator=g).to(dev)
+             for k in ("tokens", "labels")}
+    ctxs = {1: sharding.model_ctx(mesh_lib.make_debug_mesh(4, 1, device=dev)),
+            TP_MODEL: sharding.model_ctx(mesh_lib.make_debug_mesh(4, TP_MODEL, device=dev))}
+    check(ctxs[1] is sharding.NULL_CTX and ctxs[TP_MODEL].model == TP_MODEL,
+          f"20a: contexts {ctxs}")
+    out = {}
+    for model, ctx in ctxs.items():
+        with torch.no_grad():
+            logits, _ = T.forward(params, batch["tokens"], cfg, kv_block=0, ctx=ctx)
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        loss = T.loss_fn(tree_unflatten_like(params, leaves), batch, cfg, kv_block=0, ctx=ctx)
+        grads = torch.autograd.grad(loss, leaves)
+        out[model] = (float(loss.detach()), logits, grads)
+        del leaves, loss
+    (l1, z1, g1), (l2, z2, g2) = out[1], out[TP_MODEL]
+    worst = {"loss": abs(l2 - l1) / abs(l1),
+             "logits": float((z2 - z1).abs().max()) / float(z1.abs().max())}
+    for (path, _), a, b in zip(tree_leaves_with_path(params), g2, g1):
+        worst[path] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    bad = {k: v for k, v in worst.items() if not v <= TP_PARITY_TOL}
+    check(not bad, f"20a: model {TP_MODEL} vs model 1 beyond {TP_PARITY_TOL}: {bad}")
+    modes = ctxs[TP_MODEL].modes(cfg)
+    print(json.dumps({"tp_parity": {"layers": cfg.n_layers, "model": TP_MODEL,
+                                    "modes": modes._asdict(), "rel_err": worst,
+                                    "tolerance": TP_PARITY_TOL}}))
+    print(f"phase 20a: llama3.2-3b widths at {cfg.n_layers} layers, f32: model {TP_MODEL} "
+          f"({modes.attn} attention, F-split FFN, vocab-parallel embed and loss) against "
+          f"model 1: loss {worst['loss']:.3g}, logits {worst['logits']:.3g}, worst gradient "
+          f"{max(v for k, v in worst.items() if k not in ('loss', 'logits')):.3g} (relative "
+          f"to the leaf's largest; tolerance {TP_PARITY_TOL})")
+    del params, out, z1, z2, g1, g2
+    torch.cuda.empty_cache()
+
+
+def tp_step_split(cfg, pcfg, mesh, attack, state, batch, step):
+    """:func:`train_step_split` of one more step with the model axis'
+    partial sums, gathers and maxes timed too (``model_sums_ms``, each call
+    closed by a synchronize; they are inside ``worker_grads_ms``)."""
+    import torch
+
+    ax = mesh.axes
+    spent = {"model_sums_ms": 0.0, "model_calls": 0}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent["model_sums_ms"] += (time.perf_counter() - t0) * 1e3
+            spent["model_calls"] += 1
+            return out
+        return run
+
+    names = ("model_sum", "model_cat", "model_max")
+    for n in names:
+        setattr(ax, n, timed(getattr(ax, n)))
+    try:
+        parts = train_step_split(cfg, pcfg, mesh, attack, state, batch, step)
+    finally:
+        for n in names:
+            delattr(ax, n)
+    parts.update(spent)
+    return parts
+
+
+def tp_run(dev, card: str, cfg, model: int, method: str, steps_n: int, ds: int, label: str,
+           detail: bool):
+    """One run of phase 20b / 20c: ``trainer.train_loop`` over
+    make_debug_mesh(4, ``model``), gather ``method`` under alie alpha 0.25,
+    AdamW 1e-4, batch 8, seq 128, every window under the sync-debug "error"
+    mode, the counters zeroed just before and read just after.  At model >
+    1 every step's aggregate is held against its plain version (column
+    slices) and the last step's rows are kept; ``detail`` adds the step's
+    split and a profile (at model 1 too, for a comparison within the
+    call).  Returns {"losses", "launches", "line", "kept"}."""
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import robust_agg
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, trainer
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.tree import tree_leaves
+
+    run = f"model {model} gather/{method}/alie"
+    mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, model, device=dev)
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=steps_n, device_steps=ds)
+    pcfg = ParallelConfig(agg_method=method, agg_strategy="gather", agg_beta=TRAIN_BETA,
+                          attn_chunk=0)
+    atk = AttackConfig("alie", TRAIN_ALPHA)
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    tp = model > 1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # zeroed just before this run
+    undo = sync_free_windows()
+    t0 = time.perf_counter()
+    try:
+        with HeldAggregation(dev, hold=lambda c: tp,
+                             keep=lambda c: tp and detail and method == "median"
+                             and c == steps_n - 1) as held:
+            result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()  # read just after it
+    leaves = dict(robust_agg.LEAVES)
+    peak = torch.cuda.max_memory_allocated()
+    n_leaves = len(tree_leaves(result.state["params"]))
+    want = {k: 0 for k in launches}
+    want[method] = steps_n  # every leaf in one launch a step
+    check(launches == want and leaves[method] == steps_n * n_leaves,
+          f"{label} {run}: launches {launches} ({leaves}), want {want}")
+    if tp:
+        check(held.held == steps_n, f"{label} {run}: {held.held} of {steps_n} aggregates held")
+    losses = [h["loss"] for h in result.history]
+    check(all(v == v and abs(v) < 1e4 for v in losses), f"{label} {run}: {losses}")
+    line = {"tp_run": run, "label": label, "layers": cfg.n_layers, "model": model,
+            "steps": steps_n, "device_steps": ds, "workers": TRAIN_WORKERS,
+            "tokens_per_step": dcfg.global_batch * dcfg.seq_len,
+            "steps_per_s": result.steps_per_s, "tokens_per_s": result.tokens_per_s,
+            "first_window_s": result.compile_s, "window_times_s": result.window_times_s,
+            "run_wall_s": wall, "losses": losses,
+            "grad_norms": [h["grad_norm"] for h in result.history], "launches": launches,
+            "leaves_aggregated": leaves, "b1_b2_launches_per_step": sum(launches.values())
+            / steps_n, "aggregates_held": held.held, "max_memory_allocated_gb": peak / 1e9,
+            "card_memory_gb": total_mem / 1e9, "card": card}
+    msg = ""
+    if detail:
+        batch = {k: v[0] for k, v in trainer.stack_window_batches(
+            dcfg, steps_n, 1, mesh, atk, cfg).items()}
+        split = tp_step_split(cfg, pcfg, mesh, atk, result.state, batch, steps_n)
+        sb = steps.make_step_body(cfg, pcfg, mesh, get_optimizer("adamw", TRAIN_LR), atk)
+        prof = profile_summary(lambda: sb.body(result.state["params"],
+                                               result.state["opt_state"], batch, steps_n, 0),
+                               split["step_ms"], top=10, names=("leaf_select_kernel",))
+        line.update(split_ms=split, device_busy_share=prof["device_busy_share"],
+                    launches_per_step=prof["launches"])
+        print(json.dumps({"profile_tp_step": run, **prof}))
+        msg = (f", step {split['step_ms']:.1f} ms (grads {split['worker_grads_ms']:.1f} with "
+               f"model-axis sums {split['model_sums_ms']:.1f} over {split['model_calls']} "
+               f"calls, aggregate {split['aggregate_ms']:.1f} with B1/B2 "
+               f"{split['b1_b2_ms']:.1f}, AdamW {split['update_ms']:.1f}), "
+               f"{prof['launches']} launches, busy {prof['device_busy_share']:.3f}")
+        del sb, batch
+    print(json.dumps({"tp_train": line}))
+    print(f"phase {label}: {run}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{result.steps_per_s:.3f} steps/s{msg}, peak {peak / 1e9:.2f} GB")
+    check(peak < total_mem, f"{label} {run}: peak {peak} >= the card's {total_mem}")
+    kept = held.kept
+    final = [t.cpu() for t in tree_leaves(result.state["params"])]
+    del result, held
+    torch.cuda.empty_cache()
+    return {"losses": losses, "launches": launches, "line": line, "kept": kept,
+            "final": final}
+
+
+def tp_update_rel(init, final, ref, dev) -> float:
+    """``|u - u_ref| / |u_ref|`` over all leaves, ``u = final - init``: the
+    distance of one run's update from another's (lists of host leaves,
+    compared a leaf at a time on the card)."""
+    num = den = 0.0
+    for a0, a, b in zip(init, final, ref):
+        a0, a, b = (x.to(dev).float() for x in (a0, a, b))
+        num += float((a - b).square().sum())
+        den += float((b - a0).square().sum())
+        del a0, a, b
+    return (num / den) ** 0.5 if den else 0.0
+
+
+def tp_pair(dev, card: str, cfg, method: str, steps_n: int, ds: int, label: str,
+            detail: bool):
+    """The same run at model 1 and at TP_MODEL, held against each other:
+    each window's loss within TP_LOSS_RTOL, the grad norms of the windows
+    within the first TP_NORM_STEPS steps within TP_NORM_RTOL[label], and
+    the update within TP_UPDATE_RTOL.  The model-2 run holds every launch
+    on its own inputs (HeldAggregation, as 15b does: PathInputs' copy of
+    the (4, D) rows does not fit beside the replicated run's gradient
+    buffer and AdamW's moments).  Returns the model-2 run."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    init = [t.cpu() for t in tree_leaves(T.init_params(cfg, seed=0, device=dev))]
+    torch.cuda.empty_cache()
+    ref = tp_run(dev, card, cfg, 1, method, steps_n, ds, label, detail)
+    got = tp_run(dev, card, cfg, TP_MODEL, method, steps_n, ds, label, detail)
+    rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])]
+    norms = {m: r["line"]["grad_norms"] for m, r in ((1, ref), (TP_MODEL, got))}
+    norm_rel = [abs(a - b) / abs(b) for a, b in zip(norms[TP_MODEL], norms[1])]
+    held = norm_rel[:TP_NORM_STEPS // ds]
+    upd = tp_update_rel(init, got["final"], ref["final"], dev)
+    del init, ref["final"], got["final"]
+    print(json.dumps({"tp_losses": {"label": label, "method": method, "model_1": ref["losses"],
+                                    f"model_{TP_MODEL}": got["losses"], "rel": rel,
+                                    "tolerance": TP_LOSS_RTOL, "grad_norms": norms,
+                                    "grad_norm_rel": norm_rel, "grad_norms_held": len(held),
+                                    "grad_norm_tolerance": TP_NORM_RTOL[label],
+                                    "update_rel": upd, "update_tolerance": TP_UPDATE_RTOL,
+                                    "card": card}}))
+    check(len(rel) == len(ref["losses"]) and max(rel) <= TP_LOSS_RTOL,
+          f"{label} {method}: model {TP_MODEL} losses {got['losses']} against model 1 "
+          f"{ref['losses']}: {rel}")
+    check(held and max(held) <= TP_NORM_RTOL[label],
+          f"{label} {method}: model {TP_MODEL} grad norms {norms}: {norm_rel}")
+    check(upd <= TP_UPDATE_RTOL, f"{label} {method}: model {TP_MODEL}'s update {upd} from "
+          f"model 1's")
+    print(f"phase {label}: {method}: model {TP_MODEL} against model 1: every window's loss "
+          f"within {max(rel):.3g} (tolerance {TP_LOSS_RTOL}), the first {len(held)} "
+          f"window(s)' grad norm within {max(held):.3g} ({TP_NORM_RTOL[label]}; later "
+          f"{[round(v, 4) for v in norm_rel[len(held):]]}, not held), the update within "
+          f"{upd:.3g} ({TP_UPDATE_RTOL})")
+    return got
+
+
+def tp_cell(dev, card: str):
+    """Phase 20b: 15b's cell at make_debug_mesh(4, 2), TP_METHODS, beside
+    model 1; B1 / B2 timed on the model-2 median run's last rows.  Returns
+    the model-2 runs' launches."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    cfg = serve_cfg(tiny=False)
+    check(T.count_params(cfg) == SERVE_D, f"20b: {T.count_params(cfg)} parameters")
+    total = {}
+    for method in TP_METHODS:
+        out = tp_pair(dev, card, cfg, method, TP_STEPS, TP_DS, "20b", True)
+        _add(total, out["launches"])
+        if out["kept"] is not None:
+            rows = train_kernel_timings(out["kept"], card, "tp rows (model 2, global view)")
+            print(json.dumps({"tp_kernels": [
+                {k: r[k] for k in ("kernel", "launches", "leaves", "ms", "device_ms",
+                                   "bound_ms", "plain_ms")} for r in rows], "card": card}))
+        del out
+        torch.cuda.empty_cache()
+    return total
+
+
+def tp_moe(dev, card: str):
+    """Phase 20c: granite-moe-1b-a400m at all TP_MOE_LAYERS layers (bf16, D
+    = 1,384,963,072): expert-parallel at model 2 (16 of its 32 experts a
+    shard), its odd vocab (49155) splitting embed and lm head on d_model;
+    TP_MOE_STEPS steps of gather median under alie at model 2 beside model
+    1.  Returns the model-2 run's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("granite_moe_1b_a400m"), n_layers=TP_MOE_LAYERS)
+    check(T.count_params(cfg) == TP_MOE_D, f"20c: {T.count_params(cfg)} parameters")
+    modes = sharding.tp_modes(cfg, TP_MODEL)
+    check((modes.moe, modes.embed, modes.lm_head) == ("experts", 1, 0), f"20c: {modes}")
+    return tp_pair(dev, card, cfg, "median", TP_MOE_STEPS, 1, "20c", False)["launches"]
+
+
+def tp_chunked(dev):
+    """Phase 20e: the chunked strategy (B4 range, B5 counts and sums) on the
+    model axis: 15a's tiny llama in f32, 2 AdamW steps of median and
+    trimmed mean beta 0.25 under alie at make_debug_mesh(4, 2) (the sketch
+    over the global view, the same bits as a rank's shards) against the
+    same run at model 1 (losses within TP_PARITY_TOL: a coordinate may
+    fall in the next bin).  B4/B5 are held on the path's inputs by the
+    caller.  Returns the launches."""
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import trainer
+
+    losses = {}
+    for model in (1, TP_MODEL):
+        mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, model, device=dev)
+        for method in ("median", "trimmed_mean"):
+            pcfg = ParallelConfig(agg_method=method, agg_strategy="chunked",
+                                  agg_beta=TRAIN_BETA, remat=False)
+            if model > 1 and method == "median":
+                torch.cuda.synchronize()
+                _reset_launches()  # zeroed just before the model-2 runs
+            r = trainer.train_loop(train_tiny_cfg(), pcfg,
+                                   TrainConfig(optimizer="adamw", lr=1e-2, steps=2,
+                                               device_steps=1),
+                                   mesh, dcfg=DataConfig(**TRAIN_TINY_DATA),
+                                   attack=AttackConfig("alie", TRAIN_ALPHA))
+            losses[(model, method)] = [h["loss"] for h in r.history]
+    torch.cuda.synchronize()
+    launches = _launches()  # read just after them
+    check(launches["minmax"] >= 4 and launches["histogram"] >= 4
+          and launches["median"] == launches["trimmed_mean"] == 0,
+          f"20e: launches {launches}")
+    rel = max(abs(a - b) / abs(b) for method in ("median", "trimmed_mean")
+              for a, b in zip(losses[(TP_MODEL, method)], losses[(1, method)]))
+    check(rel <= TP_PARITY_TOL, f"20e: chunked losses at model {TP_MODEL} vs 1: {losses}")
+    print(f"phase 20e: chunked median and trimmed mean of the tiny llama at (4, {TP_MODEL}): "
+          f"losses within {rel:.3g} of model 1's (tolerance {TP_PARITY_TOL}); launches "
+          f"{json.dumps(launches)}")
+    return launches
+
+
+def tp_memory():
+    """Phase 20d: the bytes a rank holds of llama3.2-3b's params and AdamW
+    moments at all 28 layers over (data TP_DATA_RANKS, model TP_MODEL)
+    ranks against replicated, from ``trainer.abstract_state`` on the meta
+    device: computed from the shapes, not measured."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import trainer
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("llama3.2-3b")
+    opt = get_optimizer("adamw", TRAIN_LR)
+    out = {}
+    for name, model in (("tp", TP_MODEL), ("replicated", 1)):
+        mesh = mesh_lib.Mesh(("data", "model"), (TP_DATA_RANKS, model), torch.device("cpu"),
+                             D.InProcessAxes({"data": TP_DATA_RANKS, "model": model}, "cpu"),
+                             rank=0, per_rank=True)
+        st = trainer.abstract_state(cfg, mesh, opt, ParallelConfig())
+        out[name] = {k: sum(t.numel() * t.element_size() for t in tree_leaves(st[k]))
+                     for k in ("params", "opt_state")}
+    d = T.count_params(cfg)
+    check(out["replicated"]["params"] == 2 * d and out["replicated"]["opt_state"] == 8 * d,
+          f"20d: {out}")
+    check(all(out["replicated"][k] / TP_MODEL < out["tp"][k] < out["replicated"][k] / TP_MODEL
+              * 1.001 for k in out["tp"]), f"20d: {out}")
+    print(json.dumps({"tp_rank_bytes": out, "d": d, "layers": cfg.n_layers,
+                      "ranks": {"data": TP_DATA_RANKS, "model": TP_MODEL},
+                      "source": "computed from the shapes on the meta device, not measured"}))
+    gb = {m: (v["params"] + v["opt_state"]) / 1e9 for m, v in out.items()}
+    print(f"phase 20d: llama3.2-3b at {cfg.n_layers} layers (D = {d:,}), params + AdamW "
+          f"moments a rank over (data {TP_DATA_RANKS}, model {TP_MODEL}): {gb['tp']:.2f} GB "
+          f"against {gb['replicated']:.2f} GB replicated (19d: fsdp over 4 ranks 9.02 GB; "
+          f"computed from the shapes, not measured)")
+
+
+def tensor_parallel(dev, card: str, on_path):
+    """Phase 20: 20a-20e; returns the launches of 20b's and 20c's model-2
+    runs (each of their launches held bitwise on its own rows) and of
+    20e's (held on the path's inputs by ``on_path``)."""
+    t0 = time.perf_counter()
+    tp_parity(dev)
+    print(f"phase 20a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out = {"tp_train": tp_cell(dev, card)}
+    print(f"phase 20b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["tp_moe"] = tp_moe(dev, card)
+    print(f"phase 20c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["tp_chunked"] = on_path("phase 20e", lambda: tp_chunked(dev), lambda c: c)
+    print(f"phase 20e: {time.perf_counter() - t0:.1f} s")
+    tp_memory()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4597,6 +5058,12 @@ def main() -> None:
     print(f"phase 19: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 19 built order-statistic programs that phase 1 did not")
+    libs_before = len(robust_agg.select_libraries())
+    t0 = time.perf_counter()
+    new_paths.update(tensor_parallel(dev, card, on_path))
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    check(len(robust_agg.select_libraries()) == libs_before,
+          "phase 20 built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")

@@ -67,6 +67,10 @@ class AttackContext:
     honest_var: Optional[torch.Tensor] = None
     rows: Optional[torch.Tensor] = None  # omniscient only
     mask: Optional[torch.Tensor] = None  # (m,) bool, True = Byzantine
+    # each row's sum of a per-coordinate (m, ...) tensor over the whole
+    # leaf, its other model shards included (tensor parallelism); None:
+    # the rows hold the whole leaf
+    row_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 
 PayloadFn = Callable[[AttackContext], torch.Tensor]
@@ -90,6 +94,10 @@ class Attack:
     randomized: bool = False
     needs_variance: bool = False  # payload reads ctx.honest_var
     reads_own: bool = False  # payload reads ctx.own's VALUES (not just shape)
+    # the payload at a coordinate reads the rows' other coordinates (a sum
+    # over the leaf): under a model axis it needs ctx.row_sum, and the
+    # bucketed strategies (buckets of a rank's own ravel) cannot run it
+    leaf_global: bool = False
     arrival: Optional[str] = None
     summary: str = ""
     corrupt_labels: Optional[Callable] = None

@@ -76,6 +76,7 @@ def build_context(
     agg_history: Optional[torch.Tensor] = None,
     staleness=None,
     rnd=None,
+    row_sum=None,
 ) -> AttackContext:
     """Assemble a context exposing ONLY what ``attack.access`` grants.
 
@@ -110,6 +111,7 @@ def build_context(
         honest_var=honest_var if rank >= access_rank(STATS) else None,
         rows=rows if rank >= access_rank(OMNISCIENT) else None,
         mask=mask if rank >= access_rank(OMNISCIENT) else None,
+        row_sum=row_sum,
     )
 
 
@@ -147,11 +149,14 @@ def apply_to_rows(
     agg_history: Optional[torch.Tensor] = None,
     staleness=None,
     rnd=None,
+    row_sum=None,
 ) -> torch.Tensor:
     """Replace Byzantine rows of ``stacked`` ``(m, ...)`` per ``mask``.
 
     Data and feedback attacks return ``stacked`` unchanged (they corrupt
     samples / feedback scores upstream of the gradient computation).
+    ``row_sum`` completes a per-row sum over the leaf where ``stacked``
+    holds a model shard of it (:class:`AttackContext`).
     """
     attack = as_attack(attack)
     if attack.access in (DATA, FEEDBACK):
@@ -166,6 +171,7 @@ def apply_to_rows(
         attack, m=m, alpha=alpha, strength=strength, mask=mask, rows=stacked,
         own=stacked, honest_mean=mean, honest_var=var, generator=generator,
         prev_agg=prev_agg, agg_history=agg_history, staleness=staleness, rnd=rnd,
+        row_sum=row_sum,
     )
     bad = attack.payload(ctx)
     maskb = mask.reshape((m,) + (1,) * (stacked.dim() - 1))

@@ -74,7 +74,10 @@ def _mimic(ctx: AttackContext) -> torch.Tensor:
     # Mimic/clone (Karimireddy et al. 2022): all colluders replay the most
     # deviant HONEST row; strength interpolates mean -> cloned row.
     m = ctx.rows.shape[0]
-    d2 = ((ctx.rows - ctx.honest_mean).reshape(m, -1) ** 2).sum(dim=1)
+    if ctx.row_sum is not None:  # a model shard of the leaf: its sum psummed
+        d2 = ctx.row_sum((ctx.rows - ctx.honest_mean) ** 2)
+    else:
+        d2 = ((ctx.rows - ctx.honest_mean).reshape(m, -1) ** 2).sum(dim=1)
     d2 = torch.where(ctx.mask, torch.full_like(d2, -math.inf), d2)
     picked = ctx.rows[torch.argmax(d2)]
     return ctx.honest_mean + ctx.strength * (picked - ctx.honest_mean)
@@ -161,7 +164,7 @@ register(Attack("mean_shift", STATS, _mean_shift, strength=1.0, needs_variance=T
 register(Attack("ipm", STATS, _ipm, strength=1.0,
                 summary="-s * mean (inner-product manipulation)"))
 alias("inner_product", "ipm")
-register(Attack("mimic", OMNISCIENT, _mimic, strength=1.0,
+register(Attack("mimic", OMNISCIENT, _mimic, strength=1.0, leaf_global=True,
                 summary="clone the most deviant honest row"))
 register(Attack("max_damage_tm", OMNISCIENT, _max_damage_tm, strength=1.0,
                 summary="honest extreme opposing descent (anti-trimmed-mean)"))

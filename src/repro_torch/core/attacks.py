@@ -121,9 +121,11 @@ def apply_gradient_attack(cfg: AttackConfig, stacked: torch.Tensor, mask: torch.
                           prev_agg: Optional[torch.Tensor] = None,
                           agg_history: Optional[torch.Tensor] = None,
                           staleness=None,
-                          rnd=None) -> torch.Tensor:
+                          rnd=None,
+                          row_sum=None) -> torch.Tensor:
     """Replace Byzantine rows of a stacked per-worker tensor ``(m, ...)``;
-    ``mask`` is bool ``(m,)``, True rows Byzantine."""
+    ``mask`` is bool ``(m,)``, True rows Byzantine; ``row_sum`` as
+    :func:`repro_torch.attacks.engine.apply_to_rows`'."""
     if cfg.name == "none" or cfg.alpha == 0.0:
         return stacked
     atk, strength = cfg.resolve()
@@ -132,4 +134,4 @@ def apply_gradient_attack(cfg: AttackConfig, stacked: torch.Tensor, mask: torch.
     return engine.apply_to_rows(
         atk, stacked, mask, alpha=cfg.alpha, strength=strength,
         generator=generator, prev_agg=prev_agg, agg_history=agg_history,
-        staleness=staleness, rnd=rnd)
+        staleness=staleness, rnd=rnd, row_sum=row_sum)

@@ -50,6 +50,22 @@ an autograd ``Function`` over the same interface: all_gather in the
 forward, ``rs`` of the cotangent (:func:`robust_reduce_scatter_dims`) in
 the backward.
 
+The model axis (tensor parallelism): a mesh's ``model`` ranks each hold a
+shard of every split weight, and the layers between them meet through the
+``model_*`` calls of :class:`Collectives` (Megatron's f and g, a gather,
+a max).  :class:`InProcessAxes` computes every model rank of a layer one
+after the other on its device, from chunks of the global view, and sums
+their partial outputs in rank order; :class:`ProcessGroupAxes` computes
+its own rank's and joins the others through three autograd ``Function``s
+over the model subgroup: Megatron's f, copy to model (identity forward,
+psum backward), its g, reduce from model (psum forward, identity
+backward), and gather from model (all_gather forward, the rank's chunk
+backward).  A
+sum of two partials is the same in either order, so at model size 2 the
+two give the same bits.  The worker axes' strategies are unchanged: each
+model rank aggregates its own leaves over the workers of its model
+coordinate.
+
 Byzantine simulation as in the reference: gradient-space attacks run where
 the per-worker rows are visible (after the gather / all_to_all), by the
 rows' worker index against the attack's Byzantine cut; the chunked and
@@ -165,14 +181,88 @@ class Collectives:
         ``names``."""
         raise NotImplementedError
 
+    # -- the model axis.  These defaults are the in-process ones: every
+    # model rank is computed here, from chunks of the global view, and the
+    # partial results meet in rank order.  At model size 1 each is the
+    # identity.
+
+    #: the model axis' size
+    model: int = 1
+
+    def model_ranks(self) -> Sequence[int]:
+        """The model ranks this process computes, in order."""
+        return range(self.model)
+
+    def model_shard(self, w: torch.Tensor, dim: int, k: int) -> torch.Tensor:
+        """Model rank ``k``'s shard of a weight split along ``dim``: chunk
+        ``k`` of the global view, contiguous (a strided view would send
+        the product that reads it down another BLAS path)."""
+        return w if self.model == 1 else w.chunk(self.model, dim)[k].contiguous()
+
+    def model_split(self, x: torch.Tensor, dim: int, k: int) -> torch.Tensor:
+        """Chunk ``k`` along ``dim`` of an activation every model rank
+        holds alike."""
+        return x if self.model == 1 else x.chunk(self.model, dim)[k].contiguous()
+
+    def model_enter(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f: an activation every rank holds alike, about to be
+        read by each rank's shard; its gradient is the sum of the ranks'.
+        Each rank reads it through :meth:`model_local`.  In process a node
+        of its own, so that the ranks' gradients are summed (two commute)
+        before they meet any other, as the psum is under a process group."""
+        return x if self.model == 1 else x.view_as(x)
+
+    def model_local(self, x: torch.Tensor) -> torch.Tensor:
+        """A rank's read of an entered activation: in process a node per
+        rank, so that each rank's gradients add up among themselves before
+        the ranks' are summed, as on a rank of a process group."""
+        return x if self.model == 1 else x.view_as(x)
+
+    def model_sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Megatron's g: the sum of the ranks' partial results, in rank
+        order."""
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = acc + p
+        return acc
+
+    def model_cat(self, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+        """The ranks' pieces of an activation concatenated along ``dim``."""
+        return parts[0] if len(parts) == 1 else torch.cat(list(parts), dim)
+
+    def model_full(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole of a weight split along ``dim`` (in process the global
+        view is whole already); its gradient is kept as the rank's chunk."""
+        return w
+
+    def model_max(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The element-wise max of the ranks' (detached) parts."""
+        acc = parts[0]
+        for p in parts[1:]:
+            acc = torch.maximum(acc, p)
+        return acc
+
+    def leaf_row_sum(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """Each row's sum of a per-coordinate (m, ...) tensor of one leaf,
+        over all the leaf's coordinates: its other model shards' too when
+        the leaf is split along ``dim`` (of the leaf).  In process the
+        global view's chunks are summed one by one and added in rank
+        order, as a psum over the model axis adds the ranks' sums."""
+        m = x.shape[0]
+        if self.model == 1 or dim is None or dim < 0:
+            return x.reshape(m, -1).sum(dim=1)
+        return self.model_sum([c.reshape(m, -1).sum(dim=1)
+                               for c in x.chunk(self.model, 1 + dim)])
+
 
 class _NamedAxes(Collectives):
     """Axis bookkeeping shared by the implementations: ``sizes`` maps the
-    worker axes, outermost first, to their sizes."""
+    mesh axes, outermost first, to their sizes."""
 
     def __init__(self, sizes: Dict[str, int]):
         self.sizes = dict(sizes)
         self.order = tuple(self.sizes)
+        self.model = self.sizes.get("model", 1)
         self.calls = collections.Counter()
 
     def _axes(self, names) -> Tuple[str, ...]:
@@ -203,10 +293,15 @@ class InProcessAxes(_NamedAxes):
     all-to-all a transpose, a psum a sum over the worker dims in worker
     order; ``pminmax`` is one B4 launch and ``psum_histogram`` one B5
     launch over the stacked rows.  ``calls`` counts the collectives by
-    name (the reference's tests count them in the jaxpr)."""
+    name (the reference's tests count them in the jaxpr).
+
+    A ``model`` entry of ``sizes`` is the model axis: it is not stacked
+    (a value is the global view), and each layer computes its model ranks
+    one after the other (the ``model_*`` calls)."""
 
     def __init__(self, sizes: Dict[str, int], device="cuda"):
-        super().__init__(sizes)
+        super().__init__({a: s for a, s in sizes.items() if a != "model"})
+        self.model = int(sizes.get("model", 1))
         self.device = resolve(device)
 
     def vshape(self, names) -> Tuple[int, ...]:
@@ -314,7 +409,13 @@ class ProcessGroupAxes(_NamedAxes):
     ``psum_histogram`` bins this rank's own row (B5 on the card) and
     all-reduces the counts (exact: integers below 2^24 in f32) and the
     sums.  ``calls`` counts the collectives by name, as
-    :class:`InProcessAxes` does."""
+    :class:`InProcessAxes` does.
+
+    With a ``model`` axis (``{"data": D, "model": M}``, ranks row-major as
+    ``jax.make_mesh`` lays devices out, so a worker's M model ranks are
+    consecutive) the worker-axis groups are the ranks of one model
+    coordinate, and the ``model_*`` calls run over this rank's
+    ``("model",)`` group through the autograd ``Function``s below."""
 
     def __init__(self, sizes: Dict[str, int], device="cuda"):
         import torch.distributed as dist
@@ -430,6 +531,100 @@ class ProcessGroupAxes(_NamedAxes):
         tree_map(lambda o, r: o.copy_(r), out, res)
         return out
 
+    # -- the model axis: this rank's shard, the others through the group
+
+    def model_ranks(self):
+        return (self.coords["model"],) if self.model > 1 else (0,)
+
+    def model_shard(self, w, dim, k):
+        return w  # a rank holds its shards
+
+    def model_enter(self, x):
+        return x if self.model == 1 else _CopyToModel.apply(x, self)
+
+    def model_local(self, x):
+        return x  # one rank reads it here
+
+    def model_sum(self, parts):
+        (p,) = parts
+        return p if self.model == 1 else _ReduceFromModel.apply(p, self)
+
+    def model_cat(self, parts, dim):
+        (p,) = parts
+        return p if self.model == 1 else _GatherFromModel.apply(p, self, dim)
+
+    def model_full(self, w, dim):
+        return w if self.model == 1 else _GatherFromModel.apply(w, self, dim)
+
+    def model_max(self, parts):
+        import torch.distributed as dist
+
+        (p,) = parts
+        if self.model == 1:
+            return p
+        acc = p.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(acc, op=dist.ReduceOp.MAX, group=self._group(("model",)))
+        return acc
+
+    def leaf_row_sum(self, x, dim):
+        s = x.reshape(x.shape[0], -1).sum(dim=1)
+        if self.model == 1 or dim is None or dim < 0:
+            return s
+        return self._model_all_reduce(s)
+
+    def _model_all_reduce(self, x):
+        import torch.distributed as dist
+
+        self.calls["model_psum"] += 1
+        acc = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=self._group(("model",)))
+        return acc
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f over a process group's model axis: identity forward,
+    the ranks' gradients psummed backward."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ax._model_all_reduce(g), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the ranks' partial results psummed forward, the
+    gradient passed through (every rank reads the sum alike)."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        return ax._model_all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The ranks' pieces all-gathered along ``dim`` forward; backward the
+    rank's chunk of the gradient of the whole (which every rank computes
+    alike from the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        ax.calls["model_gather"] += 1
+        rows = ax._gather(x, ("model",))
+        return torch.cat(rows.unbind(0), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax = ctx.ax
+        return g.chunk(ax.model, ctx.dim)[ax.coords["model"]].contiguous(), None, None
+
 
 # --------------------------------------------------------------------------
 # shared pieces
@@ -444,10 +639,12 @@ def _generator(key, device, *data) -> torch.Generator:
     return rng.generator(0 if key is None else key, *data, device=device)
 
 
-def _maybe_attack(ax: Collectives, outer, rows: torch.Tensor, attack, m: int, key):
+def _maybe_attack(ax: Collectives, outer, rows: torch.Tensor, attack, m: int, key,
+                  row_sum=None):
     """Byzantine rows of the gathered ``rows`` (m, ...) replaced, on each
     worker of the axes ``outer`` the rows still vary over (every worker
-    draws from the same key, as in the reference)."""
+    draws from the same key, as in the reference).  ``row_sum``: the
+    leaf's per-row sums across its model shards, for leaf-global attacks."""
     if not _active(attack):
         return rows
     mask = attack_engine.byzantine_mask(attack.alpha, m, device=rows.device)
@@ -455,7 +652,7 @@ def _maybe_attack(ax: Collectives, outer, rows: torch.Tensor, attack, m: int, ke
 
     def one(_w, r):
         gen = _generator(key, r.device) if atk.randomized else None
-        return apply_gradient_attack(attack, r, mask, generator=gen)
+        return apply_gradient_attack(attack, r, mask, generator=gen, row_sum=row_sum)
 
     if not outer:
         return one(0, rows)
@@ -475,24 +672,36 @@ def _aggregate_rows(ax: Collectives, outer, rows, method: str, beta: float):
 # --------------------------------------------------------------------------
 
 
+def _row_sums(ax: Collectives, model_dims, n: int) -> list:
+    """Per leaf, the ``row_sum`` of a leaf-global attack: the leaf's per-row
+    sums across its model shards (``model_dims[i]`` its split dim, -1
+    whole), or None without a model axis."""
+    if model_dims is None or ax.model == 1:
+        return [None] * n
+    return [None if d < 0 else (lambda x, d=d: ax.leaf_row_sum(x, d)) for d in model_dims]
+
+
 def robust_gather_agg(g, ax: Collectives, axis_names: Sequence[str], method: str = "median",
                       beta: float = 0.1, attack: Optional[AttackConfig] = None,
-                      agg_dtype=None, attack_key=None):
+                      agg_dtype=None, attack_key=None, model_dims=None):
     """All-gather per-worker gradients over ``axis_names`` and aggregate.
 
     ``g``: tree of varying gradient leaves.  Returns the aggregated tree,
     replicated over ``axis_names``.  ``attack_key`` seeds randomized
-    attacks (fold the step index in per training step)."""
+    attacks (fold the step index in per training step).  Under a model
+    axis ``model_dims`` (each leaf's split dim in :func:`tree_leaves`
+    order, -1 whole) completes a leaf-global attack's sums over the
+    leaf's shards, as GSPMD's psum over the model axis does."""
     names = tuple(axis_names)
     m = ax.size(names)
     outer = ax.outer(names)
     leaves = tree_leaves(g)
     rows = []
-    for leaf in leaves:
+    for leaf, row_sum in zip(leaves, _row_sums(ax, model_dims, len(leaves))):
         stacked = ax.all_gather(leaf, names)
         if agg_dtype is not None:
             stacked = stacked.to(agg_dtype)
-        rows.append(_maybe_attack(ax, outer, stacked, attack, m, attack_key))
+        rows.append(_maybe_attack(ax, outer, stacked, attack, m, attack_key, row_sum))
     outs = _aggregate_rows(ax, outer, rows, method, beta)
     return tree_unflatten_like(g, [o.to(leaf.dtype) for o, leaf in zip(outs, leaves)])
 
@@ -809,10 +1018,11 @@ def robust_psum_agg(g, ax: Collectives, axis_names: Sequence[str], method: str =
 
 def robust_hierarchical_agg(g, ax: Collectives, inner_axis: str, outer_axis: str,
                             method: str = "median", beta: float = 0.1,
-                            attack: Optional[AttackConfig] = None, attack_key=None):
+                            attack: Optional[AttackConfig] = None, attack_key=None,
+                            model_dims=None):
     """Two-level aggregation: within ``inner_axis``, then across
     ``outer_axis``.  Median-of-medians is a different estimator from the
     global median (DESIGN.md)."""
     inner = robust_gather_agg(g, ax, (inner_axis,), method, beta, attack,
-                              attack_key=attack_key)
+                              attack_key=attack_key, model_dims=model_dims)
     return robust_gather_agg(inner, ax, (outer_axis,), method, beta, attack=None)

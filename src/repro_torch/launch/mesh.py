@@ -8,11 +8,19 @@ process on one device (:class:`repro_torch.core.distributed.InProcessAxes`):
 each worker computes its own gradient on its own batch shard, and the
 collectives are operations on the worker-stacked values.
 
-The production meshes (:func:`make_production_mesh`) run one worker a
+The production meshes (:func:`make_production_mesh`) run one rank a
 process over a ``torch.distributed`` process group
 (:class:`repro_torch.core.distributed.ProcessGroupAxes`), one card a rank,
-as ``torchrun`` launches them.  Model parallelism (``model > 1``) comes
-with a later slice and raises ``NotImplementedError`` naming it.
+as ``torchrun`` launches them.
+
+The ``model`` axis is tensor parallelism: every split weight is cut into
+``model`` shards and the layers' model ranks meet through the model-axis
+collectives.  On the debug mesh the model ranks of a layer run one after
+the other in the process (the params stay the global view); under a
+process group world = workers × model, ranks row-major over the axes (a
+worker's model ranks consecutive, so under ``multi`` a pod is a host and
+the model axis lies inside it).  :func:`worker_axes`,
+:func:`num_workers` and the batch rows count workers only.
 """
 from __future__ import annotations
 
@@ -49,24 +57,15 @@ class Mesh:
         return os.path.join(root, f"rank{self.rank}") if self.per_rank else root
 
 
-def _refuse_model_axis(model: int) -> None:
-    if model != 1:
-        raise NotImplementedError(
-            f"model axis {model}: tensor parallelism is not ported yet (ROADMAP queue A "
-            "item 6, step 4); use model=1")
-
-
 def make_debug_mesh(data: int = 4, model: int = 1, pod: int = 0, device="cuda") -> Mesh:
     """``data`` workers (``pod`` x ``data`` with pods) in one process on
-    ``device``, and a model axis of size 1."""
-    _refuse_model_axis(model)
+    ``device``, each computing its ``model`` ranks one after the other."""
     dev = resolve(device)
     names = ("pod", "data", "model") if pod else ("data", "model")
     shape = (pod, data, model) if pod else (data, model)
     if min(shape) < 1:
         raise ValueError(f"mesh sizes must be >= 1, got {dict(zip(names, shape))}")
-    workers = {a: s for a, s in zip(names, shape) if a != "model"}
-    return Mesh(names, shape, dev, InProcessAxes(workers, dev))
+    return Mesh(names, shape, dev, InProcessAxes(dict(zip(names, shape)), dev))
 
 
 def make_production_mesh(*, multi_pod: bool = False, model: int = 1, device=None) -> Mesh:
@@ -76,12 +75,14 @@ def make_production_mesh(*, multi_pod: bool = False, model: int = 1, device=None
     ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, and
     ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` for the ranks of one host) unless
     one is initialised already.  NCCL on ``cuda:LOCAL_RANK``; gloo when the
-    caller asks for ``device="cpu"``.  ``single`` is ``(data=world,
-    model=1)``; ``multi_pod`` is ``(pod=world // LOCAL_WORLD_SIZE,
-    data=LOCAL_WORLD_SIZE, model=1)``, a pod a host."""
+    caller asks for ``device="cpu"``.  ``single`` is ``(data=world //
+    model, model)``; ``multi_pod`` is ``(pod=world // LOCAL_WORLD_SIZE,
+    data=LOCAL_WORLD_SIZE // model, model)``, a pod a host with its model
+    ranks inside it."""
     import torch.distributed as dist
 
-    _refuse_model_axis(model)
+    if model < 1:
+        raise ValueError(f"model axis must be >= 1, got {model}")
     local_rank = int(os.environ.get("LOCAL_RANK", 0))
     dev = resolve("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -102,11 +103,18 @@ def make_production_mesh(*, multi_pod: bool = False, model: int = 1, device=None
         local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
         if world % local_world:
             raise ValueError(f"world {world} is not whole hosts of {local_world} ranks")
-        names, shape = ("pod", "data", "model"), (world // local_world, local_world, 1)
+        if local_world % model:
+            raise ValueError(f"a host of {local_world} ranks does not hold model axes of "
+                             f"{model}")
+        names = ("pod", "data", "model")
+        shape = (world // local_world, local_world // model, model)
     else:
-        names, shape = ("data", "model"), (world, 1)
-    workers = {a: s for a, s in zip(names, shape) if a != "model"}
-    return Mesh(names, shape, dev, ProcessGroupAxes(workers, dev), rank=dist.get_rank(),
+        if world % model:
+            raise ValueError(f"world {world} is not whole model axes of {model} ranks")
+        names, shape = ("data", "model"), (world // model, model)
+    # the model axis takes part in the groups only when it splits anything
+    sizes = {a: s for a, s in zip(names, shape) if a != "model" or s > 1}
+    return Mesh(names, shape, dev, ProcessGroupAxes(sizes, dev), rank=dist.get_rank(),
                 per_rank=True)
 
 
@@ -116,6 +124,16 @@ def worker_axes(mesh: Mesh) -> tuple:
 
 def model_axes(mesh: Mesh) -> tuple:
     return tuple(a for a in mesh.axis_names if a == "model")
+
+
+def model_size(mesh: Mesh) -> int:
+    return mesh_shape_dict(mesh).get("model", 1)
+
+
+def model_rank(mesh: Mesh) -> int:
+    """This process's model coordinate under a process group (0 on the
+    debug mesh, whose process computes every model rank)."""
+    return getattr(mesh.axes, "coords", {}).get("model", 0) if mesh.per_rank else 0
 
 
 def mesh_shape_dict(mesh: Mesh) -> dict:

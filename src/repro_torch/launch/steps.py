@@ -45,18 +45,34 @@ as JAX holds a sharded global array), the per-worker gradients are
 computed as in the replicated mode, and each leaf (each layer of a
 ``blocks`` leaf) is then robust-reduce-scattered along its dim, all of
 them in one aggregation call.  Both give the same shards bit for bit.
-The dry-run ``input_specs`` waits for a later slice (ROADMAP queue A
-item 10).
+
+Tensor parallelism (a mesh's ``model`` axis > 1, ``param_mode=
+'replicated'``): each weight the partition rules split
+(:func:`param_shardings`) is cut into ``model`` shards along its model dim
+and the forward runs on them through the mesh's
+:class:`~repro_torch.models.sharding.ShardCtx`.  Under a process group a
+rank holds its shards (:func:`tp_shard`) and their optimizer moments, and
+the strategies aggregate the rank's own leaves over the workers of its
+model coordinate; on the in-process mesh the params stay the global view
+(worker w, model rank k's shard is chunk k along the leaf's model dim)
+and the strategies aggregate the global view, which gives the shards'
+bits since the estimators are coordinate-wise.  ``grad_norm`` psums the
+split leaves' squares over ``model`` and counts a replicated leaf once.
+Not at model > 1 yet: fsdp, ``seq_parallel``, the codecs and randomized
+attacks (ROADMAP queue A item 6, step 7), the ``ssm`` / ``rec`` layers
+and the frontends (step 6), serving (step 5).  :func:`input_specs` and
+:func:`cache_shardings` are the reference's dry-run specs, as spec tuples
+on meta tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import rng
-from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.core import distributed
 from repro_torch.core.attacks import AttackConfig
 from repro_torch.launch import mesh as mesh_lib
@@ -94,10 +110,30 @@ def param_shardings(cfg: ModelConfig, mesh: mesh_lib.Mesh):
     return sharding.tree_partition_specs(T.meta_params(cfg), "model", _model_size(mesh))
 
 
+def tp_shard(tree, specs, k: int, model: int):
+    """Model rank ``k``'s shards of a full parameter tree (or of a tree
+    shaped like it, the optimizer's moments): chunk ``k`` of ``model``
+    along each leaf's ``model`` entry of ``specs``, copied so the full
+    tensor can be freed; a leaf with no model entry as it is.  At model
+    size 1 the tree itself."""
+    if model == 1:
+        return tree
+
+    def cut(t, spec):
+        d = next((i for i, e in enumerate(spec) if e == "model"), None)
+        return t if d is None else t.chunk(model, d)[k].clone(
+            memory_format=torch.contiguous_format)
+
+    return tree_map(cut, tree, specs)
+
+
 def abstract_params(cfg: ModelConfig, mesh: mesh_lib.Mesh):
-    """The replicated params as tensors on the meta device."""
-    del mesh  # every worker holds them whole
-    return T.meta_params(cfg)
+    """The replicated params as tensors on the meta device: a rank's shard
+    shapes under a process group with a model axis, else the whole."""
+    meta = T.meta_params(cfg)
+    if not mesh.per_rank:
+        return meta
+    return tp_shard(meta, param_shardings(cfg, mesh), 0, _model_size(mesh))
 
 
 def abstract_opt_state(opt: Optimizer, cfg: ModelConfig, mesh: mesh_lib.Mesh):
@@ -181,6 +217,89 @@ def abstract_opt_state_fsdp(opt: Optimizer, cfg: ModelConfig, mesh: mesh_lib.Mes
     return opt.init(abstract_params_fsdp(cfg, mesh))
 
 
+def _divisible_spec(mesh: mesh_lib.Mesh, shape, prefs) -> tuple:
+    """A spec giving mesh axes to dims where they divide them.  ``prefs``:
+    (dim, axes tuple or axis) preferences in order; an axis is used once."""
+    shp = mesh_lib.mesh_shape_dict(mesh)
+    spec = [None] * len(shape)
+    used = set()
+    for dim, axes in prefs:
+        axes_t = axes if isinstance(axes, tuple) else (axes,)
+        if any(a in used or a not in shp for a in axes_t):
+            continue
+        size = 1
+        for a in axes_t:
+            size *= shp[a]
+        if shape[dim] % size == 0 and shape[dim] >= size:
+            spec[dim] = axes_t if len(axes_t) > 1 else axes_t[0]
+            used.update(axes_t)
+    return tuple(spec)
+
+
+def cache_shardings(cfg: ModelConfig, mesh: mesh_lib.Mesh, cache):
+    """The serving caches' specs (a tree shaped like ``cache``, whose leaves
+    may be meta tensors): batch over the worker axes, heads (else head
+    dim, state heads or channels) over the model axis where they divide;
+    ``()`` (replicated) for the rest."""
+    del cfg
+    waxes = mesh_lib.worker_axes(mesh)
+
+    def visit(path, leaf):
+        name = path.split("/")[-1] if path else ""
+        shape = tuple(leaf.shape)
+        n = len(shape)
+        if name in ("k", "v") and n >= 4:  # (.., B, S, KV, hd)
+            return _divisible_spec(mesh, shape, [(n - 4, waxes), (n - 2, "model"),
+                                                 (n - 1, "model")])
+        if name == "ssd" and n >= 4:
+            return _divisible_spec(mesh, shape, [(n - 4, waxes), (n - 3, "model")])
+        if name in ("conv", "h") and n >= 2:
+            return _divisible_spec(mesh, shape, [(n - (3 if name == "conv" else 2), waxes),
+                                                 (n - 1, "model")])
+        return ()
+
+    return tree_map_with_path(visit, cache)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputSpec:
+    """A step input's stand-in: a meta tensor (shape and dtype, nothing
+    allocated) and its spec tuple (a leaf of the port's trees)."""
+
+    meta: torch.Tensor
+    spec: tuple
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh: mesh_lib.Mesh) -> Dict[str, Any]:
+    """Stand-ins for the step inputs of an (arch × shape) combination, the
+    reference's dry-run ``input_specs``: ``tokens``/``labels`` (B, S) int32
+    over the worker axes, a frontend configuration's ``frontend`` (B, T,
+    D); for decode the ``token`` (B, 1), the ``cache`` tree (its specs
+    :func:`cache_shardings`) and the scalar ``pos``."""
+    waxes = mesh_lib.worker_axes(mesh)
+    bspec = (_batch_entry(waxes),)
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    out: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        out["tokens"] = InputSpec(meta((b, s), torch.int32), bspec)
+        if shape.kind == "train":
+            out["labels"] = InputSpec(meta((b, s), torch.int32), bspec)
+        if cfg.frontend != "none":
+            out["frontend"] = InputSpec(meta((b, cfg.n_frontend_tokens, cfg.d_model),
+                                             getattr(torch, cfg.dtype)), bspec)
+    else:  # decode
+        out["token"] = InputSpec(meta((b, 1), torch.int32),
+                                 _divisible_spec(mesh, (b, 1), [(0, waxes)]))
+        cache = T.init_cache(cfg, b, s, device="meta")
+        out["cache"] = tree_map(InputSpec, cache, cache_shardings(cfg, mesh, cache))
+        out["pos"] = InputSpec(meta((), torch.int32), ())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # train step (Algorithm 1 over the worker axis)
 # ---------------------------------------------------------------------------
@@ -235,15 +354,17 @@ def _stacked_pieces(buf, k: int):
 
 
 def _value_and_grad(cfg: ModelConfig, kv_block: int, transform: Optional[Callable] = None,
-                    block_provider: Optional[Callable] = None):
+                    block_provider: Optional[Callable] = None,
+                    ctx: sharding.ShardCtx = sharding.NULL_CTX):
     """``vg(pieces, batch) -> (loss, grads)``: the gradient of every leaf of
     ``pieces`` (exact zeros where the loss does not read it, as JAX gives);
-    ``transform`` maps the leaves to the tree the model runs with."""
+    ``transform`` maps the leaves to the tree the model runs with, ``ctx``
+    is the model axis it runs over."""
     def vg(pieces, batch):
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(pieces)]
         tree = tree_unflatten_like(pieces, leaves)
         loss = T.loss_fn(tree if transform is None else transform(tree), batch, cfg,
-                         kv_block=kv_block, block_provider=block_provider)
+                         kv_block=kv_block, block_provider=block_provider, ctx=ctx)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
         return loss.detach(), tree_unflatten_like(pieces, grads)
@@ -310,8 +431,19 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
     reduce-scatter; replicated ones (FSDP dim -1) take the gather strategy
     with the step's attack key; ``grad_norm`` psums each worker's sum of
     squares over the workers, so a replicated leaf counts m times, as in
-    the reference."""
+    the reference.
+
+    A model axis > 1 (module docstring) runs the forward over the mesh's
+    :func:`~repro_torch.models.sharding.model_ctx` and refuses, with
+    ``NotImplementedError`` naming the ROADMAP item, what is not ported to
+    it: fsdp, ``seq_parallel``, the codecs and randomized attacks, the
+    ``ssm`` / ``rec`` layers and the frontends; a leaf-global attack
+    (mimic) with the bucketed strategy is a ``ValueError``
+    (:func:`repro_torch.rounds.comm.refuse_leaf_global`)."""
     fsdp = pcfg.param_mode == "fsdp"
+    model = _model_size(mesh)
+    if model > 1:
+        _refuse_model_axis(cfg, pcfg, attack, model)
     if attack is not None and attack.name != "none" and attack.alpha > 0:
         atk_spec, _ = attack.resolve()  # raises early on unknown names
         comm.validate_attack_strategy(attack, pcfg.agg_strategy)
@@ -347,7 +479,20 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
     m = mesh_lib.num_workers(mesh)
     vs = ax.vshape(waxes)
     k = len(vs)
-    vg = _value_and_grad(cfg, pcfg.attn_chunk)
+    vg = _value_and_grad(cfg, pcfg.attn_chunk, ctx=sharding.model_ctx(mesh))
+    mdims = tree_leaves(sharding.tp_dims(cfg, model)) if model > 1 else None
+
+    def sq_norm(agg):
+        """The aggregate's squared norm: the split leaves' squares summed a
+        model rank at a time and psummed over ``model``, each replicated
+        leaf counted once."""
+        leaves = tree_leaves(agg)
+        if mdims is None:
+            return sum(torch.sum(g.float() ** 2) for g in leaves)
+        parts = [sum(torch.sum(ax.model_shard(g, d, r).float() ** 2)
+                     for g, d in zip(leaves, mdims) if d >= 0) for r in ax.model_ranks()]
+        return ax.model_sum(parts) + sum(torch.sum(g.float() ** 2)
+                                         for g, d in zip(leaves, mdims) if d < 0)
     buf = {}  # the worker-stacked gradients, allocated at the first step
 
     def local(w, batch, pieces):
@@ -390,14 +535,13 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
                 agg = rounds_dist.aggregate_by_strategy(
                     grads, ax, waxes, pcfg.agg_strategy, pcfg.agg_method, pcfg.agg_beta,
                     attack, agg_dtype, attack_key=atk_key, compression=pcfg.compression,
-                    comp_key=rng.fold(_COMP_KEY, step))
+                    comp_key=rng.fold(_COMP_KEY, step), model_dims=mdims)
             if tau > 1:
                 # the optimizer gets the MEAN local gradient, so lr means what
                 # it means at tau = 1 (scaling commutes with the aggregators)
                 agg = tree_map(lambda g: g / tau, agg)
             new_params, new_opt = opt.update(agg, opt_state, params, step)
-            sq = sum(torch.sum(g.float() ** 2) for g in tree_leaves(agg))
-            metrics = {"loss": ax.psum(losses, waxes) / m, "grad_norm": torch.sqrt(sq)}
+            metrics = {"loss": ax.psum(losses, waxes) / m, "grad_norm": torch.sqrt(sq_norm(agg))}
         return new_params, new_opt, comp, metrics
 
     if fsdp:
@@ -490,6 +634,31 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
     return StepBody(body=body, waxes=waxes, comp_body=core if ef else None)
 
 
+def _refuse_model_axis(cfg: ModelConfig, pcfg: ParallelConfig, attack, model: int) -> None:
+    """What a train step does not run at model axis ``model`` > 1 yet."""
+    T.refuse_model_axis(cfg, model)
+    later = "is not ported yet (ROADMAP queue A item 6, step 7)"
+    if pcfg.param_mode == "fsdp":
+        raise NotImplementedError(f"param_mode='fsdp' at model axis {model}: fsdp × tensor "
+                                  f"parallelism {later}")
+    if pcfg.seq_parallel:
+        raise NotImplementedError(f"seq_parallel at model axis {model}: sequence parallelism "
+                                  f"{later}")
+    if pcfg.compression != "none":
+        raise NotImplementedError(
+            f"compression {pcfg.compression!r} at model axis {model}: a codec's message is the "
+            f"whole raveled gradient, which no model rank holds; codecs under tensor "
+            f"parallelism {later}")
+    atk = comm.resolve_attack(attack)[0]
+    if (atk is not None and atk.randomized and attack.alpha > 0
+            and not attack.is_data_attack()):
+        raise NotImplementedError(
+            f"attack {atk.name!r} at model axis {model}: a randomized payload is drawn over "
+            f"the whole leaf, which no model rank holds; randomized attacks under tensor "
+            f"parallelism {later}")
+    comm.refuse_leaf_global(attack, pcfg.agg_strategy, model)
+
+
 def comp_state_size(cfg: ModelConfig) -> int:
     """Flat parameter count D: the width of one worker's error-feedback
     residual (the payload is the whole gradient raveled to one message)."""
@@ -526,9 +695,22 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
 # ---------------------------------------------------------------------------
 
 
+def refuse_serving_model_axis(mesh: Optional[mesh_lib.Mesh] = None, model: int = 1) -> None:
+    """Serving runs with no model axis yet: ``NotImplementedError`` at
+    model size > 1 (of ``mesh``, or ``model``)."""
+    model = _model_size(mesh) if mesh is not None else model
+    if model > 1:
+        raise NotImplementedError(
+            f"serving at model axis {model}: tensor parallelism of the serving steps, the "
+            "engine and its slot pool is not ported yet (ROADMAP queue A item 6, step 5)")
+
+
 def make_prefill_step(cfg: ModelConfig, kv_block: int = 1024,
-                      cache_len: Optional[int] = None) -> Callable:
-    """``step(params, tokens, frontend=None) -> (last-token logits, cache)``."""
+                      cache_len: Optional[int] = None,
+                      mesh: Optional[mesh_lib.Mesh] = None) -> Callable:
+    """``step(params, tokens, frontend=None) -> (last-token logits, cache)``.
+    The serving steps take a ``mesh`` only to refuse a model axis."""
+    refuse_serving_model_axis(mesh)
 
     def step(params, tokens, frontend=None):
         with torch.no_grad():
@@ -538,9 +720,10 @@ def make_prefill_step(cfg: ModelConfig, kv_block: int = 1024,
     return step
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable:
+def make_decode_step(cfg: ModelConfig, mesh: Optional[mesh_lib.Mesh] = None) -> Callable:
     """``step(params, token, cache, pos) -> (logits, cache)``, the cache
     updated in place."""
+    refuse_serving_model_axis(mesh)
 
     def step(params, token, cache, pos):
         with torch.no_grad():
@@ -549,18 +732,20 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     return step
 
 
-def make_slot_prefill_step(cfg: ModelConfig, cache_len: int) -> Callable:
+def make_slot_prefill_step(cfg: ModelConfig, cache_len: int,
+                           mesh: Optional[mesh_lib.Mesh] = None) -> Callable:
     """Batch-1 prefill at a fixed prompt bucket -> (last-token logits
     (1, 1, V), a slot cache sized ``cache_len``)."""
-    return make_prefill_step(cfg, kv_block=0, cache_len=cache_len)
+    return make_prefill_step(cfg, kv_block=0, cache_len=cache_len, mesh=mesh)
 
 
-def make_decode_pool_step(cfg: ModelConfig) -> Callable:
+def make_decode_pool_step(cfg: ModelConfig, mesh: Optional[mesh_lib.Mesh] = None) -> Callable:
     """``tick(params, tokens (S,) or (S, 1[, 1]), pool, pos (S,)) ->
     (next_tokens (S,) int32, pool)``: one greedy decode step of every slot
     at its own position, the pool updated in place.  Idle slots decode
     garbage against their masked caches; the engine ignores their outputs
     and every admit replaces a slot's cache wholesale."""
+    refuse_serving_model_axis(mesh)
 
     def tick(params, tokens, pool, pos):
         with torch.no_grad():

@@ -21,8 +21,13 @@ versions (gloo under a process group)::
 Every configuration trains, whisper-small and internvl2-1b included: their
 stub frontends (``launch.trainer.frontend_batch``: 1500 audio frames /
 256 vision patches a row) ride each batch, and the startup line names
-them (``frontend=audio:1500``).  ``--model-par`` > 1 raises: tensor
-parallelism is ROADMAP queue A item 6, step 4.
+them (``frontend=audio:1500``).  ``--model-par N`` adds a model axis of N
+(tensor parallelism): on the debug mesh each worker computes its N model
+ranks in turn; under ``--mesh single|multi`` the world is workers × N
+ranks, a worker's N ranks consecutive (``torchrun --nproc-per-node 4 ...
+--mesh single --model-par 2``: 2 workers of 2 model ranks).  The dense
+and MoE families run at N > 1; the ssm / rec families and the frontends
+raise ``NotImplementedError`` (ROADMAP queue A item 6, step 6).
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from repro_torch.core.attacks import AttackConfig
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch import trainer
 from repro_torch.launch.mesh import (make_debug_mesh, make_production_mesh, mesh_shape_dict,
-                                     num_workers)
+                                     model_rank, model_size, num_workers)
 from repro_torch.rounds import compression
 
 
@@ -53,7 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--mesh", default="debug", choices=["debug", "single", "multi"])
     ap.add_argument("--workers", type=int, default=4, help="debug mesh data axis")
-    ap.add_argument("--model-par", type=int, default=1, help="model axis (only 1 is ported)")
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="model axis: tensor parallelism over N ranks of each worker")
     ap.add_argument("--strategy", default="gather",
                     choices=["gather", "bucketed", "hierarchical", "chunked", "psum"])
     ap.add_argument("--agg", default="median",
@@ -134,10 +140,14 @@ def _train(args, cfg, mesh) -> None:
         f"first window {result.compile_s:.2f}s  "
         f"steady {result.steps_per_s:.2f} steps/s  "
         f"{result.tokens_per_s:.0f} tokens/s")
-    if args.ckpt and mesh.rank == 0:  # the params are replicated: one writer
-        save_ckpt(args.ckpt, {"params": result.state["params"]}, step=result.steps,
+    # the params are replicated over the workers: worker 0 writes them, each
+    # of its model ranks its own shards under a process group
+    split = mesh.per_rank and model_size(mesh) > 1
+    if args.ckpt and mesh.rank < model_size(mesh):
+        path = f"{args.ckpt}.model{model_rank(mesh)}" if split else args.ckpt
+        save_ckpt(path, {"params": result.state["params"]}, step=result.steps,
                   extra={"arch": cfg.name, "agg": args.agg, "strategy": args.strategy})
-        say(f"saved checkpoint to {args.ckpt}")
+        say(f"saved checkpoint to {path}")
 
 
 if __name__ == "__main__":

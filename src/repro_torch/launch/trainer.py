@@ -15,10 +15,12 @@ CUDA graphs of the window are later work.
 State: ``{"params", "opt_state", "comp" (error-feedback residuals or ()),
 "step" and "key" (int64 scalars on the CPU: the host knows them),
 "metrics" (running sums on the params' device)}``.  Under
-``param_mode='fsdp'`` a rank of a process group holds its shards of the
-params and of the optimizer state (:func:`init_state`), and the window and
+``param_mode='fsdp'``, and under a model axis > 1 (tensor parallelism), a
+rank of a process group holds its shards of the params and of the
+optimizer state (:func:`init_state`), and the window and
 :func:`train_loop` run unchanged; :func:`abstract_state` gives the
-state's shapes on the meta device.
+state's shapes on the meta device and :func:`abstract_window_batches`
+the window's batch block.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch import rng
-from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig, TrainConfig
 from repro_torch.core.attacks import AttackConfig
 from repro_torch.data.pipeline import DataConfig, make_lm_batch
 from repro_torch.launch import mesh as mesh_lib
@@ -54,11 +56,15 @@ def init_state(cfg: ModelConfig, mesh: mesh_lib.Mesh, opt: Optimizer, seed: int 
     base ``seed`` and zeroed metric sums.  Under ``param_mode='fsdp'`` on a
     process group the seeded full params are built once and this rank
     keeps its shards (:func:`steps.fsdp_shard`), and the optimizer state is
-    initialised on them; the in-process mesh keeps the global view."""
+    initialised on them; under a model axis a rank keeps its model shards
+    (:func:`steps.tp_shard`); the in-process mesh keeps the global view."""
     params = T.init_params(cfg, seed=seed, device=mesh.device)
     if pcfg is not None and pcfg.param_mode == "fsdp" and mesh.per_rank:
         params = steps.fsdp_shard(params, steps.fsdp_dims(cfg, mesh), mesh.rank,
                                   mesh_lib.num_workers(mesh))
+    elif mesh.per_rank:
+        params = steps.tp_shard(params, steps.param_shardings(cfg, mesh),
+                                mesh_lib.model_rank(mesh), mesh_lib.model_size(mesh))
     return {
         "params": params,
         "opt_state": opt.init(params),
@@ -96,6 +102,20 @@ def abstract_state(cfg: ModelConfig, mesh: mesh_lib.Mesh, opt: Optimizer,
             "metrics": {"loss_sum": scalar(torch.float32),
                         "grad_norm_sum": scalar(torch.float32),
                         "micro_steps": scalar(torch.int32)}}
+
+
+def abstract_window_batches(cfg: ModelConfig, shape: ShapeConfig, mesh: mesh_lib.Mesh,
+                            device_steps: int) -> Dict[str, steps.InputSpec]:
+    """The window's stacked batch block as stand-ins: each of
+    :func:`steps.input_specs`' train inputs with ``device_steps`` in
+    front, split over the worker axes on its batch dim."""
+    if shape.kind != "train":
+        raise ValueError(f"trainer windows need a train shape, got {shape.kind!r}")
+    waxes = mesh_lib.worker_axes(mesh)
+    entry = waxes if len(waxes) > 1 else waxes[0]
+    return {k: steps.InputSpec(torch.empty((device_steps,) + tuple(v.meta.shape),
+                                           dtype=v.meta.dtype, device="meta"), (None, entry))
+            for k, v in steps.input_specs(cfg, shape, mesh).items()}
 
 
 def zero_metrics(device="cpu") -> Dict[str, torch.Tensor]:

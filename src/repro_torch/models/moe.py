@@ -13,13 +13,23 @@ assignment in index form, the kept tokens are gathered into one
 (E, B·C, D) buffer, and the experts run as one batched product over E;
 the combine gathers each token's k outputs back and sums them, weighted,
 in float32.  Nothing reads the card's values on the host.
+
+Under a model axis (``ctx``, ``split``) the router is whole on every rank
+(its caller gathers it), so routing is the global top-k.  ``experts``:
+each rank runs the tokens routed to its E/M experts and combines them,
+the others' slots weighing 0; ``hidden``: each rank runs every expert on
+its F/M columns.  Either way the ranks' partial outputs are psummed (the
+combine is linear), and the combine weights enter the ranks through
+Megatron's f, so that their gradient is the ranks' sum.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.sharding import NULL_CTX, ShardCtx
 
 
 def _round_up(x: int, m: int) -> int:
@@ -65,30 +75,59 @@ def route(probs: torch.Tensor, top_k: int, cap: int) -> Routing:
                    weight=torch.where(keep, top_p.float(), torch.zeros_like(top_p.float())))
 
 
+def _experts(x: torch.Tensor, r: Routing, weight: torch.Tensor, w_gate: torch.Tensor,
+             w_up: torch.Tensor, w_down: torch.Tensor, cap: int, e0: int = 0,
+             mine: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The float32 combine (B, S, D) of the experts ``e0 ..`` whose weights
+    are given (``mine``: which (token, slot) pairs they hold; None = all)."""
+    b, s, d = x.shape
+    top_k = r.expert.shape[-1]
+    el = w_gate.shape[0]
+    keep = r.keep if mine is None else r.keep & mine
+    # every (token, top-k slot) pair's row of the (E, B, C) buffer; a dropped
+    # pair writes to one extra row that no expert reads (no host sync)
+    rows = ((r.expert - e0) * b + torch.arange(b, device=x.device)[:, None, None]) * cap + r.slot
+    trash = el * b * cap
+    dest = torch.where(keep, rows, torch.full_like(rows, trash)).reshape(-1)
+    src = x[:, :, None, :].expand(b, s, top_k, d).reshape(-1, d)
+    xe = x.new_zeros((trash + 1, d)).index_copy(0, dest, src)[:trash].view(el, b * cap, d)
+    h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+    ye = torch.bmm(h, w_down).reshape(trash, d)
+    # combine in float32; a dropped pair has weight 0 (its row index is 0)
+    picked = ye[torch.where(keep, rows, torch.zeros_like(rows))].float()  # (B, S, K, D)
+    if mine is not None:
+        weight = torch.where(mine, weight, torch.zeros_like(weight))
+    return torch.sum(picked * weight[..., None], dim=2)
+
+
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, top_k: int,
-            capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D); w_router (D, E); w_gate / w_up (E, D, F); w_down
-    (E, F, D).  Returns (y (B, S, D) in x's dtype, the float32 Switch
-    auxiliary loss ``E · Σ_e frac_e · mean_p_e / k``)."""
+            capacity_factor: float = 1.25, ctx: ShardCtx = NULL_CTX,
+            split: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D); w_router (D, E), whole; w_gate / w_up (E, D, F); w_down
+    (E, F, D) (a rank's shards under ``split``).  Returns (y (B, S, D) in
+    x's dtype, the float32 Switch auxiliary loss ``E · Σ_e frac_e ·
+    mean_p_e / k``)."""
     b, s, d = x.shape
     e = w_router.shape[1]
     cap = capacity(s, e, top_k, capacity_factor)
     probs = torch.softmax(x.float() @ w_router.float(), dim=-1)  # (B, S, E)
     r = route(probs, top_k, cap)
-
-    # every (token, top-k slot) pair's row of the (E, B, C) buffer; a dropped
-    # pair writes to one extra row that no expert reads (no host sync)
-    rows = (r.expert * b + torch.arange(b, device=x.device)[:, None, None]) * cap + r.slot
-    trash = e * b * cap
-    dest = torch.where(r.keep, rows, torch.full_like(rows, trash)).reshape(-1)
-    src = x[:, :, None, :].expand(b, s, top_k, d).reshape(-1, d)
-    xe = x.new_zeros((trash + 1, d)).index_copy(0, dest, src)[:trash].view(e, b * cap, d)
-    h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
-    ye = torch.bmm(h, w_down).reshape(trash, d)
-    # combine in float32; a dropped pair has weight 0 (its row index is 0)
-    picked = ye[torch.where(r.keep, rows, torch.zeros_like(rows))].float()  # (B, S, K, D)
-    y = torch.sum(picked * r.weight[..., None], dim=2)
+    c = ctx if split is not None else NULL_CTX
+    xe, weight = c.enter(x), c.enter(r.weight)
+    parts = []
+    for k in c.ranks():
+        xk, wk = c.local(xe), c.local(weight)
+        if split == "experts":
+            el = e // c.model
+            e0 = k * el
+            parts.append(_experts(xk, r, wk, c.shard(w_gate, 0, k), c.shard(w_up, 0, k),
+                                  c.shard(w_down, 0, k), cap, e0,
+                                  (r.expert >= e0) & (r.expert < e0 + el)))
+        else:
+            parts.append(_experts(xk, r, wk, c.shard(w_gate, 2, k), c.shard(w_up, 2, k),
+                                  c.shard(w_down, 1, k), cap))
+    y = c.reduce(parts)
 
     kept = F.one_hot(r.expert, e) * r.keep[..., None]  # (B, S, K, E)
     frac = torch.sum(kept, dim=(0, 1, 2)).float() / (b * s)

@@ -1,5 +1,5 @@
-"""Partition rules for parameter leaves (the reference's
-``repro.models.sharding``).
+"""Partition rules for parameter leaves and the model-axis context (the
+reference's ``repro.models.sharding``).
 
 A spec is a tuple with one entry per dim: an axis name (or a tuple of
 them) where the dim is split over that mesh axis, ``None`` where it is
@@ -7,21 +7,44 @@ whole; the reference's ``PartitionSpec`` as a plain tuple.  The rules
 are pure functions of a leaf's path and shape, so they need no mesh.
 
 The model-parallel ("megatron") rules mark one dim of each weight with
-the ``model`` axis.  Nothing in the port splits a tensor over ``model``
-yet: the FSDP dims (:func:`repro_torch.launch.steps.fsdp_dims`) read
-these specs to stay off the model dim, as the reference's do, and that
-reading matters at model size 1 too, where every leaf with a rule gets
-``model`` on its first preferred dim (every size divides by 1).
+the ``model`` axis.  At model size 1 every leaf with a rule gets ``model``
+on its first preferred dim (every size divides by 1), which the FSDP dims
+(:func:`repro_torch.launch.steps.fsdp_dims`) read to stay off it, as the
+reference's do.  At model size M > 1 the split is real: tensor
+parallelism.  The reference leaves the layout to GSPMD (its ``ShardCtx``
+constrains activations, it does not change the function); the port
+computes each layer on the shards explicitly, through :class:`ShardCtx`:
 
-The reference's ``ShardCtx`` (activation constraints over the model axis)
-is not here: it acts only when the model axis is larger than 1, which is
-tensor parallelism, a later slice (ROADMAP queue A item 6, step 4).
+- ``heads``: q/k/v are column-parallel on the local heads and ``wo`` is
+  row-parallel, when the split falls on whole kv heads (``kv % M == 0``);
+- ``gathered``: where the rule cuts through a head or through ``hd``
+  (RoPE pairs ``i`` with ``i + hd/2``, so half a head cannot be rotated
+  alone), the split attention leaves are all-gathered over ``model`` for
+  the compute and each rank keeps its chunk of the whole gradient; the
+  MoE router is always gathered (its product is small), so routing is
+  the global top-k;
+- the dense FFN is column-parallel on F (``wg``/``wu``) and row-parallel
+  (``wd``); the MoE experts are expert-parallel where E divides by M, else
+  split on F, as the rule falls back;
+- the embedding is vocab-parallel (masked lookups, psummed: one non-zero
+  term per element) where its rule takes V, else each rank looks up its
+  d_model columns and they are all-gathered; the lm head with V split
+  feeds a vocab-parallel cross-entropy, with D split its partial logits
+  are psummed.
+
+:func:`tp_plan` lists, leaf by leaf, the split dim and whether the layer
+computes on the shard (``shard``) or on the gathered whole
+(``gathered``); the ``ssm`` / ``rec`` layers and the encoder and
+cross-attention groups are not ported to a model axis yet (``unported``).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import functools
+import math
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
-from repro_torch.tree import tree_map_with_path
+from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 
 Spec = Tuple[Optional[str], ...]
 
@@ -65,3 +88,181 @@ def tree_partition_specs(params, model_axis: str = "model", mesh_model: int = 16
     return tree_map_with_path(
         lambda path, leaf: param_partition_spec(path, tuple(leaf.shape), model_axis,
                                                 mesh_model), params)
+
+
+def split_dim(path: str, shape: Tuple[int, ...], model: int) -> int:
+    """The dim the model axis splits at size ``model`` (-1: none).  At
+    model size 1 nothing is split."""
+    if model == 1:
+        return -1
+    spec = param_partition_spec(path, shape, "model", model)
+    return next((d for d, e in enumerate(spec) if e == "model"), -1)
+
+
+# ---------------------------------------------------------------------------
+# the layers' tensor-parallel modes
+# ---------------------------------------------------------------------------
+
+
+class TPModes(NamedTuple):
+    """How a configuration's layers compute at one model size.
+
+    ``attn``: None (nothing split), ``"heads"`` or ``"gathered"``, and
+    ``attn_split`` the attention leaves the rules split; ``ffn``: the
+    dense FFN split on F; ``moe``: None, ``"experts"`` or ``"hidden"``;
+    ``router``, ``embed`` and ``lm_head``: the split dim of the
+    (unstacked) leaf, or None."""
+
+    attn: Optional[str]
+    attn_split: Tuple[str, ...]
+    ffn: bool
+    moe: Optional[str]
+    router: Optional[int]
+    embed: Optional[int]
+    lm_head: Optional[int]
+
+
+_NO_TP = TPModes(None, (), False, None, None, None, None)
+
+
+@functools.lru_cache(maxsize=None)
+def tp_modes(cfg, model: int) -> TPModes:
+    """The layer modes of ``cfg`` at model size ``model`` (the rules on the
+    unstacked leaf shapes)."""
+    if model == 1:
+        return _NO_TP
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def dim(name, shape):
+        s = split_dim(name, shape, model)
+        return None if s < 0 else s
+
+    attn_split = tuple(n for n, s in (("wk", (d, kv * hd)), ("wo", (h * hd, d)),
+                                      ("wq", (d, h * hd)), ("wv", (d, kv * hd)))
+                       if dim(n, s) is not None)
+    attn = None if not attn_split else ("heads" if kv % model == 0 else "gathered")
+    moe = router = None
+    ffn = False
+    if cfg.moe is not None:
+        e, fe = cfg.moe.num_experts, cfg.moe.d_expert
+        we = dim("we_g", (e, d, fe))
+        moe = None if we is None else ("experts" if we == 0 else "hidden")
+        router = dim("router", (d, e))
+    elif cfg.d_ff:
+        ffn = dim("wg", (d, cfg.d_ff)) is not None
+    return TPModes(attn, attn_split, ffn, moe, router, dim("embed", (cfg.vocab, d)),
+                   dim("lm_head", (d, cfg.vocab)))
+
+
+_ATTN = ("wq", "wk", "wv", "wo")
+_GROUPS_UNPORTED = ("enc_blocks", "cross_blocks")
+
+
+def tp_plan(cfg, model: int) -> Dict[str, Tuple[int, str]]:
+    """``{leaf path: (split dim, mode)}`` for every leaf the model axis
+    splits at size ``model`` (dims of the leaf as stored, the stacking dim
+    included): ``shard`` where the layer computes on the rank's shard,
+    ``gathered`` where the leaf is all-gathered for the compute,
+    ``unported`` in the layer kinds and groups that do not run at model
+    size > 1 yet.  Replicated leaves are not listed."""
+    from repro_torch.models import transformer as T
+
+    modes = tp_modes(cfg, model)
+    tail_kinds = T.layer_groups(cfg)[1]
+    out = {}
+    for path, leaf in tree_leaves_with_path(T.meta_params(cfg)):
+        d = split_dim(path, tuple(leaf.shape), model)
+        if d < 0:
+            continue
+        parts = path.split("/")
+        name = parts[-1]
+        kind = (parts[1].split("_", 1)[1] if parts[0] == "blocks" else
+                tail_kinds[int(parts[1])] if parts[0] == "tail" else None)
+        if parts[0] in _GROUPS_UNPORTED or kind in ("ssm", "rec"):
+            mode = "unported"
+        elif (name in _ATTN and modes.attn == "gathered") or name == "router":
+            mode = "gathered"
+        else:
+            mode = "shard"
+        out[path] = (d, mode)
+    return out
+
+
+def tp_dims(cfg, model: int):
+    """The split dim of every parameter leaf (-1: replicated), in a tree
+    shaped like the params."""
+    from repro_torch.models import transformer as T
+
+    return tree_map_with_path(lambda path, leaf: split_dim(path, tuple(leaf.shape), model),
+                              T.meta_params(cfg))
+
+
+# ---------------------------------------------------------------------------
+# the context
+# ---------------------------------------------------------------------------
+
+
+def shard_ok(d: int, axes: Tuple[str, ...], mesh_shape: dict) -> bool:
+    """The reference's ``ShardCtx._ok`` rule: shard a dim of size d over
+    ``axes`` if divisible, or unevenly (GSPMD pads) when at least half the
+    shards are non-empty (e.g. kv=8 heads over model=16 -> shard size 1, 8
+    padding shards: acceptable; kv=1 MQA stays replicated)."""
+    size = math.prod(mesh_shape.get(a, 1) for a in axes)
+    return bool(axes) and (d % size == 0 or 2 * d >= size)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """The model axis a forward runs over: its size and the mesh's
+    :class:`~repro_torch.core.distributed.Collectives`, whose ``model_*``
+    calls the layers use.  At model size 1 (:data:`NULL_CTX`) every
+    operation is the identity, so a layer computes exactly what it
+    computes on the whole leaf."""
+
+    model: int = 1
+    axes: Any = None  # the mesh's Collectives
+
+    def modes(self, cfg) -> TPModes:
+        return tp_modes(cfg, self.model)
+
+    # -- the model-axis operations (identity at model size 1)
+
+    def ranks(self) -> Sequence[int]:
+        return (0,) if self.model == 1 else self.axes.model_ranks()
+
+    def shard(self, w, dim: int, k: int):
+        return w if self.model == 1 else self.axes.model_shard(w, dim, k)
+
+    def split(self, x, dim: int, k: int):
+        return x if self.model == 1 else self.axes.model_split(x, dim, k)
+
+    def enter(self, x):
+        return x if self.model == 1 else self.axes.model_enter(x)
+
+    def local(self, x):
+        return x if self.model == 1 else self.axes.model_local(x)
+
+    def reduce(self, parts):
+        return parts[0] if self.model == 1 else self.axes.model_sum(parts)
+
+    def cat(self, parts, dim: int):
+        return parts[0] if self.model == 1 else self.axes.model_cat(parts, dim)
+
+    def full(self, w, dim: int):
+        return w if self.model == 1 else self.axes.model_full(w, dim)
+
+    def pmax(self, parts):
+        return parts[0] if self.model == 1 else self.axes.model_max(parts)
+
+
+NULL_CTX = ShardCtx()
+
+
+def model_ctx(mesh) -> ShardCtx:
+    """The context of a train step on ``mesh``: its model axis when larger
+    than 1, else :data:`NULL_CTX` (constraints over a size-1 axis are
+    no-ops, as in the reference's ``make_step_body``)."""
+    shape = dict(zip(mesh.axis_names, mesh.shape))
+    if shape.get("model", 1) == 1:
+        return NULL_CTX
+    return ShardCtx(shape["model"], mesh.axes)

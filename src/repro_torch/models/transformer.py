@@ -35,10 +35,24 @@ super-block's attention layer reads through cross-attention
 stripped before the lm head.  A frontend configuration without its
 ``frontend`` input raises, as the reference's asserts do.
 
+Tensor parallelism: ``forward`` and ``loss_fn`` take a
+:class:`~repro_torch.models.sharding.ShardCtx` (``ctx=``; default
+:data:`~repro_torch.models.sharding.NULL_CTX`, every operation the
+identity).  At model size M > 1 each weight the partition rules split is
+the rank's shard (the global view in process, whose model ranks run one
+after the other), and the layers compute as the module doc of
+:mod:`repro_torch.models.sharding` sets out: column-parallel q/k/v and
+row-parallel ``wo`` on whole kv heads (else the attention leaves
+gathered), column/row-parallel FFN, expert-parallel (else F-split) MoE,
+a vocab-parallel embedding and cross-entropy (or a d_model split).  The
+``ssm`` / ``rec`` layers and the frontends refuse a model axis (ROADMAP
+queue A item 6, step 6); the serving entry points take no context.
+
 Entry points:
   init_params(cfg, seed, device)             -> params tree
-  forward(params, tokens, cfg, frontend=)    -> (logits, aux)
-  loss_fn(params, batch, cfg)                -> scalar loss (batch["frontend"])
+  forward(params, tokens, cfg, frontend=, ctx=)
+                                             -> (logits, aux)
+  loss_fn(params, batch, cfg, ctx=)          -> scalar loss (batch["frontend"])
   prefill(params, tokens, cfg, frontend=, cache_len=)
                                              -> (last-token logits, cache)
   decode_step(params, token, cache, pos, cfg) -> (logits, cache), the cache
@@ -62,6 +76,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.sharding import NULL_CTX, ShardCtx
 
 Params = Dict[str, Any]
 
@@ -295,15 +310,58 @@ def count_active_params(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return F.embedding(tokens.long(), params["embed"]).to(_dt(cfg))
+def refuse_model_axis(cfg: ModelConfig, model: int) -> None:
+    """The configurations a model axis does not run yet: ``NotImplementedError``
+    naming the ROADMAP item."""
+    if model == 1:
+        return
+    kinds = sorted({cfg.layer_kind(i) for i in range(cfg.n_layers)} - {"attn"})
+    if kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: {'/'.join(kinds)} layers at model axis {model}: tensor parallelism "
+            "of the ssm and rec layers is not ported yet (ROADMAP queue A item 6, step 6)")
+    if cfg.frontend != "none" or cfg.n_enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend at model axis {model}: tensor "
+            "parallelism of the encoder, cross-attention and frontends is not ported yet "
+            "(ROADMAP queue A item 6, step 6)")
 
 
-def _qkv(p: Params, y: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+def _on(ctx: ShardCtx, split: bool) -> ShardCtx:
+    """The context a layer computes under: ``ctx`` where the model axis
+    splits its leaves, else :data:`NULL_CTX` (one rank, the whole leaf)."""
+    return ctx if split else NULL_CTX
+
+
+def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+           ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    """Token embeddings (B, S, D).  With V split each rank looks up the
+    tokens of its vocab range (the others read 0) and the lookups are
+    psummed: one non-zero term per element, so the sum is exact; with D
+    split (or nothing) each rank looks up its columns and they are
+    gathered."""
+    split = ctx.modes(cfg).embed
+    c = _on(ctx, split is not None)
+    w, tok = params["embed"], tokens.long()
+    if split != 0:
+        return c.cat([F.embedding(tok, c.shard(w, 1, k)) for k in c.ranks()], -1).to(_dt(cfg))
+    vl = cfg.vocab // c.model
+    parts = []
+    for k in c.ranks():
+        t = tok - k * vl
+        ok = (t >= 0) & (t < vl)
+        e = F.embedding(torch.where(ok, t, torch.zeros_like(t)), c.shard(w, 0, k))
+        parts.append(torch.where(ok[..., None], e, torch.zeros_like(e)))
+    return c.reduce(parts).to(_dt(cfg))
+
+
+def _qkv(p: Params, y: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+         heads: Optional[Tuple[int, int]] = None):
     """Projections, qk-norm and RoPE of one layer: q (B, S, KV, G, hd),
-    k and v (B, S, KV, hd)."""
+    k and v (B, S, KV, hd); ``heads`` (H, KV) of a model rank's shard."""
     b, s, _ = y.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h, kv = heads or (cfg.n_heads, cfg.n_kv_heads)
+    hd = cfg.hd
     g = h // kv
     q = (y @ p["wq"]).reshape(b, s, kv, g, hd)
     k = (y @ p["wk"]).reshape(b, s, kv, hd)
@@ -316,15 +374,29 @@ def _qkv(p: Params, y: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     return q, k, v
 
 
-def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The attention layer's FFN half -> (x, the MoE's aux loss or 0)."""
+def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
+         ctx: ShardCtx = NULL_CTX) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention layer's FFN half -> (x, the MoE's aux loss or 0).
+    Split on F: column-parallel ``wg``/``wu``, row-parallel ``wd``, the
+    ranks' partial outputs psummed."""
     y = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    modes = ctx.modes(cfg)
     if cfg.moe is not None:
-        f, aux = moe_lib.moe_ffn(y, p["router"], p["we_g"], p["we_u"], p["we_d"],
-                                 cfg.moe.top_k)
+        router = p["router"]
+        if modes.router is not None:
+            router = ctx.full(router, modes.router)
+        f, aux = moe_lib.moe_ffn(y, router, p["we_g"], p["we_u"], p["we_d"],
+                                 cfg.moe.top_k, ctx=ctx, split=modes.moe)
         return x + f, aux
     if cfg.d_ff:
-        x = x + (F.silu(y @ p["wg"]) * (y @ p["wu"])) @ p["wd"]
+        c = _on(ctx, modes.ffn)
+        ye = c.enter(y)
+        parts = []
+        for k in c.ranks():
+            wg, wu, wd = c.shard(p["wg"], 1, k), c.shard(p["wu"], 1, k), c.shard(p["wd"], 0, k)
+            yk = c.local(ye)
+            parts.append((F.silu(yk @ wg) * (yk @ wu)) @ wd)
+        x = x + c.reduce(parts)
     return x, _zero(x)
 
 
@@ -343,26 +415,43 @@ def _cross_q(cp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return (y @ cp["wq"]).reshape(b, s, kv, cfg.n_heads // kv, cfg.hd)
 
 
+_ATTN_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}  # the split dim of a layer's leaf
+
+
 def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
                     window: int = 0, positions: Optional[torch.Tensor] = None,
                     kv_block: int = 1024, enc_out: Optional[torch.Tensor] = None,
-                    cross_p: Optional[Params] = None):
+                    cross_p: Optional[Params] = None, ctx: ShardCtx = NULL_CTX):
     """One attention layer over a full sequence x (B, S, D) -> (x, aux, (k, v)).
 
     With ``enc_out`` and ``cross_p`` it attends to the encoder output
-    (non-causal) between its self-attention and its FFN."""
+    (non-causal) between its self-attention and its FFN.  Under ``ctx``'s
+    ``heads`` mode each model rank projects, rotates and attends its own
+    kv heads and its row of ``wo``, the partial outputs psummed (the
+    returned k, v are the last rank's); under ``gathered`` the split
+    leaves are gathered whole."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(p, y, cfg, positions)
-    o = attn_lib.attention(q, k, v, causal=causal, window=window, kv_block=kv_block)
-    x = x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    modes = ctx.modes(cfg)
+    if modes.attn == "gathered":
+        p = dict(p, **{n: ctx.full(p[n], _ATTN_DIMS[n]) for n in modes.attn_split})
+    c = _on(ctx, modes.attn == "heads")
+    ye = c.enter(y)
+    heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
+    parts = []
+    for r in c.ranks():
+        pr = dict(p, **{n: c.shard(p[n], d, r) for n, d in _ATTN_DIMS.items()})
+        q, k, v = _qkv(pr, c.local(ye), cfg, positions, heads)
+        o = attn_lib.attention(q, k, v, causal=causal, window=window, kv_block=kv_block)
+        parts.append(o.reshape(b, s, heads[0] * cfg.hd) @ pr["wo"])
+    x = x + c.reduce(parts)
     if enc_out is not None and cross_p is not None:
         oc = attn_lib.attention(_cross_q(cross_p, x, cfg), *_cross_kv(cross_p, enc_out, cfg),
                                 causal=False, kv_block=kv_block)
         x = x + oc.reshape(b, s, cfg.n_heads * cfg.hd) @ cross_p["wo"]
-    x, aux = _ffn(p, x, cfg)
+    x, aux = _ffn(p, x, cfg, ctx)
     return x, aux, (k, v)
 
 
@@ -427,13 +516,13 @@ def _attn_window(cfg: ModelConfig) -> int:
 
 
 def _layer_fwd(where: Where, p: Params, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor, kv_block: int, cross=None):
+               positions: torch.Tensor, kv_block: int, cross=None, ctx: ShardCtx = NULL_CTX):
     """-> (x, aux, the layer's state: (k, v) for attention).  ``cross``:
     (the encoder output, this block's cross-attention params) or None."""
     if where.kind == "attn":
         enc_out, cross_p = cross if cross is not None else (None, None)
         return _attn_layer_fwd(p, x, cfg, window=_attn_window(cfg), positions=positions,
-                               kv_block=kv_block, enc_out=enc_out, cross_p=cross_p)
+                               kv_block=kv_block, enc_out=enc_out, cross_p=cross_p, ctx=ctx)
     if where.kind == "ssm":
         return _ssm_layer_fwd(p, x, cfg)
     return _rec_layer_fwd(p, x, cfg)
@@ -454,10 +543,10 @@ def _encoder_fwd(params: Params, frontend: torch.Tensor, cfg: ModelConfig,
 
 
 def _frontend_in(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                 frontend: Optional[torch.Tensor], kv_block: int):
+                 frontend: Optional[torch.Tensor], kv_block: int, ctx: ShardCtx = NULL_CTX):
     """The embedded tokens with the frontend applied -> (x, the encoder
     output or None, the number of prefix positions)."""
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, ctx)
     if cfg.frontend == "none" or (cfg.frontend == "audio" and not cfg.n_enc_layers):
         return x, None, 0
     if frontend is None:
@@ -480,18 +569,12 @@ def _cross_at(params: Params, where: Where, enc_out: Optional[torch.Tensor]):
     return enc_out, _stacked_at(params["cross_blocks"], where.s)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            frontend: Optional[torch.Tensor] = None, kv_block: int = 1024,
-            block_provider: Optional[Callable[[Params], Params]] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux loss);
-    a vision prefix is stripped before the lm head.
-
-    ``block_provider`` (FSDP, :mod:`repro_torch.launch.steps`) maps one
-    super-block of the ``blocks`` group, ``{key: {name: layer leaf}}``, to
-    the leaves its layers run with (the gathered weights), once a
-    super-block, as the reference applies it inside its layer scan."""
-    x, enc_out, n_prefix = _frontend_in(params, tokens, cfg, frontend, kv_block)
+def _hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            frontend: Optional[torch.Tensor], kv_block: int,
+            block_provider: Optional[Callable[[Params], Params]], ctx: ShardCtx):
+    """The final-normed hidden states of the text positions and the aux loss."""
+    refuse_model_axis(cfg, ctx.model)
+    x, enc_out, n_prefix = _frontend_in(params, tokens, cfg, frontend, kv_block, ctx)
     if not cfg.cross_attention:
         enc_out = None
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -506,18 +589,83 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         else:
             p = layer_at(params, where)
         x, a, _ = _layer_fwd(where, p, x, cfg, positions, kv_block,
-                             _cross_at(params, where, enc_out))
+                             _cross_at(params, where, enc_out), ctx)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, n_prefix:] @ params["lm_head"], aux
+    return x[:, n_prefix:], aux
+
+
+def _head_parts(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx):
+    """The lm head's context and per-rank products: with V split (or
+    nothing) each rank's logits (B, S, V/M), with D split each rank's
+    partial logits (B, S, V)."""
+    split = ctx.modes(cfg).lm_head
+    c = _on(ctx, split is not None)
+    xe = c.enter(x)
+    if split == 0:
+        return c, [c.split(c.local(xe), -1, k) @ c.shard(w, 0, k) for k in c.ranks()]
+    return c, [c.local(xe) @ c.shard(w, 1, k) for k in c.ranks()]
+
+
+def _logits(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx) -> torch.Tensor:
+    c, parts = _head_parts(x, w, cfg, ctx)
+    return c.reduce(parts) if ctx.modes(cfg).lm_head == 0 else c.cat(parts, -1)
+
+
+def _vocab_parallel_ce(parts, labels: torch.Tensor, mask, vl: int, ctx: ShardCtx):
+    """Token-level mean cross entropy over logits split on V: the max
+    logit pmaxed (no gradient), the exponential sums and the target's
+    logit psummed (one non-zero term per target)."""
+    parts = [p.float() for p in parts]
+    mx = ctx.pmax([p.detach().amax(dim=-1) for p in parts])
+    se, gold = [], []
+    lab = labels.long()
+    for k, p in zip(ctx.ranks(), parts):
+        se.append(torch.exp(p - mx[..., None]).sum(dim=-1))
+        t = lab - k * vl
+        ok = (t >= 0) & (t < vl)
+        g = torch.gather(p, -1, torch.where(ok, t, torch.zeros_like(t))[..., None])[..., 0]
+        gold.append(torch.where(ok, g, torch.zeros_like(g)))
+    nll = torch.log(ctx.reduce(se)) + mx - ctx.reduce(gold)
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            frontend: Optional[torch.Tensor] = None, kv_block: int = 1024,
+            block_provider: Optional[Callable[[Params], Params]] = None,
+            ctx: ShardCtx = NULL_CTX) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux loss);
+    a vision prefix is stripped before the lm head.  Under a model axis
+    the logits are whole on every rank.
+
+    ``block_provider`` (FSDP, :mod:`repro_torch.launch.steps`) maps one
+    super-block of the ``blocks`` group, ``{key: {name: layer leaf}}``, to
+    the leaves its layers run with (the gathered weights), once a
+    super-block, as the reference applies it inside its layer scan."""
+    x, aux = _hidden(params, tokens, cfg, frontend, kv_block, block_provider, ctx)
+    return _logits(x, params["lm_head"], cfg, ctx), aux
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             kv_block: int = 1024, aux_weight: float = 0.01,
-            block_provider: Optional[Callable[[Params], Params]] = None) -> torch.Tensor:
-    logits, aux = forward(params, batch["tokens"], cfg, frontend=batch.get("frontend"),
-                          kv_block=kv_block, block_provider=block_provider)
-    return L.cross_entropy(logits, batch["labels"], batch.get("mask")) + aux_weight * aux
+            block_provider: Optional[Callable[[Params], Params]] = None,
+            ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    """Mean cross entropy plus ``aux_weight`` times the MoE aux loss; with
+    the lm head split on V, a vocab-parallel cross entropy (no rank holds
+    the whole logits)."""
+    x, aux = _hidden(params, batch["tokens"], cfg, batch.get("frontend"), kv_block,
+                     block_provider, ctx)
+    if ctx.modes(cfg).lm_head == 1:
+        _, parts = _head_parts(x, params["lm_head"], cfg, ctx)
+        ce = _vocab_parallel_ce(parts, batch["labels"], batch.get("mask"),
+                                cfg.vocab // ctx.model, ctx)
+    else:
+        ce = L.cross_entropy(_logits(x, params["lm_head"], cfg, ctx), batch["labels"],
+                             batch.get("mask"))
+    return ce + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

@@ -164,6 +164,23 @@ def validate_attack_strategy(attack, strategy: str) -> None:
             f"(it never materializes what the attack reads); use one of {able}")
 
 
+def refuse_leaf_global(attack, strategy: str, model: int) -> None:
+    """Under a model axis (``model`` > 1) the bucketed strategies cannot run
+    a leaf-global attack (``Attack.leaf_global``: mimic's argmax over a
+    bucket's sum): a rank's buckets are slices of its own ravel, not of the
+    global ravel the reference's GSPMD buckets cut, so the attack would see
+    other rows.  Raises ValueError; the gather strategies complete the
+    attack's sums over the model shards instead."""
+    if model == 1 or strategy not in ("bucketed", "rs"):
+        return
+    atk, alpha, _ = resolve_attack(attack)
+    if atk is not None and atk.leaf_global and (alpha is None or alpha > 0):
+        raise ValueError(
+            f"attack {atk.name!r} reads whole buckets, which strategy {strategy!r} cuts from "
+            f"each rank's own ravel at model axis {model}; use the gather or hierarchical "
+            "strategy (their attack sums are psummed over the model axis)")
+
+
 def resolve_attack(attack) -> Tuple[Optional[object], Optional[float], Optional[float]]:
     """Normalize an attack argument to ``(Attack spec, alpha, strength)``.
 

@@ -93,9 +93,18 @@ def aggregate_by_strategy(
     compression: str = "none",
     comp_key=None,
     comp_draw: Optional[Callable[[int], object]] = None,
+    model_dims=None,
 ):
     """Robustly aggregate the varying tree ``g`` over ``axis_names`` by
     strategy name; the result is replicated.
+
+    Under a model axis ``g`` is a model rank's leaves (in process the
+    global view, the same bits: the estimators are coordinate-wise) and
+    ``model_dims`` each leaf's split dim (:func:`tree_leaves` order, -1
+    whole), with which the gather strategies complete a leaf-global
+    attack's sums over the model shards.  The bucketed strategies refuse
+    a leaf-global attack there: their buckets would be slices of a rank's
+    own ravel, not of the global one the reference's GSPMD cuts.
 
     ``strategy`` is any rounds.comm registry name except ``rs`` (which
     returns scattered shards); ``hierarchical`` needs exactly two worker
@@ -112,8 +121,10 @@ def aggregate_by_strategy(
         g = compress_workers(ax, names, g, compression, comp_key, comp_draw)
     if strategy == "gather":
         return distributed.robust_gather_agg(
-            g, ax, names, method, beta, attack, agg_dtype, attack_key=attack_key)
+            g, ax, names, method, beta, attack, agg_dtype, attack_key=attack_key,
+            model_dims=model_dims)
     if strategy == "bucketed":
+        comm.refuse_leaf_global(attack, strategy, ax.model)
         return distributed.robust_bucketed_agg(
             g, ax, names, method, beta, attack, agg_dtype, attack_key=attack_key)
     if strategy == "chunked":
@@ -128,7 +139,8 @@ def aggregate_by_strategy(
             raise ValueError(
                 f"hierarchical strategy needs two worker axes (outer, inner), got {names}")
         return distributed.robust_hierarchical_agg(
-            g, ax, names[1], names[0], method, beta, attack, attack_key=attack_key)
+            g, ax, names[1], names[0], method, beta, attack, attack_key=attack_key,
+            model_dims=model_dims)
     raise ValueError(
         f"unknown agg strategy {strategy!r}; round-level strategies: "
         "gather|bucketed|chunked|psum|hierarchical")

@@ -211,10 +211,12 @@ class ServeEngine:
     """The fixed-slot continuous-batching pool, on the device of ``params``.
 
     The engine serves its own copy of ``params``; :meth:`swap_params`
-    copies a new iterate into it."""
+    copies a new iterate into it.  A ``mesh`` with a model axis > 1 raises
+    (serving under tensor parallelism is ROADMAP queue A item 6, step 5)."""
 
-    def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params):
+    def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params, mesh=None):
         refuse_frontend(cfg)
+        steps.refuse_serving_model_axis(mesh)
         self.cfg = cfg
         self.scfg = scfg
         self.params = tree_map(lambda t: t.detach().clone(), params)

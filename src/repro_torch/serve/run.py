@@ -23,8 +23,8 @@ params on ``make_debug_mesh(workers, model_par)``'s device, ``single`` /
 ``multi`` on this rank's card of a ``torch.distributed`` process group
 (``make_production_mesh``; every rank serves the same stream, rank 0
 prints).  The mesh only places the params: serving spreads no work over
-its workers.  And ``--model-par`` > 1 raises (tensor parallelism, ROADMAP queue
-A item 6, step 4).  The reference's CI smoke command runs as it is, with
+its workers.  And ``--model-par`` > 1 raises (serving under tensor
+parallelism, ROADMAP queue A item 6, step 5).  The reference's CI smoke command runs as it is, with
 ``--device cpu`` on the CPU::
 
     PYTHONPATH=src python -m repro_torch.serve.run --device cpu --smoke \\
@@ -91,7 +91,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--workers", type=int, default=1,
                    help="debug mesh data axis; it only places the params, serving does "
                         "not spread work over it")
-    p.add_argument("--model-par", type=int, default=1, help="model axis (only 1 is ported)")
+    p.add_argument("--model-par", type=int, default=1,
+                   help="model axis (serving runs at 1; tensor parallelism trains only)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
@@ -117,7 +118,9 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+    from repro_torch.launch.steps import refuse_serving_model_axis
 
+    refuse_serving_model_axis(model=args.model_par)
     own_group = args.mesh != "debug" and not dist.is_initialized()
     if args.mesh == "debug":
         mesh = make_debug_mesh(args.workers, args.model_par, device=args.device)
@@ -167,7 +170,7 @@ def _serve(args, mesh) -> None:
         f"alpha={tcfg.alpha}), latency={args.latency}")
 
     params = T.init_params(cfg, seed=args.seed, device=dev)
-    engine = ServeEngine(cfg, scfg, params)
+    engine = ServeEngine(cfg, scfg, params, mesh)
     adapter = None
     if args.adapt_every > 0:
         acfg = AdaptConfig(

@@ -642,18 +642,33 @@ def _digests(text):
     return [ln for ln in text.splitlines() if ln.startswith("final iterate sha256")]
 
 
-def test_later_steps_still_raise():
+def test_later_steps_still_raise(monkeypatch):
     from repro_torch.configs import ParallelConfig, get_smoke_config
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps, trainer
     from repro_torch.optim.optimizers import get_optimizer
 
-    with pytest.raises(NotImplementedError, match="step 4"):
+    # step 4 (tensor parallelism) is ported: the meshes take a model axis;
+    # the production mesh now stops only at the missing process group
+    tp = mesh_lib.make_debug_mesh(2, 2, device="cpu")
+    assert mesh_lib.mesh_shape_dict(tp) == {"data": 2, "model": 2}
+    assert mesh_lib.num_workers(tp) == 2 and mesh_lib.model_size(tp) == 2
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         mesh_lib.make_production_mesh(model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="step 4"):
-        mesh_lib.make_debug_mesh(2, 2, device="cpu")
-    cfg, mesh = get_smoke_config("llama3.2-3b"), mesh_lib.make_debug_mesh(2, 1, device="cpu")
+    cfg = get_smoke_config("llama3.2-3b")
     opt = get_optimizer("adamw", 1e-3)
+    # the later steps at model 2 still raise, naming their ROADMAP items
+    with pytest.raises(NotImplementedError, match="step 7"):
+        steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), tp, opt)
+    with pytest.raises(NotImplementedError, match="step 7"):
+        steps.make_step_body(cfg, ParallelConfig(seq_parallel=True), tp, opt)
+    with pytest.raises(NotImplementedError, match="step 6"):
+        steps.make_step_body(get_smoke_config("mamba2-2.7b"), ParallelConfig(), tp, opt)
+    with pytest.raises(NotImplementedError, match="step 5"):
+        steps.make_decode_pool_step(cfg, tp)
+    mesh = mesh_lib.make_debug_mesh(2, 1, device="cpu")
     # step 3 (fsdp) is ported: it refuses what the reference's refuses
     with pytest.raises(ValueError, match="compression needs param_mode='replicated'"):
         steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp", compression="int8"), mesh,
@@ -684,7 +699,7 @@ def test_serve_cli_takes_the_reference_ci_smoke_flags():
         assert "mesh debug workers=2 model_par=1; device cpu" in text
         digests += _digests(text)
     assert len(digests) == 2 and digests[0] == digests[1]
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(NotImplementedError, match="serving.*tensor parallelism.*step 5"):
         serve_run.main(["--device", "cpu", "--smoke", "--model-par", "2"])
 
 

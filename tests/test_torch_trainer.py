@@ -324,10 +324,19 @@ def test_make_lm_batch_in_distribution_and_its_label_corruption():
 def test_rejections():
     cfg, mesh = _cfg(), _mesh()
     opt = get_optimizer("adamw", LR)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        mesh_lib.make_debug_mesh(4, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        mesh_lib.make_production_mesh(model=2, device="cpu")
+    # the model axis builds (tensor parallelism); what it does not run yet raises
+    tp = mesh_lib.make_debug_mesh(4, 2, device="cpu")
+    assert mesh_lib.mesh_shape_dict(tp) == {"data": 4, "model": 2}
+    assert mesh_lib.num_workers(tp) == 4 and mesh_lib.worker_axes(tp) == ("data",)
+    steps.make_step_body(cfg, ParallelConfig(), tp, opt)
+    with pytest.raises(NotImplementedError, match="fsdp.*step 7"):
+        steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), tp, opt)
+    with pytest.raises(NotImplementedError, match="seq_parallel.*step 7"):
+        steps.make_step_body(cfg, ParallelConfig(seq_parallel=True), tp, opt)
+    with pytest.raises(NotImplementedError, match="ssm layers.*step 6"):
+        steps.make_step_body(configs.get_smoke_config("mamba2-2.7b"), ParallelConfig(), tp, opt)
+    with pytest.raises(NotImplementedError, match="frontend.*step 6"):
+        steps.make_step_body(configs.get_smoke_config("whisper-small"), ParallelConfig(), tp, opt)
     with pytest.raises(ValueError, match="randomized"):  # fsdp: no per-step attack key
         steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), mesh, opt,
                              AttackConfig("gauss", 0.25))
@@ -346,9 +355,9 @@ def test_rejections():
         params = trainer.init_state(vision, mesh, opt)["params"]
         sb.body(params, opt.init(params), {k: v[0] for k, v in trainer.stack_window_batches(
             pipeline.DataConfig(**DATA), 0, 1, mesh).items()}, 0, 0)
-    for argv in (["--mesh", "single", "--model-par", "2"], ["--model-par", "2"]):
-        with pytest.raises(NotImplementedError):
-            train.main(["--config", "llama3.2-3b", "--smoke", "--device", "cpu"] + argv)
+    for arch in ("recurrentgemma-2b", "internvl2-1b"):  # rec layers; a frontend
+        with pytest.raises(NotImplementedError, match="step 6"):
+            train.main(["--config", arch, "--smoke", "--device", "cpu", "--model-par", "2"])
 
 
 def test_hierarchical_window_on_pods():
