@@ -266,9 +266,34 @@ Phases (any failure exits non-zero before the final line):
    llama, 2 steps of median and trimmed mean under alie, losses within
    1e-4 of model 1's.  A process group with a
    model axis needs a card a rank (NCCL refuses two ranks on one GPU);
-   the world-size-1 checks (17d, 19c) stand.
+   the world-size-1 checks (17d, 19c) stand;
+21. serving under tensor parallelism (the model axis of 2 in process, as
+   phase 20): (a) 14a's tiny model and granite-moe-smoke in f32 (TF32
+   off): the prefill and 8 decode steps' logits at make_debug_mesh(1, 2)
+   within 1e-5 (relative to the largest) of model 1's, the engine's greedy
+   tokens equal to model 1's wherever model 1's top-2 gap exceeds 2e-5, and
+   a hot swap at model 2 keeps the storage; (b) 14b's cell (llama3.2-3b
+   widths, 8 of 28 layers, bf16, 32 requests, 4 slots) at
+   make_debug_mesh(4, 2), the serve shim's default mesh: serve only,
+   median and trimmed mean beta 0.25 adapting every 8 ticks, each run held
+   as 14b (every request served, >= 2 rounds, one B1 / B2 launch over one
+   leaf a round, bitwise its plain version on the round's rows), tick ms,
+   launches a tick, busy share, the round's split, peak memory, B1/B2 over
+   the (4, D) rows against the 9.513 ms bound, and the share of greedy
+   tokens equal to 14b's model-1 runs (recorded, not held: bf16 partials
+   summed in rank order may flip near-ties); (c) granite-moe-1b-a400m at
+   all 24 layers (16b's cell: expert-parallel, embed and lm head split on
+   d_model), 24 requests, the median run (16b serves it without
+   adaptation), held as (b), bound 8.268 ms; (d) ``python -m
+   repro_torch.launch.serve --arch <arch> --smoke`` with its defaults
+   (the debug mesh, 4 workers, model 2) on the card for
+   llama3.2-3b and granite-moe: every request served at (data 4, model 2);
+   mamba2-2.7b refuses naming ROADMAP item 6, step 6; (e) the bytes a rank
+   holds of llama3.2-3b at 28 layers at (data 4, model 2) and model 1: the
+   params, the slot pool (4 slots, 32 positions) and the (4, D_rank) f32
+   rows, computed from the shapes (not measured).
 The launch counters are zeroed before each of phases 8-13, each run of
-phase 14b, 15b, 16b, 18b, 19b, 20b and 20c, phases 15c, 19a, 19c and 20e, each 16d
+phase 14b, 15b, 16b, 18b, 19b, 20b, 20c, 21b and 21c, phases 15c, 19a, 19c and 20e, each 16d
 and 18d run and each call (17a), round (17b) or set of calls (17d) of phase
 17, and read after; the kernels line gives each kernel's launches on them
 (``launches_new_paths``).
@@ -2453,20 +2478,20 @@ def hold_on_rows(kind, rows, agg, trim, label="14b"):
                         f"plain version (max |err| {err})")
 
 
-def serve_cell(dev, card: str):
+def serve_cell(dev, card: str, served=None):
     """Phase 14b: llama3.2-3b at full width with 8 layers on the card: three
     runs of the 32-request stream (serve only, median, trimmed mean beta
-    0.25).  Returns the B1 / B2 launches."""
+    0.25).  Returns the B1 / B2 launches; ``served`` keeps the tokens."""
     from repro_torch.serve.engine import ServeConfig
 
     launches = serve_runs(dev, card, serve_cfg(tiny=False), SERVE_D,
                           ("serve_only", "median", "trimmed_mean"),
-                          ServeConfig(**SERVE_ENGINE), "14b")
+                          ServeConfig(**SERVE_ENGINE), "14b", served=served)
     return {k: launches[k][k] for k in SERVE_ADAPT}
 
 
 def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
-               requests: int = SERVE_REQUESTS):
+               requests: int = SERVE_REQUESTS, mesh=None, served=None):
     """``cfg`` (bf16, random weights from seed 0) on the card: one run of a
     ``requests``-request stream per entry of ``runs`` ("serve_only", or an
     aggregator of SERVE_ADAPT adapting every 8 ticks) with the launch
@@ -2476,8 +2501,11 @@ def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
     version on its rows (column slices), the served tensors' storage kept
     across swaps; tokens/s, latency, memory, B1/B2 at (4, D) against the
     HBM bound (the median run), the round's split and a profile of a round
-    (every robust run), and a profile of 8 ticks (serve only).  Returns
-    each run's launches."""
+    (every robust run), and a profile of 8 ticks (serve only).  With a
+    ``mesh`` the engine and the adapter run on it.  Returns each run's
+    launches; ``served`` (a dict) gets each run's tokens by request under
+    (model name, run, model size), and with model 1's there already the
+    share of equal tokens is printed."""
     import numpy as np
     import torch
 
@@ -2516,14 +2544,15 @@ def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
           f"prompt {scfg.prompt_len}, max_new {scfg.max_new}")
     total_mem = torch.cuda.get_device_properties(0).total_memory
     launches_all = {}
+    model = 1 if mesh is None else dict(zip(mesh.axis_names, mesh.shape)).get("model", 1)
     for run in runs:
         t_run = time.perf_counter()
-        engine = ServeEngine(cfg, scfg, params)
+        engine = ServeEngine(cfg, scfg, params, mesh)
         adapter = None
         if run != "serve_only":
             acfg = AdaptConfig(adapt_every=8, batch_per_shard=2, optimizer="sgd", lr=0.1,
                                **SERVE_ADAPT[run])
-            adapter = HeldAdapter(cfg, acfg, users, params)
+            adapter = HeldAdapter(cfg, acfg, users, params, mesh=mesh)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         robust_agg.reset_launches()  # zeroed just before this run
@@ -2547,7 +2576,17 @@ def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
                 "p99_latency_ticks": stats["p99_latency"],
                 "rounds": rounds, "launches": launches, "leaves": leaves,
                 "max_memory_allocated_gb": peak / 1e9, "card_memory_gb": total_mem / 1e9,
-                "storage_kept": engine.storage_kept(), "card": card}
+                "storage_kept": engine.storage_kept(), "model_axis": model, "card": card}
+        if served is not None:
+            tokens = {c.request.rid: c.response.tolist() for c in done}
+            served[(cfg.name, run, model)] = tokens
+            ref = served.get((cfg.name, run, 1))
+            if model > 1 and ref is not None:
+                pairs = [(a, b) for rid, toks in tokens.items()
+                         for a, b in zip(toks, ref.get(rid, []))]
+                line["tokens_equal_model_1"] = sum(a == b for a, b in pairs) / max(1, len(pairs))
+                line["requests_equal_model_1"] = sum(
+                    toks == ref.get(rid) for rid, toks in tokens.items()) / len(tokens)
         print(json.dumps({"serve": line}))
         check(len(done) == requests, f"{label} {run}: served {len(done)}/{requests}")
         check(all(engine.storage_kept().values()), f"{label} {run}: storage not kept")
@@ -2568,13 +2607,15 @@ def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
         check(launches == want, f"{label} {run}: launches {launches}, want {want}")
         launches_all[run] = launches
         if run == "median":
-            serve_kernel_timings(adapter.round_fn.rows, card, cfg.name)
+            serve_kernel_timings(adapter.round_fn.rows, card, cfg.name, model)
         if adapter is not None:
             split = serve_round_split(adapter, adapter.last_batch)
-            print(json.dumps({"serve_round": run, "model": cfg.name, **split, "card": card}))
+            print(json.dumps({"serve_round": run, "model": cfg.name, "model_axis": model,
+                              **split, "card": card}))
             prof = profile_summary(lambda: adapter.round_fn(adapter.state, adapter.last_batch),
                                    split["round_ms"], top=10, names=("leaf_select_kernel",))
-            print(json.dumps({"profile_serve_round": run, "model": cfg.name, **prof}))
+            print(json.dumps({"profile_serve_round": run, "model": cfg.name,
+                              "model_axis": model, **prof}))
         else:
             t0 = time.perf_counter()
             for _ in range(8):
@@ -2583,8 +2624,8 @@ def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
             tick_ms = (time.perf_counter() - t0) * 1e3 / 8
             prof = profile_summary(lambda: [engine.step() for _ in range(8)], tick_ms * 8,
                                    top=10)
-            print(json.dumps({"profile_serve_ticks": 8, "model": cfg.name, "tick_ms": tick_ms,
-                              **prof}))
+            print(json.dumps({"profile_serve_ticks": 8, "model": cfg.name, "model_axis": model,
+                              "tick_ms": tick_ms, **prof}))
         del engine, adapter
         torch.cuda.empty_cache()
         print(f"phase {label}: {run}: {time.perf_counter() - t_run:.1f} s")
@@ -2593,7 +2634,7 @@ def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
     return launches_all
 
 
-def serve_kernel_timings(rows, card: str, model: str):
+def serve_kernel_timings(rows, card: str, model: str, model_axis: int = 1):
     """B1 and B2 at the adapter's (4, D) f32 rows: CUDA-event and profiler
     device ms against the HBM bound, the plain version timed over its
     column slices; no single PyTorch call computes either (torch.quantile
@@ -2613,8 +2654,8 @@ def serve_kernel_timings(rows, card: str, model: str):
              lambda: [SN.trimmed_mean_select(rows[:, a:a + SERVE_SLICE], 1)
                       for a in range(0, n, SERVE_SLICE)])):
         b_ms, b_by = bound(name, m, n, trim, 4)
-        row = {"shape": "serve rows", "model": model, "kernel": name, "m": m, "n": n,
-               "trim": trim,
+        row = {"shape": "serve rows", "model": model, "model_axis": model_axis, "kernel": name,
+               "m": m, "n": n, "trim": trim,
                "dtype": "float32", "ms": time_ms(kernel, 5),
                "device_ms": device_ms(kernel, 5, KERNEL_NAMES[name], launches=1),
                "plain_ms": time_ms(plain, 1), "library_ms": None,
@@ -2650,14 +2691,14 @@ def serve_cli(dev):
     check(digests[0] == digests[1], "the serve CLI is not deterministic on the card")
 
 
-def serving(dev, card: str):
+def serving(dev, card: str, served=None):
     """Phase 14: 14a, 14b and 14c; returns B1's and B2's launches on the
-    serving path."""
+    serving path (14b's tokens into ``served``)."""
     t0 = time.perf_counter()
     serve_parity(dev)
     print(f"phase 14a: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = serve_cell(dev, card)
+    launches = serve_cell(dev, card, served)
     print(f"phase 14b: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     serve_cli(dev)
@@ -3185,9 +3226,10 @@ def family_parity(dev):
                      f"16a {arch}")
 
 
-def family_cells(dev, card: str):
+def family_cells(dev, card: str, served=None):
     """Phase 16b: the three full-width cells; returns each kernel's launches
-    over their runs, as measured in each run."""
+    over their runs, as measured in each run (their tokens into
+    ``served``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3199,7 +3241,7 @@ def family_cells(dev, card: str):
         t0 = time.perf_counter()
         launches = serve_runs(dev, card, cfg, d, runs,
                               ServeConfig(slots=4, prompt_len=prompt, max_new=16),
-                              f"16b {arch}", requests=FAMILY_REQUESTS)
+                              f"16b {arch}", requests=FAMILY_REQUESTS, served=served)
         for counts in launches.values():
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
@@ -3314,14 +3356,14 @@ def train_cli_counted(archs, label: str, one_launch: bool = False):
     return total
 
 
-def families(dev, card: str):
+def families(dev, card: str, served=None):
     """Phase 16: 16a-16d; returns each kernel's launches on 16b's and 16d's
     paths."""
     t0 = time.perf_counter()
     family_parity(dev)
     print(f"phase 16a: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    serve = family_cells(dev, card)
+    serve = family_cells(dev, card, served)
     print(f"phase 16b: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     family_serve_cli()
@@ -4926,6 +4968,225 @@ def tensor_parallel(dev, card: str, on_path):
     return out
 
 
+# ------------------------------- phase 21: serving under tensor parallelism
+#
+# (a) 14a's tiny model and granite-moe-smoke in f32 at make_debug_mesh(1, 2)
+# against model 1; (b) 14b's cell (llama3.2-3b widths, 8 of 28 layers,
+# bf16) and (c) 16b's granite-moe-1b-a400m cell (all 24 layers) at
+# make_debug_mesh(4, 2), the serve shim's default mesh, beside 14b's and
+# 16b's model-1 runs; (d) the serve shim's defaults on the card; (e) the
+# per-rank bytes of llama3.2-3b at 28 layers from the shapes.  As in phase
+# 20 the model ranks run in process, one after the other.
+TPS_LOGIT_TOL = 1e-5  # f32, |model 2 - model 1| / max |model 1| (tests: 1e-5 absolute)
+TPS_DECODE_STEPS = 8
+TPS_RUNS = ("serve_only", "median", "trimmed_mean")
+TPS_MOE_RUNS = ("median",)  # serve only is 16b's; 21c keeps phase 21 near its budget
+TPS_SHIM_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m")
+TPS_POOL = dict(slots=4, cache_len=32)  # 21e: SERVE_ENGINE's pool
+
+
+def tp_serve_parity(dev, cfg, label: str):
+    """Phase 21a on one f32 config: teacher-forced logits of the prefill and
+    TPS_DECODE_STEPS decode steps at make_debug_mesh(1, 2) against model 1,
+    the engine's tokens against model 1's (the top-2 rule of 14a) and a hot
+    swap at model 2 that keeps the storage."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeConfig, ServeEngine, serve_stream
+    from repro_torch.serve.traffic import VirtualUsers
+    from repro_torch.tree import tree_map
+
+    mesh = mesh_lib.make_debug_mesh(1, TP_MODEL, device=dev)
+    params = T.init_params(cfg, seed=0, device=dev)
+    prompts = np.random.default_rng(21).integers(0, cfg.vocab, (2, 8))
+    cache_len = 8 + TPS_DECODE_STEPS + 1
+
+    def forced(m, prompt, toks):
+        prefill = steps.make_prefill_step(cfg, kv_block=0, cache_len=cache_len, mesh=m)
+        decode = steps.make_decode_step(cfg, m)
+        logits, cache = prefill(params, torch.as_tensor(prompt, device=dev)[None])
+        out = [logits[0, -1]]
+        for j, t in enumerate(toks[:-1]):
+            logits, cache = decode(params, torch.tensor([[int(t)]], device=dev), cache,
+                                   len(prompt) + j)
+            out.append(logits[0, 0])
+        return torch.stack(out).float().cpu()
+
+    worst = 0.0
+    fed = np.random.default_rng(22).integers(0, cfg.vocab, (2, TPS_DECODE_STEPS + 1))
+    for prompt, toks in zip(prompts, fed):
+        one = forced(None, prompt, toks)
+        two = forced(mesh, prompt, toks)
+        worst = max(worst, float((two - one).abs().max() / one.abs().max()))
+    check(worst <= TPS_LOGIT_TOL, f"{label}: model-2 logits differ from model 1's by {worst}")
+    scfg = ServeConfig(slots=3, prompt_len=8, max_new=6, window=16)
+    tcfg = serve_traffic(cfg, scfg, num_users=64, num_shards=2, alpha=0.5, min_gen=1)
+    reqs = VirtualUsers(tcfg).sample_requests(12)
+    done = {}
+    for model, m in ((1, None), (TP_MODEL, mesh)):
+        engine = ServeEngine(cfg, scfg, params, m)
+        out = serve_stream(engine, reqs)
+        check(len(out) == len(reqs), f"{label}: model {model} served {len(out)}/{len(reqs)}")
+        done[model] = {c.request.rid: c.response for c in out}
+    flips = 0
+    for req in reqs:
+        a, b = done[TP_MODEL][req.rid], done[1][req.rid]
+        want = forced(None, req.prompt, b)
+        gap = torch.sort(want, dim=-1).values[:, -2:].diff(dim=-1)[:, 0]
+        for j, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                check(float(gap[j]) <= 2 * TPS_LOGIT_TOL,
+                      f"{label}: request {req.rid} step {j}: model-2 token {x} != model 1's "
+                      f"{y} at a top-2 gap of {float(gap[j])}")
+                flips += 1
+                break
+    engine = ServeEngine(cfg, scfg, params, mesh)
+    serve_stream(engine, reqs[:4])
+    engine.swap_params(tree_map(lambda w: w * 0.5, params))
+    serve_stream(engine, VirtualUsers(tcfg).sample_requests(4, stream=1))
+    check(engine.storage_kept() == {"params": True, "pool": True},
+          f"{label}: storage not kept across a model-2 swap")
+    print(f"phase 21a: {cfg.name} f32 at make_debug_mesh(1, {TP_MODEL}): prefill + "
+          f"{TPS_DECODE_STEPS} decode steps' logits within {worst:.3g} of model 1's "
+          f"(relative; tolerance {TPS_LOGIT_TOL}); engine tokens equal on {len(reqs)} requests "
+          f"({flips} near-tie flips); a hot swap keeps the storage")
+    return worst
+
+
+def tp_serve_cells(dev, card: str, served):
+    """Phase 21b and 21c: 14b's and 16b's cells at make_debug_mesh(4, 2);
+    returns each kernel's launches over each cell's runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve.engine import ServeConfig
+
+    mesh = mesh_lib.make_debug_mesh(4, TP_MODEL, device=dev)
+    out = {}
+    for key, label, cfg, d, runs, scfg, requests in (
+            ("tp_serve", "21b", serve_cfg(tiny=False), SERVE_D, TPS_RUNS,
+             ServeConfig(**SERVE_ENGINE), SERVE_REQUESTS),
+            ("tp_serve_moe", "21c",
+             dataclasses.replace(get_config("granite_moe_1b_a400m"), n_layers=TP_MOE_LAYERS),
+             TP_MOE_D, TPS_MOE_RUNS, ServeConfig(slots=4, prompt_len=16, max_new=16),
+             FAMILY_REQUESTS)):
+        t0 = time.perf_counter()
+        launches = serve_runs(dev, card, cfg, d, runs, scfg, label, requests=requests,
+                              mesh=mesh, served=served)
+        total = {}
+        for counts in launches.values():
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        out[key] = total
+        print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tp_serve_shim():
+    """Phase 21d: ``python -m repro_torch.launch.serve --arch <arch> --smoke``
+    with its defaults on the card, the processes started together: llama
+    and granite serve every request at (data 4, model 2), mamba2 exits
+    non-zero naming ROADMAP item 6, step 6."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    try:
+        for arch in TPS_SHIM_ARCHS + ("mamba2-2.7b",):
+            procs.append((arch, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--smoke"],
+                env=env, cwd=ROOT, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE)))
+        for arch, proc in procs:
+            out, err = proc.communicate(timeout=300)
+            if arch == "mamba2-2.7b":
+                check(proc.returncode != 0 and "step 6" in err and "NotImplementedError" in err,
+                      f"21d: the shim on mamba2 at model 2 did not refuse: {err[-2000:]}")
+                continue
+            check(proc.returncode == 0, f"21d: the shim on {arch} exited {proc.returncode}: "
+                                        f"{err[-2000:]}")
+            check("served 4/4 requests" in out and "device cuda" in out and
+                  "mesh={'data': 4, 'model': 2}" in out, f"21d: the shim on {arch}: {out[-2000:]}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"phase 21d: the serve shim's defaults on the card: {', '.join(TPS_SHIM_ARCHS)} "
+          f"served 4/4 at (data 4, model {TP_MODEL}); mamba2-2.7b refused (step 6)")
+
+
+def tp_serve_memory():
+    """Phase 21e: the bytes a rank holds to serve and adapt llama3.2-3b at
+    all 28 layers over (data TP_DATA_RANKS, model TP_MODEL) against model
+    1: the bf16 params, the slot pool and the (4, D_rank) f32 rows, from
+    the shapes on the meta device: computed, not measured."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("llama3.2-3b")
+    out = {}
+    for name, model in (("tp", TP_MODEL), ("replicated", 1)):
+        mesh = mesh_lib.Mesh(("data", "model"), (TP_DATA_RANKS, model), torch.device("cpu"),
+                             D.InProcessAxes({"data": TP_DATA_RANKS, "model": model}, "cpu"),
+                             rank=0, per_rank=True)
+        params = steps.abstract_params(cfg, mesh)
+        pool = T.init_cache(cfg, TPS_POOL["slots"], TPS_POOL["cache_len"], device="meta")
+        if model > 1:
+            from repro_torch.models import sharding
+
+            dims = sharding.cache_dims(cfg, model, pool, steps.cache_shardings(cfg, mesh, pool))
+            pool = sharding.shard_cache(pool, dims, 0, model)
+        d_rank = sum(t.numel() for t in tree_leaves(params))
+        out[name] = {"params": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+                     "pool": sum(t.numel() * t.element_size() for t in tree_leaves(pool)),
+                     "rows": 4 * d_rank * 4}
+    d = T.count_params(cfg)
+    check(out["replicated"]["params"] == 2 * d and out["replicated"]["rows"] == 16 * d,
+          f"21e: {out}")
+    check(all(out["replicated"][k] / TP_MODEL <= out["tp"][k] < out["replicated"][k] / TP_MODEL
+              * 1.001 for k in ("params", "rows")), f"21e: {out}")
+    print(json.dumps({"tp_serve_rank_bytes": out, "d": d, "layers": cfg.n_layers,
+                      "ranks": {"data": TP_DATA_RANKS, "model": TP_MODEL}, "pool": TPS_POOL,
+                      "source": "computed from the shapes on the meta device, not measured"}))
+    gb = {m: sum(v.values()) / 1e9 for m, v in out.items()}
+    print(f"phase 21e: llama3.2-3b at {cfg.n_layers} layers (D = {d:,}), params + pool + (4, "
+          f"D_rank) f32 rows a rank at (data {TP_DATA_RANKS}, model {TP_MODEL}): "
+          f"{gb['tp']:.2f} GB against {gb['replicated']:.2f} GB at model 1 (computed from the "
+          f"shapes, not measured)")
+
+
+def tp_serving(dev, card: str, served):
+    """Phase 21: 21a-21e; returns the B1/B2 launches of 21b's and 21c's
+    model-2 runs (each round's aggregate held bitwise on its own rows)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    t0 = time.perf_counter()
+    tp_serve_parity(dev, serve_cfg(tiny=True), "21a tiny")
+    tp_serve_parity(dev, dataclasses.replace(get_smoke_config("granite_moe_1b_a400m"),
+                                             dtype="float32"), "21a granite")
+    print(f"phase 21a: {time.perf_counter() - t0:.1f} s")
+    out = tp_serve_cells(dev, card, served)
+    t0 = time.perf_counter()
+    tp_serve_shim()
+    print(f"phase 21d: {time.perf_counter() - t0:.1f} s")
+    tp_serve_memory()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -5024,7 +5285,8 @@ def main() -> None:
                   f"phase {phase} built order-statistic programs that phase 1 did not")
     libs_before = len(robust_agg.select_libraries())
     t0 = time.perf_counter()
-    new_paths["serve"] = serving(dev, card)
+    served = {}  # the tokens of 14b's and 16b's runs, for phase 21
+    new_paths["serve"] = serving(dev, card, served)
     print(f"phase 14: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 14 built order-statistic programs that phase 1 did not")
@@ -5036,7 +5298,7 @@ def main() -> None:
           "phase 15 built order-statistic programs that phase 1 did not")
     libs_before = len(robust_agg.select_libraries())
     t0 = time.perf_counter()
-    new_paths.update(families(dev, card))
+    new_paths.update(families(dev, card, served))
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 16 built order-statistic programs that phase 1 did not")
@@ -5064,6 +5326,12 @@ def main() -> None:
     print(f"phase 20: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 20 built order-statistic programs that phase 1 did not")
+    libs_before = len(robust_agg.select_libraries())
+    t0 = time.perf_counter()
+    new_paths.update(tp_serving(dev, card, served))
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    check(len(robust_agg.select_libraries()) == libs_before,
+          "phase 21 built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")

@@ -60,9 +60,11 @@ bits since the estimators are coordinate-wise.  ``grad_norm`` psums the
 split leaves' squares over ``model`` and counts a replicated leaf once.
 Not at model > 1 yet: fsdp, ``seq_parallel``, the codecs and randomized
 attacks (ROADMAP queue A item 6, step 7), the ``ssm`` / ``rec`` layers
-and the frontends (step 6), serving (step 5).  :func:`input_specs` and
-:func:`cache_shardings` are the reference's dry-run specs, as spec tuples
-on meta tensors.
+and the frontends (step 6).  The serving steps run on the model axis
+too: the prefill and decode steps over the mesh's ``ShardCtx``, the slot
+pool's kv heads split over ``model`` (:func:`init_slot_pool`).
+:func:`input_specs` and :func:`cache_shardings` are the reference's
+dry-run specs, as spec tuples on meta tensors.
 """
 from __future__ import annotations
 
@@ -695,39 +697,60 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
 # ---------------------------------------------------------------------------
 
 
-def refuse_serving_model_axis(mesh: Optional[mesh_lib.Mesh] = None, model: int = 1) -> None:
-    """Serving runs with no model axis yet: ``NotImplementedError`` at
-    model size > 1 (of ``mesh``, or ``model``)."""
-    model = _model_size(mesh) if mesh is not None else model
-    if model > 1:
-        raise NotImplementedError(
-            f"serving at model axis {model}: tensor parallelism of the serving steps, the "
-            "engine and its slot pool is not ported yet (ROADMAP queue A item 6, step 5)")
+def _serving_ctx(cfg: ModelConfig, mesh: Optional[mesh_lib.Mesh]) -> sharding.ShardCtx:
+    """The model axis the serving steps run over (:data:`NULL_CTX` without a
+    mesh or at model size 1); the layer kinds and frontends that do not run
+    on a model axis yet raise (``NotImplementedError``, naming the ROADMAP
+    step)."""
+    ctx = sharding.NULL_CTX if mesh is None else sharding.model_ctx(mesh)
+    T.refuse_model_axis(cfg, ctx.model)
+    return ctx
+
+
+def _splits_rows(mesh: Optional[mesh_lib.Mesh], b: int) -> bool:
+    """Whether a process-group rank holds its block of a batch of ``b`` rows
+    (``cache_shardings``' rule: the batch divides over the workers)."""
+    if mesh is None or not mesh.per_rank:
+        return False
+    m = mesh_lib.num_workers(mesh)
+    return m > 1 and b % m == 0
 
 
 def make_prefill_step(cfg: ModelConfig, kv_block: int = 1024,
                       cache_len: Optional[int] = None,
                       mesh: Optional[mesh_lib.Mesh] = None) -> Callable:
-    """``step(params, tokens, frontend=None) -> (last-token logits, cache)``.
-    The serving steps take a ``mesh`` only to refuse a model axis."""
-    refuse_serving_model_axis(mesh)
+    """``step(params, tokens, frontend=None) -> (last-token logits, cache)``,
+    the reference's layout: the batch over the worker axes and the kv heads
+    over the model axis.  On the in-process mesh ``params`` and the results
+    are the global view; under a process group ``params`` are the rank's
+    shards (:func:`tp_shard`), ``tokens`` the global batch every rank
+    holds alike, and the rank returns its block of rows (where the batch
+    divides over the workers) with its kv heads of the cache: the slice
+    :func:`cache_shardings` names.  Its logits are whole over V."""
+    ctx = _serving_ctx(cfg, mesh)
+    waxes = mesh_lib.worker_axes(mesh) if mesh is not None else ()
 
     def step(params, tokens, frontend=None):
+        if _splits_rows(mesh, tokens.shape[0]):
+            tokens = mesh.axes.local_rows(tokens, waxes)
+            if frontend is not None:
+                frontend = mesh.axes.local_rows(frontend, waxes)
         with torch.no_grad():
             return T.prefill(params, tokens, cfg, frontend=frontend, kv_block=kv_block,
-                             cache_len=cache_len)
+                             cache_len=cache_len, ctx=ctx)
 
     return step
 
 
 def make_decode_step(cfg: ModelConfig, mesh: Optional[mesh_lib.Mesh] = None) -> Callable:
     """``step(params, token, cache, pos) -> (logits, cache)``, the cache
-    updated in place."""
-    refuse_serving_model_axis(mesh)
+    updated in place; ``token`` and ``cache`` as :func:`make_prefill_step`'s
+    step returns them (under a process group the rank's rows and heads)."""
+    ctx = _serving_ctx(cfg, mesh)
 
     def step(params, token, cache, pos):
         with torch.no_grad():
-            return T.decode_step(params, token, cache, pos, cfg)
+            return T.decode_step(params, token, cache, pos, cfg, ctx)
 
     return step
 
@@ -735,8 +758,17 @@ def make_decode_step(cfg: ModelConfig, mesh: Optional[mesh_lib.Mesh] = None) -> 
 def make_slot_prefill_step(cfg: ModelConfig, cache_len: int,
                            mesh: Optional[mesh_lib.Mesh] = None) -> Callable:
     """Batch-1 prefill at a fixed prompt bucket -> (last-token logits
-    (1, 1, V), a slot cache sized ``cache_len``)."""
-    return make_prefill_step(cfg, kv_block=0, cache_len=cache_len, mesh=mesh)
+    (1, 1, V), a slot cache sized ``cache_len``): no batch axes (the pool is
+    replicated over the workers, as the reference's ``_serve_ctx`` has it),
+    the kv heads over the model axis."""
+    ctx = _serving_ctx(cfg, mesh)
+
+    def step(params, tokens, frontend=None):
+        with torch.no_grad():
+            return T.prefill(params, tokens, cfg, frontend=frontend, kv_block=0,
+                             cache_len=cache_len, ctx=ctx)
+
+    return step
 
 
 def make_decode_pool_step(cfg: ModelConfig, mesh: Optional[mesh_lib.Mesh] = None) -> Callable:
@@ -744,12 +776,15 @@ def make_decode_pool_step(cfg: ModelConfig, mesh: Optional[mesh_lib.Mesh] = None
     (next_tokens (S,) int32, pool)``: one greedy decode step of every slot
     at its own position, the pool updated in place.  Idle slots decode
     garbage against their masked caches; the engine ignores their outputs
-    and every admit replaces a slot's cache wholesale."""
-    refuse_serving_model_axis(mesh)
+    and every admit replaces a slot's cache wholesale.  Under a model axis
+    the argmax is taken on the whole logits (under a process group one
+    all-gather of the (S, V/M) vocab shards a tick, where V splits), so
+    ``torch.argmax``'s first-index rule holds as at model 1."""
+    ctx = _serving_ctx(cfg, mesh)
 
     def tick(params, tokens, pool, pos):
         with torch.no_grad():
-            logits, pool = T.decode_step(params, tokens.reshape(-1, 1), pool, pos, cfg)
+            logits, pool = T.decode_step(params, tokens.reshape(-1, 1), pool, pos, cfg, ctx)
         return torch.argmax(logits[:, 0, :].float(), dim=-1).to(torch.int32), pool
 
     return tick
@@ -759,12 +794,19 @@ def make_slot_admit_step() -> Callable:
     """``admit(pool, one, slot) -> pool``: copy a freshly prefilled batch-1
     cache (:func:`transformer.prefill`'s layout) into slot ``slot`` of the
     pool, in place: every leaf of the slot (attention keys, values and
-    positions, recurrent states) is replaced wholesale."""
+    positions, recurrent states) is replaced wholesale.  The copy keeps the
+    pool's storage and layout (the reference pins its pool replicated to
+    the same end); a slot cache of another shape (another rank's heads)
+    raises rather than broadcast."""
 
     def put(dst, src, slot: int, lead: int):
         for name, d in dst.items():  # the slot axis follows ``lead`` block dims
             s = src[name] if name == "kpos" else src[name].select(lead, 0)
-            d.select(lead, slot).copy_(s)
+            d = d.select(lead, slot)
+            if d.shape != s.shape:
+                raise ValueError(f"admit: a slot's {name} is {tuple(s.shape)}, the pool's "
+                                 f"{tuple(d.shape)}")
+            d.copy_(s)
 
     def admit(pool, one, slot: int):
         for key, group in pool["blocks"].items():
@@ -776,11 +818,21 @@ def make_slot_admit_step() -> Callable:
     return admit
 
 
-def init_slot_pool(cfg: ModelConfig, slots: int, cache_len: int, device="cuda"):
+def init_slot_pool(cfg: ModelConfig, slots: int, cache_len: int, device="cuda",
+                   mesh: Optional[mesh_lib.Mesh] = None):
     """Empty pool caches, :func:`transformer.init_cache` with the slots as its
     batch and a position row per slot: kpos (n_super, slots, eff) in the
     blocks and (slots, eff) in the tail, = -1, so an un-admitted slot
-    attends to nothing."""
+    attends to nothing.
+
+    With a ``mesh`` the pool is replicated over the worker axes (the
+    reference's ``_serve_ctx`` has no batch axes) and its attention keys
+    and values are split on the kv heads over the model axis
+    (:func:`repro_torch.models.sharding.cache_dims`): under a process group
+    a rank holds its heads, on the in-process mesh the pool holds every
+    head and each model rank reads and writes its heads' slice in turn.
+    The reference pins its pool replicated; that is a layout, and the
+    function is the same."""
     pool = T.init_cache(cfg, slots, cache_len, device=device)
 
     def per_slot(group, lead: int):
@@ -793,4 +845,8 @@ def init_slot_pool(cfg: ModelConfig, slots: int, cache_len: int, device="cuda"):
         per_slot(group, 1)
     for group in pool.get("tail", []):
         per_slot(group, 0)
-    return pool
+    model = _model_size(mesh) if mesh is not None else 1
+    if mesh is None or not mesh.per_rank or model == 1:
+        return pool
+    dims = sharding.cache_dims(cfg, model, pool, cache_shardings(cfg, mesh, pool))
+    return sharding.shard_cache(pool, dims, mesh_lib.model_rank(mesh), model)

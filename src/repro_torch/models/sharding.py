@@ -36,6 +36,11 @@ computes each layer on the shards explicitly, through :class:`ShardCtx`:
 computes on the shard (``shard``) or on the gathered whole
 (``gathered``); the ``ssm`` / ``rec`` layers and the encoder and
 cross-attention groups are not ported to a model axis yet (``unported``).
+
+Serving caches follow the attention layers: in ``heads`` mode each rank's
+attention keys and values are its own kv heads (:func:`cache_dims`,
+:func:`shard_cache`), the positions (``kpos``) whole on every rank; in
+``gathered`` mode the caches stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -44,7 +49,10 @@ import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
-from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
+import torch
+
+from repro_torch.tree import (tree_leaves_with_path, tree_map, tree_map_with_path,
+                              tree_unflatten_like)
 
 Spec = Tuple[Optional[str], ...]
 
@@ -186,6 +194,47 @@ def tp_plan(cfg, model: int) -> Dict[str, Tuple[int, str]]:
             mode = "shard"
         out[path] = (d, mode)
     return out
+
+
+def cache_dims(cfg, model: int, cache, specs):
+    """The split dim of every leaf of the serving ``cache`` at model size
+    ``model`` (-1: whole), read from
+    :func:`repro_torch.launch.steps.cache_shardings`' ``specs`` (a spec
+    tuple per leaf): the serving counterpart of :func:`tp_dims`, in a
+    tree shaped like ``cache`` (whose leaves may be meta tensors).
+
+    Only the attention keys and values of ``heads`` mode are split, on
+    their kv-head dim.  In ``gathered`` mode (kv heads not divisible by
+    ``model``, e.g. one kv head) the reference's spec falls to the head
+    dim ``hd``: a GSPMD layout of the same function, which the port does
+    not compute split (the layer computes from gathered leaves), so the
+    caches stay whole on every rank.  The worker-axis entries (the batch)
+    are not read here."""
+    heads = tp_modes(cfg, model).attn == "heads"
+    spec_of = []
+    tree_map(lambda _, spec: spec_of.append(spec), cache, specs)
+
+    def dim(path, spec):
+        if not heads or path.split("/")[-1] not in ("k", "v") or path.startswith("cross"):
+            return -1
+        d = next((i for i, e in enumerate(spec) if e == "model"), -1)
+        return d if d == len(spec) - 2 else -1
+
+    return tree_unflatten_like(cache, [dim(path, spec) for (path, _), spec
+                                       in zip(tree_leaves_with_path(cache), spec_of)])
+
+
+def shard_cache(cache, dims, k: int, model: int):
+    """Model rank ``k``'s slice of a whole cache tree: chunk ``k`` along each
+    leaf's dim of ``dims`` (:func:`cache_dims`), copied; a leaf with dim -1
+    as it is.  At model size 1 the tree itself."""
+    if model == 1:
+        return cache
+
+    def cut(t, d):
+        return t if d < 0 else t.chunk(model, d)[k].clone(memory_format=torch.contiguous_format)
+
+    return tree_map(cut, cache, dims)
 
 
 def tp_dims(cfg, model: int):

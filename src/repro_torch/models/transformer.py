@@ -429,7 +429,10 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
     ``heads`` mode each model rank projects, rotates and attends its own
     kv heads and its row of ``wo``, the partial outputs psummed (the
     returned k, v are the last rank's); under ``gathered`` the split
-    leaves are gathered whole."""
+    leaves are gathered whole.  The returned k, v are the ranks' this
+    process computes, their kv heads concatenated in rank order (in
+    process every rank's: the whole heads; under a process group the
+    rank's own)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -440,13 +443,17 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
     c = _on(ctx, modes.attn == "heads")
     ye = c.enter(y)
     heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
-    parts = []
+    parts, ks, vs = [], [], []
     for r in c.ranks():
         pr = dict(p, **{n: c.shard(p[n], d, r) for n, d in _ATTN_DIMS.items()})
         q, k, v = _qkv(pr, c.local(ye), cfg, positions, heads)
         o = attn_lib.attention(q, k, v, causal=causal, window=window, kv_block=kv_block)
         parts.append(o.reshape(b, s, heads[0] * cfg.hd) @ pr["wo"])
+        ks.append(k)
+        vs.append(v)
     x = x + c.reduce(parts)
+    if len(ks) > 1:
+        k, v = torch.cat(ks, 2), torch.cat(vs, 2)
     if enc_out is not None and cross_p is not None:
         oc = attn_lib.attention(_cross_q(cross_p, x, cfg), *_cross_kv(cross_p, enc_out, cfg),
                                 causal=False, kv_block=kv_block)
@@ -756,10 +763,16 @@ def _fill_attn_cache(k: torch.Tensor, v: torch.Tensor, eff: int, s: int) -> Para
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             frontend: Optional[torch.Tensor] = None, kv_block: int = 1024,
-            cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+            cache_len: Optional[int] = None,
+            ctx: ShardCtx = NULL_CTX) -> Tuple[torch.Tensor, Params]:
     """Full forward that also builds the serving cache, attention caches
     sized ``cache_len`` (prompt + generation budget; default the prompt):
     returns the last token's logits (B, 1, V) and the cache.
+
+    Under a model axis (``ctx``) the layers run as in :func:`forward`; in
+    ``heads`` mode each rank's cache holds its own kv heads (in process the
+    ranks' heads side by side: the whole cache), ``kpos`` whole; the
+    logits are whole on every rank (:func:`_logits`).
 
     Audio: the encoder runs once and each super-block's cross keys and
     values go to ``cache["cross"]``.  Vision: as in the reference, the
@@ -769,8 +782,9 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     cache_len = cache_len or s
     if cache_len < s:
         raise ValueError(f"cache_len {cache_len} < prompt length {s}")
+    refuse_model_axis(cfg, ctx.model)
     eff = cache_window(cfg, cache_len)
-    x, enc_out, _ = _frontend_in(params, tokens, cfg, frontend, kv_block)
+    x, enc_out, _ = _frontend_in(params, tokens, cfg, frontend, kv_block, ctx)
     if not cfg.cross_attention:
         enc_out = None
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -778,7 +792,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     for where in layer_slots(cfg):
         cx = _cross_at(params, where, enc_out)
         x, _, state = _layer_fwd(where, layer_at(params, where), x, cfg, positions, kv_block,
-                                 cx)
+                                 cx, ctx)
         per_layer.append(_fill_attn_cache(*state, eff, s) if where.kind == "attn" else state)
         if cx is not None:
             cross.append(_cross_kv(cx[1], enc_out, cfg))
@@ -787,7 +801,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         cache["cross"] = {"k": torch.stack([k for k, _ in cross]),
                           "v": torch.stack([v for _, v in cross])}
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x[:, -1:] @ params["lm_head"], dict(sorted(cache.items()))
+    return _logits(x[:, -1:], params["lm_head"], cfg, ctx), dict(sorted(cache.items()))
 
 
 def _cache_attention(q, k_cache, v_cache, kpos, pos, window: int):
@@ -806,11 +820,15 @@ def _cache_attention(q, k_cache, v_cache, kpos, pos, window: int):
 
 
 def _attn_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
-                 pos: torch.Tensor, window: int, cross=None) -> torch.Tensor:
+                 pos: torch.Tensor, window: int, cross=None,
+                 ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """One-token attention layer step; writes the new key/value and its
     position into the layer cache ``lc`` in place (slot = pos % eff).
     ``cross``: (this block's cross k/v cache, its cross-attention params)
-    or None."""
+    or None.  Under ``ctx``'s ``heads`` mode each model rank projects its
+    kv heads, writes them into its heads of the cache (in process a slice
+    of the whole cache, under a process group the rank's own cache) and
+    attends over them; ``wo`` is row-parallel, the partials psummed."""
     b = x.shape[0]
     eff = lc["k"].shape[1]
     if lc["kpos"].shape[-1] != eff:
@@ -822,19 +840,35 @@ def _attn_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
             f"so neither does this one")
     y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     posv = pos.reshape(-1, 1)
-    q, k, v = _qkv(p, y, cfg, posv)
     slot = pos % eff
-    if lc["kpos"].dim() == 1:  # one position for the whole batch
-        lc["k"][:, slot] = k[:, 0]
-        lc["v"][:, slot] = v[:, 0]
+    rows = torch.arange(b, device=x.device) if lc["kpos"].dim() == 2 else None
+    if rows is None:  # one position for the whole batch
         lc["kpos"][slot] = pos.to(torch.int32)
     else:  # a position per row (the slot pool)
-        rows = torch.arange(b, device=x.device)
-        lc["k"][rows, slot] = k[:, 0]
-        lc["v"][rows, slot] = v[:, 0]
         lc["kpos"][rows, slot] = pos.to(torch.int32)
-    o = _cache_attention(q, lc["k"], lc["v"], lc["kpos"], pos, window)
-    x = x + o.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
+    modes = ctx.modes(cfg)
+    if modes.attn == "gathered":
+        p = dict(p, **{n: ctx.full(p[n], _ATTN_DIMS[n]) for n in modes.attn_split})
+    c = _on(ctx, modes.attn == "heads")
+    ye = c.enter(y)
+    heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
+    ranks = c.ranks()
+    parts = []
+    for i, r in enumerate(ranks):
+        pr = dict(p, **{n: c.shard(p[n], d, r) for n, d in _ATTN_DIMS.items()})
+        q, k, v = _qkv(pr, c.local(ye), cfg, posv, heads)
+        kc, vc = lc["k"], lc["v"]
+        if len(ranks) > 1:  # rank r's heads of the whole cache
+            kc, vc = kc.narrow(2, i * heads[1], heads[1]), vc.narrow(2, i * heads[1], heads[1])
+        if rows is None:
+            kc[:, slot] = k[:, 0]
+            vc[:, slot] = v[:, 0]
+        else:
+            kc[rows, slot] = k[:, 0]
+            vc[rows, slot] = v[:, 0]
+        o = _cache_attention(q, kc.contiguous(), vc.contiguous(), lc["kpos"], pos, window)
+        parts.append(o.reshape(b, 1, heads[0] * cfg.hd) @ pr["wo"])
+    x = x + c.reduce(parts)
     if cross is not None:  # every encoder slot valid: kpos 0..t-1, pos 2^30
         ck, cp = cross
         t = ck["k"].shape[1]
@@ -842,7 +876,7 @@ def _attn_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
                               torch.arange(t, dtype=torch.int32, device=x.device),
                               torch.full((), 2 ** 30, dtype=torch.int64, device=x.device), 0)
         x = x + oc.reshape(b, 1, cfg.n_heads * cfg.hd) @ cp["wo"]
-    return _ffn(p, x, cfg)[0]
+    return _ffn(p, x, cfg, ctx)[0]
 
 
 def _ssm_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -866,15 +900,17 @@ def _rec_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig) -> tor
 
 
 def decode_step(params: Params, token: torch.Tensor, cache: Params, pos,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
+                cfg: ModelConfig, ctx: ShardCtx = NULL_CTX) -> Tuple[torch.Tensor, Params]:
     """One decode step: token (B, 1) at absolute position ``pos`` (a scalar,
     or (B,) positions for a cache whose kpos has a row per batch row).
 
     Returns (logits (B, 1, V), cache); the cache is updated IN PLACE (the
     reference donates it to the same effect).  A cache whose attention
     keys and positions differ in length (a vision prefill's) raises, as
-    the reference's decode does."""
-    x = _embed(params, token, cfg)
+    the reference's decode does.  Under a model axis (``ctx``) the cache
+    is :func:`prefill`'s layout and the logits are whole on every rank."""
+    refuse_model_axis(cfg, ctx.model)
+    x = _embed(params, token, cfg, ctx)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     window = decode_window(cfg)
     has_cross = cfg.cross_attention and "cross" in cache
@@ -885,10 +921,10 @@ def decode_step(params: Params, token: torch.Tensor, cache: Params, pos,
             if has_cross and where.part == "blocks":
                 cross = (_stacked_at(cache["cross"], where.s),
                          _stacked_at(params["cross_blocks"], where.s))
-            x = _attn_decode(p, x, lc, cfg, pos, window, cross)
+            x = _attn_decode(p, x, lc, cfg, pos, window, cross, ctx)
         elif where.kind == "ssm":
             x = _ssm_decode(p, x, lc, cfg)
         else:
             x = _rec_decode(p, x, lc, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"], cache
+    return _logits(x, params["lm_head"], cfg, ctx), cache

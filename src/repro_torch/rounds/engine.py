@@ -140,12 +140,21 @@ def latest_round(ckpt_dir: str) -> Optional[int]:
 
 
 def save_snapshot(ckpt_dir: str, state: RoundState,
-                  host: Optional[dict] = None) -> str:
+                  host: Optional[dict] = None, layout=None) -> str:
     """Write the snapshot taken after round ``state["round"] - 1`` plus
     JSON host state into ``ckpt_dir/round_XXXXXXXX/`` and advance the
-    LATEST marker atomically."""
+    LATEST marker atomically.
+
+    ``layout`` (duck-typed: ``gather_state``, ``writes``; e.g.
+    :class:`repro_torch.serve.engine.ModelShards`) holds a state split over
+    the ranks of a model axis: the global state is gathered (every rank
+    calls this together) and written once, by the rank that ``writes``."""
     rnd = int(state["round"])
     d = _snapshot_dir(ckpt_dir, rnd)
+    if layout is not None:
+        state = layout.gather_state(state)
+        if not layout.writes:
+            return d
     ckpt_lib.save(d, state, step=rnd, extra={"host": host or {}})
     tmp = os.path.join(ckpt_dir, _LATEST + ".tmp")
     with open(tmp, "w") as f:
@@ -155,15 +164,21 @@ def save_snapshot(ckpt_dir: str, state: RoundState,
 
 
 def load_snapshot(ckpt_dir: str, like: RoundState,
-                  rnd: Optional[int] = None) -> Tuple[RoundState, dict]:
+                  rnd: Optional[int] = None, layout=None) -> Tuple[RoundState, dict]:
     """Restore ``(state, host)`` from the snapshot at round ``rnd``
-    (default: the latest); ``like`` supplies structure and devices."""
+    (default: the latest); ``like`` supplies structure and devices.  With
+    ``layout`` (``template``, ``cut_state``) the snapshot holds the global
+    state and ``like`` this rank's part: the global state is read and this
+    rank's part cut from it."""
     if rnd is None:
         rnd = latest_round(ckpt_dir)
         if rnd is None:
             raise FileNotFoundError(f"no engine snapshot under {ckpt_dir!r}")
     d = _snapshot_dir(ckpt_dir, rnd)
-    state, _step = ckpt_lib.restore(d, like)
+    if layout is None:
+        state, _step = ckpt_lib.restore(d, like)
+    else:
+        state = layout.cut_state(ckpt_lib.restore(d, layout.template(like))[0])
     return state, ckpt_lib.load_extra(d).get("host", {})
 
 

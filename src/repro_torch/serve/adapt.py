@@ -29,6 +29,22 @@ run bit for bit.
 :func:`weighted_nll` normalizes by ``sum(|w|)`` rather than
 ``layers.cross_entropy``'s ``sum(mask)``: negative feedback scores would
 otherwise flip the loss's sign *and* its scale.
+
+On a mesh with a model axis (tensor parallelism) the per-shard gradients
+run through the model-axis forward.  On the in-process mesh the iterate,
+the rows and the aggregate are the global ones (the rows are model 1's
+function, computed on the model shards; the aggregation is model 1's
+call).  Under a process group a rank holds its shards of the iterate
+(:class:`~repro_torch.serve.engine.ModelShards`) and writes its own
+columns of the rows, (m, D_rank) in the ravel order of its leaves; its
+B1 / B2 launch aggregates those columns, which is bitwise its columns of
+one launch over the whole rows (the median and the trimmed mean are
+coordinate-wise); the update runs on its shards and the round's norm
+psums the split columns' squares over the model axis.  Snapshots hold the
+global state, gathered over the model axis and written by global rank 0;
+a restore cuts each rank's shards, so a snapshot restores at any model
+size.  Randomized gradient attacks and the codecs read whole rows and do
+not run at model > 1 yet (ROADMAP queue A item 6, step 7).
 """
 from __future__ import annotations
 
@@ -42,11 +58,13 @@ from repro_torch.attacks import base as atk_base
 from repro_torch.attacks import engine as atk_engine
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import aggregators
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.rounds import compression as comp_lib
 from repro_torch.rounds import engine as rounds_engine
-from repro_torch.serve.engine import refuse_frontend
+from repro_torch.serve.engine import ModelShards, refuse_frontend
 from repro_torch.tree import tree_leaves, tree_unflatten_like
 
 _COMP_KEY = 11  # the repo-wide compression key base
@@ -82,11 +100,13 @@ class AdaptConfig:
                     "feedback corruption is configured on TrafficConfig")
 
 
-def weighted_nll(params, cfg: ModelConfig, tokens, labels, weights) -> torch.Tensor:
+def weighted_nll(params, cfg: ModelConfig, tokens, labels, weights,
+                 ctx: sharding.ShardCtx = sharding.NULL_CTX) -> torch.Tensor:
     """Score-weighted next-token NLL over one shard's (B, L) batch;
     ``weights`` carry the feedback score on response positions (zero on
-    prompt and padding)."""
-    logits, _aux = T.forward(params, tokens, cfg, kv_block=0)
+    prompt and padding).  Under a model axis (``ctx``) the forward runs on
+    the model shards and its logits are whole on every rank."""
+    logits, _aux = T.forward(params, tokens, cfg, kv_block=0, ctx=ctx)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     denom = torch.clamp(torch.sum(torch.abs(weights)), min=1.0)
@@ -123,10 +143,14 @@ def _grad_pieces(params):
 
 
 def feedback_grad_rows(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       out: Optional[torch.Tensor] = None,
+                       ctx: sharding.ShardCtx = sharding.NULL_CTX) -> torch.Tensor:
     """Per-shard raveled gradients as (m, D) float32 rows — the transmitted
     payload of one adaptation round — written shard by shard into ``out``
-    (allocated when None), coordinates in ravel order."""
+    (allocated when None), coordinates in ravel order.  Under a model axis
+    (``ctx``) ``params`` are the tree this process holds (the global view
+    in process, a rank's shards under a process group, whose rows are then
+    its (m, D_rank) columns)."""
     d = num_coordinates(params)
     m = batch["tokens"].shape[0]
     if out is None:
@@ -136,7 +160,7 @@ def feedback_grad_rows(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     for s in range(m):
         tree, pieces = _grad_pieces(params)
         loss = weighted_nll(tree, cfg, batch["tokens"][s], batch["labels"][s],
-                            batch["weights"][s])
+                            batch["weights"][s], ctx)
         grads = torch.autograd.grad(loss, pieces, allow_unused=True)
         off = 0
         for g, p in zip(grads, pieces):
@@ -151,16 +175,21 @@ def feedback_grad_rows(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def make_feedback_stages(cfg: ModelConfig, acfg: AdaptConfig, batch: Dict[str, torch.Tensor],
-                         opt, rows: Optional[torch.Tensor] = None) -> rounds_engine.RoundStages:
+                         opt, rows: Optional[torch.Tensor] = None,
+                         ctx: sharding.ShardCtx = sharding.NULL_CTX,
+                         shards: Optional[ModelShards] = None) -> rounds_engine.RoundStages:
     """The round engine's stage pipeline of one adaptation round over
     ``batch`` (on the parameters' device), the gradients written into
-    ``rows`` when given."""
+    ``rows`` when given; ``ctx`` the model axis the gradients run over and
+    ``shards`` how the iterate is held on it (a process group's rank:
+    its norm and a leaf-global attack's sums completed over the axis)."""
     agg = aggregators.get_aggregator(acfg.method, acfg.beta)
     spec = comp_lib.get_compression(acfg.compression)
     m = batch["tokens"].shape[0]
+    per_rank = shards is not None and shards.per_rank
 
     def local_work(w, r):
-        return feedback_grad_rows(w, cfg, batch, out=rows)
+        return feedback_grad_rows(w, cfg, batch, out=rows, ctx=ctx)
 
     compress = None
     if acfg.compression != "none":
@@ -179,7 +208,8 @@ def make_feedback_stages(cfg: ModelConfig, acfg: AdaptConfig, batch: Dict[str, t
             gen = rng.generator(acfg.seed, r, device=payload.device)
             return atk_engine.apply_to_rows(
                 acfg.grad_attack, payload, mask, alpha=acfg.grad_alpha,
-                generator=gen, prev_agg=prev_agg, rnd=r)
+                generator=gen, prev_agg=prev_agg, rnd=r,
+                row_sum=shards.row_sum if per_rank else None)
 
     def aggregate(payload):
         return agg(payload.float())
@@ -194,6 +224,8 @@ def make_feedback_stages(cfg: ModelConfig, acfg: AdaptConfig, batch: Dict[str, t
         return opt.update(grads, opt_state, w, r)
 
     def emit(w_new, agg_vec):
+        if per_rank:
+            return shards.norm(agg_vec)
         return torch.linalg.vector_norm(agg_vec.float())
 
     return rounds_engine.RoundStages(
@@ -201,16 +233,41 @@ def make_feedback_stages(cfg: ModelConfig, acfg: AdaptConfig, batch: Dict[str, t
         compress=compress, attack=attack, emit=emit)
 
 
+def refuse_model_axis(cfg: ModelConfig, acfg: AdaptConfig, model: int) -> None:
+    """What an adaptation round does not run at model axis ``model`` > 1 yet:
+    ``NotImplementedError`` naming the ROADMAP item."""
+    if model == 1:
+        return
+    T.refuse_model_axis(cfg, model)
+    later = "is not ported yet (ROADMAP queue A item 6, step 7)"
+    if acfg.compression != "none":
+        raise NotImplementedError(
+            f"compression {acfg.compression!r} at model axis {model}: a codec's message is the "
+            f"whole raveled gradient row, which no model rank holds; codecs under tensor "
+            f"parallelism {later}")
+    if acfg.grad_attack is not None and acfg.grad_alpha > 0:
+        atk = atk_engine.as_attack(acfg.grad_attack)
+        if atk.randomized:
+            raise NotImplementedError(
+                f"attack {atk.name!r} at model axis {model}: a randomized payload is drawn "
+                f"over the whole row, which no model rank holds; randomized attacks under "
+                f"tensor parallelism {later}")
+
+
 class RoundFn:
     """``round_fn(state, batch) -> (state, grad_norm)``: one round-engine
     round over ``batch`` (moved to the iterate's device).  It owns the
-    (m, D) rows buffer, allocated at the first round and reused after."""
+    (m, D) rows buffer, allocated at the first round and reused after
+    (under a process group with a model axis the rank's (m, D_rank))."""
 
-    def __init__(self, cfg: ModelConfig, acfg: AdaptConfig):
+    def __init__(self, cfg: ModelConfig, acfg: AdaptConfig, mesh=None):
         refuse_frontend(cfg)
+        refuse_model_axis(cfg, acfg, mesh_lib.model_size(mesh) if mesh is not None else 1)
         self.cfg = cfg
         self.acfg = acfg
         self.opt = get_optimizer(acfg.optimizer, acfg.lr)
+        self.ctx = sharding.model_ctx(mesh) if mesh is not None else sharding.NULL_CTX
+        self.shards = ModelShards(cfg, mesh)
         self.rows: Optional[torch.Tensor] = None
 
     def stages(self, state: rounds_engine.RoundState, batch) -> rounds_engine.RoundStages:
@@ -221,21 +278,24 @@ class RoundFn:
         if self.rows is None or tuple(self.rows.shape) != shape or self.rows.device != dev:
             self.rows = None  # the old buffer goes before the new one comes
             self.rows = torch.empty(shape, dtype=torch.float32, device=dev)
-        return make_feedback_stages(self.cfg, self.acfg, batch, self.opt, rows=self.rows)
+        return make_feedback_stages(self.cfg, self.acfg, batch, self.opt, rows=self.rows,
+                                    ctx=self.ctx, shards=self.shards)
 
     def __call__(self, state: rounds_engine.RoundState, batch):
         body = rounds_engine.make_round_body(self.stages(state, batch))
         return body(state, int(state["round"]))
 
 
-def make_round_fn(cfg: ModelConfig, acfg: AdaptConfig) -> RoundFn:
-    return RoundFn(cfg, acfg)
+def make_round_fn(cfg: ModelConfig, acfg: AdaptConfig, mesh=None) -> RoundFn:
+    return RoundFn(cfg, acfg, mesh)
 
 
 def init_adapt_state(params, acfg: AdaptConfig, num_shards: int) -> rounds_engine.RoundState:
-    """Fresh RoundState over the model parameters: a flat float32 previous
-    aggregate (the wire is (m, D) rows), per-shard residuals for
-    error-feedback codecs, optimizer state from repro_torch.optim."""
+    """Fresh RoundState over the model parameters (the tree this process
+    holds: a rank's shards under a process group with a model axis): a
+    flat float32 previous aggregate (the wire is (m, D) rows), per-shard
+    residuals for error-feedback codecs, optimizer state from
+    repro_torch.optim."""
     opt = get_optimizer(acfg.optimizer, acfg.lr)
     d = num_coordinates(params)
     dev = tree_leaves(params)[0].device
@@ -258,15 +318,17 @@ class FeedbackAdapter:
     """
 
     def __init__(self, cfg: ModelConfig, acfg: AdaptConfig, users, params,
-                 ckpt_dir: Optional[str] = None):
+                 ckpt_dir: Optional[str] = None, mesh=None):
         self.cfg = cfg
         self.acfg = acfg
         self.users = users
         self.ckpt_dir = ckpt_dir
         m = users.cfg.num_shards
         self.buffers: List[List[Any]] = [[] for _ in range(m)]
-        self.state = init_adapt_state(params, acfg, m)
-        self.round_fn = make_round_fn(cfg, acfg)
+        self.round_fn = make_round_fn(cfg, acfg, mesh)
+        self.shards = self.round_fn.shards
+        held = self.shards.cut(params) if self.shards.per_rank else params
+        self.state = init_adapt_state(held, acfg, m)
         self._last_round_tick = 0
         self.history: List[Dict[str, float]] = []
 
@@ -304,8 +366,19 @@ class FeedbackAdapter:
         }
         self.history.append(entry)
         if self.ckpt_dir:
-            rounds_engine.save_snapshot(self.ckpt_dir, self.state)
+            rounds_engine.save_snapshot(self.ckpt_dir, self.state, layout=self.shards)
         return entry
+
+    def restore(self, ckpt_dir: str, rnd: Optional[int] = None) -> None:
+        """Resume from the snapshot at round ``rnd`` (default: the latest),
+        written at any model size: this rank's part of its global state."""
+        self.state, _host = rounds_engine.load_snapshot(ckpt_dir, self.state, rnd,
+                                                        layout=self.shards)
+
+    def global_iterate(self):
+        """The global iterate (a collective under a process group with a
+        model axis)."""
+        return self.shards.gather(self.state["w"])
 
     def maybe_round(self, engine) -> Optional[Dict[str, float]]:
         if engine.tick - self._last_round_tick < self.acfg.adapt_every:

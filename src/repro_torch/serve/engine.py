@@ -24,6 +24,13 @@ no meaning without jit; its counterpart here is :meth:`ServeEngine.storage_kept`
 the served parameters and the pool keep their storage across admits,
 retires and swaps.
 
+On a mesh with a model axis (tensor parallelism) the engine serves on
+the model shards: under a process group each rank holds its shards of the
+params (:func:`repro_torch.launch.steps.tp_shard`) and its kv heads of the
+pool, and serves the same stream as every other rank; on the in-process
+mesh it holds the global view and each layer's model ranks run in turn.
+Either way the greedy tokens are the argmax of the whole logits.
+
 A frontend configuration (whisper, internvl2) is refused
 (:func:`refuse_frontend`): the reference's engine prefills with no
 frontend, so it serves neither, and the port adds no such feature.
@@ -45,8 +52,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.models import sharding
+from repro_torch.models import transformer as T
+from repro_torch.tree import ravel, tree_leaves, tree_map
 
 
 def refuse_frontend(cfg: ModelConfig) -> None:
@@ -207,25 +217,172 @@ def _pointers(tree) -> List[int]:
     return [t.data_ptr() for t in tree_leaves(tree)]
 
 
+class ModelShards:
+    """How this process holds the served iterate on ``mesh``'s model axis.
+
+    Under a process group with a model axis > 1 (``per_rank``) a rank holds
+    its shards of every split leaf (chunk ``k`` of ``model`` along the
+    leaf's dim of :func:`repro_torch.models.sharding.tp_dims`) and the
+    other leaves whole; the flat vectors of the adaptation round (its
+    (m, D_rank) rows, the aggregate) run over the rank's leaves in ravel
+    order.  Otherwise (no mesh, model size 1, or the in-process mesh,
+    which holds the global view) every method is the identity.
+
+    ``gather`` / ``gather_flat`` rebuild the global tree / vector over the
+    model axis (every rank of the group calls them together), ``cut`` /
+    ``cut_flat`` take this rank's part of a global one, ``row_sum`` and
+    ``norm`` complete a sum over the rank's columns across the model axis
+    (a split leaf's columns psummed, a whole leaf's counted once), and
+    ``writes`` says whether this process writes what every rank holds
+    alike (global rank 0)."""
+
+    def __init__(self, cfg: ModelConfig, mesh=None):
+        model = mesh_lib.model_size(mesh) if mesh is not None else 1
+        self.per_rank = mesh is not None and mesh.per_rank and model > 1
+        self.writes = mesh is None or mesh.rank == 0
+        self.model, self.k = model, (mesh_lib.model_rank(mesh) if self.per_rank else 0)
+        if self.per_rank:
+            self.ctx = sharding.model_ctx(mesh)
+            self.specs = steps.param_shardings(cfg, mesh)
+            self.dim_tree = sharding.tp_dims(cfg, model)
+            self.dims = tree_leaves(self.dim_tree)
+            self.meta = T.meta_params(cfg)  # the global shapes
+            self.rank_meta = steps.abstract_params(cfg, mesh)  # this rank's
+            self.sizes = [t.numel() for t in tree_leaves(self.meta)]
+            self.rank_sizes = [t.numel() for t in tree_leaves(self.rank_meta)]
+
+    # -- parameter-shaped trees
+
+    def piece(self, src, d: int, shape):
+        """``src`` as the served leaf of ``shape`` takes it: itself where the
+        shapes agree (a whole leaf, or a rank's shard given as it is), else
+        this rank's chunk of the global leaf along ``d``."""
+        if d >= 0 and tuple(src.shape) != tuple(shape):
+            return src.detach().chunk(self.model, d)[self.k]
+        return src
+
+    def cut(self, params):
+        """This process's copy of the global ``params`` (cloned)."""
+        if not self.per_rank:
+            return tree_map(lambda t: t.detach().clone(), params)
+        shards = steps.tp_shard(tree_map(torch.Tensor.detach, params), self.specs, self.k,
+                                self.model)
+        return tree_map(lambda t, d: t.clone() if d < 0 else t, shards, self.dim_tree)
+
+    def gather(self, params):
+        """The global tree of this rank's ``params`` (a collective)."""
+        if not self.per_rank:
+            return params
+        dims = iter(self.dims)
+
+        def full(t):
+            d = next(dims)
+            return t if d < 0 else self.ctx.full(t, d)
+
+        return tree_map(full, params)
+
+    # -- flat vectors in ravel order (the round's rows and aggregate)
+
+    @staticmethod
+    def _tree(v, sizes, like):
+        parts = iter(torch.split(v, sizes))
+        return tree_map(lambda t: next(parts).reshape(t.shape), like)
+
+    def cut_flat(self, v):
+        """This rank's columns of a global flat vector."""
+        if not self.per_rank:
+            return v
+        return ravel(self.cut(self._tree(v, self.sizes, self.meta)))[0]
+
+    def gather_flat(self, v):
+        """The global flat vector of this rank's columns (a collective)."""
+        if not self.per_rank:
+            return v
+        return ravel(self.gather(self._tree(v, self.rank_sizes, self.rank_meta)))[0]
+
+    def _split_sums(self, x, fn):
+        """(the sum of ``fn`` over the split leaves' columns, over the whole
+        leaves' columns) of ``x`` (..., D_rank), each (...)."""
+        split = whole = None
+        for p, d in zip(torch.split(x, self.rank_sizes, dim=-1), self.dims):
+            t = fn(p).sum(dim=-1)
+            if d >= 0:
+                split = t if split is None else split + t
+            else:
+                whole = t if whole is None else whole + t
+        return split, whole
+
+    def row_sum(self, x):
+        """Each row's sum of a per-coordinate (m, D_rank) tensor over every
+        column of the global rows: the split leaves' columns psummed over
+        the model axis, the whole leaves' once."""
+        split, whole = self._split_sums(x, lambda p: p)
+        return self.ctx.reduce([split]) + whole
+
+    def norm(self, v):
+        """The float32 2-norm of the global vector of this rank's columns."""
+        split, whole = self._split_sums(v.float(), torch.square)
+        return torch.sqrt(self.ctx.reduce([split]) + whole)
+
+    # -- round states: the iterate, the previous aggregate, the optimizer's
+    # parameter-shaped moments; scalars and the (unused) residuals as they are
+
+    def _state(self, state, tree_fn, flat_fn):
+        def opt(t):
+            if isinstance(t, dict) and sorted(t) == sorted(self.meta):
+                return tree_fn(t)
+            if isinstance(t, dict):
+                return {k: opt(v) for k, v in t.items()}
+            return t
+
+        return dict(state, w=tree_fn(state["w"]), prev_agg=flat_fn(state["prev_agg"]),
+                    opt_state=opt(state["opt_state"]))
+
+    def gather_state(self, state):
+        """The global round state of this rank's (a collective)."""
+        if not self.per_rank:
+            return state
+        return self._state(state, self.gather, self.gather_flat)
+
+    def cut_state(self, state):
+        """This rank's round state of a global one."""
+        if not self.per_rank:
+            return state
+        return self._state(state, self.cut, self.cut_flat)
+
+    def template(self, state):
+        """Empty tensors of the global round state's shapes, on the devices
+        of this rank's ``state`` (a checkpoint restore's template)."""
+        if not self.per_rank:
+            return state
+
+        def tree(t):
+            it = iter(tree_leaves(self.meta))
+            return tree_map(lambda x: x.new_empty(next(it).shape), t)
+
+        return self._state(state, tree, lambda v: v.new_empty((sum(self.sizes),)))
+
+
 class ServeEngine:
     """The fixed-slot continuous-batching pool, on the device of ``params``.
 
-    The engine serves its own copy of ``params``; :meth:`swap_params`
-    copies a new iterate into it.  A ``mesh`` with a model axis > 1 raises
-    (serving under tensor parallelism is ROADMAP queue A item 6, step 5)."""
+    The engine serves its own copy of ``params`` (the global iterate; under
+    a process group with a model axis it keeps this rank's shards);
+    :meth:`swap_params` copies a new iterate into it."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params, mesh=None):
         refuse_frontend(cfg)
-        steps.refuse_serving_model_axis(mesh)
         self.cfg = cfg
         self.scfg = scfg
-        self.params = tree_map(lambda t: t.detach().clone(), params)
+        self.shards = ModelShards(cfg, mesh)
+        self._prefill = steps.make_slot_prefill_step(cfg, scfg.cache_len, mesh)
+        self._decode = steps.make_decode_pool_step(cfg, mesh)
+        self._admit = steps.make_slot_admit_step()
+        self.params = self.shards.cut(params)
         self.device = tree_leaves(self.params)[0].device
         self.params_version = 0
-        self._prefill = steps.make_slot_prefill_step(cfg, scfg.cache_len)
-        self._decode = steps.make_decode_pool_step(cfg)
-        self._admit = steps.make_slot_admit_step()
-        self.pool = steps.init_slot_pool(cfg, scfg.slots, scfg.cache_len, device=self.device)
+        self.pool = steps.init_slot_pool(cfg, scfg.slots, scfg.cache_len, device=self.device,
+                                         mesh=mesh)
         self._storage = {"params": _pointers(self.params), "pool": _pointers(self.pool)}
         S = scfg.slots
         self.slots = [_Slot() for _ in range(S)]
@@ -251,11 +408,17 @@ class ServeEngine:
                 "pool": _pointers(self.pool) == self._storage["pool"]}
 
     def swap_params(self, params) -> int:
-        """Hot-swap the served model between ticks: copy ``params`` (same
-        tree, shapes and dtypes) into the served tensors; in-flight slots
-        keep their caches and continue under the new iterate.  Returns the
-        new params version."""
+        """Hot-swap the served model between ticks: copy ``params`` (the
+        global iterate, same tree and dtypes; under a process group with a
+        model axis also this rank's shards of it, as the adapter holds
+        them) into the served tensors in place, each rank its shard;
+        in-flight slots keep their caches and continue under the new
+        iterate.  Returns the new params version."""
+        served = self.shards
+        dims = iter(served.dims if served.per_rank else [-1] * len(tree_leaves(self.params)))
+
         def copy(dst, src):
+            src = served.piece(src, next(dims), dst.shape)
             if dst.shape != src.shape or dst.dtype != src.dtype:
                 raise ValueError(f"swap_params: {tuple(src.shape)} {src.dtype} does not fit "
                                  f"the served {tuple(dst.shape)} {dst.dtype}")

@@ -18,14 +18,21 @@ adaptation (the serve-only baseline).  The
 last line prints ``final iterate sha256 = ...`` as ``fed/run.py`` does; two
 identical invocations print the same digest.
 
-``--mesh/--workers/--model-par`` are the reference's: ``debug`` places the
-params on ``make_debug_mesh(workers, model_par)``'s device, ``single`` /
+``--mesh/--workers/--model-par`` are the reference's: ``debug`` runs on
+``make_debug_mesh(workers, model_par)`` in this process, ``single`` /
 ``multi`` on this rank's card of a ``torch.distributed`` process group
-(``make_production_mesh``; every rank serves the same stream, rank 0
-prints).  The mesh only places the params: serving spreads no work over
-its workers.  And ``--model-par`` > 1 raises (serving under tensor
-parallelism, ROADMAP queue A item 6, step 5).  The reference's CI smoke command runs as it is, with
-``--device cpu`` on the CPU::
+(``make_production_mesh``): every rank serves the same stream and rank 0
+prints.  The worker axes spread no serving work (the slot pool is
+replicated over them, as the reference's).  ``--model-par`` > 1 is tensor
+parallelism: the engine, its pool and the adaptation rounds run on the
+model shards (on ``debug`` each layer's model ranks in turn on the global
+view; under a process group a rank holds its shards and its kv heads).
+The header names the mesh (``mesh={'data': 4, 'model': 2}``) and the
+sha256 is taken over the global iterate, so a run prints the same digest
+at every model size and on either mesh.  The mamba2 and recurrentgemma
+layers do not run on a model axis yet (ROADMAP queue A item 6, step 6).
+The reference's CI smoke command runs as it is, with ``--device cpu`` on
+the CPU::
 
     PYTHONPATH=src python -m repro_torch.serve.run --device cpu --smoke \\
         --arch llama3_2_3b --workers 2 --model-par 1 --requests 24 \\
@@ -89,10 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "process group, every rank serving the whole stream (rank 0 "
                         "prints)")
     p.add_argument("--workers", type=int, default=1,
-                   help="debug mesh data axis; it only places the params, serving does "
-                        "not spread work over it")
+                   help="debug mesh data axis (the slot pool is replicated over it)")
     p.add_argument("--model-par", type=int, default=1,
-                   help="model axis (serving runs at 1; tensor parallelism trains only)")
+                   help="model axis: tensor parallelism of the engine and the rounds")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
@@ -101,7 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def iterate_digest(w) -> str:
     """sha256 of the served iterate's raveled bytes (bfloat16 leaves as
-    their 16-bit patterns), bit for bit."""
+    their 16-bit patterns), bit for bit; ``w`` the global iterate (a
+    process group's ranks gather theirs first), so every rank and every
+    model size prints one digest for one iterate."""
     import torch
 
     from repro_torch.tree import ravel
@@ -118,9 +126,7 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
-    from repro_torch.launch.steps import refuse_serving_model_axis
 
-    refuse_serving_model_axis(model=args.model_par)
     own_group = args.mesh != "debug" and not dist.is_initialized()
     if args.mesh == "debug":
         mesh = make_debug_mesh(args.workers, args.model_par, device=args.device)
@@ -138,6 +144,7 @@ def main(argv=None) -> int:
 def _serve(args, mesh) -> None:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.fed.population import ArrivalConfig
+    from repro_torch.launch.mesh import mesh_shape_dict
     from repro_torch.models import transformer as T
     from repro_torch.serve.adapt import AdaptConfig, FeedbackAdapter
     from repro_torch.serve.engine import (ServeConfig, ServeEngine, latency_stats,
@@ -148,6 +155,7 @@ def _serve(args, mesh) -> None:
     dev = mesh.device
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     refuse_frontend(cfg)
+    T.refuse_model_axis(cfg, args.model_par)
     scfg = ServeConfig(slots=args.slots, prompt_len=args.prompt_len,
                        max_new=args.max_new, eos_id=args.eos_id, window=args.window)
     tcfg = TrafficConfig(
@@ -161,7 +169,7 @@ def _serve(args, mesh) -> None:
     users = VirtualUsers(tcfg)
 
     say(f"model: {cfg.name} (vocab {cfg.vocab}); mesh {args.mesh} workers={args.workers} "
-        f"model_par={args.model_par}; device {dev}")
+        f"model_par={args.model_par}; device {dev}; mesh={mesh_shape_dict(mesh)}")
     say(f"engine: {scfg.slots} slots, prompt bucket {scfg.prompt_len}, "
         f"max_new {scfg.max_new} (cache {scfg.cache_len})")
     say(f"traffic: {args.requests} requests from {tcfg.num_users} users "
@@ -177,7 +185,7 @@ def _serve(args, mesh) -> None:
             method=args.method, beta=args.beta, optimizer=args.optimizer, lr=args.lr,
             compression=args.compression, batch_per_shard=args.batch_per_shard,
             adapt_every=args.adapt_every, seed=args.seed)
-        adapter = FeedbackAdapter(cfg, acfg, users, params, ckpt_dir=args.ckpt_dir)
+        adapter = FeedbackAdapter(cfg, acfg, users, params, ckpt_dir=args.ckpt_dir, mesh=mesh)
         say(f"adaptation: every {acfg.adapt_every} ticks, "
             f"B={acfg.batch_per_shard}/shard, method={acfg.method}, "
             f"opt={acfg.optimizer}@{acfg.lr}, compression={acfg.compression}"
@@ -205,9 +213,9 @@ def _serve(args, mesh) -> None:
             say(f"  round {h['round']:3d}  |g|={h['grad_norm']:9.4f}  "
                 f"score={h['score_mean']:+.3f} (honest {h['score_honest_mean']:+.3f})")
         say(f"adaptation rounds: {adapter.rounds_done} (params v{engine.params_version})")
-        w = adapter.state["w"]
+        w = adapter.global_iterate()
     else:
-        w = engine.params
+        w = engine.shards.gather(engine.params)
     say(f"final iterate sha256 = {iterate_digest(w)}")
 
 

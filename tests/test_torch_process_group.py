@@ -666,8 +666,10 @@ def test_later_steps_still_raise(monkeypatch):
         steps.make_step_body(cfg, ParallelConfig(seq_parallel=True), tp, opt)
     with pytest.raises(NotImplementedError, match="step 6"):
         steps.make_step_body(get_smoke_config("mamba2-2.7b"), ParallelConfig(), tp, opt)
-    with pytest.raises(NotImplementedError, match="step 5"):
-        steps.make_decode_pool_step(cfg, tp)
+    # step 5 (serving under tensor parallelism) is ported
+    steps.make_decode_pool_step(cfg, tp)
+    with pytest.raises(NotImplementedError, match="step 6"):
+        steps.make_decode_pool_step(get_smoke_config("mamba2-2.7b"), tp)
     mesh = mesh_lib.make_debug_mesh(2, 1, device="cpu")
     # step 3 (fsdp) is ported: it refuses what the reference's refuses
     with pytest.raises(ValueError, match="compression needs param_mode='replicated'"):
@@ -690,17 +692,20 @@ def test_production_mesh_without_a_group_names_torchrun(monkeypatch):
 def test_serve_cli_takes_the_reference_ci_smoke_flags():
     """The reference's CI serve smoke command (``--workers 2 --model-par
     1``), with ``--device cpu``: the mesh header and one sha256 on two runs;
-    ``--model-par 2`` raises."""
+    with ``--model-par 2`` it serves on the model axis, one sha256 on two
+    runs too."""
     from repro_torch.serve import run as serve_run
 
-    digests = []
-    for _ in range(2):
-        text = str(_cli(serve_run.main, SERVE_CI))
-        assert "mesh debug workers=2 model_par=1; device cpu" in text
-        digests += _digests(text)
-    assert len(digests) == 2 and digests[0] == digests[1]
-    with pytest.raises(NotImplementedError, match="serving.*tensor parallelism.*step 5"):
-        serve_run.main(["--device", "cpu", "--smoke", "--model-par", "2"])
+    for model in ("1", "2"):
+        argv = [a if a != "1" or SERVE_CI[i - 1] != "--model-par" else model
+                for i, a in enumerate(SERVE_CI)]
+        digests = []
+        for _ in range(2):
+            text = str(_cli(serve_run.main, argv))
+            assert f"mesh debug workers=2 model_par={model}; device cpu" in text
+            assert "served 24/24 requests" in text
+            digests += _digests(text)
+        assert len(digests) == 2 and digests[0] == digests[1]
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])

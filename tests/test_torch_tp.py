@@ -834,19 +834,34 @@ def test_the_model_axis_refusals():
                              AttackConfig("mimic", 0.25))
     steps.make_step_body(cfg, ParallelConfig(agg_strategy="gather"), tp, opt,
                          AttackConfig("mimic", 0.25))
-    # serving: the steps, the engine and the CLI
+    # serving (step 5) is ported: the steps, the engine and the CLI run at
+    # model 2, and serve what model 1 serves; the ssm / rec layers refuse
     from repro_torch.serve import run as serve_run
-    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import ServeConfig, ServeEngine, serve_stream
+    from repro_torch.serve.traffic import TrafficConfig, VirtualUsers
 
-    for make in (lambda: steps.make_prefill_step(cfg, mesh=tp),
-                 lambda: steps.make_decode_step(cfg, tp),
-                 lambda: steps.make_slot_prefill_step(cfg, 16, tp),
-                 lambda: steps.make_decode_pool_step(cfg, tp),
-                 lambda: ServeEngine(cfg, ServeConfig(), T.init_params(cfg, 0, "cpu"), tp),
-                 lambda: serve_run.main(["--device", "cpu", "--smoke", "--model-par", "2"])):
-        with pytest.raises(NotImplementedError, match="serving.*step 5"):
-            make()
-    steps.make_decode_pool_step(cfg, mesh_lib.make_debug_mesh(2, 1, device="cpu"))
+    params = T.init_params(cfg, 0, "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(0))
+    logits, cache = steps.make_prefill_step(cfg, mesh=tp, cache_len=12)(params, tokens)
+    want, want_cache = steps.make_prefill_step(cfg, cache_len=12)(params, tokens)
+    torch.testing.assert_close(logits, want, rtol=0, atol=FWD_TOL)
+    tok = torch.argmax(logits[:, -1], -1, keepdim=True)
+    got = steps.make_decode_step(cfg, tp)(params, tok, cache, 8)[0]
+    torch.testing.assert_close(got, steps.make_decode_step(cfg)(params, tok, want_cache, 8)[0],
+                               rtol=0, atol=FWD_TOL)
+    steps.make_slot_prefill_step(cfg, 16, tp)
+    steps.make_decode_pool_step(cfg, tp)
+    scfg = ServeConfig(slots=2, prompt_len=8, max_new=4)
+    reqs = VirtualUsers(TrafficConfig(num_users=16, num_shards=2, prompt_len=8, min_gen=1,
+                                      max_gen=4, vocab=cfg.vocab)).sample_requests(4)
+    served = {model: {c.request.rid: c.response.tolist() for c in serve_stream(
+        ServeEngine(cfg, scfg, params, mesh_lib.make_debug_mesh(2, model, device="cpu")),
+        reqs)} for model in (1, 2)}
+    assert served[2] == served[1] and len(served[2]) == 4
+    assert serve_run.main(["--device", "cpu", "--smoke", "--model-par", "2", "--requests", "4",
+                           "--adapt-every", "0"]) == 0
+    with pytest.raises(NotImplementedError, match="ssm layers.*step 6"):
+        steps.make_decode_pool_step(smoke("mamba2-2.7b"), tp)
 
 
 # ---------------------------------------------------------------------------
