@@ -130,7 +130,8 @@ Phases (any failure exits non-zero before the final line):
    2^26; the served tensors keep their storage; tokens/s, latency in
    ticks, peak memory, the round's split, B1/B2 at (4, D) against the HBM
    bound and profiles of 8 ticks and of a round; (c) ``python -m
-   repro_torch.serve.run --smoke`` twice: one sha256;
+   repro_torch.serve.run --smoke`` twice, both processes at once: one
+   sha256;
 15. robust LM training (``repro_torch.launch.trainer`` with 4 in-process
    workers, every window under ``torch.cuda.set_sync_debug_mode("error")``):
    (a) tests/test_trainer.py's tiny llama in f32, gather and bucketed x
@@ -138,15 +139,17 @@ Phases (any failure exits non-zero before the final line):
    and the CPU from the same params and batches (losses and params within
    1e-5), every step's aggregate bitwise its plain version; (b)
    llama3.2-3b's widths at 8 layers (D = 1,593,363,456 bf16), global batch
-   8, seq 128, AdamW 1e-4, 16 steps in windows of 4: gather / bucketed
+   8, seq 128, AdamW 1e-4, 8 steps in windows of 4 (remat off; 22d runs
+   it on): gather / bucketed
    median, gather trimmed mean beta 0.25 and psum mean under alie alpha
    0.25, psum mean and gather median under sign_flip.  The counters are
    zeroed before each run and read after: one B1 (B2) launch a step over
    all 12 leaves of the (4, D) bf16 stack, none for psum; the last window's
    aggregates bitwise their plain versions in 2^26 column slices; the
    robust runs' loss falls; under sign_flip the median ends below the
-   mean; steps/s, tokens/s, the step's split, device busy share, peak
-   memory, and B1/B2 at (4, D) bf16 against the 4.76 ms HBM bound; (c) the
+   mean; steps/s, tokens/s, the step's split, peak memory, the device busy
+   share of the first run of each strategy (gather, bucketed, psum), and
+   B1/B2 at (4, D) bf16 against the 4.76 ms HBM bound; (c) the
    chunked strategy on one (4, 2^24) leaf (B4 once, B5 once a 2^20 chunk)
    and two steps of the tiny llama, within one bin of the exact median /
    trimmed mean, B4/B5 held on the path's inputs and timed at its shapes;
@@ -156,15 +159,16 @@ Phases (any failure exits non-zero before the final line):
    against CPU as 14a (tokens, logits within 1e-5, one round; the round's
    B1 bitwise its plain version); (b) three full-width cells in bf16 from
    a seed, phase 14b's traffic and adaptation: granite-moe-1b-a400m at all
-   24 layers (D = 1,384,963,072; serve only, median, trimmed mean beta
-   0.25), mamba2-2.7b at 32 of 64 layers with 272-token prompts (D =
+   24 layers (D = 1,384,963,072; median, trimmed mean beta 0.25),
+   mamba2-2.7b at 32 of 64 layers with 272-token prompts (D =
    1,544,194,048; the prefill crosses the 256-token SSD chunk) and
-   recurrentgemma-2b at 5 of 26 layers (D = 1,751,221,760; serve only,
-   median), each run held as 14b (every request served, >= 2 rounds, one
+   recurrentgemma-2b at 5 of 26 layers (D = 1,751,221,760; median), each
+   run held as 14b (every request served, >= 2 rounds, one
    B1 / B2 launch a round over the (4, D) f32 rows and no other kernel,
    bitwise in 2^26 column slices, storage kept), with tokens/s, latency,
    peak memory, the round's split, B1/B2 against the HBM bound and
-   profiles; (c) ``python -m repro_torch.serve.run --smoke --arch
+   profiles of a round and of 2 ticks after the stream (the serve-only
+   runs went when phase 22 took its time); (c) ``python -m repro_torch.serve.run --smoke --arch
    <family>`` twice per family, all eight processes at once: one sha256
    each; (d) ``python -m repro_torch.launch.train --smoke --arch
    <family>`` in this process for granite, mamba2 and recurrentgemma: B1
@@ -207,13 +211,16 @@ Phases (any failure exits non-zero before the final line):
    in 12 leaves) at full width and depth in bf16, trained as 15b (4
    workers, batch 8, seq 128, AdamW 1e-4) for 8 steps in windows of 4:
    gather median and gather trimmed mean beta 0.25 under alie alpha 0.25,
-   and gather median without an attack.  One B1 (B2) launch a step over
+   and gather median without an attack for 4 steps in windows of 2 (remat
+   off; their first-window losses are 22c's model-1 reference).  One B1
+   (B2) launch a step over
    every leaf and no other kernel; the last window's aggregates bitwise
    their plain versions in 2^26 column slices; the cross FFN coordinates
    of every aggregate exactly 0; the losses finite, falling in the clean
    run (alie stalls internvl2-1b's at m = 4; reported); steps/s, tokens/s,
-   the step's split (gradients, attack, B1/B2, AdamW), device busy share,
-   peak memory, and B1/B2 against the HBM bound (1.252 / 1.880 ms); (c)
+   peak memory, the alie median run's step split (gradients, attack,
+   B1/B2, AdamW) and device busy share, and B1/B2 against the HBM bound
+   (1.252 / 1.880 ms); (c)
    the cache paths at full width in f32 against the teacher-forced
    forward (2e-3, tests/test_models_smoke.py's): whisper-small's prefill
    of 4 prompts of 16 tokens (1500 frames, the chunked attention) and 16
@@ -227,7 +234,8 @@ Phases (any failure exits non-zero before the final line):
    launch a step; (b) 15b's cell (llama3.2-3b's widths at 8 of 28 layers,
    D = 1,593,363,456 bf16, 4 workers, batch 8, seq 128, AdamW 1e-4) for 8
    steps in windows of 4: gather median and trimmed mean beta 0.25 under
-   alie alpha 0.25, each with param_mode='fsdp' and then 'replicated'.  The
+   alie alpha 0.25 (remat off), each with param_mode='fsdp' and then
+   'replicated' (the fsdp runs profiled).  The
    params after each window bitwise equal between the two (compared on the
    host after the window's clock stopped); fsdp aggregates each ``blocks``
    leaf once a layer (75 leaves, 3 B1 / B2 launches a step), replicated 12
@@ -246,8 +254,9 @@ Phases (any failure exits non-zero before the final line):
    llama3.2-3b's widths at 2 layers in f32, the logits, loss and every
    gradient at make_debug_mesh(4, 2) against make_debug_mesh(4, 1) (within
    1e-4 of each value's largest magnitude); (b) 15b's cell at (4, 2) beside
-   the same run at model 1: gather median and trimmed mean beta 0.25 under
-   alie alpha 0.25, 8 steps in windows of 4, each window's loss within 1e-3
+   the same run at model 1 (remat off): gather median and trimmed mean beta
+   0.25 under alie alpha 0.25, 8 steps in windows of 4, each window's loss
+   within 1e-3
    of model 1's, the first window's grad norm within 1e-3 and the run's
    update (final - initial params) within 0.6 of model 1's (limits set
    between sound and frozen-leaf runs on the card by
@@ -278,22 +287,45 @@ Phases (any failure exits non-zero before the final line):
    median and trimmed mean beta 0.25 adapting every 8 ticks, each run held
    as 14b (every request served, >= 2 rounds, one B1 / B2 launch over one
    leaf a round, bitwise its plain version on the round's rows), tick ms,
-   launches a tick, busy share, the round's split, peak memory, B1/B2 over
-   the (4, D) rows against the 9.513 ms bound, and the share of greedy
+   launches a tick, busy share, the round's split, peak memory (B1/B2 at
+   these rows' shapes are timed in 14b and 16b), and the share of greedy
    tokens equal to 14b's model-1 runs (recorded, not held: bf16 partials
    summed in rank order may flip near-ties); (c) granite-moe-1b-a400m at
    all 24 layers (16b's cell: expert-parallel, embed and lm head split on
-   d_model), 24 requests, the median run (16b serves it without
-   adaptation), held as (b), bound 8.268 ms; (d) ``python -m
+   d_model), 24 requests, the median run, held as (b); (d) ``python -m
    repro_torch.launch.serve --arch <arch> --smoke`` with its defaults
    (the debug mesh, 4 workers, model 2) on the card for
-   llama3.2-3b and granite-moe: every request served at (data 4, model 2);
-   mamba2-2.7b refuses naming ROADMAP item 6, step 6; (e) the bytes a rank
+   llama3.2-3b, granite-moe, mamba2 and recurrentgemma: every request
+   served at (data 4, model 2), exit 0; (e) the bytes a rank
    holds of llama3.2-3b at 28 layers at (data 4, model 2) and model 1: the
    params, the slot pool (4 slots, 32 positions) and the (4, D_rank) f32
-   rows, computed from the shapes (not measured).
+   rows, computed from the shapes (not measured);
+22. tensor parallelism of the ssm / rec layers, the whisper encoder and
+   cross-attention and the vision prefix, and remat (the model axis of 2
+   in process): (a) f32 at published widths and shallow depth, model 2
+   against model 1 in one call (make_debug_mesh(1, 2)): mamba2-2.7b at 2
+   layers, recurrentgemma-2b at 3 (rec, rec, attn), whisper-small at 2 + 2,
+   internvl2-1b at 2: the logits, the loss and every gradient leaf within
+   1e-4 of the model-1 value's largest magnitude; (b) 16b's mamba2-2.7b
+   and recurrentgemma-2b cells at make_debug_mesh(4, 2): one median run
+   each, held as 16b (every request served, >= 2 rounds, one B1 launch a
+   round, bitwise its plain version on the round's rows), the round's
+   split and profile, a 2-tick profile (tick ms, launches a tick, busy),
+   peak memory and the share of whole requests equal to 16b's model-1
+   tokens (printed); (c) 18b's whisper-small and internvl2-1b cells at
+   make_debug_mesh(4, 2), gather median under alie alpha 0.25, one window
+   of 4 steps: one B1 launch a step over every leaf, each held bitwise on
+   its rows, the window's loss within 1e-3 of 18b's model-1 first window,
+   the step's split (with the model-axis sums), launches a step, busy,
+   peak; (d) remat on 15b's cell, replicated and fsdp, gather median under
+   alie, 4 steps with remat off and then on: the losses, every
+   aggregation call's input digests (the B1 inputs), the final params and
+   the B1 launches equal, the remat runs' launches held bitwise, each
+   run's step ms and peak memory; (e) the bytes a rank holds of
+   mamba2-2.7b at 64 layers and recurrentgemma-2b at 26 at (data 4,
+   model 2) and model 1 (params, pool, rows), computed from the shapes.
 The launch counters are zeroed before each of phases 8-13, each run of
-phase 14b, 15b, 16b, 18b, 19b, 20b, 20c, 21b and 21c, phases 15c, 19a, 19c and 20e, each 16d
+phase 14b, 15b, 16b, 18b, 19b, 20b, 20c, 21b, 21c, 22b, 22c and 22d, phases 15c, 19a, 19c and 20e, each 16d
 and 18d run and each call (17a), round (17b) or set of calls (17d) of phase
 17, and read after; the kernels line gives each kernel's launches on them
 (``launches_new_paths``).
@@ -301,10 +333,10 @@ In phases 4, 6, 8-13, 15c, 17, 18, 19 and 20e the inputs each kernel wrapper get
 (the first call of each shape) are
 recorded, and after the path's counts were read each kernel is run again on
 them and held against its plain version, bitwise (PathInputs); a kernel that
-launched on a path and was not held fails.  Phase 20's model-2 runs hold
-every launch's output against the plain version on that launch's own rows
-instead (HeldAggregation; a recorded copy of the rows does not fit beside
-them).  Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
+launched on a path and was not held fails.  Phase 20's model-2 runs and
+phase 22's hold every launch's output against the plain version on that
+launch's own rows instead (HeldAggregation; a recorded copy of the rows does
+not fit beside them).  Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2491,7 +2523,8 @@ def serve_cell(dev, card: str, served=None):
 
 
 def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
-               requests: int = SERVE_REQUESTS, mesh=None, served=None):
+               requests: int = SERVE_REQUESTS, mesh=None, served=None, ticks: int = 0,
+               kernel_timings: bool = True):
     """``cfg`` (bf16, random weights from seed 0) on the card: one run of a
     ``requests``-request stream per entry of ``runs`` ("serve_only", or an
     aggregator of SERVE_ADAPT adapting every 8 ticks) with the launch
@@ -2500,12 +2533,13 @@ def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
     round and no other kernel, each round's aggregate bitwise the plain
     version on its rows (column slices), the served tensors' storage kept
     across swaps; tokens/s, latency, memory, B1/B2 at (4, D) against the
-    HBM bound (the median run), the round's split and a profile of a round
-    (every robust run), and a profile of 8 ticks (serve only).  With a
-    ``mesh`` the engine and the adapter run on it.  Returns each run's
-    launches; ``served`` (a dict) gets each run's tokens by request under
-    (model name, run, model size), and with model 1's there already the
-    share of equal tokens is printed."""
+    HBM bound (the median run, unless ``kernel_timings`` is off), the
+    round's split and a profile of a round (every robust run), and a
+    profile of 8 ticks (serve only; after the median run, of ``ticks``
+    ticks when > 0).  With a ``mesh`` the engine and the adapter run on
+    it.  Returns each run's launches; ``served`` (a dict) gets each run's
+    tokens by request under (model name, run, model size), and with model
+    1's there already the share of equal tokens is printed."""
     import numpy as np
     import torch
 
@@ -2606,7 +2640,7 @@ def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
                   f"round's rows in {-(-d_want // SERVE_SLICE)} column slices")
         check(launches == want, f"{label} {run}: launches {launches}, want {want}")
         launches_all[run] = launches
-        if run == "median":
+        if run == "median" and kernel_timings:
             serve_kernel_timings(adapter.round_fn.rows, card, cfg.name, model)
         if adapter is not None:
             split = serve_round_split(adapter, adapter.last_batch)
@@ -2616,16 +2650,17 @@ def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
                                    split["round_ms"], top=10, names=("leaf_select_kernel",))
             print(json.dumps({"profile_serve_round": run, "model": cfg.name,
                               "model_axis": model, **prof}))
-        else:
+        n_ticks = 8 if adapter is None else (ticks if run == "median" else 0)
+        if n_ticks:
             t0 = time.perf_counter()
-            for _ in range(8):
+            for _ in range(n_ticks):
                 engine.step()
             torch.cuda.synchronize()
-            tick_ms = (time.perf_counter() - t0) * 1e3 / 8
-            prof = profile_summary(lambda: [engine.step() for _ in range(8)], tick_ms * 8,
-                                   top=10)
-            print(json.dumps({"profile_serve_ticks": 8, "model": cfg.name, "model_axis": model,
-                              "tick_ms": tick_ms, **prof}))
+            tick_ms = (time.perf_counter() - t0) * 1e3 / n_ticks
+            prof = profile_summary(lambda: [engine.step() for _ in range(n_ticks)],
+                                   tick_ms * n_ticks, top=10)
+            print(json.dumps({"profile_serve_ticks": n_ticks, "run": run, "model": cfg.name,
+                              "model_axis": model, "tick_ms": tick_ms, **prof}))
         del engine, adapter
         torch.cuda.empty_cache()
         print(f"phase {label}: {run}: {time.perf_counter() - t_run:.1f} s")
@@ -2665,8 +2700,9 @@ def serve_kernel_timings(rows, card: str, model: str, model_axis: int = 1):
 
 
 def serve_cli(dev):
-    """Phase 14c: python -m repro_torch.serve.run --smoke twice on the card:
-    exit 0, every request served, rounds fired, one sha256."""
+    """Phase 14c: python -m repro_torch.serve.run --smoke twice on the card,
+    both processes started together: exit 0, every request served, rounds
+    fired, one sha256."""
     import os
 
     args = [sys.executable, "-m", "repro_torch.serve.run", "--smoke", "--arch", "llama3_2_3b",
@@ -2674,18 +2710,25 @@ def serve_cli(dev):
             "--adapt-every", "8", "--method", "median"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     digests = []
-    for _ in range(2):
-        out = subprocess.run(args, env=env, capture_output=True, text=True, timeout=300,
-                             cwd=ROOT)
-        check(out.returncode == 0, f"serve CLI exited {out.returncode}: {out.stderr[-2000:]}")
-        check("served 24/24 requests" in out.stdout and "device cuda" in out.stdout,
-              f"serve CLI: {out.stdout[-2000:]}")
-        check("storage kept: {'params': True, 'pool': True}" in out.stdout,
-              "serve CLI: storage not kept")
-        line = [ln for ln in out.stdout.splitlines() if "final iterate sha256" in ln]
-        check(len(line) == 1, f"serve CLI printed no sha256 line: {out.stdout[-2000:]}")
-        digests.append(line[0].split("=")[-1].strip())
-    rounds = [ln for ln in out.stdout.splitlines() if ln.startswith("adaptation rounds")]
+    procs = [subprocess.Popen(args, env=env, cwd=ROOT, text=True, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE) for _ in range(2)]
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"serve CLI exited {proc.returncode}: {stderr[-2000:]}")
+            check("served 24/24 requests" in stdout and "device cuda" in stdout,
+                  f"serve CLI: {stdout[-2000:]}")
+            check("storage kept: {'params': True, 'pool': True}" in stdout,
+                  "serve CLI: storage not kept")
+            line = [ln for ln in stdout.splitlines() if "final iterate sha256" in ln]
+            check(len(line) == 1, f"serve CLI printed no sha256 line: {stdout[-2000:]}")
+            digests.append(line[0].split("=")[-1].strip())
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rounds = [ln for ln in stdout.splitlines() if ln.startswith("adaptation rounds")]
     print(f"phase 14c: serve CLI twice on the card: {rounds[0] if rounds else '?'}; sha256 "
           f"{digests[0]} / {digests[1]}")
     check(digests[0] == digests[1], "the serve CLI is not deterministic on the card")
@@ -2722,13 +2765,16 @@ TRAIN_TINY = dict(name="trainer-test-tiny", n_layers=1, d_model=64, n_heads=4, n
 TRAIN_TINY_DATA = dict(vocab=128, seq_len=16, global_batch=4, num_workers=4, seed=0)
 TRAIN_TINY_TOL = 1e-5  # card vs CPU: losses relative, params absolute (f32, SGD 0.5)
 TRAIN_WORKERS = 4
-TRAIN_STEPS, TRAIN_DS = 16, 4
+TRAIN_STEPS, TRAIN_DS = 8, 4  # 16 steps before phase 22 took its time
 TRAIN_LR = 1e-4
 TRAIN_DATA = dict(seq_len=128, global_batch=8, num_workers=TRAIN_WORKERS, seed=0)
 # (strategy, aggregator, attack): the robust runs, then the plain data-parallel mean
 TRAIN_RUNS = (("gather", "median", "alie"), ("bucketed", "median", "alie"),
               ("gather", "trimmed_mean", "alie"), ("psum", "mean", "alie"),
               ("psum", "mean", "sign_flip"), ("gather", "median", "sign_flip"))
+# the runs whose step is profiled: the first of each strategy (the others
+# repeat its launches; their split is still timed)
+TRAIN_PROFILED = ("gather/median/alie", "bucketed/median/alie", "psum/mean/alie")
 TRAIN_ALPHA, TRAIN_BETA = 0.25, 0.25
 CHUNKED_N = 1 << 24  # one leaf of 2^24 coordinates: 16 sketch chunks of 2^20
 
@@ -3005,7 +3051,7 @@ def train_cell(dev, card: str):
         for strategy, method, attack in TRAIN_RUNS:
             run = f"{strategy}/{method}/{attack}"
             pcfg = ParallelConfig(agg_method=method, agg_strategy=strategy, agg_beta=TRAIN_BETA,
-                                  attn_chunk=0)
+                                  remat=False, attn_chunk=0)  # 22d runs remat
             atk = AttackConfig(attack, TRAIN_ALPHA)
             keep = run == "gather/median/alie"
             first_held = TRAIN_STEPS - TRAIN_DS
@@ -3040,11 +3086,16 @@ def train_cell(dev, card: str):
             batch = {k: v[0] for k, v in trainer.stack_window_batches(
                 dcfg, TRAIN_STEPS, 1, mesh, atk, cfg).items()}
             split = train_step_split(cfg, pcfg, mesh, atk, result.state, batch, TRAIN_STEPS)
-            sb = steps.make_step_body(cfg, pcfg, mesh, get_optimizer("adamw", TRAIN_LR), atk)
-            prof = profile_summary(lambda: sb.body(result.state["params"],
-                                                   result.state["opt_state"], batch,
-                                                   TRAIN_STEPS, 0),
-                                   split["step_ms"], top=10, names=("leaf_select_kernel",))
+            prof = {"device_busy_share": None}
+            if run in TRAIN_PROFILED:
+                sb = steps.make_step_body(cfg, pcfg, mesh, get_optimizer("adamw", TRAIN_LR), atk)
+                prof = profile_summary(lambda: sb.body(result.state["params"],
+                                                       result.state["opt_state"], batch,
+                                                       TRAIN_STEPS, 0),
+                                       split["step_ms"], top=10, names=("leaf_select_kernel",))
+                print(json.dumps({"profile_train_step": run, **prof}))
+                del sb
+            busy = prof["device_busy_share"]
             line = {"train_run": run, "steps": TRAIN_STEPS, "device_steps": TRAIN_DS,
                     "workers": TRAIN_WORKERS, "tokens_per_step": dcfg.global_batch * dcfg.seq_len,
                     "steps_per_s": result.steps_per_s, "tokens_per_s": result.tokens_per_s,
@@ -3058,16 +3109,16 @@ def train_cell(dev, card: str):
                     "split_ms": split, "device_busy_share": prof["device_busy_share"],
                     "card": card}
             print(json.dumps({"train": line}))
-            print(json.dumps({"profile_train_step": run, **prof}))
             print(f"phase 15b: {run}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
                   f"{result.steps_per_s:.3f} steps/s, {result.tokens_per_s:.0f} tokens/s, "
                   f"step {split['step_ms']:.1f} ms (grads {split['worker_grads_ms']:.1f}, "
                   f"aggregate {split['aggregate_ms']:.1f}, update {split['update_ms']:.1f}), "
-                  f"busy {prof['device_busy_share']:.3f}, peak {peak / 1e9:.2f} GB")
+                  + (f"busy {busy:.3f}, " if busy is not None else "")
+                  + f"peak {peak / 1e9:.2f} GB")
             check(peak < total_mem, f"15b {run}: peak {peak} >= the card's {total_mem}")
             if keep:
                 kept = held.kept
-            del result, sb, held, batch
+            del result, held, batch
             torch.cuda.empty_cache()
             if keep:
                 train_kernel_timings(kept, card)
@@ -3203,12 +3254,16 @@ def training(dev, card: str, on_path):
 # takes the padded path), recurrentgemma-2b at 5 of 26 (one (rec, rec,
 # attn) super-block and the 2-layer rec tail, the smoke config's
 # structure); phase 14b's traffic and adaptation.  grok-1-314b
-# (316·10^9 parameters) is held at its smoke width only.
+# (316·10^9 parameters) is held at its smoke width only.  The cells' serve-only
+# runs were dropped when phase 22 took its time (14b and 21b keep a
+# serve-only run): each median run profiles FAMILY_TICKS ticks after its
+# stream instead, for the tick's readings.
 FAMILY_SMOKE = ("granite_moe_1b_a400m", "grok_1_314b", "mamba2_2_7b", "recurrentgemma_2b")
 FAMILY_CELLS = (  # (config, layers, D, prompt length, runs)
-    ("granite_moe_1b_a400m", 24, 1_384_963_072, 16, ("serve_only", "median", "trimmed_mean")),
-    ("mamba2_2_7b", 32, 1_544_194_048, 272, ("serve_only", "median")),
-    ("recurrentgemma_2b", 5, 1_751_221_760, 16, ("serve_only", "median")))
+    ("granite_moe_1b_a400m", 24, 1_384_963_072, 16, ("median", "trimmed_mean")),
+    ("mamba2_2_7b", 32, 1_544_194_048, 272, ("median",)),
+    ("recurrentgemma_2b", 5, 1_751_221_760, 16, ("median",)))
+FAMILY_TICKS = 2
 # phase 14b's 32 requests cut to 24 (66 ticks, 2 rounds a robust run, not
 # 87 and 3) to keep phase 16 near its time budget; widths are never cut
 FAMILY_REQUESTS = 24
@@ -3241,7 +3296,8 @@ def family_cells(dev, card: str, served=None):
         t0 = time.perf_counter()
         launches = serve_runs(dev, card, cfg, d, runs,
                               ServeConfig(slots=4, prompt_len=prompt, max_new=16),
-                              f"16b {arch}", requests=FAMILY_REQUESTS, served=served)
+                              f"16b {arch}", requests=FAMILY_REQUESTS, served=served,
+                              ticks=FAMILY_TICKS)
         for counts in launches.values():
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
@@ -3776,6 +3832,9 @@ FRONTEND_STEPS, FRONTEND_DS = 8, 4
 # (aggregator, attack), gather strategy: the two robust runs under alie alpha
 # 0.25, then a clean control run (at m = 4 alie stalls internvl2-1b's loss)
 FRONTEND_RUNS = (("median", "alie"), ("trimmed_mean", "alie"), ("median", "none"))
+# the clean run's steps and window (its loss must fall from the first window
+# to the second): 8 in windows of 4 before phase 22 took its time
+FRONTEND_CLEAN_STEPS, FRONTEND_CLEAN_DS = 4, 2
 CROSS_FFN = ("ln2", "wd", "wg", "wu")  # cross-block leaves no computation reads
 
 
@@ -3913,20 +3972,22 @@ def frontend_parity(dev):
     return total
 
 
-def frontend_cell(dev, card: str, arch: str, d_want: int, n_leaves: int):
+def frontend_cell(dev, card: str, arch: str, d_want: int, n_leaves: int, firsts=None):
     """Phase 18b, one cell: ``arch`` at full width and depth in bf16 from
     seed 0, trained through ``trainer.train_loop`` with 4 in-process
     workers, FRONTEND_STEPS steps in windows of FRONTEND_DS, AdamW 1e-4,
     global batch 8, seq 128, FRONTEND_RUNS (gather median and gather
     trimmed mean beta 0.25 under alie alpha 0.25, then the median without
-    an attack); every window under the sync-debug "error" mode.  Holds:
+    an attack for FRONTEND_CLEAN_STEPS steps in windows of
+    FRONTEND_CLEAN_DS); every window under the sync-debug "error" mode.
+    ``firsts`` (a dict) gets each run's first-window loss under (arch,
+    method, attack), the model-1 losses phase 22c holds its own to.  Holds:
     one B1 (B2) launch a step over all ``n_leaves`` leaves and no other
     kernel; the last window's aggregates bitwise their plain versions
     (column slices); the cross FFN coordinates of every aggregate exactly
     0; the loss finite, and falling in the clean run (under alie it is
-    reported: alie may stall it).  The robust runs' step split and
-    profile; B1 and B2 timed on the alie median run's last rows.  Returns
-    the launches."""
+    reported: alie may stall it).  The alie median run's step split and
+    profile; B1 and B2 timed on its last rows.  Returns the launches."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3947,17 +4008,18 @@ def frontend_cell(dev, card: str, arch: str, d_want: int, n_leaves: int):
     cross_idx, cross_n = cross_ffn_leaves(cfg)
     mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, device=dev)
     dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
-    tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=FRONTEND_STEPS,
-                       device_steps=FRONTEND_DS)
     undo = sync_free_windows()
     try:
         for method, attack in FRONTEND_RUNS:
             run = f"{arch} gather/{method}/{attack}"
+            n_steps, ds = ((FRONTEND_CLEAN_STEPS, FRONTEND_CLEAN_DS) if attack == "none" else
+                           (FRONTEND_STEPS, FRONTEND_DS))
+            tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=n_steps, device_steps=ds)
             pcfg = ParallelConfig(agg_method=method, agg_strategy="gather", agg_beta=TRAIN_BETA,
-                                  attn_chunk=0)
+                                  remat=False, attn_chunk=0)  # 22c compares with these runs
             atk = AttackConfig(attack, TRAIN_ALPHA if attack != "none" else 0.0)
             nonzero = []  # device counts of nonzero cross FFN coordinates, a step each
-            first_held = FRONTEND_STEPS - FRONTEND_DS
+            first_held = n_steps - ds
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3965,7 +4027,7 @@ def frontend_cell(dev, card: str, arch: str, d_want: int, n_leaves: int):
             H.reset_launches()
             t0 = time.perf_counter()
             with HeldAggregation(dev, hold=lambda c: c >= first_held,
-                                 keep=lambda c: c == FRONTEND_STEPS - 1) as held:
+                                 keep=lambda c: c == n_steps - 1) as held:
                 unhook = count_nonzero_aggregates(cross_idx, nonzero)
                 try:
                     result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk)
@@ -3977,14 +4039,14 @@ def frontend_cell(dev, card: str, arch: str, d_want: int, n_leaves: int):
             leaves = dict(robust_agg.LEAVES)
             peak = torch.cuda.max_memory_allocated()
             want = {k: 0 for k in launches}
-            want[method] = FRONTEND_STEPS  # every leaf in one launch a step
+            want[method] = n_steps  # every leaf in one launch a step
             check(launches == want, f"18b {run}: launches {launches}, want {want}")
-            check(leaves[method] == FRONTEND_STEPS * n_leaves,
-                  f"18b {run}: leaves {leaves}, want {FRONTEND_STEPS * n_leaves}")
-            check(held.held == FRONTEND_DS, f"18b {run}: {held.held} of the last window's "
-                                            f"{FRONTEND_DS} aggregates held")
+            check(leaves[method] == n_steps * n_leaves,
+                  f"18b {run}: leaves {leaves}, want {n_steps * n_leaves}")
+            check(held.held == ds, f"18b {run}: {held.held} of the last window's "
+                                   f"{ds} aggregates held")
             nz = [int(v) for v in nonzero]
-            check(len(nz) == FRONTEND_STEPS and not any(nz),
+            check(len(nz) == n_steps and not any(nz),
                   f"18b {run}: nonzero cross FFN coordinates in the aggregates: {nz}")
             for k in total:
                 total[k] += launches[k]
@@ -3993,9 +4055,11 @@ def frontend_cell(dev, card: str, arch: str, d_want: int, n_leaves: int):
             check(all(v == v and abs(v) < 1e4 for v in losses), f"18b {run}: {losses}")
             if attack == "none":
                 check(losses[-1] < losses[0], f"18b {run}: the loss did not fall: {losses}")
+            if firsts is not None:
+                firsts[(arch, method, attack)] = losses[0]
             line = {"frontend_run": run, "d": d_want, "leaves": n_leaves,
-                    "cross_ffn_coordinates": cross_n, "steps": FRONTEND_STEPS,
-                    "device_steps": FRONTEND_DS, "workers": TRAIN_WORKERS,
+                    "cross_ffn_coordinates": cross_n, "steps": n_steps,
+                    "device_steps": ds, "workers": TRAIN_WORKERS,
                     "tokens_per_step": dcfg.global_batch * dcfg.seq_len,
                     "frontend_tokens": cfg.n_frontend_tokens,
                     "steps_per_s": result.steps_per_s, "tokens_per_s": result.tokens_per_s,
@@ -4005,7 +4069,7 @@ def frontend_cell(dev, card: str, arch: str, d_want: int, n_leaves: int):
                     "leaves_aggregated": leaves, "max_memory_allocated_gb": peak / 1e9,
                     "card_memory_gb": total_mem / 1e9, "card": card}
             text = ""
-            if attack != "none":  # the step's split and profile
+            if (method, attack) == ("median", "alie"):  # the step's split and profile
                 batch = {k: v[0] for k, v in trainer.stack_window_batches(
                     dcfg, FRONTEND_STEPS, 1, mesh, atk, cfg).items()}
                 split = train_step_split(cfg, pcfg, mesh, atk, result.state, batch,
@@ -4122,9 +4186,10 @@ def frontend_caches(dev):
           f"{FRONTEND_CACHE_TOL}); decode after the vision prefill raises")
 
 
-def frontends(dev, card: str, on_path):
+def frontends(dev, card: str, on_path, firsts=None):
     """Phase 18: 18a-18d, each training path under ``on_path``; returns the
-    launches of 18a's windows, 18b's cells and 18d's CLI runs."""
+    launches of 18a's windows, 18b's cells and 18d's CLI runs (18b's
+    first-window losses into ``firsts``)."""
     t0 = time.perf_counter()
     out = {"frontends_windows": on_path("phase 18a", lambda: frontend_parity(dev),
                                         lambda c: c)}
@@ -4134,7 +4199,7 @@ def frontends(dev, card: str, on_path):
     for arch, d, n_leaves in FRONTEND_CELLS:
         t1 = time.perf_counter()
         for k, v in on_path(f"phase 18b {arch}",
-                            lambda: frontend_cell(dev, card, arch, d, n_leaves),
+                            lambda: frontend_cell(dev, card, arch, d, n_leaves, firsts),
                             lambda c: c).items():
             cells[k] = cells.get(k, 0) + v
         print(f"phase 18b: {arch}: {time.perf_counter() - t1:.1f} s")
@@ -4302,7 +4367,7 @@ def fsdp_run(dev, card: str, cfg, mode: str, method: str, snaps: list):
     dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
     tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=FSDP_STEPS, device_steps=FSDP_DS)
     pcfg = ParallelConfig(agg_method=method, agg_strategy="gather", agg_beta=TRAIN_BETA,
-                          param_mode=mode, attn_chunk=0)
+                          param_mode=mode, remat=False, attn_chunk=0)  # 22d runs remat
     atk = AttackConfig("alie", TRAIN_ALPHA)
     total_mem = torch.cuda.get_device_properties(0).total_memory
     holder, mismatches = {}, []
@@ -4352,10 +4417,15 @@ def fsdp_run(dev, card: str, cfg, mode: str, method: str, snaps: list):
     batch = {k: v[0] for k, v in trainer.stack_window_batches(
         dcfg, FSDP_STEPS, 1, mesh, atk, cfg).items()}
     split = train_step_split(cfg, pcfg, mesh, atk, result.state, batch, FSDP_STEPS)
-    sb = steps.make_step_body(cfg, pcfg, mesh, get_optimizer("adamw", TRAIN_LR), atk)
-    prof = profile_summary(lambda: sb.body(result.state["params"], result.state["opt_state"],
-                                           batch, FSDP_STEPS, 0),
-                           split["step_ms"], top=10, names=("leaf_select_kernel",))
+    prof = {"device_busy_share": None}
+    if mode == "fsdp":  # the replicated runs' step is 15b's, profiled there
+        sb = steps.make_step_body(cfg, pcfg, mesh, get_optimizer("adamw", TRAIN_LR), atk)
+        prof = profile_summary(lambda: sb.body(result.state["params"],
+                                               result.state["opt_state"], batch, FSDP_STEPS, 0),
+                               split["step_ms"], top=10, names=("leaf_select_kernel",))
+        print(json.dumps({"profile_fsdp_step": run, **prof}))
+        del sb
+    busy = prof["device_busy_share"]
     line = {"fsdp_run": run, "d": SERVE_D, "steps": FSDP_STEPS, "device_steps": FSDP_DS,
             "workers": TRAIN_WORKERS, "tokens_per_step": dcfg.global_batch * dcfg.seq_len,
             "steps_per_s": result.steps_per_s, "tokens_per_s": result.tokens_per_s,
@@ -4367,17 +4437,16 @@ def fsdp_run(dev, card: str, cfg, mode: str, method: str, snaps: list):
             "max_memory_allocated_gb": peak / 1e9, "card_memory_gb": total_mem / 1e9,
             "split_ms": split, "device_busy_share": prof["device_busy_share"], "card": card}
     print(json.dumps({"fsdp_train": line}))
-    print(json.dumps({"profile_fsdp_step": run, **prof}))
     print(f"phase 19b: {run}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
           f"{result.steps_per_s:.3f} steps/s, {result.tokens_per_s:.0f} tokens/s, step "
           f"{split['step_ms']:.1f} ms (grads {split['worker_grads_ms']:.1f}, attack "
           f"{split['attack_ms']:.1f}, reduce-scatter {split['reduce_scatter_ms']:.1f}, "
           f"gather agg {split['aggregate_ms']:.1f}, B1/B2 {split['b1_b2_ms']:.1f}, update "
-          f"{split['update_ms']:.1f}), busy {prof['device_busy_share']:.3f}, {per_step} "
-          f"launches a step over {pieces} leaves, peak {peak / 1e9:.2f} GB")
+          f"{split['update_ms']:.1f}), " + (f"busy {busy:.3f}, " if busy is not None else "")
+          + f"{per_step} launches a step over {pieces} leaves, peak {peak / 1e9:.2f} GB")
     check(peak < total_mem, f"19b {run}: peak {peak} >= the card's {total_mem}")
     kept = held.kept
-    del result, sb, held, batch, holder
+    del result, held, batch, holder
     torch.cuda.empty_cache()
     return {"launches": launches, "line": line, "kept": kept}
 
@@ -4689,7 +4758,7 @@ def tp_run(dev, card: str, cfg, model: int, method: str, steps_n: int, ds: int, 
     dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
     tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=steps_n, device_steps=ds)
     pcfg = ParallelConfig(agg_method=method, agg_strategy="gather", agg_beta=TRAIN_BETA,
-                          attn_chunk=0)
+                          remat=False, attn_chunk=0)  # 22d runs remat
     atk = AttackConfig("alie", TRAIN_ALPHA)
     total_mem = torch.cuda.get_device_properties(0).total_memory
     tp = model > 1
@@ -4789,7 +4858,9 @@ def tp_pair(dev, card: str, cfg, method: str, steps_n: int, ds: int, label: str,
 
     init = [t.cpu() for t in tree_leaves(T.init_params(cfg, seed=0, device=dev))]
     torch.cuda.empty_cache()
-    ref = tp_run(dev, card, cfg, 1, method, steps_n, ds, label, detail)
+    # model 1's step is read beside model 2's for the median; the trimmed
+    # mean's model-1 step is 15b's
+    ref = tp_run(dev, card, cfg, 1, method, steps_n, ds, label, detail and method == "median")
     got = tp_run(dev, card, cfg, TP_MODEL, method, steps_n, ds, label, detail)
     rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])]
     norms = {m: r["line"]["grad_norms"] for m, r in ((1, ref), (TP_MODEL, got))}
@@ -4980,8 +5051,8 @@ def tensor_parallel(dev, card: str, on_path):
 TPS_LOGIT_TOL = 1e-5  # f32, |model 2 - model 1| / max |model 1| (tests: 1e-5 absolute)
 TPS_DECODE_STEPS = 8
 TPS_RUNS = ("serve_only", "median", "trimmed_mean")
-TPS_MOE_RUNS = ("median",)  # serve only is 16b's; 21c keeps phase 21 near its budget
-TPS_SHIM_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m")
+TPS_MOE_RUNS = ("median",)  # 21c keeps phase 21 near its budget
+TPS_SHIM_ARCHS = ("llama3.2-3b", "granite-moe-1b-a400m", "mamba2-2.7b", "recurrentgemma-2b")
 TPS_POOL = dict(slots=4, cache_len=32)  # 21e: SERVE_ENGINE's pool
 
 
@@ -5076,8 +5147,9 @@ def tp_serve_cells(dev, card: str, served):
              TP_MOE_D, TPS_MOE_RUNS, ServeConfig(slots=4, prompt_len=16, max_new=16),
              FAMILY_REQUESTS)):
         t0 = time.perf_counter()
+        # B1/B2 at these rows' shapes are timed in 14b and 16b
         launches = serve_runs(dev, card, cfg, d, runs, scfg, label, requests=requests,
-                              mesh=mesh, served=served)
+                              mesh=mesh, served=served, kernel_timings=False)
         total = {}
         for counts in launches.values():
             for k, v in counts.items():
@@ -5089,25 +5161,22 @@ def tp_serve_cells(dev, card: str, served):
 
 def tp_serve_shim():
     """Phase 21d: ``python -m repro_torch.launch.serve --arch <arch> --smoke``
-    with its defaults on the card, the processes started together: llama
-    and granite serve every request at (data 4, model 2), mamba2 exits
-    non-zero naming ROADMAP item 6, step 6."""
+    with its defaults on the card, the processes started together: llama,
+    granite, mamba2 and recurrentgemma (their mixers on the model axis
+    since phase 22's slice) serve every request at (data 4, model 2) and
+    exit 0."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = []
     try:
-        for arch in TPS_SHIM_ARCHS + ("mamba2-2.7b",):
+        for arch in TPS_SHIM_ARCHS:
             procs.append((arch, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, "--smoke"],
                 env=env, cwd=ROOT, text=True, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE)))
         for arch, proc in procs:
             out, err = proc.communicate(timeout=300)
-            if arch == "mamba2-2.7b":
-                check(proc.returncode != 0 and "step 6" in err and "NotImplementedError" in err,
-                      f"21d: the shim on mamba2 at model 2 did not refuse: {err[-2000:]}")
-                continue
             check(proc.returncode == 0, f"21d: the shim on {arch} exited {proc.returncode}: "
                                         f"{err[-2000:]}")
             check("served 4/4 requests" in out and "device cuda" in out and
@@ -5118,7 +5187,7 @@ def tp_serve_shim():
                 proc.kill()
                 proc.wait()
     print(f"phase 21d: the serve shim's defaults on the card: {', '.join(TPS_SHIM_ARCHS)} "
-          f"served 4/4 at (data 4, model {TP_MODEL}); mamba2-2.7b refused (step 6)")
+          f"served 4/4 at (data 4, model {TP_MODEL})")
 
 
 def tp_serve_memory():
@@ -5187,6 +5256,424 @@ def tp_serving(dev, card: str, served):
     return out
 
 
+# --------- phase 22: tensor parallelism of the ssm / rec layers and the frontends
+#
+# (a) f32 parity at full widths and shallow depth: model 2 against model 1 in
+# one call (make_debug_mesh(1, 2)), the logits, the loss and every gradient
+# leaf; (b) 16b's mamba2-2.7b and recurrentgemma-2b cells served at (data 4,
+# model 2), one median run each, beside 16b's model-1 runs; (c) 18b's
+# whisper-small and internvl2-1b cells trained at (4, 2) for one window of 4
+# steps, beside 18b's model-1 first window; (d) remat on 15b's cell,
+# replicated and fsdp; (e) the per-rank bytes of mamba2-2.7b and
+# recurrentgemma-2b at full depth from the shapes.  As in phases 20 and 21
+# the model ranks run in process, one after the other.
+TPF_PARITY = (("mamba2_2_7b", dict(n_layers=2)), ("recurrentgemma_2b", dict(n_layers=3)),
+              ("whisper-small", dict(n_layers=2, n_enc_layers=2)),
+              ("internvl2-1b", dict(n_layers=2)))
+TPF_PARITY_TOL = TP_PARITY_TOL  # set before the run: 20a's limit (20a read 4.0e-6)
+TPF_SERVE = ("mamba2_2_7b", "recurrentgemma_2b")  # 16b's cells (FAMILY_CELLS)
+TPF_TICKS = 2
+TPF_TRAIN_STEPS = 4  # one window: 18b's first window over the same batches
+REMAT_STEPS = 4
+REMAT_FULL = (("mamba2_2_7b", 64), ("recurrentgemma_2b", 26))
+
+
+def tp_family_parity(dev):
+    """Phase 22a: each TPF_PARITY configuration at its published widths and
+    a shallow depth in f32 (TF32 off), params from seed 0, one batch (1,
+    128) (and its frontend, 1500 frames or 256 patches): the logits, the
+    loss and every gradient leaf over make_debug_mesh(1, 2)'s model axis
+    against no model axis, each as |model 2 - model 1| over the model-1
+    value's largest magnitude, within TPF_PARITY_TOL.  The leaves no
+    computation reads (whisper's cross FFN) are exactly 0 at both."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_unflatten_like
+
+    report = {}
+    ctx = sharding.model_ctx(mesh_lib.make_debug_mesh(1, TP_MODEL, device=dev))
+    for arch, over in TPF_PARITY:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
+        params = T.init_params(cfg, seed=0, device=dev)
+        g = torch.Generator().manual_seed(22)
+        batch = {k: torch.randint(0, cfg.vocab, (1, 128), generator=g).to(dev)
+                 for k in ("tokens", "labels")}
+        if cfg.frontend != "none":
+            batch["frontend"] = torch.randn((1, cfg.n_frontend_tokens, cfg.d_model),
+                                            generator=g).to(dev)
+        out = {}
+        for model, c in ((1, sharding.NULL_CTX), (TP_MODEL, ctx)):
+            with torch.no_grad():
+                logits, _ = T.forward(params, batch["tokens"], cfg,
+                                      frontend=batch.get("frontend"), kv_block=0, ctx=c)
+            leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+            loss = T.loss_fn(tree_unflatten_like(params, leaves), batch, cfg, kv_block=0, ctx=c,
+                             remat=False)
+            grads = [torch.zeros_like(x) if y is None else y for y, x in
+                     zip(torch.autograd.grad(loss, leaves, allow_unused=True), leaves)]
+            out[model] = (float(loss.detach()), logits, grads)
+            del leaves, loss
+        (l1, z1, g1), (l2, z2, g2) = out[1], out[TP_MODEL]
+        worst = {"loss": abs(l2 - l1) / abs(l1),
+                 "logits": float((z2 - z1).abs().max()) / float(z1.abs().max())}
+        for (path, _), a, b in zip(tree_leaves_with_path(params), g2, g1):
+            scale = float(b.abs().max())
+            worst[path] = float((a - b).abs().max()) / scale if scale else float(a.abs().max())
+        bad = {k: v for k, v in worst.items() if not v <= TPF_PARITY_TOL}
+        check(not bad, f"22a {arch}: model {TP_MODEL} vs model 1 beyond {TPF_PARITY_TOL}: {bad}")
+        modes = ctx.modes(cfg)
+        grad_worst = max(v for k, v in worst.items() if k not in ("loss", "logits"))
+        report[cfg.name] = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+                            "modes": modes._asdict(), "loss": worst["loss"],
+                            "logits": worst["logits"], "worst_gradient": grad_worst}
+        print(f"phase 22a: {cfg.name} widths at {cfg.n_layers} layers"
+              + (f" + {cfg.n_enc_layers} encoder layers" if cfg.n_enc_layers else "")
+              + f", f32: model {TP_MODEL} ({modes.attn} attention, gathered "
+              f"{list(modes.mixer_in)}, row-parallel {list(modes.mixer_out)}) against model 1: "
+              f"loss {worst['loss']:.3g}, logits {worst['logits']:.3g}, worst gradient "
+              f"{grad_worst:.3g} (tolerance {TPF_PARITY_TOL})")
+        del params, out, z1, z2, g1, g2
+        torch.cuda.empty_cache()
+    print(json.dumps({"tp_family_parity": report, "tolerance": TPF_PARITY_TOL}))
+
+
+def tp_family_serving(dev, card: str, served):
+    """Phase 22b: 16b's mamba2-2.7b cell (32 of 64 layers, 272-token
+    prompts) and recurrentgemma-2b cell (5 of 26 layers) in bf16 at
+    make_debug_mesh(4, 2), the serve shim's default mesh: one median run
+    each of 16b's 24-request stream, held as 16b (every request served, >=
+    2 rounds, one B1 launch over one leaf a round, bitwise its plain
+    version on the round's rows), the round's split and profile, a
+    profile of TPF_TICKS ticks (tick ms, launches a tick, busy share), peak
+    memory, and the share of whole requests (and of tokens) equal to 16b's
+    model-1 median run (printed: bf16 partials summed in rank order flip
+    near-ties).  Returns each kernel's launches over the two runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve.engine import ServeConfig
+
+    mesh = mesh_lib.make_debug_mesh(4, TP_MODEL, device=dev)
+    total = {}
+    for arch, layers, d, prompt, _ in FAMILY_CELLS:
+        if arch not in TPF_SERVE:
+            continue
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        t0 = time.perf_counter()
+        launches = serve_runs(dev, card, cfg, d, ("median",),
+                              ServeConfig(slots=4, prompt_len=prompt, max_new=16),
+                              f"22b {arch}", requests=FAMILY_REQUESTS, mesh=mesh, served=served,
+                              ticks=TPF_TICKS, kernel_timings=False)
+        _add(total, launches["median"])
+        got, ref = served.get((cfg.name, "median", TP_MODEL)), served.get((cfg.name, "median", 1))
+        check(got is not None and ref is not None, f"22b {arch}: no model-1 tokens from 16b")
+        same = sum(toks == ref.get(rid) for rid, toks in got.items()) / len(got)
+        print(f"phase 22b: {arch} at (data 4, model {TP_MODEL}): {same:.3f} of the requests "
+              f"served the same tokens as 16b's model-1 median run; "
+              f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def tp_frontend_training(dev, card: str, firsts):
+    """Phase 22c: 18b's whisper-small and internvl2-1b cells (full width and
+    depth, bf16, 4 workers, batch 8, seq 128, AdamW 1e-4) at
+    make_debug_mesh(4, 2): gather median under alie alpha 0.25 for one
+    window of TPF_TRAIN_STEPS steps, every window under the sync-debug
+    "error" mode.  One B1 launch a step over every leaf and no other
+    kernel, each held bitwise against its plain version on its own rows
+    (HeldAggregation); the window's loss within TP_LOSS_RTOL of 18b's
+    model-1 first window over the same params and batches (``firsts``);
+    step ms, its split (gradients with the model-axis sums, attack, B1,
+    AdamW), launches a step, busy share, peak memory.  Returns the
+    launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import robust_agg
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, trainer
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import get_optimizer
+
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, TP_MODEL, device=dev)
+    total = {}
+    for arch, d_want, n_leaves in FRONTEND_CELLS:
+        t_cell = time.perf_counter()
+        cfg = get_config(arch)
+        check(T.count_params(cfg) == d_want, f"22c {arch}: {T.count_params(cfg)} parameters")
+        want_loss = firsts.get((arch, "median", "alie"))
+        check(want_loss is not None, f"22c {arch}: no model-1 loss from 18b")
+        run = f"{arch} model {TP_MODEL} gather/median/alie"
+        dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+        tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=TPF_TRAIN_STEPS,
+                           device_steps=TPF_TRAIN_STEPS)
+        pcfg = ParallelConfig(agg_method="median", agg_strategy="gather", agg_beta=TRAIN_BETA,
+                              remat=False, attn_chunk=0)  # 18b's settings
+        atk = AttackConfig("alie", TRAIN_ALPHA)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()  # zeroed just before this run
+        undo = sync_free_windows()
+        t0 = time.perf_counter()
+        try:
+            with HeldAggregation(dev) as held:
+                result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()  # read just after it
+        leaves = dict(robust_agg.LEAVES)
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: 0 for k in launches}
+        want["median"] = TPF_TRAIN_STEPS
+        check(launches == want and leaves["median"] == TPF_TRAIN_STEPS * n_leaves,
+              f"22c {run}: launches {launches} ({leaves}), want {want}")
+        check(held.held == TPF_TRAIN_STEPS,
+              f"22c {run}: {held.held} of {TPF_TRAIN_STEPS} aggregates held")
+        loss = result.history[0]["loss"]
+        rel = abs(loss - want_loss) / abs(want_loss)
+        check(rel <= TP_LOSS_RTOL, f"22c {run}: loss {loss} against 18b's model-1 {want_loss}: "
+                                   f"{rel} > {TP_LOSS_RTOL}")
+        _add(total, launches)
+        batch = {k: v[0] for k, v in trainer.stack_window_batches(
+            dcfg, TPF_TRAIN_STEPS, 1, mesh, atk, cfg).items()}
+        split = tp_step_split(cfg, pcfg, mesh, atk, result.state, batch, TPF_TRAIN_STEPS)
+        sb = steps.make_step_body(cfg, pcfg, mesh, get_optimizer("adamw", TRAIN_LR), atk)
+        prof = profile_summary(lambda: sb.body(result.state["params"], result.state["opt_state"],
+                                               batch, TPF_TRAIN_STEPS, 0),
+                               split["step_ms"], top=10, names=("leaf_select_kernel",))
+        line = {"tp_frontend_run": run, "d": d_want, "leaves": n_leaves, "model": TP_MODEL,
+                "steps": TPF_TRAIN_STEPS, "workers": TRAIN_WORKERS,
+                "tokens_per_step": dcfg.global_batch * dcfg.seq_len,
+                "frontend_tokens": cfg.n_frontend_tokens, "steps_per_s": result.steps_per_s,
+                "run_wall_s": wall, "loss": loss, "loss_model_1": want_loss, "loss_rel": rel,
+                "loss_tolerance": TP_LOSS_RTOL, "launches": launches, "leaves_aggregated": leaves,
+                "aggregates_held": held.held, "split_ms": split,
+                "launches_per_step": prof["launches"],
+                "device_busy_share": prof["device_busy_share"],
+                "max_memory_allocated_gb": peak / 1e9, "card_memory_gb": total_mem / 1e9,
+                "card": card}
+        print(json.dumps({"profile_tp_frontend_step": run, **prof}))
+        print(json.dumps({"tp_frontend_train": line}))
+        print(f"phase 22c: {run}: window loss {loss:.4f} against 18b's model-1 "
+              f"{want_loss:.4f} ({rel:.3g}, tolerance {TP_LOSS_RTOL}); step "
+              f"{split['step_ms']:.1f} ms (grads {split['worker_grads_ms']:.1f} with model-axis "
+              f"sums {split['model_sums_ms']:.1f}, attack {split['attack_ms']:.1f}, B1 "
+              f"{split['b1_b2_ms']:.1f}, AdamW {split['update_ms']:.1f}), {prof['launches']} "
+              f"launches, busy {prof['device_busy_share']:.3f}, peak {peak / 1e9:.2f} GB; "
+              f"{time.perf_counter() - t_cell:.1f} s")
+        check(peak < total_mem, f"22c {run}: peak {peak} >= the card's {total_mem}")
+        del result, held, sb, batch
+        torch.cuda.empty_cache()
+    return total
+
+
+def digest_rows(x):
+    """Device int64 digests of one aggregation input (m, ...): per row, the
+    sums of its bit patterns (as signed integers of the element's width)
+    over 16 column blocks and the sum of their wrapped squares.  Equal
+    inputs give equal digests; any change of a bit changes a block sum."""
+    import torch
+
+    m = x.shape[0]
+    ints = {2: torch.int16, 4: torch.int32}[x.element_size()]
+    v = x.reshape(m, -1).view(ints)
+    blocks = [b.sum(dim=1) for b in torch.tensor_split(v, 16, dim=1)]
+    return torch.stack(blocks + [(v * v).sum(dim=1)], dim=1)
+
+
+def remat_run(dev, cfg, mode: str, remat: bool, card: str):
+    """One of phase 22d's runs: 15b's settings (gather median under alie
+    alpha 0.25, AdamW 1e-4, 4 workers, batch 8, seq 128) with ``mode`` and
+    ``remat`` for REMAT_STEPS steps in windows of one, every window under
+    the sync-debug "error" mode, the counters zeroed just before and read
+    just after; every aggregation call's inputs digested on the card
+    (:func:`digest_rows`, read after the run) and, with remat, every call
+    held bitwise against its plain version on its own rows (without remat
+    the run is 15b's / 19b's path, held there); then one more step (not
+    kept) timed with its split and no hold (:func:`train_step_split`).
+    Returns the losses, the digests, the launches, the final params (host)
+    and the readings."""
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core import aggregators
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import trainer
+    from repro_torch.tree import tree_leaves
+
+    mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, device=dev)
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=REMAT_STEPS, device_steps=1)
+    pcfg = ParallelConfig(agg_method="median", agg_strategy="gather", agg_beta=TRAIN_BETA,
+                          param_mode=mode, remat=remat, attn_chunk=0)
+    atk = AttackConfig("alie", TRAIN_ALPHA)
+    digests = []
+    real = aggregators.aggregate_leaves
+
+    def digested(leaves, method, beta=0.1):
+        digests.append([digest_rows(x) for x in leaves])
+        return real(leaves, method, beta)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()  # zeroed just before this run
+    aggregators.aggregate_leaves = digested
+    undo = sync_free_windows()
+    t0 = time.perf_counter()
+    try:
+        with HeldAggregation(dev, hold=lambda c: remat) as held:
+            result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk)
+    finally:
+        undo()
+        aggregators.aggregate_leaves = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()  # read just after it
+    peak = torch.cuda.max_memory_allocated()
+    check(held.held == (len(digests) if remat else 0),
+          f"22d {mode}: {held.held} of {len(digests)} aggregation calls held")
+    losses = [h["loss"] for h in result.history]
+    final = [t.cpu() for t in tree_leaves(result.state["params"])]
+    batch = {k: v[0] for k, v in trainer.stack_window_batches(
+        dcfg, REMAT_STEPS, 1, mesh, atk, cfg).items()}
+    split = train_step_split(cfg, pcfg, mesh, atk, result.state, batch, REMAT_STEPS)
+    line = {"remat_run": f"{mode} remat={remat}", "steps": REMAT_STEPS, "losses": losses,
+            "launches": launches, "aggregation_calls": len(digests), "aggregates_held": held.held,
+            "step_ms": split["step_ms"], "split_ms": split,
+            "window_times_s": result.window_times_s, "run_wall_s": wall,
+            "max_memory_allocated_gb": peak / 1e9, "card": card}
+    print(json.dumps({"remat": line}))
+    out = {"losses": losses, "digests": [[d.cpu() for d in call] for call in digests],
+           "launches": launches, "final": final, "line": line}
+    del result, digests, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_cell(dev, card: str):
+    """Phase 22d: ``ParallelConfig.remat`` on 15b's cell (llama3.2-3b's
+    widths at 8 layers, bf16), replicated and fsdp: REMAT_STEPS steps with
+    remat off, then on.  The losses, every aggregation call's input digests
+    (the B1 inputs a step) and the final params bitwise equal, the B1
+    launches the same; each run's step ms and peak GB.  Returns the remat
+    runs' launches."""
+    from repro_torch.models import transformer as T
+
+    cfg = serve_cfg(tiny=False)
+    check(T.count_params(cfg) == SERVE_D, f"22d: {T.count_params(cfg)} parameters")
+    total = {}
+    for mode in ("replicated", "fsdp"):
+        off = remat_run(dev, cfg, mode, False, card)
+        on = remat_run(dev, cfg, mode, True, card)
+        same_inputs = (len(on["digests"]) == len(off["digests"]) and all(
+            len(a) == len(b) and all(bool((x == y).all()) for x, y in zip(a, b))
+            for a, b in zip(on["digests"], off["digests"])))
+        same_params = all(bool((a == b).all()) for a, b in zip(on["final"], off["final"]))
+        check(on["losses"] == off["losses"] and same_inputs and same_params,
+              f"22d {mode}: remat on is not bitwise off: losses {on['losses']} / "
+              f"{off['losses']}, inputs {same_inputs}, params {same_params}")
+        check(on["launches"] == off["launches"] and on["launches"]["median"] > 0,
+              f"22d {mode}: launches {on['launches']} with remat, {off['launches']} without")
+        _add(total, on["launches"])
+        lo, ln = off["line"], on["line"]
+        print(f"phase 22d: {mode}: remat on bitwise off over {REMAT_STEPS} steps (losses, "
+              f"{len(on['digests'])} aggregation calls' input digests, final params), "
+              f"{on['launches']['median']} B1 launches each; step {lo['step_ms']:.1f} -> "
+              f"{ln['step_ms']:.1f} ms (grads {lo['split_ms']['worker_grads_ms']:.1f} -> "
+              f"{ln['split_ms']['worker_grads_ms']:.1f}), peak "
+              f"{lo['max_memory_allocated_gb']:.2f} -> {ln['max_memory_allocated_gb']:.2f} GB")
+        del off, on
+    return total
+
+
+def tp_family_memory():
+    """Phase 22e: the bytes a rank holds to serve and adapt mamba2-2.7b at
+    64 layers and recurrentgemma-2b at 26 over (data TP_DATA_RANKS, model
+    TP_MODEL) against model 1: the bf16 params, the slot pool (TPS_POOL;
+    the ssm / rec states whole on every rank) and the (4, D_rank) f32 rows,
+    from the shapes on the meta device: computed, not measured."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+
+    report = {}
+    for arch, layers in REMAT_FULL:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        out = {}
+        for name, model in (("tp", TP_MODEL), ("replicated", 1)):
+            mesh = mesh_lib.Mesh(("data", "model"), (TP_DATA_RANKS, model), torch.device("cpu"),
+                                 D.InProcessAxes({"data": TP_DATA_RANKS, "model": model}, "cpu"),
+                                 rank=0, per_rank=True)
+            params = steps.abstract_params(cfg, mesh)
+            pool = T.init_cache(cfg, TPS_POOL["slots"], TPS_POOL["cache_len"], device="meta")
+            if model > 1:
+                dims = sharding.cache_dims(cfg, model, pool,
+                                           steps.cache_shardings(cfg, mesh, pool))
+                pool = sharding.shard_cache(pool, dims, 0, model)
+            d_rank = sum(t.numel() for t in tree_leaves(params))
+            out[name] = {"params": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+                         "pool": sum(t.numel() * t.element_size() for t in tree_leaves(pool)),
+                         "rows": 4 * d_rank * 4}
+        d = T.count_params(cfg)
+        check(out["replicated"]["params"] < 2 * d * 1.001 and out["replicated"]["rows"] == 16 * d,
+              f"22e {arch}: {out}")
+        check(all(out["replicated"][k] / TP_MODEL <= out["tp"][k] < out["replicated"][k]
+                  / TP_MODEL * 1.01 for k in ("params", "rows")), f"22e {arch}: {out}")
+        report[cfg.name] = {"layers": layers, "d": d, **out}
+        gb = {m: sum(v.values()) / 1e9 for m, v in out.items()}
+        print(f"phase 22e: {cfg.name} at {layers} layers (D = {d:,}), params + pool + (4, D_rank) "
+              f"f32 rows a rank at (data {TP_DATA_RANKS}, model {TP_MODEL}): {gb['tp']:.2f} GB "
+              f"against {gb['replicated']:.2f} GB at model 1 (computed from the shapes, not "
+              f"measured)")
+    print(json.dumps({"tp_family_rank_bytes": report, "pool": TPS_POOL,
+                      "ranks": {"data": TP_DATA_RANKS, "model": TP_MODEL},
+                      "source": "computed from the shapes on the meta device, not measured"}))
+
+
+def tp_families(dev, card: str, served, firsts):
+    """Phase 22: 22a-22e; returns the launches of 22b's, 22c's and 22d's
+    runs (each launch of 22b and 22c held bitwise on its own rows)."""
+    t0 = time.perf_counter()
+    tp_family_parity(dev)
+    print(f"phase 22a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out = {"tp_families_serve": tp_family_serving(dev, card, served)}
+    print(f"phase 22b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["tp_frontends_train"] = tp_frontend_training(dev, card, firsts)
+    print(f"phase 22c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["remat"] = remat_cell(dev, card)
+    print(f"phase 22d: {time.perf_counter() - t0:.1f} s")
+    tp_family_memory()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -5195,6 +5682,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import robust_agg
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     torch.backends.cudnn.allow_tf32 = False
@@ -5310,7 +5798,8 @@ def main() -> None:
           "phase 17 built order-statistic programs that phase 1 did not")
     libs_before = len(robust_agg.select_libraries())
     t0 = time.perf_counter()
-    new_paths.update(frontends(dev, card, on_path))
+    firsts = {}  # 18b's first-window losses, for phase 22c
+    new_paths.update(frontends(dev, card, on_path, firsts))
     print(f"phase 18: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 18 built order-statistic programs that phase 1 did not")
@@ -5332,6 +5821,12 @@ def main() -> None:
     print(f"phase 21: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 21 built order-statistic programs that phase 1 did not")
+    libs_before = len(robust_agg.select_libraries())
+    t0 = time.perf_counter()
+    new_paths.update(tp_families(dev, card, served, firsts))
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    check(len(robust_agg.select_libraries()) == libs_before,
+          "phase 22 built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")
@@ -5366,6 +5861,7 @@ def main() -> None:
             "max_abs_err": worst[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_script:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

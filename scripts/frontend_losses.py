@@ -54,7 +54,7 @@ def main() -> None:
     mesh = mesh_lib.make_debug_mesh(CS.TRAIN_WORKERS, device=dev)
     dcfg = DataConfig(vocab=cfg.vocab, **CS.TRAIN_DATA)
     pcfg = ParallelConfig(agg_method=args.agg, agg_strategy="gather", agg_beta=CS.TRAIN_BETA,
-                          attn_chunk=0)
+                          remat=False, attn_chunk=0)  # phase 18b's settings
     tcfg = TrainConfig(optimizer="adamw", lr=CS.TRAIN_LR, steps=args.steps, device_steps=1)
     for attack in args.attacks.split(","):
         atk = AttackConfig(attack, CS.TRAIN_ALPHA if attack != "none" else 0.0)

@@ -71,7 +71,7 @@ def main() -> None:
     cfg = dataclasses.replace(get_config(args.config), n_layers=args.layers, dtype=args.dtype)
     dcfg = DataConfig(vocab=cfg.vocab, **CS.TRAIN_DATA)
     pcfg = ParallelConfig(agg_method=args.agg, agg_strategy="gather", agg_beta=CS.TRAIN_BETA,
-                          attn_chunk=0)
+                          remat=False, attn_chunk=0)  # phase 20b's settings
     tcfg = TrainConfig(optimizer="adamw", lr=CS.TRAIN_LR, steps=args.steps, device_steps=1)
     atk = AttackConfig("alie", CS.TRAIN_ALPHA)
     plan = sharding.tp_plan(cfg, CS.TP_MODEL)

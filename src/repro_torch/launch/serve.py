@@ -5,7 +5,8 @@ arguments onto ``python -m repro_torch.serve.run`` (the reference's
 (latency "zero") so the pool fills immediately, and nothing adapts.
 ``--mesh``, ``--workers`` and ``--model-par`` are forwarded, with the
 reference's defaults: the debug mesh of 4 workers and a model axis of 2
-(tensor parallelism).
+(tensor parallelism), at which every decoder serves, mamba2 and
+recurrentgemma included.
 
 Example::
 

@@ -58,11 +58,19 @@ model coordinate; on the in-process mesh the params stay the global view
 and the strategies aggregate the global view, which gives the shards'
 bits since the estimators are coordinate-wise.  ``grad_norm`` psums the
 split leaves' squares over ``model`` and counts a replicated leaf once.
-Not at model > 1 yet: fsdp, ``seq_parallel``, the codecs and randomized
-attacks (ROADMAP queue A item 6, step 7), the ``ssm`` / ``rec`` layers
-and the frontends (step 6).  The serving steps run on the model axis
-too: the prefill and decode steps over the mesh's ``ShardCtx``, the slot
-pool's kv heads split over ``model`` (:func:`init_slot_pool`).
+Every configuration trains on the model axis, the ``ssm`` / ``rec``
+families and the frontends included.  Not at model > 1 yet: fsdp,
+``seq_parallel``, the codecs and randomized attacks (ROADMAP queue A item
+6, step 7).  The serving steps run on the model axis too: the prefill and
+decode steps over the mesh's ``ShardCtx``, the slot pool's kv heads
+split over ``model`` (:func:`init_slot_pool`); a frontend configuration
+is not served there (step 8).
+
+Activation checkpointing (``ParallelConfig.remat``): the step's loss runs
+each super-block and each encoder layer under ``torch.utils.checkpoint``
+(:mod:`repro_torch.models.transformer`), FSDP's per-block gather inside
+it, so neither their activations nor the gathered weights are kept for
+the backward; the recompute changes no bit of the gradients.
 :func:`input_specs` and :func:`cache_shardings` are the reference's
 dry-run specs, as spec tuples on meta tensors.
 """
@@ -357,16 +365,18 @@ def _stacked_pieces(buf, k: int):
 
 def _value_and_grad(cfg: ModelConfig, kv_block: int, transform: Optional[Callable] = None,
                     block_provider: Optional[Callable] = None,
-                    ctx: sharding.ShardCtx = sharding.NULL_CTX):
+                    ctx: sharding.ShardCtx = sharding.NULL_CTX, remat: bool = True):
     """``vg(pieces, batch) -> (loss, grads)``: the gradient of every leaf of
     ``pieces`` (exact zeros where the loss does not read it, as JAX gives);
     ``transform`` maps the leaves to the tree the model runs with, ``ctx``
-    is the model axis it runs over."""
+    is the model axis it runs over, ``remat`` checkpoints its super-blocks
+    and encoder layers."""
     def vg(pieces, batch):
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(pieces)]
         tree = tree_unflatten_like(pieces, leaves)
         loss = T.loss_fn(tree if transform is None else transform(tree), batch, cfg,
-                         kv_block=kv_block, block_provider=block_provider, ctx=ctx)
+                         kv_block=kv_block, block_provider=block_provider, ctx=ctx,
+                         remat=remat)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
         return loss.detach(), tree_unflatten_like(pieces, grads)
@@ -423,9 +433,12 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
     All build-time validation lives here (attack access vs strategy,
     adaptive and fsdp-randomized rejections, codec and local-steps
     constraints, fsdp with a codec or local steps), as in the reference.
-    ``pcfg.remat`` has no effect: the port's forward keeps its activations,
-    so under fsdp autograd keeps every layer's gathered weights for the
-    backward.
+    ``pcfg.remat`` (default True, as the reference's) runs each
+    super-block of the loss, FSDP's per-block gather inside it, and each
+    encoder layer under ``torch.utils.checkpoint``: their activations and
+    gathered weights are recomputed in the backward instead of kept.  The
+    robust reduce-scatter, the gather's backward, still runs once a step,
+    and the gradients are bitwise those of ``remat=False``.
 
     ``param_mode='fsdp'`` (module docstring): the params (and the optimizer
     state) are the global view on the in-process mesh and a rank's shards
@@ -436,16 +449,16 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
     the reference.
 
     A model axis > 1 (module docstring) runs the forward over the mesh's
-    :func:`~repro_torch.models.sharding.model_ctx` and refuses, with
-    ``NotImplementedError`` naming the ROADMAP item, what is not ported to
-    it: fsdp, ``seq_parallel``, the codecs and randomized attacks, the
-    ``ssm`` / ``rec`` layers and the frontends; a leaf-global attack
+    :func:`~repro_torch.models.sharding.model_ctx`, for every
+    configuration, and refuses, with ``NotImplementedError`` naming the
+    ROADMAP item, what is not ported to it: fsdp, ``seq_parallel``, the
+    codecs and randomized attacks; a leaf-global attack
     (mimic) with the bucketed strategy is a ``ValueError``
     (:func:`repro_torch.rounds.comm.refuse_leaf_global`)."""
     fsdp = pcfg.param_mode == "fsdp"
     model = _model_size(mesh)
     if model > 1:
-        _refuse_model_axis(cfg, pcfg, attack, model)
+        _refuse_model_axis(pcfg, attack, model)
     if attack is not None and attack.name != "none" and attack.alpha > 0:
         atk_spec, _ = attack.resolve()  # raises early on unknown names
         comm.validate_attack_strategy(attack, pcfg.agg_strategy)
@@ -481,7 +494,7 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
     m = mesh_lib.num_workers(mesh)
     vs = ax.vshape(waxes)
     k = len(vs)
-    vg = _value_and_grad(cfg, pcfg.attn_chunk, ctx=sharding.model_ctx(mesh))
+    vg = _value_and_grad(cfg, pcfg.attn_chunk, ctx=sharding.model_ctx(mesh), remat=pcfg.remat)
     mdims = tree_leaves(sharding.tp_dims(cfg, model)) if model > 1 else None
 
     def sq_norm(agg):
@@ -549,7 +562,8 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
     if fsdp:
         dims = fsdp_dims(cfg, mesh)
         pg_vg = _value_and_grad(cfg, pcfg.attn_chunk,
-                                *_fsdp_providers(ax, waxes, dims, pcfg, attack))
+                                *_fsdp_providers(ax, waxes, dims, pcfg, attack),
+                                remat=pcfg.remat)
 
         def rank_grads(params, batch):
             """This rank's loss and its shards' gradients: the sharded
@@ -636,9 +650,8 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
     return StepBody(body=body, waxes=waxes, comp_body=core if ef else None)
 
 
-def _refuse_model_axis(cfg: ModelConfig, pcfg: ParallelConfig, attack, model: int) -> None:
+def _refuse_model_axis(pcfg: ParallelConfig, attack, model: int) -> None:
     """What a train step does not run at model axis ``model`` > 1 yet."""
-    T.refuse_model_axis(cfg, model)
     later = "is not ported yet (ROADMAP queue A item 6, step 7)"
     if pcfg.param_mode == "fsdp":
         raise NotImplementedError(f"param_mode='fsdp' at model axis {model}: fsdp × tensor "
@@ -699,9 +712,8 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
 
 def _serving_ctx(cfg: ModelConfig, mesh: Optional[mesh_lib.Mesh]) -> sharding.ShardCtx:
     """The model axis the serving steps run over (:data:`NULL_CTX` without a
-    mesh or at model size 1); the layer kinds and frontends that do not run
-    on a model axis yet raise (``NotImplementedError``, naming the ROADMAP
-    step)."""
+    mesh or at model size 1); a frontend configuration at model size > 1
+    raises (:func:`repro_torch.models.transformer.refuse_model_axis`)."""
     ctx = sharding.NULL_CTX if mesh is None else sharding.model_ctx(mesh)
     T.refuse_model_axis(cfg, ctx.model)
     return ctx
@@ -831,6 +843,8 @@ def init_slot_pool(cfg: ModelConfig, slots: int, cache_len: int, device="cuda",
     (:func:`repro_torch.models.sharding.cache_dims`): under a process group
     a rank holds its heads, on the in-process mesh the pool holds every
     head and each model rank reads and writes its heads' slice in turn.
+    The ``ssm`` / ``rec`` states are whole on every rank (the mixers run
+    whole from gathered in-projections).
     The reference pins its pool replicated; that is a layout, and the
     function is the same."""
     pool = T.init_cache(cfg, slots, cache_len, device=device)

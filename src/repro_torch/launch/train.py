@@ -25,9 +25,13 @@ them (``frontend=audio:1500``).  ``--model-par N`` adds a model axis of N
 (tensor parallelism): on the debug mesh each worker computes its N model
 ranks in turn; under ``--mesh single|multi`` the world is workers × N
 ranks, a worker's N ranks consecutive (``torchrun --nproc-per-node 4 ...
---mesh single --model-par 2``: 2 workers of 2 model ranks).  The dense
-and MoE families run at N > 1; the ssm / rec families and the frontends
-raise ``NotImplementedError`` (ROADMAP queue A item 6, step 6).
+--mesh single --model-par 2``: 2 workers of 2 model ranks).  Every
+configuration runs at N > 1: the dense and MoE families, mamba2 and
+recurrentgemma (their mixers whole on every rank from gathered
+in-projections, the out-projections row-parallel), whisper's encoder and
+cross-attention and internvl2's vision prefix.  The train step runs with
+``remat=True``, as the reference's CLI: each super-block and encoder
+layer is recomputed in the backward instead of kept.
 """
 from __future__ import annotations
 

@@ -26,6 +26,20 @@ computes each layer on the shards explicitly, through :class:`ShardCtx`:
 - the dense FFN is column-parallel on F (``wg``/``wu``) and row-parallel
   (``wd``); the MoE experts are expert-parallel where E divides by M, else
   split on F, as the rule falls back;
+- the ``ssm`` (Mamba-2 SSD) and ``rec`` (RG-LRU) mixers read every
+  channel of their in-projections: the SSM's ``w_in`` packs z | x | B | C
+  | dt, so a contiguous chunk cuts across the pieces, and the RG-LRU's
+  square gates ``w_a`` / ``w_xg`` mix all channels.  Those split leaves
+  (with the branch projections ``w_bx`` / ``w_bg``) are gathered; the
+  conv, the SSD or the scan and the gate product run whole on every
+  rank, and the out-projections ``w_out`` / ``w_ro`` are row-parallel (a
+  rank's chunk of the mixer output times its rows, the partials psummed).
+  The per-channel leaves are replicated.  ``rec``'s GeGLU splits on F as
+  the dense FFN;
+- the whisper encoder's layers and the cross-attention take the attention
+  mode of the encoder config (no MoE, no qk-norm) and its F-split FFN;
+  the vision prefix is concatenated to the whole embedding and needs no
+  split;
 - the embedding is vocab-parallel (masked lookups, psummed: one non-zero
   term per element) where its rule takes V, else each rank looks up its
   d_model columns and they are all-gathered; the lm head with V split
@@ -34,13 +48,13 @@ computes each layer on the shards explicitly, through :class:`ShardCtx`:
 
 :func:`tp_plan` lists, leaf by leaf, the split dim and whether the layer
 computes on the shard (``shard``) or on the gathered whole
-(``gathered``); the ``ssm`` / ``rec`` layers and the encoder and
-cross-attention groups are not ported to a model axis yet (``unported``).
+(``gathered``), for every configuration.
 
 Serving caches follow the attention layers: in ``heads`` mode each rank's
 attention keys and values are its own kv heads (:func:`cache_dims`,
 :func:`shard_cache`), the positions (``kpos``) whole on every rank; in
-``gathered`` mode the caches stay whole on every rank.
+``gathered`` mode the caches stay whole on every rank, as do the ``ssm``
+/ ``rec`` states.
 """
 from __future__ import annotations
 
@@ -117,9 +131,12 @@ class TPModes(NamedTuple):
 
     ``attn``: None (nothing split), ``"heads"`` or ``"gathered"``, and
     ``attn_split`` the attention leaves the rules split; ``ffn``: the
-    dense FFN split on F; ``moe``: None, ``"experts"`` or ``"hidden"``;
-    ``router``, ``embed`` and ``lm_head``: the split dim of the
-    (unstacked) leaf, or None."""
+    dense FFN (and ``rec``'s GeGLU) split on F; ``moe``: None,
+    ``"experts"`` or ``"hidden"``; ``router``, ``embed`` and ``lm_head``:
+    the split dim of the (unstacked) leaf, or None; ``mixer_in``: the
+    ``ssm`` / ``rec`` in-projections the rules split (gathered for the
+    compute), ``mixer_out``: their out-projections the rules split
+    (row-parallel)."""
 
     attn: Optional[str]
     attn_split: Tuple[str, ...]
@@ -128,6 +145,8 @@ class TPModes(NamedTuple):
     router: Optional[int]
     embed: Optional[int]
     lm_head: Optional[int]
+    mixer_in: Tuple[str, ...] = ()
+    mixer_out: Tuple[str, ...] = ()
 
 
 _NO_TP = TPModes(None, (), False, None, None, None, None)
@@ -137,6 +156,8 @@ _NO_TP = TPModes(None, (), False, None, None, None, None)
 def tp_modes(cfg, model: int) -> TPModes:
     """The layer modes of ``cfg`` at model size ``model`` (the rules on the
     unstacked leaf shapes)."""
+    from repro_torch.models import transformer as T
+
     if model == 1:
         return _NO_TP
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -158,41 +179,44 @@ def tp_modes(cfg, model: int) -> TPModes:
         router = dim("router", (d, e))
     elif cfg.d_ff:
         ffn = dim("wg", (d, cfg.d_ff)) is not None
+    mixer = {}
+    for kind in sorted({cfg.layer_kind(i) for i in range(cfg.n_layers)} - {"attn"}):
+        for name, spec in T._layer_specs(kind, cfg).items():
+            if name in _MIXER_IN + _MIXER_OUT and dim(name, spec.shape) is not None:
+                mixer[name] = True
     return TPModes(attn, attn_split, ffn, moe, router, dim("embed", (cfg.vocab, d)),
-                   dim("lm_head", (d, cfg.vocab)))
+                   dim("lm_head", (d, cfg.vocab)),
+                   tuple(n for n in sorted(mixer) if n in _MIXER_IN),
+                   tuple(n for n in sorted(mixer) if n in _MIXER_OUT))
 
 
 _ATTN = ("wq", "wk", "wv", "wo")
-_GROUPS_UNPORTED = ("enc_blocks", "cross_blocks")
+_MIXER_IN = ("w_a", "w_bg", "w_bx", "w_in", "w_xg")  # ssm / rec, gathered
+_MIXER_OUT = ("w_out", "w_ro")  # ssm / rec, row-parallel
 
 
 def tp_plan(cfg, model: int) -> Dict[str, Tuple[int, str]]:
     """``{leaf path: (split dim, mode)}`` for every leaf the model axis
     splits at size ``model`` (dims of the leaf as stored, the stacking dim
     included): ``shard`` where the layer computes on the rank's shard,
-    ``gathered`` where the leaf is all-gathered for the compute,
-    ``unported`` in the layer kinds and groups that do not run at model
-    size > 1 yet.  Replicated leaves are not listed."""
+    ``gathered`` where the leaf is all-gathered for the compute (attention
+    leaves in ``gathered`` mode, the MoE router, the ``ssm`` / ``rec``
+    in-projections).  The encoder and cross-attention groups follow the
+    encoder config's attention mode.  Replicated leaves are not listed."""
     from repro_torch.models import transformer as T
 
     modes = tp_modes(cfg, model)
-    tail_kinds = T.layer_groups(cfg)[1]
+    enc = tp_modes(T._enc_cfg(cfg), model)
     out = {}
     for path, leaf in tree_leaves_with_path(T.meta_params(cfg)):
         d = split_dim(path, tuple(leaf.shape), model)
         if d < 0:
             continue
-        parts = path.split("/")
-        name = parts[-1]
-        kind = (parts[1].split("_", 1)[1] if parts[0] == "blocks" else
-                tail_kinds[int(parts[1])] if parts[0] == "tail" else None)
-        if parts[0] in _GROUPS_UNPORTED or kind in ("ssm", "rec"):
-            mode = "unported"
-        elif (name in _ATTN and modes.attn == "gathered") or name == "router":
-            mode = "gathered"
-        else:
-            mode = "shard"
-        out[path] = (d, mode)
+        group, name = path.split("/")[0], path.split("/")[-1]
+        attn = (enc if group in ("enc_blocks", "cross_blocks") else modes).attn
+        gathered = ((name in _ATTN and attn == "gathered") or name == "router"
+                    or name in _MIXER_IN)
+        out[path] = (d, "gathered" if gathered else "shard")
     return out
 
 
@@ -208,8 +232,12 @@ def cache_dims(cfg, model: int, cache, specs):
     ``model``, e.g. one kv head) the reference's spec falls to the head
     dim ``hd``: a GSPMD layout of the same function, which the port does
     not compute split (the layer computes from gathered leaves), so the
-    caches stay whole on every rank.  The worker-axis entries (the batch)
-    are not read here."""
+    caches stay whole on every rank.  The ``ssm`` / ``rec`` states
+    (``conv``, ``ssd``, ``h``) stay whole for the same reason: the
+    reference's specs split ``ssd`` on its heads and ``conv`` / ``h`` on
+    channels, but the port's mixer runs whole on every rank from the
+    gathered in-projections, so every rank updates the whole state alike.
+    The worker-axis entries (the batch) are not read here."""
     heads = tp_modes(cfg, model).attn == "heads"
     spec_of = []
     tree_map(lambda _, spec: spec_of.append(spec), cache, specs)

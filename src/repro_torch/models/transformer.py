@@ -35,7 +35,7 @@ super-block's attention layer reads through cross-attention
 stripped before the lm head.  A frontend configuration without its
 ``frontend`` input raises, as the reference's asserts do.
 
-Tensor parallelism: ``forward`` and ``loss_fn`` take a
+Tensor parallelism: the entry points take a
 :class:`~repro_torch.models.sharding.ShardCtx` (``ctx=``; default
 :data:`~repro_torch.models.sharding.NULL_CTX`, every operation the
 identity).  At model size M > 1 each weight the partition rules split is
@@ -43,20 +43,29 @@ the rank's shard (the global view in process, whose model ranks run one
 after the other), and the layers compute as the module doc of
 :mod:`repro_torch.models.sharding` sets out: column-parallel q/k/v and
 row-parallel ``wo`` on whole kv heads (else the attention leaves
-gathered), column/row-parallel FFN, expert-parallel (else F-split) MoE,
-a vocab-parallel embedding and cross-entropy (or a d_model split).  The
-``ssm`` / ``rec`` layers and the frontends refuse a model axis (ROADMAP
-queue A item 6, step 6); the serving entry points take no context.
+gathered), column/row-parallel FFN and GeGLU, expert-parallel (else
+F-split) MoE, the ``ssm`` / ``rec`` mixers on gathered in-projections
+with a row-parallel out-projection, the encoder and cross-attention in
+their own attention mode, a vocab-parallel embedding and cross-entropy
+(or a d_model split).  ``prefill`` and ``decode_step`` of a frontend
+configuration refuse a model axis (:func:`refuse_model_axis`).
+
+Activation checkpointing (``remat``, the reference's default ``True``):
+``forward`` and ``loss_fn`` run each super-block of the ``blocks`` group,
+FSDP's ``block_provider`` gather included, and each encoder layer under
+``torch.utils.checkpoint`` when autograd records, so their activations
+and gathered weights are recomputed in the backward instead of kept.  The
+tail layers are not checkpointed, as in the reference.
 
 Entry points:
   init_params(cfg, seed, device)             -> params tree
-  forward(params, tokens, cfg, frontend=, ctx=)
+  forward(params, tokens, cfg, frontend=, ctx=, remat=)
                                              -> (logits, aux)
-  loss_fn(params, batch, cfg, ctx=)          -> scalar loss (batch["frontend"])
-  prefill(params, tokens, cfg, frontend=, cache_len=)
+  loss_fn(params, batch, cfg, ctx=, remat=)  -> scalar loss (batch["frontend"])
+  prefill(params, tokens, cfg, frontend=, cache_len=, ctx=)
                                              -> (last-token logits, cache)
-  decode_step(params, token, cache, pos, cfg) -> (logits, cache), the cache
-                                                updated in place
+  decode_step(params, token, cache, pos, cfg, ctx=) -> (logits, cache), the
+                                                cache updated in place
 """
 from __future__ import annotations
 
@@ -67,6 +76,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import rng
 from repro_torch.configs.base import ModelConfig, SSMConfig
@@ -231,7 +241,7 @@ def _param_specs(cfg: ModelConfig) -> Params:
     if tail:
         tree["tail"] = [_layer_specs(kind, cfg) for kind in tail]
     if cfg.n_enc_layers:
-        enc = _layer_specs("attn", dataclasses.replace(cfg, moe=None, qk_norm=False))
+        enc = _layer_specs("attn", _enc_cfg(cfg))
         tree["enc_blocks"] = _stacked(enc, cfg.n_enc_layers)
         tree["enc_norm"] = Spec((cfg.d_model,))
         if cfg.cross_attention:
@@ -311,20 +321,31 @@ def count_active_params(cfg: ModelConfig) -> int:
 
 
 def refuse_model_axis(cfg: ModelConfig, model: int) -> None:
-    """The configurations a model axis does not run yet: ``NotImplementedError``
-    naming the ROADMAP item."""
-    if model == 1:
-        return
-    kinds = sorted({cfg.layer_kind(i) for i in range(cfg.n_layers)} - {"attn"})
-    if kinds:
+    """``prefill`` / ``decode_step`` of a frontend configuration at model
+    axis ``model`` > 1: ``NotImplementedError`` naming the ROADMAP item.
+    No entry point serves a frontend configuration (the reference's engine
+    prefills without one), so its serving caches are not split."""
+    if model > 1 and (cfg.frontend != "none" or cfg.n_enc_layers):
         raise NotImplementedError(
-            f"{cfg.name}: {'/'.join(kinds)} layers at model axis {model}: tensor parallelism "
-            "of the ssm and rec layers is not ported yet (ROADMAP queue A item 6, step 6)")
-    if cfg.frontend != "none" or cfg.n_enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend at model axis {model}: tensor "
-            "parallelism of the encoder, cross-attention and frontends is not ported yet "
-            "(ROADMAP queue A item 6, step 6)")
+            f"{cfg.name}: prefill / decode_step with the {cfg.frontend} frontend at model "
+            f"axis {model}: serving a frontend configuration under tensor parallelism is not "
+            "ported yet (ROADMAP queue A item 6, step 8)")
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config of the encoder and cross-attention layers (the
+    reference's ``enc_cfg``: no MoE, no qk-norm)."""
+    return dataclasses.replace(cfg, moe=None, qk_norm=False)
+
+
+def _remat(fn: Callable, remat: bool, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat`` and
+    autograd records: the activations inside are recomputed in the
+    backward, not kept.  The layers draw no random numbers, so the RNG
+    state is not stashed (stashing it would read the card's state)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def _on(ctx: ShardCtx, split: bool) -> ShardCtx:
@@ -400,19 +421,49 @@ def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return x, _zero(x)
 
 
-def _cross_kv(cp: Params, enc_out: torch.Tensor, cfg: ModelConfig):
-    """Cross-attention keys and values (B, T, KV, hd) of the encoder output."""
+def _cross_kv(cp: Params, enc_out: torch.Tensor, cfg: ModelConfig,
+              kv: Optional[int] = None):
+    """Cross-attention keys and values (B, T, KV, hd) of the encoder output;
+    ``kv`` the kv heads of a model rank's shard."""
     b, t, _ = enc_out.shape
-    return ((enc_out @ cp["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.hd),
-            (enc_out @ cp["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.hd))
+    kv = kv or cfg.n_kv_heads
+    return ((enc_out @ cp["wk"]).reshape(b, t, kv, cfg.hd),
+            (enc_out @ cp["wv"]).reshape(b, t, kv, cfg.hd))
 
 
-def _cross_q(cp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Cross-attention queries (B, S, KV, G, hd): no qk-norm, no RoPE."""
+def _cross_q(cp: Params, y: torch.Tensor, cfg: ModelConfig,
+             heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Cross-attention queries (B, S, KV, G, hd) of the normed ``y``: no
+    qk-norm, no RoPE; ``heads`` (H, KV) of a model rank's shard."""
+    b, s, _ = y.shape
+    h, kv = heads or (cfg.n_heads, cfg.n_kv_heads)
+    return (y @ cp["wq"]).reshape(b, s, kv, h // kv, cfg.hd)
+
+
+def _cross_attention(cp: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig,
+                     kv_block: int, ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    """One block's cross-attention output (B, S, D), added to ``x`` by the
+    caller.  The cross leaves are the encoder config's attention leaves, so
+    they take its mode: in ``heads`` each model rank projects its kv heads
+    of the normed ``x`` and of the encoder output (both entered: every rank
+    holds them alike, their gradients are the ranks' summed) and its rows
+    of ``wo``, the partials summed; in ``gathered`` the split leaves are
+    gathered whole."""
     b, s, _ = x.shape
-    kv = cfg.n_kv_heads
-    y = L.rms_norm(x, cp["ln1"], cfg.norm_eps)
-    return (y @ cp["wq"]).reshape(b, s, kv, cfg.n_heads // kv, cfg.hd)
+    modes = ctx.modes(_enc_cfg(cfg))
+    if modes.attn == "gathered":
+        cp = dict(cp, **{n: ctx.full(cp[n], _ATTN_DIMS[n]) for n in modes.attn_split})
+    c = _on(ctx, modes.attn == "heads")
+    ye, ee = c.enter(L.rms_norm(x, cp["ln1"], cfg.norm_eps)), c.enter(enc_out)
+    heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
+    parts = []
+    for r in c.ranks():
+        pr = dict(cp, **{n: c.shard(cp[n], d, r) for n, d in _ATTN_DIMS.items()})
+        o = attn_lib.attention(_cross_q(pr, c.local(ye), cfg, heads),
+                               *_cross_kv(pr, c.local(ee), cfg, heads[1]),
+                               causal=False, kv_block=kv_block)
+        parts.append(o.reshape(b, s, heads[0] * cfg.hd) @ pr["wo"])
+    return c.reduce(parts)
 
 
 _ATTN_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}  # the split dim of a layer's leaf
@@ -425,7 +476,8 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
     """One attention layer over a full sequence x (B, S, D) -> (x, aux, (k, v)).
 
     With ``enc_out`` and ``cross_p`` it attends to the encoder output
-    (non-causal) between its self-attention and its FFN.  Under ``ctx``'s
+    (non-causal) between its self-attention and its FFN
+    (:func:`_cross_attention`).  Under ``ctx``'s
     ``heads`` mode each model rank projects, rotates and attends its own
     kv heads and its row of ``wo``, the partial outputs psummed (the
     returned k, v are the last rank's); under ``gathered`` the split
@@ -455,11 +507,29 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
     if len(ks) > 1:
         k, v = torch.cat(ks, 2), torch.cat(vs, 2)
     if enc_out is not None and cross_p is not None:
-        oc = attn_lib.attention(_cross_q(cross_p, x, cfg), *_cross_kv(cross_p, enc_out, cfg),
-                                causal=False, kv_block=kv_block)
-        x = x + oc.reshape(b, s, cfg.n_heads * cfg.hd) @ cross_p["wo"]
+        x = x + _cross_attention(cross_p, x, enc_out, cfg, kv_block, ctx)
     x, aux = _ffn(p, x, cfg, ctx)
     return x, aux, (k, v)
+
+
+def _gather_in(p: Params, cfg: ModelConfig, ctx: ShardCtx) -> Params:
+    """An ``ssm`` / ``rec`` layer's leaves with the in-projections the model
+    axis splits (on their last dim) gathered whole: the mixer reads every
+    channel of them, so it runs whole on every rank."""
+    names = ctx.modes(cfg).mixer_in
+    return dict(p, **{n: ctx.full(p[n], 1) for n in names if n in p}) if names else p
+
+
+def _row_parallel(y: torch.Tensor, w: torch.Tensor, split: bool, ctx: ShardCtx) -> torch.Tensor:
+    """``y @ w`` with ``w`` split on its rows over the model axis (``split``):
+    each rank multiplies its chunk of ``y``'s last dim by its rows of ``w``
+    and the partials are summed in rank order.  Every rank computes ``y``
+    alike from whole leaves, so it is entered first: its gradient is then
+    the ranks' summed, the whole gradient every rank's gathered leaves
+    take their chunk of."""
+    c = _on(ctx, split)
+    ye = c.enter(y)
+    return c.reduce([c.split(c.local(ye), -1, r) @ c.shard(w, 0, r) for r in c.ranks()])
 
 
 def _ssm_in(p: Params, x: torch.Tensor, cfg: ModelConfig, prev: Optional[torch.Tensor]):
@@ -479,18 +549,22 @@ def _ssm_in(p: Params, x: torch.Tensor, cfg: ModelConfig, prev: Optional[torch.T
 
 
 def _ssm_out(p: Params, x: torch.Tensor, y_ssd: torch.Tensor, xh: torch.Tensor,
-             z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+             z: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx) -> torch.Tensor:
     y_ssd = y_ssd + p["D_skip"][:, None].to(y_ssd.dtype) * xh
     y_out = y_ssd.reshape(z.shape) * F.silu(z)
     y_out = L.rms_norm(y_out, p["out_norm"], cfg.norm_eps)
-    return x + y_out @ p["w_out"]
+    return x + _row_parallel(y_out, p["w_out"], "w_out" in ctx.modes(cfg).mixer_out, ctx)
 
 
-def _ssm_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """One SSM layer over a full sequence -> (x, aux 0, its final state)."""
+def _ssm_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx = NULL_CTX):
+    """One SSM layer over a full sequence -> (x, aux 0, its final state).
+    Under a model axis the packed in-projection is gathered, the conv, the
+    SSD and ``out_norm`` run whole and ``w_out`` is row-parallel."""
+    p = _gather_in(p, cfg, ctx)
     z, xdt, xh, loga, bm, cm, conv_state = _ssm_in(p, x, cfg, None)
     y_ssd, state = ssm_lib.ssd_chunked(xdt, loga, bm, cm, chunk=_ssm_dims(cfg)[0].chunk)
-    return _ssm_out(p, x, y_ssd, xh, z, cfg), _zero(x), {"conv": conv_state, "ssd": state}
+    return (_ssm_out(p, x, y_ssd, xh, z, cfg, ctx), _zero(x),
+            {"conv": conv_state, "ssd": state})
 
 
 def _rec_in(p: Params, x: torch.Tensor, prev: Optional[torch.Tensor], cfg: ModelConfig):
@@ -501,17 +575,27 @@ def _rec_in(p: Params, x: torch.Tensor, prev: Optional[torch.Tensor], cfg: Model
 
 
 def _rec_out(p: Params, x: torch.Tensor, r: torch.Tensor, bg: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
-    x = x + (r * bg) @ p["w_ro"]
-    y = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.geglu(y, p["wg"], p["wu"], p["wd"])
+             cfg: ModelConfig, ctx: ShardCtx) -> torch.Tensor:
+    """The gated branch's row-parallel ``w_ro``, then the GeGLU split on F
+    (column-parallel ``wg`` / ``wu``, row-parallel ``wd``, as the dense
+    FFN)."""
+    modes = ctx.modes(cfg)
+    x = x + _row_parallel(r * bg, p["w_ro"], "w_ro" in modes.mixer_out, ctx)
+    c = _on(ctx, modes.ffn)
+    ye = c.enter(L.rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + c.reduce([L.geglu(c.local(ye), c.shard(p["wg"], 1, k), c.shard(p["wu"], 1, k),
+                                 c.shard(p["wd"], 0, k)) for k in c.ranks()])
 
 
-def _rec_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """One recurrent layer over a full sequence -> (x, aux 0, its final state)."""
+def _rec_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx = NULL_CTX):
+    """One recurrent layer over a full sequence -> (x, aux 0, its final
+    state).  Under a model axis the branch projections and the square gates
+    are gathered, the conv, the scan and the gate product run whole, and
+    ``w_ro`` is row-parallel."""
+    p = _gather_in(p, cfg, ctx)
     bg, conv_out, conv_state = _rec_in(p, x, None, cfg)
     r, h = rglru_lib.rglru_scan(conv_out, p["w_a"], p["b_a"], p["w_xg"], p["b_x"], p["lam"])
-    return _rec_out(p, x, r, bg, cfg), _zero(x), {"conv": conv_state, "h": h}
+    return _rec_out(p, x, r, bg, cfg, ctx), _zero(x), {"conv": conv_state, "h": h}
 
 
 def _attn_window(cfg: ModelConfig) -> int:
@@ -531,26 +615,33 @@ def _layer_fwd(where: Where, p: Params, x: torch.Tensor, cfg: ModelConfig,
         return _attn_layer_fwd(p, x, cfg, window=_attn_window(cfg), positions=positions,
                                kv_block=kv_block, enc_out=enc_out, cross_p=cross_p, ctx=ctx)
     if where.kind == "ssm":
-        return _ssm_layer_fwd(p, x, cfg)
-    return _rec_layer_fwd(p, x, cfg)
+        return _ssm_layer_fwd(p, x, cfg, ctx)
+    return _rec_layer_fwd(p, x, cfg, ctx)
 
 
 def _encoder_fwd(params: Params, frontend: torch.Tensor, cfg: ModelConfig,
-                 kv_block: int = 1024) -> torch.Tensor:
+                 kv_block: int = 1024, ctx: ShardCtx = NULL_CTX,
+                 remat: bool = False) -> torch.Tensor:
     """Whisper-style encoder over stub frame embeddings (B, T, D): the
     sinusoidal table added, ``n_enc_layers`` non-causal attention layers
-    (RoPE at the default positions on top of the table, as in the
-    reference), then ``enc_norm``."""
+    of the encoder config (RoPE at the default positions on top of the
+    table, as in the reference; under ``ctx`` in the encoder's own
+    attention mode), each checkpointed with ``remat``, then ``enc_norm``."""
+    ecfg = _enc_cfg(cfg)
     x = frontend + L.sinusoidal_positions(frontend.shape[1], cfg.d_model, frontend.dtype,
                                           frontend.device)[None]
     for i in range(cfg.n_enc_layers):
-        x, _, _ = _attn_layer_fwd(_stacked_at(params["enc_blocks"], i), x, cfg, causal=False,
-                                  kv_block=kv_block)
+        def layer(x, i=i):
+            return _attn_layer_fwd(_stacked_at(params["enc_blocks"], i), x, ecfg, causal=False,
+                                   kv_block=kv_block, ctx=ctx)[0]
+
+        x = _remat(layer, remat, x)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def _frontend_in(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                 frontend: Optional[torch.Tensor], kv_block: int, ctx: ShardCtx = NULL_CTX):
+                 frontend: Optional[torch.Tensor], kv_block: int, ctx: ShardCtx = NULL_CTX,
+                 remat: bool = False):
     """The embedded tokens with the frontend applied -> (x, the encoder
     output or None, the number of prefix positions)."""
     x = _embed(params, tokens, cfg, ctx)
@@ -565,7 +656,7 @@ def _frontend_in(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     if frontend.dtype != x.dtype:  # torch does not promote mixed matmuls as jnp does
         raise ValueError(f"{cfg.name}: frame embeddings in {frontend.dtype}, the model in "
                          f"{x.dtype}")
-    return x, _encoder_fwd(params, frontend, cfg, kv_block), 0
+    return x, _encoder_fwd(params, frontend, cfg, kv_block, ctx, remat), 0
 
 
 def _cross_at(params: Params, where: Where, enc_out: Optional[torch.Tensor]):
@@ -578,45 +669,52 @@ def _cross_at(params: Params, where: Where, enc_out: Optional[torch.Tensor]):
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             frontend: Optional[torch.Tensor], kv_block: int,
-            block_provider: Optional[Callable[[Params], Params]], ctx: ShardCtx):
-    """The final-normed hidden states of the text positions and the aux loss."""
-    refuse_model_axis(cfg, ctx.model)
-    x, enc_out, n_prefix = _frontend_in(params, tokens, cfg, frontend, kv_block, ctx)
+            block_provider: Optional[Callable[[Params], Params]], ctx: ShardCtx,
+            remat: bool = False):
+    """The final-normed hidden states of the text positions and the aux
+    loss.  Each super-block of ``blocks`` (its ``block_provider`` call
+    included) is one checkpointed function under ``remat``."""
+    x, enc_out, n_prefix = _frontend_in(params, tokens, cfg, frontend, kv_block, ctx, remat)
     if not cfg.cross_attention:
         enc_out = None
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    [(pattern, n_super)], tail = layer_groups(cfg)
+
+    def block(s: int, x: torch.Tensor, aux: torch.Tensor):
+        leaves = {k: _stacked_at(g, s) for k, g in params["blocks"].items()}
+        if block_provider is not None:
+            leaves = block_provider(leaves)
+        for i, kind in enumerate(pattern):
+            where = Where("blocks", f"p{i}_{kind}", s, kind)
+            x, a, _ = _layer_fwd(where, leaves[where.key], x, cfg, positions, kv_block,
+                                 _cross_at(params, where, enc_out), ctx)
+            aux = aux + a
+        return x, aux
+
     aux = _zero(x)
-    block = (None, None)  # (super-block index, its provided leaves)
-    for where in layer_slots(cfg):
-        if block_provider is not None and where.part == "blocks":
-            if block[0] != where.s:
-                block = (where.s, block_provider(
-                    {k: _stacked_at(g, where.s) for k, g in params["blocks"].items()}))
-            p = block[1][where.key]
-        else:
-            p = layer_at(params, where)
-        x, a, _ = _layer_fwd(where, p, x, cfg, positions, kv_block,
-                             _cross_at(params, where, enc_out), ctx)
+    for s in range(n_super):
+        x, aux = _remat(lambda x, aux, s=s: block(s, x, aux), remat, x, aux)
+    for j, kind in enumerate(tail):
+        x, a, _ = _layer_fwd(Where("tail", j, None, kind), params["tail"][j], x, cfg, positions,
+                             kv_block, None, ctx)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, n_prefix:], aux
 
 
 def _head_parts(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx):
-    """The lm head's context and per-rank products: with V split (or
-    nothing) each rank's logits (B, S, V/M), with D split each rank's
-    partial logits (B, S, V)."""
-    split = ctx.modes(cfg).lm_head
-    c = _on(ctx, split is not None)
+    """The lm head's context and per-rank logits (B, S, V/M) with V split
+    (or the whole logits with nothing split)."""
+    c = _on(ctx, ctx.modes(cfg).lm_head is not None)
     xe = c.enter(x)
-    if split == 0:
-        return c, [c.split(c.local(xe), -1, k) @ c.shard(w, 0, k) for k in c.ranks()]
     return c, [c.local(xe) @ c.shard(w, 1, k) for k in c.ranks()]
 
 
 def _logits(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx) -> torch.Tensor:
+    if ctx.modes(cfg).lm_head == 0:  # D split: partial logits summed
+        return _row_parallel(x, w, True, ctx)
     c, parts = _head_parts(x, w, cfg, ctx)
-    return c.reduce(parts) if ctx.modes(cfg).lm_head == 0 else c.cat(parts, -1)
+    return c.cat(parts, -1)
 
 
 def _vocab_parallel_ce(parts, labels: torch.Tensor, mask, vl: int, ctx: ShardCtx):
@@ -643,7 +741,7 @@ def _vocab_parallel_ce(parts, labels: torch.Tensor, mask, vl: int, ctx: ShardCtx
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             frontend: Optional[torch.Tensor] = None, kv_block: int = 1024,
             block_provider: Optional[Callable[[Params], Params]] = None,
-            ctx: ShardCtx = NULL_CTX) -> Tuple[torch.Tensor, torch.Tensor]:
+            ctx: ShardCtx = NULL_CTX, remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward: tokens (B, S) -> (logits (B, S, V), aux loss);
     a vision prefix is stripped before the lm head.  Under a model axis
     the logits are whole on every rank.
@@ -651,20 +749,22 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ``block_provider`` (FSDP, :mod:`repro_torch.launch.steps`) maps one
     super-block of the ``blocks`` group, ``{key: {name: layer leaf}}``, to
     the leaves its layers run with (the gathered weights), once a
-    super-block, as the reference applies it inside its layer scan."""
-    x, aux = _hidden(params, tokens, cfg, frontend, kv_block, block_provider, ctx)
+    super-block, as the reference applies it inside its layer scan.
+    ``remat`` checkpoints each super-block and each encoder layer (module
+    docstring); it changes no bit of the result."""
+    x, aux = _hidden(params, tokens, cfg, frontend, kv_block, block_provider, ctx, remat)
     return _logits(x, params["lm_head"], cfg, ctx), aux
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             kv_block: int = 1024, aux_weight: float = 0.01,
             block_provider: Optional[Callable[[Params], Params]] = None,
-            ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+            ctx: ShardCtx = NULL_CTX, remat: bool = True) -> torch.Tensor:
     """Mean cross entropy plus ``aux_weight`` times the MoE aux loss; with
     the lm head split on V, a vocab-parallel cross entropy (no rank holds
-    the whole logits)."""
+    the whole logits).  ``remat`` as in :func:`forward`."""
     x, aux = _hidden(params, batch["tokens"], cfg, batch.get("frontend"), kv_block,
-                     block_provider, ctx)
+                     block_provider, ctx, remat)
     if ctx.modes(cfg).lm_head == 1:
         _, parts = _head_parts(x, params["lm_head"], cfg, ctx)
         ce = _vocab_parallel_ce(parts, batch["labels"], batch.get("mask"),
@@ -772,7 +872,9 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     Under a model axis (``ctx``) the layers run as in :func:`forward`; in
     ``heads`` mode each rank's cache holds its own kv heads (in process the
     ranks' heads side by side: the whole cache), ``kpos`` whole; the
-    logits are whole on every rank (:func:`_logits`).
+    ``ssm`` / ``rec`` states are whole on every rank; the logits are whole
+    on every rank (:func:`_logits`).  A frontend configuration refuses a
+    model axis (:func:`refuse_model_axis`).
 
     Audio: the encoder runs once and each super-block's cross keys and
     values go to ``cache["cross"]``.  Vision: as in the reference, the
@@ -872,31 +974,38 @@ def _attn_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
     if cross is not None:  # every encoder slot valid: kpos 0..t-1, pos 2^30
         ck, cp = cross
         t = ck["k"].shape[1]
-        oc = _cache_attention(_cross_q(cp, x, cfg), ck["k"], ck["v"],
+        oc = _cache_attention(_cross_q(cp, L.rms_norm(x, cp["ln1"], cfg.norm_eps), cfg),
+                              ck["k"], ck["v"],
                               torch.arange(t, dtype=torch.int32, device=x.device),
                               torch.full((), 2 ** 30, dtype=torch.int64, device=x.device), 0)
         x = x + oc.reshape(b, 1, cfg.n_heads * cfg.hd) @ cp["wo"]
     return _ffn(p, x, cfg, ctx)[0]
 
 
-def _ssm_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig) -> torch.Tensor:
+def _ssm_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
+                ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """One-token SSM step; updates the layer cache's conv window and state
-    in place."""
+    in place.  Under a model axis as :func:`_ssm_layer_fwd`: the state is
+    whole on every rank."""
+    p = _gather_in(p, cfg, ctx)
     z, xdt, xh, loga, bm, cm, conv_state = _ssm_in(p, x, cfg, lc["conv"])
     yh, state = ssm_lib.ssd_decode_step(lc["ssd"], xdt[:, 0], loga[:, 0], bm[:, 0], cm[:, 0])
     lc["conv"].copy_(conv_state)
     lc["ssd"].copy_(state)
-    return _ssm_out(p, x, yh[:, None], xh, z, cfg)
+    return _ssm_out(p, x, yh[:, None], xh, z, cfg, ctx)
 
 
-def _rec_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig) -> torch.Tensor:
-    """One-token recurrent step; updates the layer cache in place."""
+def _rec_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
+                ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    """One-token recurrent step; updates the layer cache in place (whole on
+    every rank under a model axis, as :func:`_rec_layer_fwd`)."""
+    p = _gather_in(p, cfg, ctx)
     bg, conv_out, conv_state = _rec_in(p, x, lc["conv"], cfg)
     r, h = rglru_lib.rglru_decode_step(lc["h"], conv_out, p["w_a"], p["b_a"], p["w_xg"],
                                        p["b_x"], p["lam"])
     lc["conv"].copy_(conv_state)
     lc["h"].copy_(h)
-    return _rec_out(p, x, r, bg, cfg)
+    return _rec_out(p, x, r, bg, cfg, ctx)
 
 
 def decode_step(params: Params, token: torch.Tensor, cache: Params, pos,
@@ -923,8 +1032,8 @@ def decode_step(params: Params, token: torch.Tensor, cache: Params, pos,
                          _stacked_at(params["cross_blocks"], where.s))
             x = _attn_decode(p, x, lc, cfg, pos, window, cross, ctx)
         elif where.kind == "ssm":
-            x = _ssm_decode(p, x, lc, cfg)
+            x = _ssm_decode(p, x, lc, cfg, ctx)
         else:
-            x = _rec_decode(p, x, lc, cfg)
+            x = _rec_decode(p, x, lc, cfg, ctx)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(x, params["lm_head"], cfg, ctx), cache

@@ -40,7 +40,10 @@ columns of the rows, (m, D_rank) in the ravel order of its leaves; its
 B1 / B2 launch aggregates those columns, which is bitwise its columns of
 one launch over the whole rows (the median and the trimmed mean are
 coordinate-wise); the update runs on its shards and the round's norm
-psums the split columns' squares over the model axis.  Snapshots hold the
+psums the split columns' squares over the model axis.  A leaf the layers
+gather (the ``ssm`` / ``rec`` in-projections, attention in ``gathered``
+mode) is split all the same: a rank's columns of it are its chunk of the
+whole gradient, in its ravel order.  Snapshots hold the
 global state, gathered over the model axis and written by global rank 0;
 a restore cuts each rank's shards, so a snapshot restores at any model
 size.  Randomized gradient attacks and the codecs read whole rows and do
@@ -105,8 +108,9 @@ def weighted_nll(params, cfg: ModelConfig, tokens, labels, weights,
     """Score-weighted next-token NLL over one shard's (B, L) batch;
     ``weights`` carry the feedback score on response positions (zero on
     prompt and padding).  Under a model axis (``ctx``) the forward runs on
-    the model shards and its logits are whole on every rank."""
-    logits, _aux = T.forward(params, tokens, cfg, kv_block=0, ctx=ctx)
+    the model shards and its logits are whole on every rank.  Nothing is
+    checkpointed, as in the reference's adapter (``remat=False``)."""
+    logits, _aux = T.forward(params, tokens, cfg, kv_block=0, ctx=ctx, remat=False)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     denom = torch.clamp(torch.sum(torch.abs(weights)), min=1.0)
@@ -233,12 +237,13 @@ def make_feedback_stages(cfg: ModelConfig, acfg: AdaptConfig, batch: Dict[str, t
         compress=compress, attack=attack, emit=emit)
 
 
-def refuse_model_axis(cfg: ModelConfig, acfg: AdaptConfig, model: int) -> None:
+def refuse_model_axis(acfg: AdaptConfig, model: int) -> None:
     """What an adaptation round does not run at model axis ``model`` > 1 yet:
-    ``NotImplementedError`` naming the ROADMAP item."""
+    ``NotImplementedError`` naming the ROADMAP item.  Every decoder runs
+    there, the ``ssm`` / ``rec`` families included (a frontend
+    configuration is refused before, by :func:`refuse_frontend`)."""
     if model == 1:
         return
-    T.refuse_model_axis(cfg, model)
     later = "is not ported yet (ROADMAP queue A item 6, step 7)"
     if acfg.compression != "none":
         raise NotImplementedError(
@@ -262,7 +267,7 @@ class RoundFn:
 
     def __init__(self, cfg: ModelConfig, acfg: AdaptConfig, mesh=None):
         refuse_frontend(cfg)
-        refuse_model_axis(cfg, acfg, mesh_lib.model_size(mesh) if mesh is not None else 1)
+        refuse_model_axis(acfg, mesh_lib.model_size(mesh) if mesh is not None else 1)
         self.cfg = cfg
         self.acfg = acfg
         self.opt = get_optimizer(acfg.optimizer, acfg.lr)

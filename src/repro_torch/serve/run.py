@@ -13,8 +13,9 @@ the running pool.  Runs on the card by default (``--device cuda``);
 ``--arch`` takes every decoder of ``repro_torch.configs``: the dense
 models, granite_moe_1b_a400m and grok_1_314b (MoE; grok at ``--smoke``
 only, its 316·10^9 parameters fit no card), mamba2_2_7b (SSM) and
-recurrentgemma_2b (hybrid RG-LRU).  ``--adapt-every 0`` disables
-adaptation (the serve-only baseline).  The
+recurrentgemma_2b (hybrid RG-LRU); whisper and internvl2 are not served
+(the reference's engine prefills without a frontend).  ``--adapt-every
+0`` disables adaptation (the serve-only baseline).  The
 last line prints ``final iterate sha256 = ...`` as ``fed/run.py`` does; two
 identical invocations print the same digest.
 
@@ -24,15 +25,15 @@ identical invocations print the same digest.
 (``make_production_mesh``): every rank serves the same stream and rank 0
 prints.  The worker axes spread no serving work (the slot pool is
 replicated over them, as the reference's).  ``--model-par`` > 1 is tensor
-parallelism: the engine, its pool and the adaptation rounds run on the
-model shards (on ``debug`` each layer's model ranks in turn on the global
-view; under a process group a rank holds its shards and its kv heads).
-The header names the mesh (``mesh={'data': 4, 'model': 2}``) and the
-sha256 is taken over the global iterate, so a run prints the same digest
-at every model size and on either mesh.  The mamba2 and recurrentgemma
-layers do not run on a model axis yet (ROADMAP queue A item 6, step 6).
-The reference's CI smoke command runs as it is, with ``--device cpu`` on
-the CPU::
+parallelism, for every decoder: the engine, its pool and the adaptation
+rounds run on the model shards (on ``debug`` each layer's model ranks in
+turn on the global view; under a process group a rank holds its shards
+and its kv heads; the mamba2 and recurrentgemma mixers run whole on every
+rank from their gathered in-projections, their states whole too).  The
+header names the mesh (``mesh={'data': 4, 'model': 2}``) and the sha256
+is taken over the global iterate, so a run prints the same digest at
+every model size and on either mesh.  The reference's CI smoke command
+runs as it is, with ``--device cpu`` on the CPU::
 
     PYTHONPATH=src python -m repro_torch.serve.run --device cpu --smoke \\
         --arch llama3_2_3b --workers 2 --model-par 1 --requests 24 \\
@@ -155,7 +156,6 @@ def _serve(args, mesh) -> None:
     dev = mesh.device
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     refuse_frontend(cfg)
-    T.refuse_model_axis(cfg, args.model_par)
     scfg = ServeConfig(slots=args.slots, prompt_len=args.prompt_len,
                        max_new=args.max_new, eos_id=args.eos_id, window=args.window)
     tcfg = TrafficConfig(

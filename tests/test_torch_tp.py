@@ -87,6 +87,10 @@ RANK_CELLS = {
     "qwen3_gather_tm_mimic": ("qwen3-14b", "float32", "gather", "trimmed_mean", "mimic"),
     "llama_bf16_bucketed_median_alie": ("llama3.2-3b", "bfloat16", "bucketed", "median",
                                         "alie"),
+    # a row-parallel out-projection after a whole mixer (ssm) and the
+    # encoder with cross-attention on each rank's kv heads (audio)
+    "mamba2_gather_median_alie": ("mamba2-2.7b", "float32", "gather", "median", "alie"),
+    "whisper_gather_tm_alie": ("whisper-small", "float32", "gather", "trimmed_mean", "alie"),
 }
 RANK_DATA = dict(seq_len=16, global_batch=4, num_workers=2, seed=0)
 CLI_ARGS = ["--config", "llama3.2-3b", "--smoke", "--device", "cpu", "--steps", "2",
@@ -100,12 +104,12 @@ GATHERED = {
                                         ("router", "wk", "wo", "wq", "wv")),
     ("llama3-405b", "full"): ((), (), ("wk", "wo", "wq", "wv")),
     ("llama3-405b", "smoke"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
-    ("mamba2-2.7b", "full"): ((), (), ()),
-    ("mamba2-2.7b", "smoke"): ((), (), ()),
+    ("mamba2-2.7b", "full"): (("w_in",),) * 3,
+    ("mamba2-2.7b", "smoke"): (("w_in",), ("w_in",), ()),
     ("whisper-small", "full"): ((), (), ("wk", "wo", "wq", "wv")),
     ("whisper-small", "smoke"): ((), (), ("wk", "wo", "wq", "wv")),
-    ("recurrentgemma-2b", "full"): (("wk", "wo", "wq", "wv"),) * 3,
-    ("recurrentgemma-2b", "smoke"): (("wk", "wo", "wq", "wv"),) * 3,
+    ("recurrentgemma-2b", "full"): (("w_a", "w_bg", "w_bx", "w_xg", "wk", "wo", "wq", "wv"),) * 3,
+    ("recurrentgemma-2b", "smoke"): (("w_a", "w_bg", "w_bx", "w_xg", "wk", "wo", "wq", "wv"),) * 3,
     ("llama3.2-3b", "full"): ((), (), ("wk", "wo", "wq", "wv")),
     ("llama3.2-3b", "smoke"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
     ("internvl2-1b", "full"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
@@ -414,26 +418,33 @@ def test_partition_specs_match_the_reference(arch, size, model):
 @pytest.mark.parametrize("arch,size", VARIANTS, ids=[f"{a}-{s}" for a, s in VARIANTS])
 def test_tp_plan_lists_the_gathered_leaves(arch, size):
     """``tp_plan``'s gathered leaves at model 2, 4 and 16: the attention
-    leaves where the split falls inside a kv head (kv % M != 0), the MoE
-    router wherever it is split; ``unported`` exactly the ssm / rec layers'
-    and the encoder / cross groups' split leaves; every other split leaf
-    computes on its shard."""
+    leaves where the split falls inside a kv head (kv % M != 0; the
+    encoder and cross groups by the encoder config's heads), the MoE
+    router wherever it is split, the ``ssm`` / ``rec`` in-projections
+    (the packed ``w_in``, the branch projections and the square gates);
+    every other split leaf (the row-parallel ``w_out`` / ``w_ro`` among
+    them) computes on its shard, and no mode is left unported."""
     cfg, _ = _configs(arch, size)
-    tail_kinds = T.layer_groups(cfg)[1]
+    enc = dataclasses.replace(cfg, moe=None, qk_norm=False)
     for model, want in zip(MODELS, GATHERED[(arch, size)]):
         plan = sharding.tp_plan(cfg, model)
         gathered = tuple(sorted({p.split("/")[-1] for p, (_, m) in plan.items()
                                  if m == "gathered"}))
         assert gathered == want, (model, gathered)
+        assert {m for _, m in plan.values()} <= {"shard", "gathered"}
         dims = dict(tree_leaves_with_path(sharding.tp_dims(cfg, model)))
         assert {p: d for p, (d, _) in plan.items()} == {p: d for p, d in dims.items() if d >= 0}
-        for path, (_, mode) in plan.items():
-            parts = path.split("/")
-            kind = (parts[1].split("_", 1)[1] if parts[0] == "blocks" else
-                    tail_kinds[int(parts[1])] if parts[0] == "tail" else None)
-            unported = parts[0] in ("enc_blocks", "cross_blocks") or kind in ("ssm", "rec")
-            assert (mode == "unported") == unported, (model, path, mode)
         modes = sharding.tp_modes(cfg, model)
+        for path, (_, mode) in plan.items():
+            name = path.split("/")[-1]
+            if name in ("w_in", "w_bx", "w_bg", "w_a", "w_xg"):
+                assert mode == "gathered" and name in modes.mixer_in, (model, path)
+            elif name in ("w_out", "w_ro"):
+                assert mode == "shard" and name in modes.mixer_out, (model, path)
+            elif path.split("/")[0] in ("enc_blocks", "cross_blocks") and name in (
+                    "wq", "wk", "wv", "wo"):
+                assert (mode == "gathered") == (sharding.tp_modes(enc, model).attn
+                                                == "gathered"), (model, path)
         heads = cfg.n_kv_heads % model == 0
         assert modes.attn in ((None,) if not modes.attn_split else
                               ("heads",) if heads else ("gathered",)), (model, modes)
@@ -533,9 +544,18 @@ def test_abstract_window_batches_and_state():
 
 FORWARD = [("llama3.2-3b", 2, {}), ("qwen3-14b", 2, {}), ("h2o-danube-1.8b", 2, {}),
            ("llama3-405b", 2, {}), ("granite-moe-1b-a400m", 2, {}),
-           ("granite-moe-1b-a400m", 2, {"vocab": 257}), ("grok-1-314b", 8, {})]
+           ("granite-moe-1b-a400m", 2, {"vocab": 257}), ("grok-1-314b", 8, {}),
+           ("mamba2-2.7b", 2, {}), ("mamba2-2.7b", 4, {}),
+           ("recurrentgemma-2b", 2, {}), ("recurrentgemma-2b", 4, {}),
+           ("whisper-small", 2, {}), ("whisper-small", 4, {}),
+           ("whisper-small", 2, {"vocab": 257}),
+           ("internvl2-1b", 2, {}), ("internvl2-1b", 4, {}),
+           ("internvl2-1b", 2, {"vocab": 257})]
 FORWARD_IDS = ["llama3.2", "qwen3-gathered", "danube", "llama3-405b", "granite-experts",
-               "granite-dsplit", "grok-m8-hidden-gathered"]
+               "granite-dsplit", "grok-m8-hidden-gathered", "mamba2-ssm", "mamba2-m4",
+               "recurrentgemma-rec", "recurrentgemma-m4", "whisper-audio-heads",
+               "whisper-m4-heads", "whisper-dsplit", "internvl2-vision-heads",
+               "internvl2-m4-gathered", "internvl2-dsplit"]
 
 
 @pytest.mark.parametrize("arch,model,over", FORWARD, ids=FORWARD_IDS)
@@ -543,9 +563,15 @@ def test_forward_and_gradients_on_the_shards_match_the_reference(arch, model, ov
     """In-process model M (every rank of a layer in turn, from chunks of the
     global view) against the reference's model-1 forward, f32: logits,
     aux, loss and every gradient leaf.  granite with vocab 257 (odd, as
-    its published 49155) splits embed and lm_head on d_model; grok-smoke's
-    4 experts cannot split 8 ways (its experts split on F) and its kv = 2
-    heads are gathered."""
+    its published 49155) splits embed and lm_head on d_model, as do
+    whisper and internvl2 at 257 (their published 51865 and 151655 are
+    odd); grok-smoke's 4 experts cannot split 8 ways (its experts split on
+    F) and its kv = 2 heads are gathered.  mamba2 and recurrentgemma run
+    their mixers from gathered in-projections with row-parallel
+    out-projections; whisper's encoder and cross-attention split on their
+    kv heads (one a rank at model 4), internvl2's patch prefix rides the
+    whole embedding (its kv = 2 heads gathered at model 4).  The frontend
+    (frames or patches, f32 standard normals) goes to both packages."""
     import jax
     import jax.numpy as jnp
 
@@ -559,11 +585,16 @@ def test_forward_and_gradients_on_the_shards_match_the_reference(arch, model, ov
     rng_ = np.random.default_rng(7)
     tok = rng_.integers(0, rc.vocab, (2, 12)).astype(np.int32)
     lab = rng_.integers(0, rc.vocab, (2, 12)).astype(np.int32)
-    want, want_aux = RT.forward(rp, jnp.asarray(tok), rc, remat=False, kv_block=0)
-    got, aux = T.forward(pp, torch.from_numpy(tok), pc, kv_block=0, ctx=ctx)
+    batch = {"tokens": tok, "labels": lab}
+    if pc.frontend != "none":
+        batch["frontend"] = rng_.standard_normal((2, pc.n_frontend_tokens, pc.d_model)).astype(
+            np.float32)
+    rfe = jnp.asarray(batch["frontend"]) if "frontend" in batch else None
+    pfe = torch.from_numpy(batch["frontend"]) if "frontend" in batch else None
+    want, want_aux = RT.forward(rp, jnp.asarray(tok), rc, frontend=rfe, remat=False, kv_block=0)
+    got, aux = T.forward(pp, torch.from_numpy(tok), pc, frontend=pfe, kv_block=0, ctx=ctx)
     np.testing.assert_allclose(_numpy(got), np.asarray(want), atol=FWD_TOL, rtol=0)
     np.testing.assert_allclose(float(aux), float(want_aux), atol=FWD_TOL, rtol=0)
-    batch = {"tokens": tok, "labels": lab}
     rloss, rgrad = jax.value_and_grad(
         lambda p: RT.loss_fn(p, {k: jnp.asarray(v) for k, v in batch.items()}, rc,
                              remat=False, kv_block=0))(rp)
@@ -573,7 +604,9 @@ def test_forward_and_gradients_on_the_shards_match_the_reference(arch, model, ov
     loss = T.loss_fn(req, {k: torch.from_numpy(v) for k, v in batch.items()}, pc, kv_block=0,
                      ctx=ctx)
     np.testing.assert_allclose(float(loss.detach()), float(rloss), atol=FWD_TOL, rtol=0)
-    grads = torch.autograd.grad(loss, leaves)
+    # whisper's cross FFN leaves are read by no computation: exactly 0, as JAX gives
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(torch.autograd.grad(loss, leaves, allow_unused=True), leaves)]
     want_g = _ref_leaves(rgrad)
     for (path, _), g in zip(tree_leaves_with_path(pp), grads):
         w = np.asarray(want_g[path])
@@ -811,16 +844,27 @@ def test_leaf_global_attack_sums_cover_every_model_shard():
 
 
 def test_the_model_axis_refusals():
+    """What the model axis does not run names its ROADMAP step; every
+    configuration trains on it (the ssm / rec families and the frontends
+    since step 6), and only the serving entry points of a frontend
+    configuration refuse it (step 8)."""
     tp = mesh_lib.make_debug_mesh(2, 2, device="cpu")
     cfg, opt = _tiny(), get_optimizer("adamw", 1e-3)
     smoke = configs.get_smoke_config
-    for arch, what in (("mamba2-2.7b", "ssm layers"), ("recurrentgemma-2b", "rec layers"),
-                       ("whisper-small", "audio frontend"), ("internvl2-1b", "vision frontend")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*step 6"):
-            steps.make_step_body(smoke(arch), ParallelConfig(), tp, opt)
-        with pytest.raises(NotImplementedError, match="step 6"):
-            T.forward(T.init_params(smoke(arch), 0, "cpu"), torch.zeros((1, 4), dtype=torch.long),
-                      smoke(arch), ctx=sharding.model_ctx(tp))
+    for arch in ("mamba2-2.7b", "recurrentgemma-2b", "whisper-small", "internvl2-1b"):
+        steps.make_step_body(smoke(arch), ParallelConfig(), tp, opt)
+        c = smoke(arch)
+        fe = (None if c.frontend == "none" else
+              torch.zeros((1, c.n_frontend_tokens, c.d_model), dtype=getattr(torch, c.dtype)))
+        logits, _ = T.forward(T.init_params(c, 0, "cpu"), torch.zeros((1, 4), dtype=torch.long),
+                              c, frontend=fe, ctx=sharding.model_ctx(tp))
+        assert logits.shape == (1, 4, c.vocab) and bool(torch.isfinite(logits).all())
+        if fe is not None:
+            with pytest.raises(NotImplementedError, match="frontend.*step 8"):
+                T.prefill(T.init_params(c, 0, "cpu"), torch.zeros((1, 4), dtype=torch.long), c,
+                          frontend=fe, ctx=sharding.model_ctx(tp))
+            with pytest.raises(NotImplementedError, match="frontend.*step 8"):
+                steps.make_decode_step(c, tp)
     for pcfg, what in ((ParallelConfig(param_mode="fsdp"), "fsdp"),
                        (ParallelConfig(seq_parallel=True), "seq_parallel"),
                        (ParallelConfig(compression="int8"), "compression")):
@@ -835,7 +879,7 @@ def test_the_model_axis_refusals():
     steps.make_step_body(cfg, ParallelConfig(agg_strategy="gather"), tp, opt,
                          AttackConfig("mimic", 0.25))
     # serving (step 5) is ported: the steps, the engine and the CLI run at
-    # model 2, and serve what model 1 serves; the ssm / rec layers refuse
+    # model 2, and serve what model 1 serves
     from repro_torch.serve import run as serve_run
     from repro_torch.serve.engine import ServeConfig, ServeEngine, serve_stream
     from repro_torch.serve.traffic import TrafficConfig, VirtualUsers
@@ -860,8 +904,9 @@ def test_the_model_axis_refusals():
     assert served[2] == served[1] and len(served[2]) == 4
     assert serve_run.main(["--device", "cpu", "--smoke", "--model-par", "2", "--requests", "4",
                            "--adapt-every", "0"]) == 0
-    with pytest.raises(NotImplementedError, match="ssm layers.*step 6"):
-        steps.make_decode_pool_step(smoke("mamba2-2.7b"), tp)
+    for arch in ("mamba2-2.7b", "recurrentgemma-2b"):  # step 6: the ssm / rec layers serve
+        steps.make_decode_pool_step(smoke(arch), tp)
+        steps.make_slot_prefill_step(smoke(arch), 16, tp)
 
 
 # ---------------------------------------------------------------------------

@@ -73,13 +73,17 @@ SCFG = ServeConfig(slots=3, prompt_len=8, max_new=6, window=16)
 # MoE with the lm head split on V (granite) or, at an odd vocab, on d_model
 # (its partial logits summed), gathered attention (qwen3-smoke's one kv
 # head) and the ring cache of a sliding window (h2o-danube-smoke's 16,
-# crossed by a 12-token prompt and 10 new tokens)
+# crossed by a 12-token prompt and 10 new tokens); the SSD mixer (mamba2)
+# and the RG-LRU hybrid (recurrentgemma) whole on every rank from gathered
+# in-projections, their out-projections row-parallel
 REF_CASES = {
     "llama": ("llama3.2-3b", {}),
     "granite": ("granite-moe-1b-a400m", {}),
     "granite_odd_vocab": ("granite-moe-1b-a400m", {"vocab": 257}),
     "qwen3_gathered": ("qwen3-14b", {}),
     "danube_ring": ("h2o-danube-1.8b", {}),
+    "mamba2_ssm": ("mamba2-2.7b", {}),
+    "recurrentgemma_rec": ("recurrentgemma-2b", {}),
 }
 REF_PROMPT, REF_NEW = {"danube_ring": (12, 10)}, (8, 6)
 SERVE_CI = ["--device", "cpu", "--smoke", "--arch", "llama3_2_3b", "--workers", "2",
@@ -261,6 +265,10 @@ def jobs(mesh, outdir, tag):
     done = serve_stream(ServeEngine(cfg, SCFG, _params(cfg), mesh), _stream_reqs(cfg))
     for rid, toks in _responses(done).items():
         out[f"tokens/{rid}"] = np.asarray(toks)
+    mamba = _cfg("mamba2-2.7b")  # a row-parallel w_out after the whole SSD mixer
+    done = serve_stream(ServeEngine(mamba, SCFG, _params(mamba), mesh), _stream_reqs(mamba))
+    for rid, toks in _responses(done).items():
+        out[f"mamba_tokens/{rid}"] = np.asarray(toks)
     fn = RoundFn(cfg, AdaptConfig(method="median", batch_per_shard=1), mesh)
     state = init_adapt_state(fn.shards.cut(_params(cfg)) if fn.shards.per_rank
                              else _params(cfg), fn.acfg, 4)
@@ -464,7 +472,8 @@ def test_model_two_cache_holds_each_rank_s_kv_heads():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-1b-a400m", "mamba2-2.7b",
+                                  "recurrentgemma-2b"])
 def test_engine_tokens_and_slot_count_invariance_at_model_two(arch):
     """The engine at (2, 2) serves model 1's tokens (f32, the top-2 rule
     against model 1's teacher-forced logits), the same bitwise on 1 and 3
@@ -616,7 +625,8 @@ def test_cli_end_to_end_two_workers(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-1b-a400m", "mamba2-2.7b",
+                                  "recurrentgemma-2b"])
 def test_shim_serves_at_data_four_model_two(arch):
     """``python -m repro_torch.launch.serve --arch <arch> --smoke`` with the
     reference's defaults (the debug mesh, 4 workers, model 2) serves every
@@ -630,19 +640,18 @@ def test_shim_serves_at_data_four_model_two(arch):
 
 
 def test_the_serving_refusals():
-    """mamba2 and recurrentgemma at model 2 raise naming step 6 (the steps,
-    the engine, both CLIs); codecs and randomized gradient attacks raise
-    naming step 7; whisper and internvl2 keep their ValueError."""
+    """mamba2 and recurrentgemma at model 2 build every serving piece (the
+    steps, the engine, the round function; both CLIs serve them: the shim
+    in test_shim_serves_at_data_four_model_two); codecs and randomized
+    gradient attacks raise naming step 7; whisper and internvl2 keep their
+    ValueError, and their prefill / decode steps at model 2 name step 8."""
     mesh = _mesh(2, 2)
-    for arch, what in (("mamba2-2.7b", "ssm"), ("recurrentgemma-2b", "rec")):
+    for arch in ("mamba2-2.7b", "recurrentgemma-2b"):
         cfg = configs.get_smoke_config(arch)
-        for make in (lambda: steps.make_slot_prefill_step(cfg, 16, mesh),
-                     lambda: steps.make_decode_pool_step(cfg, mesh),
-                     lambda: ServeEngine(cfg, SCFG, _params(cfg), mesh),
-                     lambda: RoundFn(cfg, AdaptConfig(), mesh),
-                     lambda: launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu"])):
-            with pytest.raises(NotImplementedError, match=f"{what} layers.*step 6"):
-                make()
+        steps.make_slot_prefill_step(cfg, 16, mesh)
+        steps.make_decode_pool_step(cfg, mesh)
+        ServeEngine(cfg, SCFG, _params(cfg), mesh)
+        RoundFn(cfg, AdaptConfig(), mesh)
     cfg = _cfg()
     with pytest.raises(NotImplementedError, match="compression.*step 7"):
         RoundFn(cfg, AdaptConfig(compression="int8"), mesh)
@@ -656,6 +665,11 @@ def test_the_serving_refusals():
             ServeEngine(cfg, SCFG, _params(cfg), mesh)
         with pytest.raises(ValueError, match="frontend cannot be served"):
             RoundFn(cfg, AdaptConfig(), mesh)
+        for make in (lambda: steps.make_slot_prefill_step(cfg, 16, mesh),
+                     lambda: steps.make_decode_pool_step(cfg, mesh),
+                     lambda: steps.make_prefill_step(cfg, mesh=mesh)):
+            with pytest.raises(NotImplementedError, match="frontend.*step 8"):
+                make()
 
 
 def test_leaf_global_attack_at_model_two():
@@ -685,14 +699,16 @@ def _bits_equal(a, b):
 
 
 def test_gloo_ranks_serve_the_in_process_tokens(procs, in_process):
-    """Every rank serves the in-process (2, 2) engine's tokens; the batch
-    prefill and decode steps give a rank its block of rows (whole logits)
-    and its kv heads of the cache, bitwise the in-process run's."""
+    """Every rank serves the in-process (2, 2) engine's tokens, llama's and
+    mamba2's; the batch prefill and decode steps give a rank its block of
+    rows (whole logits) and its kv heads of the cache, bitwise the
+    in-process run's."""
     outs, _ = procs()
     ip, _ = in_process
     for out in outs.values():
-        keys = [k for k in ip if k.startswith("tokens/")]
-        assert keys and all(np.array_equal(out[k], ip[k]) for k in keys)
+        for prefix in ("tokens/", "mamba_tokens/"):
+            keys = [k for k in ip if k.startswith(prefix)]
+            assert keys and all(np.array_equal(out[k], ip[k]) for k in keys), prefix
         w, k = int(out["data_rank"]), int(out["model_rank"])
         assert _bits_equal(out["decode_logits"], ip["decode_logits"][2 * w:2 * w + 2])
         kv = ip["cache_k"].shape[-2] // 2

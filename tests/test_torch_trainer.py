@@ -333,10 +333,9 @@ def test_rejections():
         steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), tp, opt)
     with pytest.raises(NotImplementedError, match="seq_parallel.*step 7"):
         steps.make_step_body(cfg, ParallelConfig(seq_parallel=True), tp, opt)
-    with pytest.raises(NotImplementedError, match="ssm layers.*step 6"):
-        steps.make_step_body(configs.get_smoke_config("mamba2-2.7b"), ParallelConfig(), tp, opt)
-    with pytest.raises(NotImplementedError, match="frontend.*step 6"):
-        steps.make_step_body(configs.get_smoke_config("whisper-small"), ParallelConfig(), tp, opt)
+    # the ssm / rec layers and the frontends train on it (step 6)
+    steps.make_step_body(configs.get_smoke_config("mamba2-2.7b"), ParallelConfig(), tp, opt)
+    steps.make_step_body(configs.get_smoke_config("whisper-small"), ParallelConfig(), tp, opt)
     with pytest.raises(ValueError, match="randomized"):  # fsdp: no per-step attack key
         steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), mesh, opt,
                              AttackConfig("gauss", 0.25))
@@ -356,8 +355,12 @@ def test_rejections():
         sb.body(params, opt.init(params), {k: v[0] for k, v in trainer.stack_window_batches(
             pipeline.DataConfig(**DATA), 0, 1, mesh).items()}, 0, 0)
     for arch in ("recurrentgemma-2b", "internvl2-1b"):  # rec layers; a frontend
-        with pytest.raises(NotImplementedError, match="step 6"):
-            train.main(["--config", arch, "--smoke", "--device", "cpu", "--model-par", "2"])
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            assert train.main(["--config", arch, "--smoke", "--device", "cpu", "--model-par",
+                               "2", "--steps", "2", "--seq-len", "16", "--global-batch",
+                               "4"]) == 0
+        assert "'model': 2}" in buf.getvalue() and "done: 2 steps" in buf.getvalue()
 
 
 def test_hierarchical_window_on_pods():
