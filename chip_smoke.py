@@ -64,7 +64,8 @@ Phases (any failure exits non-zero before the final line):
 6. the federated path: ``fed.rounds.run_rounds`` at benchmarks/fed_scale.py's
    configuration (200,000 clients, cohorts of 100,000 in chunks of 512,
    d=32, n=16, 512 bins, sign_flip alpha=0.1 scale 100, beta=0.15, lr 0.3,
-   sgd, 30 rounds) for approx_median, approx_trimmed_mean and stream_mean.
+   sgd, cut to 20 rounds) for approx_median, approx_trimmed_mean and
+   stream_mean.
    The launch counters are zeroed before each method and read after it:
    196 min/max and 196 histogram launches per round for the robust
    methods, none for the mean.  Robust ||w - w*|| < 0.5, the mean's more
@@ -159,7 +160,8 @@ Phases (any failure exits non-zero before the final line):
    against CPU as 14a (tokens, logits within 1e-5, one round; the round's
    B1 bitwise its plain version); (b) three full-width cells in bf16 from
    a seed, phase 14b's traffic and adaptation: granite-moe-1b-a400m at all
-   24 layers (D = 1,384,963,072; median, trimmed mean beta 0.25),
+   24 layers (D = 1,384,963,072; median: its trimmed-mean run went when
+   phase 23 took its time),
    mamba2-2.7b at 32 of 64 layers with 272-token prompts (D =
    1,544,194,048; the prefill crosses the 256-token SSD chunk) and
    recurrentgemma-2b at 5 of 26 layers (D = 1,751,221,760; median), each
@@ -323,9 +325,33 @@ Phases (any failure exits non-zero before the final line):
    the B1 launches equal, the remat runs' launches held bitwise, each
    run's step ms and peak memory; (e) the bytes a rank holds of
    mamba2-2.7b at 64 layers and recurrentgemma-2b at 26 at (data 4,
-   model 2) and model 1 (params, pool, rows), computed from the shapes.
+   model 2) and model 1 (params, pool, rows), computed from the shapes;
+23. the rest of the reference's step on the model axis (in process at
+   make_debug_mesh(4, 2): NCCL refuses two ranks on one GPU, so the gloo
+   tests carry the process group): (a) fsdp and (b) seq_parallel on 15b's
+   cell (gather median under alie, AdamW 1e-4, remat off), one window of 4
+   steps each, bitwise a replicated model-2 median run's first window (the
+   loss, every step's aggregation inputs as per-worker multiset digests,
+   the params after it): for 23a 20b's, for 23b one with the block norms
+   in seq_parallel's per-rank form; every aggregation call held bitwise
+   on its rows, the step's split with the model-axis sums (23a also a
+   profile: launches, busy); (c) int8 and count_sketch through
+   make_train_step and topk through the trainer's window, 4 steps each at
+   15b's widths cut to 2 layers, every worker's codec call held against a
+   rerun of the codec on the same rows and generator state (run first, by
+   digest); (d) gauss alpha 0.25, 4 steps at 2 layers, every payload
+   bitwise a rerun of the draw; (e) the feedback adapter on 21c's
+   granite-moe cell cut to 4 layers with int8 and with gauss alpha 0.25,
+   24 requests, >= 1 round each, each round's decoded or attacked (4, D)
+   rows bitwise a rerun of the model-1 function and its B1 launch bitwise
+   its plain version on them (in process the model-2 codec call and draw
+   are model 1's on whole rows, so (c)-(e) hold the card's determinism,
+   which each model rank of a process group needs; the gather / cut / whole
+   draw over the model axis is held by the gloo tests); (f) the bytes a rank holds of
+   llama3.2-3b at 28 layers under fsdp × TP, fsdp and TP, and the residual
+   stream with and without seq_parallel at train_4k, computed.
 The launch counters are zeroed before each of phases 8-13, each run of
-phase 14b, 15b, 16b, 18b, 19b, 20b, 20c, 21b, 21c, 22b, 22c and 22d, phases 15c, 19a, 19c and 20e, each 16d
+phase 14b, 15b, 16b, 18b, 19b, 20b, 20c, 21b, 21c, 22b, 22c, 22d and 23a-23e, phases 15c, 19a, 19c and 20e, each 16d
 and 18d run and each call (17a), round (17b) or set of calls (17d) of phase
 17, and read after; the kernels line gives each kernel's launches on them
 (``launches_new_paths``).
@@ -334,7 +360,7 @@ In phases 4, 6, 8-13, 15c, 17, 18, 19 and 20e the inputs each kernel wrapper get
 recorded, and after the path's counts were read each kernel is run again on
 them and held against its plain version, bitwise (PathInputs); a kernel that
 launched on a path and was not held fails.  Phase 20's model-2 runs and
-phase 22's hold every launch's output against the plain version on that
+phases 22's and 23's hold every launch's output against the plain version on that
 launch's own rows instead (HeldAggregation; a recorded copy of the rows does
 not fit beside them).  Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1335,7 +1361,8 @@ def sketch_timings(dev, card: str):
 FED_POP = dict(num_clients=200_000, samples_per_client=16, dim=32, alpha=0.1, seed=0)
 FED_ROUNDS = dict(cohort_size=100_000, chunk_clients=512, beta=0.15, nbins=512, lr=0.3,
                   optimizer="sgd", seed=0)
-FED_NUM_ROUNDS = 30
+FED_NUM_ROUNDS = 30  # phase 12's async rounds
+FED_PATH_ROUNDS = 20  # phase 6's (30 before phase 23 took its time)
 FED_METHODS = ("approx_median", "approx_trimmed_mean", "stream_mean")
 
 
@@ -1362,7 +1389,7 @@ def fed_path(dev):
     total = {"minmax": 0, "histogram": 0}
     errs = {}
     for method in FED_METHODS:
-        rcfg = RoundConfig(num_rounds=FED_NUM_ROUNDS, method=method, **FED_ROUNDS)
+        rcfg = RoundConfig(num_rounds=FED_PATH_ROUNDS, method=method, **FED_ROUNDS)
         torch.cuda.synchronize()
         H.reset_launches()  # zeroed just before this method's run
         t0 = time.perf_counter()
@@ -1371,18 +1398,18 @@ def fed_path(dev):
         dt = time.perf_counter() - t0
         launches = dict(H.LAUNCHES)  # read just after it
         errs[method] = hist[-1]["err"]
-        print(json.dumps({"fed_run": method, "rounds": FED_NUM_ROUNDS,
-                          "rounds_per_s": FED_NUM_ROUNDS / dt, "seconds": dt,
+        print(json.dumps({"fed_run": method, "rounds": FED_PATH_ROUNDS,
+                          "rounds_per_s": FED_PATH_ROUNDS / dt, "seconds": dt,
                           "err_first": hist[0]["err"], "err_final": errs[method],
                           "launches": launches}))
         check(all(math.isfinite(h["err"]) for h in hist) or method == "stream_mean",
               f"fed {method}: non-finite err")
-        want = 0 if method == "stream_mean" else chunks * FED_NUM_ROUNDS
+        want = 0 if method == "stream_mean" else chunks * FED_PATH_ROUNDS
         for k in total:
             check(launches[k] == want, f"fed {method}: {launches[k]} {k} launches, want {want} "
                                        f"({chunks} per round)")
             total[k] += launches[k]
-    print(f"phase 6: ||w - w*|| after {FED_NUM_ROUNDS} rounds: "
+    print(f"phase 6: ||w - w*|| after {FED_PATH_ROUNDS} rounds: "
           + ", ".join(f"{m} {errs[m]:.4f}" for m in FED_METHODS))
     for m in ("approx_median", "approx_trimmed_mean"):
         check(errs[m] < 0.5, f"fed {m} is BROKEN: ||w - w*|| = {errs[m]}")
@@ -3260,7 +3287,9 @@ def training(dev, card: str, on_path):
 # stream instead, for the tick's readings.
 FAMILY_SMOKE = ("granite_moe_1b_a400m", "grok_1_314b", "mamba2_2_7b", "recurrentgemma_2b")
 FAMILY_CELLS = (  # (config, layers, D, prompt length, runs)
-    ("granite_moe_1b_a400m", 24, 1_384_963_072, 16, ("median", "trimmed_mean")),
+    # the median run only (its trimmed-mean run went to pay for phase 23;
+    # B2 runs on 14b's, 15b's and 20b's paths)
+    ("granite_moe_1b_a400m", 24, 1_384_963_072, 16, ("median",)),
     ("mamba2_2_7b", 32, 1_544_194_048, 272, ("median",)),
     ("recurrentgemma_2b", 5, 1_751_221_760, 16, ("median",)))
 FAMILY_TICKS = 2
@@ -4755,6 +4784,9 @@ def tp_run(dev, card: str, cfg, model: int, method: str, steps_n: int, ds: int, 
 
     run = f"model {model} gather/{method}/alie"
     mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, model, device=dev)
+    # 20b's median run at model 2 is phase 23a/b's reference: its first
+    # window's loss, its aggregation inputs' digests and params after it
+    ref23 = label == "20b" and model == TP_MODEL and method == "median"
     dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
     tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=steps_n, device_steps=ds)
     pcfg = ParallelConfig(agg_method=method, agg_strategy="gather", agg_beta=TRAIN_BETA,
@@ -4766,15 +4798,28 @@ def tp_run(dev, card: str, cfg, model: int, method: str, steps_n: int, ds: int, 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()  # zeroed just before this run
-    undo = sync_free_windows()
+    undo = [sync_free_windows()]
+    holder, digests, on_window = {}, [], None
+    if ref23:
+        undo += [window_state(holder), digest_calls(digests)]
+
+        def on_window(w, met):
+            if w == 0:
+                TP23_REF["params"] = [t.cpu() for t in tree_leaves(holder["state"]["params"])]
     t0 = time.perf_counter()
     try:
         with HeldAggregation(dev, hold=lambda c: tp,
                              keep=lambda c: tp and detail and method == "median"
                              and c == steps_n - 1) as held:
-            result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk)
+            result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk,
+                                        on_window=on_window)
     finally:
-        undo()
+        for u in reversed(undo):
+            u()
+    if ref23:
+        TP23_REF.update(loss=result.history[0]["loss"],
+                        digests=step_digests(digests, steps_n, ds),
+                        grad_norm=result.history[0]["grad_norm"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()  # read just after it
@@ -5674,6 +5719,609 @@ def tp_families(dev, card: str, served, firsts):
     return out
 
 
+# ------------------ phase 23: fsdp × tensor parallelism, sequence parallelism,
+# the codecs and randomized attacks on the model axis
+#
+# Everything runs in process at make_debug_mesh(4, 2), each layer's two
+# model ranks in turn on the one card: NCCL refuses two ranks on one GPU,
+# so the process group (data 2, model 2) is carried by the gloo tests
+# (tests/test_torch_tp_fsdp.py, test_torch_seq_parallel.py,
+# test_torch_tp_codecs.py).  (a) fsdp and (b) seq_parallel on 15b's cell
+# (llama3.2-3b widths, 8 of 28 layers, bf16, m = 4, batch 8, seq 128,
+# AdamW 1e-4, gather median under alie 0.25, remat off), one window of 4
+# steps each, held bitwise against 20b's model-2 median run's first window
+# (TP23_REF); (c) the codecs and (d) gauss at 15b's widths cut to
+# CODEC23_LAYERS layers (the codec's and the noise's full-width f32
+# temporaries beside the step's buffers: see PERF.md section 4); (e) the
+# adapter at (4, 2) on 21c's granite-moe cell cut to ADAPT23_LAYERS layers
+# (the (4, D) f32 rows with int8's and gauss's temporaries do not fit at
+# 21b's llama width); (f) per-rank bytes from the shapes.
+
+TP23_REF = {}  # filled by 20b's median model-2 run
+TP23_STEPS = 4  # one window, 20b's first
+CODEC23_LAYERS, CODEC23_D = 2, 989_346_816
+CODEC23_RUNS = ("int8", "count_sketch", "topk")
+ADAPT23_LAYERS, ADAPT23_D = 4, 314_719_232
+ADAPT23_REQUESTS = 24
+ADAPT23_RUNS = (("int8", dict(compression="int8")),
+                ("gauss", dict(grad_attack="gauss", grad_alpha=TRAIN_ALPHA)))
+
+
+def digest_calls(out: list):
+    """Patch ``aggregators.aggregate_leaves`` so that each call appends its
+    inputs' per-row multiset digest to ``out``: each row's sum of its elements' bit patterns (as signed
+    integers of the element's width) and of their wrapped squares, over
+    every leaf of the call, (m, 2) int64 on the card.  Integer sums do not
+    depend on the order of the columns, so two layouts of the same rows (a
+    reduce-scatter's buckets, a gather's leaves) digest alike.  Returns
+    the undo."""
+    import torch
+
+    from repro_torch.core import aggregators
+
+    real = aggregators.aggregate_leaves
+
+    def digested(leaves, method, beta=0.1):
+        total = None
+        for x in leaves:
+            m = x.shape[0]
+            v = x.reshape(m, -1).view({2: torch.int16, 4: torch.int32}[x.element_size()])
+            # 16 column blocks: a sum widens its block to int64 first
+            for b in torch.tensor_split(v, 16, dim=1):
+                d = torch.stack([b.sum(dim=1), (b * b).sum(dim=1)], dim=1)
+                total = d if total is None else total + d
+        out.append(total)
+        return real(leaves, method, beta)
+
+    aggregators.aggregate_leaves = digested
+    return lambda: setattr(aggregators, "aggregate_leaves", real)
+
+
+def step_digests(calls: list, steps_n: int, keep: int) -> list:
+    """The first ``keep`` steps' digests (host) of a run of ``steps_n``
+    steps, each step's calls summed (the calls split evenly over the
+    steps: the runs here make the same calls every step)."""
+    check(len(calls) % steps_n == 0 and calls, f"{len(calls)} aggregation calls in "
+                                               f"{steps_n} steps")
+    per = len(calls) // steps_n
+    return [sum(calls[i * per + j] for j in range(per)).cpu() for i in range(keep)]
+
+
+def tp23_train(dev, card: str, mode: str, seq_parallel: bool, label: str, ref: dict):
+    """Phase 23a / 23b: 15b's cell at make_debug_mesh(4, 2) with ``mode`` and
+    ``seq_parallel``, TP23_STEPS steps in one window under the sync-debug
+    "error" mode, the counters zeroed just before and read just after;
+    every aggregation call held bitwise against its plain version on its
+    own rows and digested; the window's loss, the digests and the params
+    after it held bitwise against ``ref`` (23a: 20b's median model-2 run,
+    TP23_REF; 23b: :func:`tp23_rows_reference`).  Then one more step (not
+    kept) timed with its split and the model-axis sums
+    (:func:`tp_step_split`), and for 23a a profile of it.  Returns the
+    launches."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import select_codegen
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, trainer
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.tree import tree_leaves
+
+    cfg = serve_cfg(tiny=False)
+    run = f"{mode} seq_parallel={seq_parallel}"
+    check(ref.get("params") is not None, f"{label}: {ref.get('name')}: the reference is missing")
+    mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, TP_MODEL, device=dev)
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=TP23_STEPS, device_steps=TP_DS)
+    pcfg = ParallelConfig(agg_method="median", agg_strategy="gather", agg_beta=TRAIN_BETA,
+                          param_mode=mode, seq_parallel=seq_parallel, remat=False,
+                          attn_chunk=0)
+    atk = AttackConfig("alie", TRAIN_ALPHA)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    digests = []
+    _reset_launches()  # zeroed just before this run
+    undo = [sync_free_windows(), digest_calls(digests)]
+    t0 = time.perf_counter()
+    try:
+        with HeldAggregation(dev) as held:
+            result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk)
+    finally:
+        for u in reversed(undo):
+            u()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()  # read just after it
+    peak = torch.cuda.max_memory_allocated()
+    pieces = fsdp_pieces(cfg, mesh) if mode == "fsdp" else len(tree_leaves(
+        result.state["params"]))
+    per_step = math.ceil(pieces / select_codegen.MAX_LEAVES)
+    check(held.held == held.calls == len(digests) == TP23_STEPS,
+          f"{label} {run}: {held.held} of {held.calls} aggregation calls held, "
+          f"{len(digests)} digested")
+    check(launches["median"] == TP23_STEPS * per_step and all(
+        v == 0 for k, v in launches.items() if k != "median"),
+        f"{label} {run}: launches {launches}, want {per_step} a step over {pieces} leaves")
+    got = step_digests(digests, TP23_STEPS, TP23_STEPS)
+    same_inputs = all(torch.equal(a, b) for a, b in zip(got, ref["digests"]))
+    mism = sum(int((a != b.to(dev)).sum()) for a, b in
+               zip(tree_leaves(result.state["params"]), ref["params"]))
+    loss = result.history[0]["loss"]
+    check(loss == ref["loss"] and same_inputs and mism == 0,
+          f"{label} {run}: against {ref['name']}: loss {loss} / {ref['loss']}, "
+          f"aggregation inputs {same_inputs}, {mism} parameter mismatches")
+    if seq_parallel:
+        check(result.history[0]["grad_norm"] == ref["grad_norm"],
+              f"{label}: grad norm {result.history[0]['grad_norm']} / {ref['grad_norm']}")
+    batch = {k: v[0] for k, v in trainer.stack_window_batches(
+        dcfg, TP23_STEPS, 1, mesh, atk, cfg).items()}
+    split = tp_step_split(cfg, pcfg, mesh, atk, result.state, batch, TP23_STEPS)
+    line = {"tp23_train": run, "label": label, "layers": cfg.n_layers, "steps": TP23_STEPS,
+            "loss": loss, "grad_norm": result.history[0]["grad_norm"],
+            "aggregation_calls": len(digests), "launches": launches,
+            "aggregation_leaves_per_step": pieces,
+            "b1_launches_per_step": launches["median"] / TP23_STEPS,
+            "first_window_s": result.compile_s, "run_wall_s": wall, "split_ms": split,
+            "max_memory_allocated_gb": peak / 1e9, "card": card}
+    msg = ""
+    if label == "23a":
+        sb = steps.make_step_body(cfg, pcfg, mesh, get_optimizer("adamw", TRAIN_LR), atk)
+        prof = profile_summary(lambda: sb.body(result.state["params"],
+                                               result.state["opt_state"], batch,
+                                               TP23_STEPS, 0),
+                               split["step_ms"], top=10, names=("leaf_select_kernel",))
+        print(json.dumps({"profile_tp23_step": run, **prof}))
+        line.update(device_busy_share=prof["device_busy_share"],
+                    launches_per_step=prof["launches"])
+        msg = f", {prof['launches']} launches, busy {prof['device_busy_share']:.3f}"
+        del sb
+    if seq_parallel:  # beside 20b's run, whose norms take the whole residual
+        line["against_20b"] = {"loss": TP23_REF["loss"], "grad_norm": TP23_REF["grad_norm"],
+                               "loss_rel": abs(loss - TP23_REF["loss"]) / TP23_REF["loss"]}
+        msg += (f"; against 20b's run (whole-residual norms) loss {TP23_REF['loss']:.6f}, "
+                f"relative {line['against_20b']['loss_rel']:.2e}")
+    print(json.dumps({"tp23": line}))
+    print(f"phase {label}: {run} at (4, {TP_MODEL}): {TP23_STEPS} steps bitwise {ref['name']} "
+          f"(loss {loss:.6f}, {len(digests)} aggregation calls' input "
+          f"digests, params); step {split['step_ms']:.1f} ms (grads "
+          f"{split['worker_grads_ms']:.1f} with model-axis sums {split['model_sums_ms']:.1f}, "
+          f"reduce-scatter {split['reduce_scatter_ms']:.1f}, gather agg "
+          f"{split['aggregate_ms']:.1f}, AdamW {split['update_ms']:.1f}){msg}, "
+          f"one aggregation call a step ({per_step} B1 launch(es) over {pieces} leaves), peak "
+          f"{peak / 1e9:.2f} GB")
+    del result, held, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rows_norms():
+    """Patch the transformer's block norm so that a run without
+    seq_parallel norms the blocks' residual a model rank's rows at a time
+    (``transformer._rows_norm``, the form seq_parallel runs it in; the
+    program's own path without seq_parallel norms the whole residual, and
+    autograd then adds the residual's gradients in another order).
+    Returns the undo."""
+    from repro_torch.models import transformer as T
+
+    real = T._norm
+    T._norm = lambda ctx, x, w, eps: (T._rows_norm(ctx, x, w, eps) if ctx.seq_len
+                                      else real(ctx, x, w, eps))
+    return lambda: setattr(T, "_norm", real)
+
+
+def tp23_rows_reference(dev) -> dict:
+    """Phase 23b's reference: 20b's replicated model-2 run of TP23_STEPS
+    steps (one window, every aggregation call held against its plain
+    version and digested) with the block norms in seq_parallel's per-rank
+    form (:func:`rows_norms`): its loss, grad norm, digests and params
+    (host), which 23b's seq_parallel run must equal bitwise."""
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import trainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = serve_cfg(tiny=False)
+    mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, TP_MODEL, device=dev)
+    pcfg = ParallelConfig(agg_method="median", agg_strategy="gather", agg_beta=TRAIN_BETA,
+                          remat=False, attn_chunk=0)
+    tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=TP23_STEPS, device_steps=TP_DS)
+    digests = []
+    undo = [sync_free_windows(), digest_calls(digests), rows_norms()]
+    try:
+        with HeldAggregation(dev) as held:
+            result = trainer.train_loop(cfg, pcfg, tcfg, mesh,
+                                        dcfg=DataConfig(vocab=cfg.vocab, **TRAIN_DATA),
+                                        attack=AttackConfig("alie", TRAIN_ALPHA))
+    finally:
+        for u in reversed(undo):
+            u()
+    check(held.held == held.calls == TP23_STEPS, f"23b reference: {held.held} of "
+                                                 f"{held.calls} aggregation calls held")
+    ref = {"name": "the replicated model-2 run with seq_parallel's per-rank norms",
+           "loss": result.history[0]["loss"], "grad_norm": result.history[0]["grad_norm"],
+           "digests": step_digests(digests, TP23_STEPS, TP23_STEPS),
+           "params": [t.cpu() for t in tree_leaves(result.state["params"])]}
+    del result
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _gen_copy(gen):
+    """A generator in ``gen``'s state (None stays None)."""
+    import torch
+
+    if gen is None:
+        return None
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def _same_tree(a, b) -> bool:
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_digest(*trees):
+    """Int64 digests of every tensor of ``trees`` on the card: the sums of
+    its elements' bit patterns over 16 blocks and of their wrapped
+    squares (:func:`digest_rows` of the tensor as one row)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    return torch.cat([digest_rows(t.reshape(1, -1))[0] for tree in trees
+                      for t in tree_leaves(tree) if t is not None])
+
+
+def held_codec(name: str, label: str, counts: dict):
+    """Patch ``compression.compress_tree`` (the codec of one worker's whole
+    gradient, as ``compress_workers`` calls it) so that every call is held
+    against a rerun of itself: ``compress_tree`` on the same rows with a
+    generator in the same state, run first and digested
+    (:func:`tree_digest`), its outputs freed before the call itself, whose
+    decoded rows and residual must digest alike.  In process the model-2
+    step's codec call is model 1's (the global view's rows are whole: no
+    gather, no cut), so this holds the card's determinism, which a process
+    group needs (each model rank of a worker runs the codec on the same
+    gathered rows); the gather and cut over the model axis are held by the
+    gloo tests (tests/test_torch_tp_codecs.py).  Returns the undo."""
+    import torch
+
+    from repro_torch.rounds import compression as comp_lib
+
+    real = comp_lib.compress_tree
+
+    def held(n, tree, *, generator=None, draw=None, residual=None):
+        want = tree_digest(*real(n, tree, generator=_gen_copy(generator), draw=draw,
+                                 residual=residual))
+        torch.cuda.empty_cache()
+        hat, new = real(n, tree, generator=generator, draw=draw, residual=residual)
+        check(bool(torch.equal(tree_digest(hat, new), want)),
+              f"{label} {name}: a worker's decoded rows differ from the codec's rerun")
+        counts["held"] += 1
+        return hat, new
+
+    comp_lib.compress_tree = held
+    return lambda: setattr(comp_lib, "compress_tree", real)
+
+
+def held_attack(label: str, counts: dict):
+    """Patch the strategies' gradient attack so that every payload is held
+    bitwise against a rerun as model 1 draws it: the same attack on the
+    same rows with a generator in the same state and no model shard
+    (``whole=None``).  In process the model-2 payload is drawn over the
+    global view's whole leaves already, so this too holds the card's
+    determinism; the whole draw and its cut on a process group's ranks
+    are held by the gloo tests.  Returns the undo."""
+    import torch
+
+    from repro_torch.core import distributed as D
+
+    real = D.apply_gradient_attack
+
+    def held(cfg, stacked, mask, *, generator=None, row_sum=None, whole=None, **kw):
+        gen2 = _gen_copy(generator)
+        out = real(cfg, stacked, mask, generator=generator, row_sum=row_sum, whole=whole, **kw)
+        want = real(cfg, stacked, mask, generator=gen2, **kw)
+        check(bool(torch.equal(out, want)), f"{label}: a payload differs from the model-1 draw")
+        counts["held"] += 1
+        return out
+
+    D.apply_gradient_attack = held
+    return lambda: setattr(D, "apply_gradient_attack", real)
+
+
+def tp23_codec_run(dev, card: str, cfg, name: str, attack: str, label: str):
+    """One run of phase 23c / 23d on ``cfg`` at make_debug_mesh(4, 2):
+    TP23_STEPS steps of gather median (beta 0.25) under ``attack`` alpha
+    0.25 with the codec ``name`` (or none), through ``make_train_step``
+    (``topk``, which carries a residual, through the trainer's window), the
+    counters zeroed just before and read just after; every codec call or
+    payload held against a rerun of its model-1 function (:func:`held_codec`,
+    :func:`held_attack`), every aggregation call against its plain version
+    on its own rows.  Returns the launches."""
+    import torch
+
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.core.attacks import AttackConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, trainer
+    from repro_torch.optim.optimizers import get_optimizer
+
+    mesh = mesh_lib.make_debug_mesh(TRAIN_WORKERS, TP_MODEL, device=dev)
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    pcfg = ParallelConfig(agg_method="median", agg_strategy="gather", agg_beta=TRAIN_BETA,
+                          remat=False, attn_chunk=0, compression=name)
+    atk = AttackConfig(attack, TRAIN_ALPHA)
+    opt = get_optimizer("adamw", TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts = {"held": 0}
+    _reset_launches()  # zeroed just before this run
+    undo = [held_codec(name, label, counts) if name != "none" else held_attack(label, counts)]
+    t0 = time.perf_counter()
+    try:
+        with HeldAggregation(dev) as held:
+            if name == "topk":
+                tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=TP23_STEPS,
+                                   device_steps=TP_DS)
+                result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk)
+                losses = [h["loss"] for h in result.history]
+                del result
+            else:
+                state = trainer.init_state(cfg, mesh, opt, seed=0, pcfg=pcfg)
+                step = steps.make_train_step(cfg, pcfg, mesh, opt, atk)
+                batches = trainer.stack_window_batches(dcfg, 0, TP23_STEPS, mesh, atk, cfg)
+                params, opt_state, losses = state["params"], state["opt_state"], []
+                for i in range(TP23_STEPS):
+                    params, opt_state, met = step(params, opt_state,
+                                                  {k: v[i] for k, v in batches.items()}, i)
+                    losses.append(float(met["loss"]))
+                del state, params, opt_state, batches
+    finally:
+        for u in reversed(undo):
+            u()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()  # read just after it
+    peak = torch.cuda.max_memory_allocated()
+    run = f"{name}/{attack}"
+    want_held = TP23_STEPS * TRAIN_WORKERS if name != "none" else None
+    check(counts["held"] > 0 and (want_held is None or counts["held"] == want_held),
+          f"{label} {run}: {counts['held']} codec calls / payloads held")
+    check(held.held == held.calls == TP23_STEPS and launches["median"] == TP23_STEPS and all(
+        v == 0 for k, v in launches.items() if k != "median"),
+        f"{label} {run}: launches {launches}, {held.held} of {held.calls} aggregates held")
+    check(all(v == v and abs(v) < 1e4 for v in losses), f"{label} {run}: {losses}")
+    line = {"tp23_codec": run, "label": label, "layers": cfg.n_layers,
+            "d": CODEC23_D, "steps": TP23_STEPS, "losses": losses,
+            "held": counts["held"], "launches": launches, "run_wall_s": wall,
+            "step_s": wall / TP23_STEPS, "max_memory_allocated_gb": peak / 1e9, "card": card}
+    print(json.dumps({"tp23": line}))
+    what = ("worker messages' decoded rows (and residuals) digest alike on a rerun of the "
+            "codec from the same generator state" if name != "none" else
+            "payloads bitwise a rerun of the draw")
+    print(f"phase {label}: {run} at (4, {TP_MODEL}), {cfg.n_layers} layers: {TP23_STEPS} steps "
+          f"in {wall:.1f} s, {counts['held']} {what} (the card's determinism: in process the "
+          f"model-2 call is model 1's on whole rows; the model axis's gather / cut / whole draw "
+          f"is held by the gloo tests), one B1 launch a step held on its rows, "
+          f"peak {peak / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp23_adapter(dev, card: str):
+    """Phase 23e: the adapter at make_debug_mesh(4, 2) on 21c's granite-moe
+    cell cut to ADAPT23_LAYERS layers (bf16), median: one stream of
+    ADAPT23_REQUESTS requests a run of ADAPT23_RUNS (int8; gauss alpha
+    0.25), adapting every 8 ticks, the counters zeroed just before each
+    run and read just after; >= 1 round, each round's codec or payload on
+    its (4, D) f32 rows held bitwise against a rerun of the model-1
+    function on the same rows (a generator in the same state: in process
+    the adapter's rows are the global ones, so this holds the card's
+    determinism; the gather / cut of a process group's columns is held by
+    the gloo tests), and its aggregate against the plain version.  Returns
+    the launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.attacks import engine as atk_engine
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.rounds import compression as comp_lib
+    from repro_torch.serve.adapt import AdaptConfig, FeedbackAdapter
+    from repro_torch.serve.engine import ServeConfig, ServeEngine, serve_stream
+    from repro_torch.serve.traffic import VirtualUsers
+
+    class HeldAdapter(FeedbackAdapter):
+        """Holds each round's aggregate against the plain version on the
+        payload the round aggregated (the codec's or the attack's output)."""
+
+        last = None
+
+        def run_round(self, batch):
+            entry = super().run_round(batch)
+            trim = int(self.acfg.beta * self.last.shape[0])
+            hold_on_rows(self.acfg.method, self.last, self.state["prev_agg"], trim, "23e")
+            self.held += 1
+            self.last = None
+            return entry
+
+    cfg = dataclasses.replace(get_config("granite_moe_1b_a400m"), n_layers=ADAPT23_LAYERS)
+    check(T.count_params(cfg) == ADAPT23_D, f"23e: {T.count_params(cfg)} parameters")
+    mesh = mesh_lib.make_debug_mesh(4, TP_MODEL, device=dev)
+    scfg = ServeConfig(slots=4, prompt_len=16, max_new=16)
+    users = VirtualUsers(serve_traffic(cfg, scfg))
+    reqs = users.sample_requests(ADAPT23_REQUESTS)
+    params = T.init_params(cfg, seed=0, device=dev)
+    total = {}
+    for run, kw in ADAPT23_RUNS:
+        counts = {"held": 0}
+        real_c, real_a = comp_lib.compress_rows, atk_engine.apply_to_rows
+
+        def held_c(name, rows, *, generator=None, draw=None, residual=None):
+            gen2 = _gen_copy(generator)
+            out, res = real_c(name, rows, generator=generator, draw=draw, residual=residual)
+            want, _ = real_c(name, rows, generator=gen2, draw=draw, residual=residual)
+            check(bool(torch.equal(out, want)), f"23e {run}: decoded rows differ")
+            counts["held"] += 1
+            adapter.last = out
+            return out, res
+
+        def held_a(attack, stacked, mask, *, generator=None, whole=None, **k):
+            gen2 = _gen_copy(generator)
+            out = real_a(attack, stacked, mask, generator=generator, whole=whole, **k)
+            want = real_a(attack, stacked, mask, generator=gen2, **k)
+            check(bool(torch.equal(out, want)), f"23e {run}: attacked rows differ")
+            counts["held"] += 1
+            adapter.last = out
+            return out
+
+        engine = ServeEngine(cfg, scfg, params, mesh)
+        acfg = AdaptConfig(adapt_every=8, batch_per_shard=2, optimizer="sgd", lr=0.1,
+                           method="median", beta=0.2, **kw)
+        adapter = HeldAdapter(cfg, acfg, users, params, mesh=mesh)
+        adapter.held = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()  # zeroed just before this run
+        comp_lib.compress_rows, atk_engine.apply_to_rows = held_c, held_a
+        t0 = time.perf_counter()
+        try:
+            done = serve_stream(engine, reqs, adapter=adapter)
+        finally:
+            comp_lib.compress_rows, atk_engine.apply_to_rows = real_c, real_a
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()  # read just after it
+        peak = torch.cuda.max_memory_allocated()
+        rounds = adapter.rounds_done
+        check(len(done) == ADAPT23_REQUESTS and rounds >= 1 and counts["held"] == rounds
+              and adapter.held == rounds and launches["median"] == rounds
+              and all(v == 0 for k, v in launches.items() if k != "median"),
+              f"23e {run}: {len(done)} served, {rounds} rounds, {counts['held']} held, "
+              f"launches {launches}")
+        _add(total, launches)
+        print(json.dumps({"tp23_adapt": run, "model": cfg.name, "layers": cfg.n_layers,
+                          "d": ADAPT23_D, "requests": len(done), "rounds": rounds,
+                          "held": counts["held"], "launches": launches, "stream_wall_s": wall,
+                          "grad_norms": [h["grad_norm"] for h in adapter.history],
+                          "max_memory_allocated_gb": peak / 1e9, "card": card}))
+        print(f"phase 23e: {cfg.name} ({cfg.n_layers} layers) at (4, {TP_MODEL}) with {run}: "
+              f"{len(done)} requests, {rounds} round(s) in {wall:.1f} s, each round's "
+              f"{'decoded' if run == 'int8' else 'attacked'} (4, {ADAPT23_D:,}) rows bitwise "
+              f"a rerun of the model-1 function (the card's determinism; the columns' gather / "
+              f"cut is held by the gloo tests), one B1 launch a round held, "
+              f"peak {peak / 1e9:.2f} GB")
+        del engine, adapter
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def tp23_memory():
+    """Phase 23f: the bytes a rank holds of llama3.2-3b at its 28 layers over
+    (data TP_DATA_RANKS, model TP_MODEL) under fsdp × TP (params + AdamW's
+    two moments) against fsdp alone (model 1) and TP alone (replicated over
+    the workers), and the residual stream a rank keeps between the layers
+    with and without seq_parallel at train_4k (seq 4096, 64 rows a worker,
+    bf16, one residual a layer): computed from the shapes, not measured."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("llama3_2_3b")
+    opt = get_optimizer("adamw", TRAIN_LR)
+
+    def rank_bytes(model, fsdp):
+        mesh = mesh_lib.Mesh(("data", "model"), (TP_DATA_RANKS, model), torch.device("cpu"),
+                             D.InProcessAxes({"data": TP_DATA_RANKS, "model": model}, "cpu"),
+                             rank=0, per_rank=True)
+        params = (steps.abstract_params_fsdp if fsdp else steps.abstract_params)(cfg, mesh)
+        state = opt.init(params)
+        return sum(t.numel() * t.element_size() for t in tree_leaves((params, state)))
+
+    out = {"fsdp_tp": rank_bytes(TP_MODEL, True), "fsdp": rank_bytes(1, True),
+           "tp": rank_bytes(TP_MODEL, False), "replicated": rank_bytes(1, False)}
+    check(out["fsdp"] / TP_MODEL <= out["fsdp_tp"] < out["fsdp"] / TP_MODEL * 1.01
+          and out["tp"] / TP_DATA_RANKS <= out["fsdp_tp"] < out["tp"] / TP_DATA_RANKS * 1.01,
+          f"23f: {out}")
+    shape = INPUT_SHAPES["train_4k"]
+    rows = shape.global_batch // TP_DATA_RANKS
+    resid = cfg.n_layers * rows * shape.seq_len * cfg.d_model * 2
+    sp = cfg.n_layers * rows * math.ceil(shape.seq_len / TP_MODEL) * cfg.d_model * 2
+    gb = {k: v / 1e9 for k, v in out.items()}
+    print(json.dumps({"tp23_rank_bytes": out, "residual_bytes": {"whole": resid, "seq_parallel": sp},
+                      "layers": cfg.n_layers, "ranks": {"data": TP_DATA_RANKS, "model": TP_MODEL},
+                      "train_4k": {"seq_len": shape.seq_len, "rows_a_worker": rows},
+                      "source": "computed from the shapes on the meta device, not measured"}))
+    print(f"phase 23f: llama3.2-3b (28 layers) params + AdamW moments a rank at (data "
+          f"{TP_DATA_RANKS}, model {TP_MODEL}): fsdp × TP {gb['fsdp_tp']:.2f} GB against fsdp "
+          f"alone {gb['fsdp']:.2f}, TP alone {gb['tp']:.2f}, replicated {gb['replicated']:.2f}; "
+          f"the residual stream between layers at train_4k: {resid / 1e9:.2f} GB whole, "
+          f"{sp / 1e9:.2f} GB with seq_parallel (computed from the shapes, not measured)")
+
+
+def tp_step7(dev, card: str):
+    """Phase 23: 23a-23f; returns the launches of each path (each launch
+    held bitwise on its own rows)."""
+    import dataclasses
+
+    out = {}
+    t0 = time.perf_counter()
+    out["tp23_fsdp"] = tp23_train(dev, card, "fsdp", False, "23a",
+                                  dict(TP23_REF, name="20b's replicated model-2 run"))
+    print(f"phase 23a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ref = tp23_rows_reference(dev)
+    out["tp23_seq_parallel"] = tp23_train(dev, card, "replicated", True, "23b", ref)
+    del ref
+    print(f"phase 23b: {time.perf_counter() - t0:.1f} s (its reference run included)")
+    cfg = dataclasses.replace(serve_cfg(tiny=False), n_layers=CODEC23_LAYERS)
+    from repro_torch.models import transformer as T
+
+    check(T.count_params(cfg) == CODEC23_D, f"23c: {T.count_params(cfg)} parameters")
+    t0 = time.perf_counter()
+    out["tp23_codecs"] = {}
+    for name in CODEC23_RUNS:
+        _add(out["tp23_codecs"], tp23_codec_run(dev, card, cfg, name, "alie", "23c"))
+    print(f"phase 23c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["tp23_gauss"] = tp23_codec_run(dev, card, cfg, "none", "gauss", "23d")
+    print(f"phase 23d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["tp23_adapt"] = tp23_adapter(dev, card)
+    print(f"phase 23e: {time.perf_counter() - t0:.1f} s")
+    tp23_memory()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -5827,6 +6475,12 @@ def main() -> None:
     print(f"phase 22: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 22 built order-statistic programs that phase 1 did not")
+    libs_before = len(robust_agg.select_libraries())
+    t0 = time.perf_counter()
+    new_paths.update(tp_step7(dev, card))
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    check(len(robust_agg.select_libraries()) == libs_before,
+          "phase 23 built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")
@@ -5861,7 +6515,7 @@ def main() -> None:
             "max_abs_err": worst[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
-    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_script:.1f} s")
+    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_script:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,7 +20,7 @@ seeded per (base seed, round) by the caller.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -71,6 +71,11 @@ class AttackContext:
     # leaf, its other model shards included (tensor parallelism); None:
     # the rows hold the whole leaf
     row_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    # (the whole leaf's shape, a function cutting this process's part from a
+    # tensor of that shape) where ``own`` holds a model shard of the leaf:
+    # a randomized payload draws the whole and cuts, so that its bits are
+    # the whole leaf's at any model size; None: ``own`` is the whole leaf
+    whole: Optional[Tuple[tuple, Callable[[torch.Tensor], torch.Tensor]]] = None
 
 
 PayloadFn = Callable[[AttackContext], torch.Tensor]

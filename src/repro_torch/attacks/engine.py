@@ -77,6 +77,7 @@ def build_context(
     staleness=None,
     rnd=None,
     row_sum=None,
+    whole=None,
 ) -> AttackContext:
     """Assemble a context exposing ONLY what ``attack.access`` grants.
 
@@ -112,6 +113,7 @@ def build_context(
         rows=rows if rank >= access_rank(OMNISCIENT) else None,
         mask=mask if rank >= access_rank(OMNISCIENT) else None,
         row_sum=row_sum,
+        whole=whole,
     )
 
 
@@ -150,13 +152,16 @@ def apply_to_rows(
     staleness=None,
     rnd=None,
     row_sum=None,
+    whole=None,
 ) -> torch.Tensor:
     """Replace Byzantine rows of ``stacked`` ``(m, ...)`` per ``mask``.
 
     Data and feedback attacks return ``stacked`` unchanged (they corrupt
     samples / feedback scores upstream of the gradient computation).
-    ``row_sum`` completes a per-row sum over the leaf where ``stacked``
-    holds a model shard of it (:class:`AttackContext`).
+    ``row_sum`` completes a per-row sum over the leaf and ``whole`` (the
+    whole rows' shape and the cut of ``stacked``'s part) sizes a
+    randomized draw, where ``stacked`` holds a model shard of it
+    (:class:`AttackContext`).
     """
     attack = as_attack(attack)
     if attack.access in (DATA, FEEDBACK):
@@ -171,7 +176,7 @@ def apply_to_rows(
         attack, m=m, alpha=alpha, strength=strength, mask=mask, rows=stacked,
         own=stacked, honest_mean=mean, honest_var=var, generator=generator,
         prev_agg=prev_agg, agg_history=agg_history, staleness=staleness, rnd=rnd,
-        row_sum=row_sum,
+        row_sum=row_sum, whole=whole,
     )
     bad = attack.payload(ctx)
     maskb = mask.reshape((m,) + (1,) * (stacked.dim() - 1))
@@ -192,9 +197,11 @@ def payload_from_stats(
     agg_history: Optional[torch.Tensor] = None,
     staleness=None,
     rnd=None,
+    whole=None,
 ) -> torch.Tensor:
     """The bad-row value for the no-rows (statistics) path.  ``own`` is
-    this worker's local row (required by attacks that read it)."""
+    this worker's local row (required by attacks that read it); ``whole``
+    as :func:`apply_to_rows`'."""
     attack = as_attack(attack)
     if attack.access == OMNISCIENT:
         raise ValueError(
@@ -214,6 +221,7 @@ def payload_from_stats(
         attack, m=m, alpha=alpha, strength=strength, own=ref,
         honest_mean=honest_mean, honest_var=honest_var, generator=generator,
         prev_agg=prev_agg, agg_history=agg_history, staleness=staleness, rnd=rnd,
+        whole=whole,
     )
     return attack.payload(ctx)
 

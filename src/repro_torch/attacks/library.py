@@ -102,9 +102,13 @@ def _local_sign_flip(ctx: AttackContext) -> torch.Tensor:
 
 
 def _gauss(ctx: AttackContext) -> torch.Tensor:
-    # pure-noise gradients
-    noise = torch.randn(ctx.own.shape, generator=ctx.generator,
-                        dtype=torch.float32, device=ctx.own.device)
+    # pure-noise gradients, drawn over the whole leaf (a model shard cuts
+    # its part of the draw)
+    shape = ctx.own.shape if ctx.whole is None else ctx.whole[0]
+    noise = torch.randn(shape, generator=ctx.generator, dtype=torch.float32,
+                        device=ctx.own.device)
+    if ctx.whole is not None:
+        noise = ctx.whole[1](noise)
     return ctx.strength * noise.to(ctx.own.dtype)
 
 

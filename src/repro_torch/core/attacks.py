@@ -104,7 +104,7 @@ def byzantine_payload(cfg: AttackConfig, honest_mean: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
                       prev_agg: Optional[torch.Tensor] = None,
                       agg_history: Optional[torch.Tensor] = None,
-                      staleness=None) -> torch.Tensor:
+                      staleness=None, whole=None) -> torch.Tensor:
     """The bad-row value for a gradient-space attack, given the honest
     statistics the colluders observe (engine.payload_from_stats)."""
     atk, strength = cfg.resolve()
@@ -113,7 +113,7 @@ def byzantine_payload(cfg: AttackConfig, honest_mean: torch.Tensor,
     return engine.payload_from_stats(
         atk, honest_mean, honest_var, m=m if m is not None else 0,
         alpha=cfg.alpha, strength=strength, own=own, generator=generator,
-        prev_agg=prev_agg, agg_history=agg_history, staleness=staleness)
+        prev_agg=prev_agg, agg_history=agg_history, staleness=staleness, whole=whole)
 
 
 def apply_gradient_attack(cfg: AttackConfig, stacked: torch.Tensor, mask: torch.Tensor,
@@ -122,10 +122,10 @@ def apply_gradient_attack(cfg: AttackConfig, stacked: torch.Tensor, mask: torch.
                           agg_history: Optional[torch.Tensor] = None,
                           staleness=None,
                           rnd=None,
-                          row_sum=None) -> torch.Tensor:
+                          row_sum=None, whole=None) -> torch.Tensor:
     """Replace Byzantine rows of a stacked per-worker tensor ``(m, ...)``;
-    ``mask`` is bool ``(m,)``, True rows Byzantine; ``row_sum`` as
-    :func:`repro_torch.attacks.engine.apply_to_rows`'."""
+    ``mask`` is bool ``(m,)``, True rows Byzantine; ``row_sum`` and
+    ``whole`` as :func:`repro_torch.attacks.engine.apply_to_rows`'."""
     if cfg.name == "none" or cfg.alpha == 0.0:
         return stacked
     atk, strength = cfg.resolve()
@@ -134,4 +134,4 @@ def apply_gradient_attack(cfg: AttackConfig, stacked: torch.Tensor, mask: torch.
     return engine.apply_to_rows(
         atk, stacked, mask, alpha=cfg.alpha, strength=strength,
         generator=generator, prev_agg=prev_agg, agg_history=agg_history,
-        staleness=staleness, rnd=rnd, row_sum=row_sum)
+        staleness=staleness, rnd=rnd, row_sum=row_sum, whole=whole)

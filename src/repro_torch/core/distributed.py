@@ -64,7 +64,15 @@ backward).  A
 sum of two partials is the same in either order, so at model size 2 the
 two give the same bits.  The worker axes' strategies are unchanged: each
 model rank aggregates its own leaves over the workers of its model
-coordinate.
+coordinate.  Beside them: ``model_cut`` (a whole tensor to the rank's
+chunk, its gradient gathered: fsdp's leaves whose model axis yields, and
+sequence parallelism's split of the residual, which ``model_full``
+gathers back), ``whole_rows`` (the whole leaf's shape and the rank's cut
+of it, over which a randomized payload is drawn), and ``seq_enter`` /
+``seq_reduce``, Megatron-SP's pair (in process the global view, whose
+reduce sums each rank's rows in turn; under a process group autograd
+``Function``s whose reduce-scatter is an all-reduce and the rank's chunk,
+as gloo has no reduce-scatter).
 
 Byzantine simulation as in the reference: gradient-space attacks run where
 the per-worker rows are visible (after the gather / all_to_all), by the
@@ -230,9 +238,11 @@ class Collectives:
         """The ranks' pieces of an activation concatenated along ``dim``."""
         return parts[0] if len(parts) == 1 else torch.cat(list(parts), dim)
 
-    def model_full(self, w: torch.Tensor, dim: int) -> torch.Tensor:
-        """The whole of a weight split along ``dim`` (in process the global
-        view is whole already); its gradient is kept as the rank's chunk."""
+    def model_full(self, w: torch.Tensor, dim: int, n: Optional[int] = None) -> torch.Tensor:
+        """The whole of a weight (or an activation) split along ``dim``, ``n``
+        long (default: the ranks' chunks end to end, no padding), for a
+        computation every rank runs alike (in process the global view is
+        whole already); its gradient is kept as the rank's chunk."""
         return w
 
     def model_max(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -241,6 +251,57 @@ class Collectives:
         for p in parts[1:]:
             acc = torch.maximum(acc, p)
         return acc
+
+    #: whether this process holds a model rank's shards of a split leaf
+    #: (a process group) rather than the global view
+    holds_shards: bool = False
+
+    def model_cut(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """This process's part of a tensor every model rank holds whole
+        alike, along ``dim``: in process the whole (the global view); under
+        a process group the rank's chunk, ceil(n / model) long (padded past
+        the end, as GSPMD pads an uneven split), whose gradient is the whole
+        one gathered from the ranks' chunks."""
+        return w
+
+    def whole_rows(self, shape, dim: Optional[int]):
+        """For a tensor of ``shape`` that this process holds of a leaf split
+        over the model axis along ``dim`` (None or -1: whole): ``(the whole
+        leaf's shape, cut)``, where ``cut`` takes this process's part of a
+        tensor of the whole shape, or None where the process holds the
+        whole (in process, the global view)."""
+        return None
+
+    # -- sequence parallelism: between the layers of a super-block the
+    # residual is split over the model axis along its dim ``dim`` (S, of
+    # whole size ``n``) as :meth:`model_cut` splits it, and gathered back
+    # for a computation every rank runs alike by :meth:`model_full`.  In
+    # process the global view of the split residual is the whole residual.
+
+    def seq_enter(self, x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """Megatron-SP's ``enter``: the whole activation from the ranks' rows
+        (an all-gather), read by each rank's shard through
+        :meth:`model_local`; its gradient the ranks' summed and scattered
+        (a reduce-scatter).  In process :meth:`model_enter`."""
+        return self.model_enter(x)
+
+    def seq_reduce(self, parts: Sequence[torch.Tensor], dim: int, n: int) -> torch.Tensor:
+        """Megatron-SP's ``reduce``: the sum of the ranks' partial results,
+        scattered over the ranks' rows (a reduce-scatter; its gradient an
+        all-gather).  In process each rank's chunk of rows in turn, the
+        partials summed in rank order: the global view of the rows."""
+        if self.model == 1:
+            return self.model_sum(parts)
+        c = -(-n // self.model)
+        rows = [(k * c, min((k + 1) * c, n)) for k in range(self.model) if k * c < n]
+        return torch.cat([self.model_sum([p.narrow(dim, a, b - a) for p in parts])
+                          for a, b in rows], dim)
+
+    def seq_scale(self, xhat: torch.Tensor, t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """``xhat · t`` of a norm over the split residual's rows (the scale
+        ``t`` broadcast over them), whose gradient in ``t`` is the one of
+        the whole rows: in process the rows are whole already."""
+        return xhat * t
 
     def leaf_row_sum(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         """Each row's sum of a per-coordinate (m, ...) tensor of one leaf,
@@ -422,6 +483,7 @@ class ProcessGroupAxes(_NamedAxes):
 
         super().__init__(sizes)
         self.device = resolve(device)
+        self.holds_shards = self.model > 1
         self.rank, world = dist.get_rank(), dist.get_world_size()
         if math.prod(self.sizes.values()) != world:
             raise ValueError(f"axes {self.sizes} do not lay out a world of {world} ranks")
@@ -551,10 +613,33 @@ class ProcessGroupAxes(_NamedAxes):
 
     def model_cat(self, parts, dim):
         (p,) = parts
-        return p if self.model == 1 else _GatherFromModel.apply(p, self, dim)
+        return p if self.model == 1 else _GatherFromModel.apply(p, self, dim,
+                                                                 p.shape[dim] * self.model)
 
-    def model_full(self, w, dim):
-        return w if self.model == 1 else _GatherFromModel.apply(w, self, dim)
+    def model_full(self, w, dim, n=None):
+        return w if self.model == 1 else _GatherFromModel.apply(
+            w, self, dim, w.shape[dim] * self.model if n is None else n)
+
+    def model_cut(self, w, dim):
+        return w if self.model == 1 else _CutToModel.apply(w, self, dim)
+
+    def whole_rows(self, shape, dim):
+        if self.model == 1 or dim is None or dim < 0:
+            return None
+        k, model = self.coords["model"], self.model
+        whole = list(shape)
+        whole[dim] *= model
+        return tuple(whole), lambda t: t.chunk(model, dim)[k].contiguous()
+
+    def seq_enter(self, x, dim, n):
+        return x if self.model == 1 else _SeqEnter.apply(x, self, dim, n)
+
+    def seq_reduce(self, parts, dim, n):
+        (p,) = parts
+        return p if self.model == 1 else _SeqReduce.apply(p, self, dim)
+
+    def seq_scale(self, xhat, t, dim, n):
+        return xhat * t if self.model == 1 else _SeqScale.apply(xhat, t, self, dim, n)
 
     def model_max(self, parts):
         import torch.distributed as dist
@@ -608,22 +693,114 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+def _own_rows(x: torch.Tensor, ax, dim: int) -> torch.Tensor:
+    """The rank's chunk of ``x`` along ``dim``, padded with zeros to a
+    multiple of the model size first (a rank's chunk is ceil(n / model)
+    long; the last ranks' may be padding, as GSPMD pads an uneven split)."""
+    n, model = x.shape[dim], ax.model
+    c = -(-n // model)
+    if c * model != n:
+        pad = list(x.shape)
+        pad[dim] = c * model - n
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    return x.narrow(dim, ax.coords["model"] * c, c).contiguous()
+
+
+def _all_rows(x: torch.Tensor, ax, dim: int, n: int) -> torch.Tensor:
+    """The ranks' chunks along ``dim`` all-gathered and concatenated in rank
+    order, the padding past ``n`` cut off."""
+    ax.calls["model_gather"] += 1
+    rows = ax._gather(x, ("model",))
+    return torch.cat(rows.unbind(0), dim).narrow(dim, 0, n)
+
+
 class _GatherFromModel(torch.autograd.Function):
-    """The ranks' pieces all-gathered along ``dim`` forward; backward the
-    rank's chunk of the gradient of the whole (which every rank computes
-    alike from the whole)."""
+    """The ranks' pieces all-gathered along ``dim`` (the whole, ``n`` long)
+    forward; backward the rank's chunk of the gradient of the whole (which
+    every rank computes alike from the whole)."""
 
     @staticmethod
-    def forward(ctx, x, ax, dim):
+    def forward(ctx, x, ax, dim, n):
         ctx.ax, ctx.dim = ax, dim
-        ax.calls["model_gather"] += 1
-        rows = ax._gather(x, ("model",))
-        return torch.cat(rows.unbind(0), dim)
+        return _all_rows(x, ax, dim, n)
 
     @staticmethod
     def backward(ctx, g):
-        ax = ctx.ax
-        return g.chunk(ax.model, ctx.dim)[ax.coords["model"]].contiguous(), None, None
+        return _own_rows(g, ctx.ax, ctx.dim), None, None, None
+
+
+class _CutToModel(torch.autograd.Function):
+    """The conjugate of :class:`_GatherFromModel`: a tensor every rank holds
+    whole alike cut to the rank's chunk along ``dim`` forward; backward the
+    ranks' chunks of the gradient all-gathered into the whole one."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim, ctx.n = ax, dim, x.shape[dim]
+        return _own_rows(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_rows(g.contiguous(), ctx.ax, ctx.dim, ctx.n), None, None
+
+
+class _SeqEnter(torch.autograd.Function):
+    """Megatron-SP's ``enter`` over a process group's model axis: the
+    ranks' rows all-gathered forward; backward the ranks' gradients summed
+    and the rank's rows kept (a reduce-scatter, built from an all-reduce
+    and the rank's chunk: gloo has no reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim, n):
+        ctx.ax, ctx.dim = ax, dim
+        return _all_rows(x, ax, dim, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_own_rows(ctx.ax._model_all_reduce(g), ctx.ax, ctx.dim), None, None,
+                None)
+
+
+class _SeqReduce(torch.autograd.Function):
+    """Megatron-SP's ``reduce``: the ranks' partial results summed and the
+    rank's rows kept forward (a reduce-scatter, from an all-reduce and the
+    rank's chunk); backward the ranks' row gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim, ctx.n = ax, dim, x.shape[dim]
+        return _own_rows(ax._model_all_reduce(x), ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_rows(g.contiguous(), ctx.ax, ctx.dim, ctx.n), None, None
+
+
+class _SeqScale(torch.autograd.Function):
+    """``xhat · t`` over the rank's rows of S; backward the rows' gradient
+    ``g · t`` and the scale's that of the whole rows: the ranks' rows of
+    ``g · xhat`` all-gathered and summed to t's shape in one reduction, as
+    autograd sums them over the whole rows in one process (partial sums
+    added over the ranks would round differently)."""
+
+    @staticmethod
+    def forward(ctx, xhat, t, ax, dim, n):
+        ctx.save_for_backward(xhat, t)
+        ctx.ax, ctx.dim, ctx.n = ax, dim, n
+        return xhat * t
+
+    @staticmethod
+    def backward(ctx, g):
+        xhat, t = ctx.saved_tensors
+        ax, dim, n = ctx.ax, ctx.dim, ctx.n
+        gt = g * xhat
+        c = -(-n // ax.model)
+        if gt.shape[dim] < c:  # the rank's rows end before its chunk does
+            pad = list(gt.shape)
+            pad[dim] = c - gt.shape[dim]
+            gt = torch.cat([gt, gt.new_zeros(pad)], dim)
+        whole = _all_rows(gt.contiguous(), ax, dim, n).contiguous()  # the layout summed in process
+        return g * t, whole.sum_to_size(t.shape), None, None, None
 
 
 # --------------------------------------------------------------------------
@@ -640,19 +817,26 @@ def _generator(key, device, *data) -> torch.Generator:
 
 
 def _maybe_attack(ax: Collectives, outer, rows: torch.Tensor, attack, m: int, key,
-                  row_sum=None):
+                  row_sum=None, model_dim=None):
     """Byzantine rows of the gathered ``rows`` (m, ...) replaced, on each
     worker of the axes ``outer`` the rows still vary over (every worker
     draws from the same key, as in the reference).  ``row_sum``: the
-    leaf's per-row sums across its model shards, for leaf-global attacks."""
+    leaf's per-row sums across its model shards, for leaf-global attacks;
+    ``model_dim``: the leaf's split dim, over which a randomized payload
+    is drawn whole and cut (:meth:`Collectives.whole_rows`)."""
     if not _active(attack):
         return rows
     mask = attack_engine.byzantine_mask(attack.alpha, m, device=rows.device)
     atk, _ = attack.resolve()
 
     def one(_w, r):
-        gen = _generator(key, r.device) if atk.randomized else None
-        return apply_gradient_attack(attack, r, mask, generator=gen, row_sum=row_sum)
+        gen = whole = None
+        if atk.randomized:
+            gen = _generator(key, r.device)
+            if model_dim is not None and model_dim >= 0:
+                whole = ax.whole_rows(tuple(r.shape), 1 + model_dim)
+        return apply_gradient_attack(attack, r, mask, generator=gen, row_sum=row_sum,
+                                     whole=whole)
 
     if not outer:
         return one(0, rows)
@@ -670,6 +854,11 @@ def _aggregate_rows(ax: Collectives, outer, rows, method: str, beta: float):
 # --------------------------------------------------------------------------
 # gather strategy (paper-faithful Algorithm 1 aggregation)
 # --------------------------------------------------------------------------
+
+
+def _leaf_dims(model_dims, n: int) -> list:
+    """Each of n leaves' split dim (None without a model axis)."""
+    return [None] * n if model_dims is None else list(model_dims)
 
 
 def _row_sums(ax: Collectives, model_dims, n: int) -> list:
@@ -691,17 +880,19 @@ def robust_gather_agg(g, ax: Collectives, axis_names: Sequence[str], method: str
     attacks (fold the step index in per training step).  Under a model
     axis ``model_dims`` (each leaf's split dim in :func:`tree_leaves`
     order, -1 whole) completes a leaf-global attack's sums over the
-    leaf's shards, as GSPMD's psum over the model axis does."""
+    leaf's shards, as GSPMD's psum over the model axis does, and a
+    randomized attack draws each leaf's payload whole."""
     names = tuple(axis_names)
     m = ax.size(names)
     outer = ax.outer(names)
     leaves = tree_leaves(g)
     rows = []
-    for leaf, row_sum in zip(leaves, _row_sums(ax, model_dims, len(leaves))):
+    for leaf, row_sum, d in zip(leaves, _row_sums(ax, model_dims, len(leaves)),
+                                _leaf_dims(model_dims, len(leaves))):
         stacked = ax.all_gather(leaf, names)
         if agg_dtype is not None:
             stacked = stacked.to(agg_dtype)
-        rows.append(_maybe_attack(ax, outer, stacked, attack, m, attack_key, row_sum))
+        rows.append(_maybe_attack(ax, outer, stacked, attack, m, attack_key, row_sum, d))
     outs = _aggregate_rows(ax, outer, rows, method, beta)
     return tree_unflatten_like(g, [o.to(leaf.dtype) for o, leaf in zip(outs, leaves)])
 
@@ -905,13 +1096,26 @@ def make_robust_param_gather(ax: Collectives, axis_names: Sequence[str],
 # --------------------------------------------------------------------------
 
 
+def _flat_whole(ax: Collectives, shape, dim):
+    """:meth:`Collectives.whole_rows` of a leaf of (this process's) ``shape``
+    raveled: (the whole leaf's ravel shape, the cut of this process's
+    ravel from the whole ravel), or None."""
+    spec = None if dim is None else ax.whole_rows(tuple(shape), dim)
+    if spec is None:
+        return None
+    whole, cut = spec
+    return (math.prod(whole),), lambda t: cut(t.reshape(whole)).reshape(-1)
+
+
 def _maybe_attack_chunked(ax: Collectives, flat: torch.Tensor, attack, axis_names, m: int,
-                          key=None) -> torch.Tensor:
+                          key=None, whole=None) -> torch.Tensor:
     """Byzantine simulation without gathered rows: a worker's local flat
     gradient is replaced iff its index is under the attack's Byzantine
     cut.  Stats-level colluders get the honest mean (and variance) psummed
     over the honest workers; local attacks use the worker's own row and a
-    worker-folded key; omniscient attacks cannot run here and raise."""
+    worker-folded key (a randomized payload drawn over the whole leaf where
+    ``whole``, :func:`_flat_whole`, says the row is a model shard of it);
+    omniscient attacks cannot run here and raise."""
     if not _active(attack) or attack.is_data_attack():
         return flat
     q = attack.num_byzantine(m)
@@ -930,7 +1134,8 @@ def _maybe_attack_chunked(ax: Collectives, flat: torch.Tensor, attack, axis_name
     def payload(w, own):
         gen = _generator(key, own.device, w) if atk.randomized else None
         return byzantine_payload(attack, honest_mean, honest_var, m=m, own=own,
-                                 generator=gen).to(own.dtype)
+                                 generator=gen, whole=whole if gen is not None else None
+                                 ).to(own.dtype)
 
     bad = ax.map_workers(payload, names, flat, out=torch.empty_like(flat))
     return torch.where(is_byz, bad, flat)
@@ -939,7 +1144,7 @@ def _maybe_attack_chunked(ax: Collectives, flat: torch.Tensor, attack, axis_name
 def robust_chunked_agg(g, ax: Collectives, axis_names: Sequence[str], method: str = "median",
                        beta: float = 0.1, attack: Optional[AttackConfig] = None,
                        agg_dtype=None, nbins: int = 256, coord_chunk: int = COORD_CHUNK,
-                       attack_key=None):
+                       attack_key=None, model_dims=None):
     """Approximate robust aggregation with m-independent collective volume.
 
     Per leaf: (1) the per-coordinate range by pmin / pmax; (2) the psum of
@@ -947,19 +1152,22 @@ def robust_chunked_agg(g, ax: Collectives, axis_names: Sequence[str], method: st
     row, ``coord_chunk`` coordinates at a time, one collective a chunk;
     (3) the CDF inverted locally, so every worker holds the same result.
     ``method``: ``median`` | ``trimmed_mean`` (error <= one bin width
-    (max - min)/nbins per coordinate) | ``mean`` (exact: one psum)."""
+    (max - min)/nbins per coordinate) | ``mean`` (exact: one psum).
+    ``model_dims`` (each leaf's split dim) sizes a randomized payload's
+    draw over the whole leaf under a model axis."""
     method = {"approx_median": "median",
               "approx_trimmed_mean": "trimmed_mean"}.get(method, method)
     names = tuple(axis_names)
     m = ax.size(names)
     k = len(ax.vshape(names))
 
-    def agg_leaf(leaf):
+    def agg_leaf(leaf, d):
         local = leaf.shape[k:]
         flat = _flat(ax, names, leaf)
         if agg_dtype is not None:
             flat = flat.to(agg_dtype)
-        flat = _maybe_attack_chunked(ax, flat.float(), attack, names, m, attack_key)
+        flat = _maybe_attack_chunked(ax, flat.float(), attack, names, m, attack_key,
+                                     _flat_whole(ax, local, d))
         if method == "mean":
             return (ax.psum(flat, names) / m).reshape(local).to(leaf.dtype)
         if method not in ("median", "trimmed_mean"):
@@ -978,7 +1186,9 @@ def robust_chunked_agg(g, ax: Collectives, axis_names: Sequence[str], method: st
                 outs.append(H.trimmed_mean_from_hist(counts, sums, slo, sw, m, beta))
         return torch.cat(outs).reshape(local).to(leaf.dtype)
 
-    return tree_map(agg_leaf, g)
+    leaves = tree_leaves(g)
+    return tree_unflatten_like(g, [agg_leaf(x, d) for x, d in
+                                   zip(leaves, _leaf_dims(model_dims, len(leaves)))])
 
 
 # --------------------------------------------------------------------------
@@ -988,11 +1198,11 @@ def robust_chunked_agg(g, ax: Collectives, axis_names: Sequence[str], method: st
 
 def robust_psum_agg(g, ax: Collectives, axis_names: Sequence[str], method: str = "mean",
                     beta: float = 0.1, attack: Optional[AttackConfig] = None,
-                    agg_dtype=None, attack_key=None):
+                    agg_dtype=None, attack_key=None, model_dims=None):
     """Plain data-parallel mean: one psum per leaf, NO robustness — the
     throughput baseline.  Rejects any ``method`` but ``mean`` (a psum cannot
     compute order statistics).  Attacks are simulated row-free as in the
-    chunked strategy."""
+    chunked strategy (``model_dims`` as there)."""
     names = tuple(axis_names)
     if method != "mean":
         raise ValueError(
@@ -1001,14 +1211,17 @@ def robust_psum_agg(g, ax: Collectives, axis_names: Sequence[str], method: str =
     m = ax.size(names)
     k = len(ax.vshape(names))
 
-    def agg_leaf(leaf):
+    def agg_leaf(leaf, d):
         flat = _flat(ax, names, leaf)
         if agg_dtype is not None:
             flat = flat.to(agg_dtype)
-        flat = _maybe_attack_chunked(ax, flat.float(), attack, names, m, attack_key)
+        flat = _maybe_attack_chunked(ax, flat.float(), attack, names, m, attack_key,
+                                     _flat_whole(ax, leaf.shape[k:], d))
         return (ax.psum(flat, names) / m).reshape(leaf.shape[k:]).to(leaf.dtype)
 
-    return tree_map(agg_leaf, g)
+    leaves = tree_leaves(g)
+    return tree_unflatten_like(g, [agg_leaf(x, d) for x, d in
+                                   zip(leaves, _leaf_dims(model_dims, len(leaves)))])
 
 
 # --------------------------------------------------------------------------

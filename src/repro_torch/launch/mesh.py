@@ -136,6 +136,19 @@ def model_rank(mesh: Mesh) -> int:
     return getattr(mesh.axes, "coords", {}).get("model", 0) if mesh.per_rank else 0
 
 
+def worker_index(mesh: Mesh) -> int:
+    """This process's worker (its linear index over the worker axes) under
+    a process group; 0 on the debug mesh, whose process holds every
+    worker."""
+    if not mesh.per_rank:
+        return 0
+    coords = getattr(mesh.axes, "coords", {})
+    w = 0
+    for a in worker_axes(mesh):
+        w = w * mesh_shape_dict(mesh)[a] + coords.get(a, 0)
+    return w
+
+
 def mesh_shape_dict(mesh: Mesh) -> dict:
     return dict(zip(mesh.axis_names, mesh.shape))
 

@@ -59,12 +59,32 @@ and the strategies aggregate the global view, which gives the shards'
 bits since the estimators are coordinate-wise.  ``grad_norm`` psums the
 split leaves' squares over ``model`` and counts a replicated leaf once.
 Every configuration trains on the model axis, the ``ssm`` / ``rec``
-families and the frontends included.  Not at model > 1 yet: fsdp,
-``seq_parallel``, the codecs and randomized attacks (ROADMAP queue A item
-6, step 7).  The serving steps run on the model axis too: the prefill and
-decode steps over the mesh's ``ShardCtx``, the slot pool's kv heads
-split over ``model`` (:func:`init_slot_pool`); a frontend configuration
-is not served there (step 8).
+families and the frontends included, and so does everything else the
+reference's step runs there:
+
+- fsdp: a leaf is split over the workers on its FSDP dim and over
+  ``model`` on its model dim (:func:`fsdp_param_shardings`); under a
+  process group rank (w, k) holds FSDP chunk w of model chunk k
+  (:func:`fsdp_rank_shard`) and gathers it over the workers of its model
+  coordinate, and a leaf whose FSDP dim took its model dim ("the model
+  yields", :func:`fsdp_model_dims`) is stored whole over ``model`` and
+  cut to the rank's model chunk after the gather; in process the global
+  view is reduce-scattered along the FSDP dims as at model 1;
+- ``seq_parallel``: the blocks' residual split over ``model`` along S
+  (:class:`~repro_torch.models.sharding.ShardCtx`), bitwise the step
+  without it;
+- the codecs: a worker's message is its whole raveled gradient, so a
+  rank holding shards gathers its leaves over ``model`` for the codec and
+  keeps its chunks of the decoded tree
+  (:func:`repro_torch.rounds.distributed.compress_workers`); the
+  error-feedback residual is the whole (D,) row on each model rank;
+- randomized attacks: each payload is drawn over the whole leaf and cut
+  to the rank's chunk.
+
+The serving steps run on the model axis too: the prefill and decode steps
+over the mesh's ``ShardCtx`` (never sequence parallel), the slot pool's kv
+heads split over ``model`` (:func:`init_slot_pool`); a frontend
+configuration is not served there (ROADMAP queue A item 6, step 8).
 
 Activation checkpointing (``ParallelConfig.remat``): the step's loss runs
 each super-block and each encoder layer under ``torch.utils.checkpoint``
@@ -212,14 +232,46 @@ def fsdp_shard(tree, dims, index: int, m: int):
                     tree, dims)
 
 
+def fsdp_model_dims(cfg: ModelConfig, mesh: mesh_lib.Mesh):
+    """The model dim each FSDP leaf is stored split on over the model axis:
+    its tensor-parallel dim (:func:`repro_torch.models.sharding.tp_dims`),
+    except where its FSDP dim took that dim ("the model yields", as in
+    :func:`fsdp_param_shardings`): such a leaf is stored split over the
+    workers and whole over ``model``, the reference's layout; -1 where the
+    leaf is whole over the model axis."""
+    return tree_map(lambda t, f: -1 if t == f else t,
+                    sharding.tp_dims(cfg, _model_size(mesh)), fsdp_dims(cfg, mesh))
+
+
+def fsdp_rank_shard(tree, cfg: ModelConfig, mesh: mesh_lib.Mesh):
+    """A process-group rank's part of a full parameter tree (or of a tree
+    shaped like it, the optimizer's moments) under fsdp: chunk (model
+    rank) along each leaf's :func:`fsdp_model_dims` entry, then chunk
+    (worker) along its FSDP dim, copied so the full tensor can be freed; a
+    leaf split by neither as it is.  At model size 1 :func:`fsdp_shard`."""
+    model, m = _model_size(mesh), mesh_lib.num_workers(mesh)
+    w, k = mesh_lib.worker_index(mesh), mesh_lib.model_rank(mesh)
+
+    def cut(t, md, fd):
+        if md < 0 and fd < 0:
+            return t
+        if md >= 0:
+            t = t.chunk(model, md)[k]
+        if fd >= 0:
+            t = t.chunk(m, fd)[w]
+        return t.clone(memory_format=torch.contiguous_format)
+
+    return tree_map(cut, tree, fsdp_model_dims(cfg, mesh), fsdp_dims(cfg, mesh))
+
+
 def abstract_params_fsdp(cfg: ModelConfig, mesh: mesh_lib.Mesh):
     """The FSDP params on the meta device: the global shapes on the
     in-process mesh (its params are the global view), a rank's shard
-    shapes under a process group."""
+    shapes under a process group (:func:`fsdp_rank_shard`)."""
     meta = T.meta_params(cfg)
     if not mesh.per_rank:
         return meta
-    return fsdp_shard(meta, fsdp_dims(cfg, mesh), 0, mesh_lib.num_workers(mesh))
+    return fsdp_rank_shard(meta, cfg, mesh)
 
 
 def abstract_opt_state_fsdp(opt: Optimizer, cfg: ModelConfig, mesh: mesh_lib.Mesh):
@@ -384,23 +436,35 @@ def _value_and_grad(cfg: ModelConfig, kv_block: int, transform: Optional[Callabl
     return vg
 
 
-def _fsdp_providers(ax, waxes, dims, pcfg: ParallelConfig, attack):
+def _fsdp_providers(ax, waxes, dims, yields, pcfg: ParallelConfig, attack):
     """(transform, block_provider) over a rank's shards, the reference's
     ``_make_providers``: every group but ``blocks`` gathered whole by
     ``transform`` (the stacked encoder and cross groups then unbound per
     layer), each super-block of ``blocks`` by ``block_provider`` in the
     forward (its dims lose the stacking dim).  A gathered tensor the loss
     does not read never runs its backward, so its shard's gradient is the
-    trainer's exact zeros, with no collective on any rank."""
-    def gather(dim):
+    trainer's exact zeros, with no collective on any rank.
+
+    Under a model axis a rank gathers its model chunk of each leaf over
+    the workers of its model coordinate; a leaf whose FSDP dim took its
+    model dim (``yields``, that dim, else -1) is stored whole over
+    ``model``, so the rank cuts its model chunk after the gather
+    (``Collectives.model_cut``: the gradient of the whole, gathered from
+    the ranks' chunks, then meets the workers' reduce-scatter)."""
+    def gather(dim, cut=-1):
         if dim < 0:
             return lambda w: w
-        return distributed.make_robust_param_gather_dim(ax, waxes, dim, pcfg.agg_method,
-                                                        pcfg.agg_beta, attack)
+        g = distributed.make_robust_param_gather_dim(ax, waxes, dim, pcfg.agg_method,
+                                                     pcfg.agg_beta, attack)
+        return g if cut < 0 else (lambda w: ax.model_cut(g(w), cut))
+
+    def layer(d):  # a ``blocks`` leaf's dim in one super-block's slice
+        return d - 1 if d >= 0 else -1
 
     def block_provider(block):
-        return {key: {n: gather(dims["blocks"][key][n] - 1 if dims["blocks"][key][n] >= 0
-                                else -1)(w) for n, w in group.items()}
+        return {key: {n: gather(layer(dims["blocks"][key][n]),
+                                layer(yields["blocks"][key][n]))(w)
+                      for n, w in group.items()}
                 for key, group in block.items()}
 
     def transform(tree):
@@ -409,7 +473,7 @@ def _fsdp_providers(ax, waxes, dims, pcfg: ParallelConfig, attack):
             if key == "blocks":
                 out[key] = group  # gathered a super-block at a time in the forward
                 continue
-            full = tree_map(lambda w, d: gather(d)(w), group, dims[key])
+            full = tree_map(lambda w, d, y: gather(d, y)(w), group, dims[key], yields[key])
             out[key] = ({n: tuple(t.unbind(0)) for n, t in full.items()} if key in _STACKED
                         else full)
         return out
@@ -450,15 +514,21 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
 
     A model axis > 1 (module docstring) runs the forward over the mesh's
     :func:`~repro_torch.models.sharding.model_ctx`, for every
-    configuration, and refuses, with ``NotImplementedError`` naming the
-    ROADMAP item, what is not ported to it: fsdp, ``seq_parallel``, the
-    codecs and randomized attacks; a leaf-global attack
-    (mimic) with the bucketed strategy is a ``ValueError``
-    (:func:`repro_torch.rounds.comm.refuse_leaf_global`)."""
+    configuration, with fsdp, ``seq_parallel``, the codecs and randomized
+    attacks.  ``grad_norm`` under fsdp there: each worker's sum of squares
+    of the shards it holds, a leaf split over ``model``
+    (:func:`fsdp_model_dims`) psummed over the model axis and a leaf whole
+    over it counted once, then psummed over the workers (a replicated leaf
+    still counted m times), the reference's GSPMD sum.  A leaf-global
+    attack (mimic) with the bucketed strategies, fsdp's reduce-scatter
+    among them, is a ``ValueError``
+    (:func:`repro_torch.rounds.comm.refuse_leaf_global`): their buckets
+    are slices of a rank's own shards."""
     fsdp = pcfg.param_mode == "fsdp"
     model = _model_size(mesh)
-    if model > 1:
-        _refuse_model_axis(pcfg, attack, model)
+    comm.refuse_leaf_global(attack, pcfg.agg_strategy, model)
+    if fsdp:
+        comm.refuse_leaf_global(attack, "rs", model)
     if attack is not None and attack.name != "none" and attack.alpha > 0:
         atk_spec, _ = attack.resolve()  # raises early on unknown names
         comm.validate_attack_strategy(attack, pcfg.agg_strategy)
@@ -494,7 +564,8 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
     m = mesh_lib.num_workers(mesh)
     vs = ax.vshape(waxes)
     k = len(vs)
-    vg = _value_and_grad(cfg, pcfg.attn_chunk, ctx=sharding.model_ctx(mesh), remat=pcfg.remat)
+    ctx = sharding.model_ctx(mesh, pcfg.seq_parallel)
+    vg = _value_and_grad(cfg, pcfg.attn_chunk, ctx=ctx, remat=pcfg.remat)
     mdims = tree_leaves(sharding.tp_dims(cfg, model)) if model > 1 else None
 
     def sq_norm(agg):
@@ -539,10 +610,12 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
             atk_key = rng.fold(atk_base, step)
             if ef:
                 # transmit decode(encode(g + e)) per worker and keep the new
-                # residual; the strategy then moves already-decoded rows
+                # residual, each written over its input (a worker's whole
+                # (D,) f32 residual is the step's largest buffer); the
+                # strategy then moves already-decoded rows
                 grads, comp = rounds_dist.compress_workers(
                     ax, waxes, grads, pcfg.compression, comp_key=rng.fold(_COMP_KEY, step),
-                    residual=comp)
+                    residual=comp, model_dims=mdims, out=(grads, comp))
                 agg = rounds_dist.aggregate_by_strategy(
                     grads, ax, waxes, pcfg.agg_strategy, pcfg.agg_method, pcfg.agg_beta,
                     attack, agg_dtype, attack_key=atk_key)
@@ -561,9 +634,12 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
 
     if fsdp:
         dims = fsdp_dims(cfg, mesh)
+        tdims = sharding.tp_dims(cfg, model)
+        yields = tree_map(lambda t, f: t if model > 1 and t == f else -1, tdims, dims)
+        sdims = tree_leaves(fsdp_model_dims(cfg, mesh))  # split over model as stored
         pg_vg = _value_and_grad(cfg, pcfg.attn_chunk,
-                                *_fsdp_providers(ax, waxes, dims, pcfg, attack),
-                                remat=pcfg.remat)
+                                *_fsdp_providers(ax, waxes, dims, yields, pcfg, attack),
+                                ctx=ctx, remat=pcfg.remat)
 
         def rank_grads(params, batch):
             """This rank's loss and its shards' gradients: the sharded
@@ -580,6 +656,14 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
             """Each worker's sum of squares of its shard ``t``."""
             return (t.float() ** 2).reshape(vs + (-1,)).sum(-1)
 
+        def sq_parts(t, md, lead):
+            """:func:`sq_sum` of ``t`` (``lead`` leading dims before the
+            leaf's) by model rank: one part a rank this process computes
+            where the leaf is split along ``md`` over ``model``, else one."""
+            if md < 0:
+                return [sq_sum(t)]
+            return [sq_sum(ax.model_shard(t, lead + md, r)) for r in ax.model_ranks()]
+
         def reduce_scatter_in_process(grads):
             """The worker-stacked gradients' sharded leaves robust-reduce-
             scattered along their dims (a ``blocks`` leaf layer by layer, as
@@ -588,7 +672,7 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
             squares of its shards of it), by leaf index."""
             leaves, dl = tree_leaves(grads), tree_leaves(dims)
             paths = [p for p, _ in tree_leaves_with_path(grads)]
-            cts, cdims, owner = [], [], []
+            cts, cdims, mds, owner = [], [], [], []
             for i, (path, g, d) in enumerate(zip(paths, leaves, dl)):
                 if d < 0:
                     continue
@@ -596,13 +680,15 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
                 for s in layers:
                     cts.append(g if s is None else g.select(k, s))
                     cdims.append(d if s is None else d - 1)
+                    mds.append(sdims[i] if s is None or sdims[i] < 0 else sdims[i] - 1)
                     owner.append(i)
             shards = distributed.robust_reduce_scatter_dims(
                 cts, cdims, ax, waxes, pcfg.agg_method, pcfg.agg_beta, attack)
             views, sqs = {}, {}
-            for i, sh, d in zip(owner, shards, cdims):
+            for i, sh, d, md in zip(owner, shards, cdims, mds):
                 views.setdefault(i, []).append(_global_view(sh, k, d))
-                sqs[i] = sqs[i] + sq_sum(sh) if i in sqs else sq_sum(sh)
+                parts = sq_parts(sh, md, k)
+                sqs[i] = [a + b for a, b in zip(sqs[i], parts)] if i in sqs else parts
             for i, v in views.items():
                 views[i] = torch.stack(v) if paths[i].startswith("blocks/") else v[0]
             return views, sqs
@@ -620,7 +706,7 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
                     attack, agg_dtype, attack_key=rng.fold(atk_base, step)) if rep else []
                 if mesh.per_rank:
                     views = {i: g for i, (g, d) in enumerate(zip(leaves, dl)) if d >= 0}
-                    sqs = {i: sq_sum(g) for i, g in views.items()}
+                    sqs = {i: [sq_sum(g)] for i, g in views.items()}
                 else:
                     views, sqs = reduce_scatter_in_process(grads)
                     # the worker-stacked gradients are not read again this
@@ -628,12 +714,27 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
                     buf.clear()
                 del grads, leaves
                 for i, a in zip(rep, rep_agg):
-                    views[i], sqs[i] = a, torch.sum(a.float() ** 2)
+                    views[i] = a
+                    sqs[i] = [torch.sum(t.float() ** 2) for t in (
+                        [a] if sdims[i] < 0 else [ax.model_shard(a, sdims[i], r)
+                                                  for r in ax.model_ranks()])]
                 # each worker's sum of squares over its shards (a replicated
-                # leaf whole), psummed over the workers
+                # leaf whole; under a model axis a split leaf's parts summed
+                # a model rank at a time and psummed over ``model``, a leaf
+                # whole over it once), psummed over the workers
                 sq = torch.zeros(vs, dtype=torch.float32, device=mesh.device)
-                for i in range(len(dl)):
-                    sq = sq + sqs[i]
+                if model == 1:
+                    for i in range(len(dl)):
+                        sq = sq + sqs[i][0]
+                else:
+                    split = [torch.zeros(vs, dtype=torch.float32, device=mesh.device)
+                             for _ in ax.model_ranks()]
+                    for i in range(len(dl)):
+                        if sdims[i] < 0:
+                            sq = sq + sqs[i][0]
+                        else:
+                            split = [a + b for a, b in zip(split, sqs[i])]
+                    sq = ax.model_sum(split) + sq
                 agg = tree_unflatten_like(params, [views[i] for i in range(len(dl))])
                 del views
                 new_params, new_opt = opt.update(agg, opt_state, params, step)
@@ -648,30 +749,6 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
         return new_params, new_opt, metrics
 
     return StepBody(body=body, waxes=waxes, comp_body=core if ef else None)
-
-
-def _refuse_model_axis(pcfg: ParallelConfig, attack, model: int) -> None:
-    """What a train step does not run at model axis ``model`` > 1 yet."""
-    later = "is not ported yet (ROADMAP queue A item 6, step 7)"
-    if pcfg.param_mode == "fsdp":
-        raise NotImplementedError(f"param_mode='fsdp' at model axis {model}: fsdp × tensor "
-                                  f"parallelism {later}")
-    if pcfg.seq_parallel:
-        raise NotImplementedError(f"seq_parallel at model axis {model}: sequence parallelism "
-                                  f"{later}")
-    if pcfg.compression != "none":
-        raise NotImplementedError(
-            f"compression {pcfg.compression!r} at model axis {model}: a codec's message is the "
-            f"whole raveled gradient, which no model rank holds; codecs under tensor "
-            f"parallelism {later}")
-    atk = comm.resolve_attack(attack)[0]
-    if (atk is not None and atk.randomized and attack.alpha > 0
-            and not attack.is_data_attack()):
-        raise NotImplementedError(
-            f"attack {atk.name!r} at model axis {model}: a randomized payload is drawn over "
-            f"the whole leaf, which no model rank holds; randomized attacks under tensor "
-            f"parallelism {later}")
-    comm.refuse_leaf_global(attack, pcfg.agg_strategy, model)
 
 
 def comp_state_size(cfg: ModelConfig) -> int:

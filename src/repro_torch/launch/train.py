@@ -29,7 +29,9 @@ ranks, a worker's N ranks consecutive (``torchrun --nproc-per-node 4 ...
 configuration runs at N > 1: the dense and MoE families, mamba2 and
 recurrentgemma (their mixers whole on every rank from gathered
 in-projections, the out-projections row-parallel), whisper's encoder and
-cross-attention and internvl2's vision prefix.  The train step runs with
+cross-attention and internvl2's vision prefix; so do ``--compression``
+(each worker's whole gradient compressed) and a randomized ``--attack``
+(``gauss``: each payload drawn over the whole leaf).  The train step runs with
 ``remat=True``, as the reference's CLI: each super-block and encoder
 layer is recomputed in the backward instead of kept.
 """

@@ -55,13 +55,15 @@ def init_state(cfg: ModelConfig, mesh: mesh_lib.Mesh, opt: Optimizer, seed: int 
     optimizer state, the error-feedback residuals, step 0, the attack-key
     base ``seed`` and zeroed metric sums.  Under ``param_mode='fsdp'`` on a
     process group the seeded full params are built once and this rank
-    keeps its shards (:func:`steps.fsdp_shard`), and the optimizer state is
+    keeps its shards (:func:`steps.fsdp_rank_shard`: under a model axis its
+    worker's chunk of its model chunk), and the optimizer state is
     initialised on them; under a model axis a rank keeps its model shards
-    (:func:`steps.tp_shard`); the in-process mesh keeps the global view."""
+    (:func:`steps.tp_shard`); the in-process mesh keeps the global view.
+    The error-feedback residual is a worker's whole (D,) row, on each of
+    its model ranks alike."""
     params = T.init_params(cfg, seed=seed, device=mesh.device)
     if pcfg is not None and pcfg.param_mode == "fsdp" and mesh.per_rank:
-        params = steps.fsdp_shard(params, steps.fsdp_dims(cfg, mesh), mesh.rank,
-                                  mesh_lib.num_workers(mesh))
+        params = steps.fsdp_rank_shard(params, cfg, mesh)
     elif mesh.per_rank:
         params = steps.tp_shard(params, steps.param_shardings(cfg, mesh),
                                 mesh_lib.model_rank(mesh), mesh_lib.model_size(mesh))

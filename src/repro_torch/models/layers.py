@@ -14,12 +14,16 @@ import torch
 import torch.nn.functional as F
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    dt = x.dtype
+def rms_normalize(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``x`` in float32 over its root mean square (each row of the last
+    dim): :func:`rms_norm` before its scale."""
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * (1.0 + scale.float())).to(dt)
+    return x * torch.rsqrt(var + eps)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    return (rms_normalize(x, eps) * (1.0 + scale.float())).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -20,7 +20,10 @@ each rank runs the tokens routed to its E/M experts and combines them,
 the others' slots weighing 0; ``hidden``: each rank runs every expert on
 its F/M columns.  Either way the ranks' partial outputs are psummed (the
 combine is linear), and the combine weights enter the ranks through
-Megatron's f, so that their gradient is the ranks' sum.
+Megatron's f, so that their gradient is the ranks' sum.  Under the
+context's ``seq_parallel`` the input is a rank's rows of S: they are
+gathered whole (routing and capacity read the whole sequence) and the
+output is reduce-scattered back to the rank's rows.
 """
 from __future__ import annotations
 
@@ -107,7 +110,8 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     """x (B, S, D); w_router (D, E), whole; w_gate / w_up (E, D, F); w_down
     (E, F, D) (a rank's shards under ``split``).  Returns (y (B, S, D) in
     x's dtype, the float32 Switch auxiliary loss ``E · Σ_e frac_e ·
-    mean_p_e / k``)."""
+    mean_p_e / k``); x and y a rank's rows of S under ``ctx.seq_parallel``."""
+    x = ctx.sp_enter(NULL_CTX, x)  # a rank's rows under seq_parallel: routing reads all of S
     b, s, d = x.shape
     e = w_router.shape[1]
     cap = capacity(s, e, top_k, capacity_factor)
@@ -127,7 +131,7 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
         else:
             parts.append(_experts(xk, r, wk, c.shard(w_gate, 2, k), c.shard(w_up, 2, k),
                                   c.shard(w_down, 1, k), cap))
-    y = c.reduce(parts)
+    y = ctx.sp_reduce(c, parts)
 
     kept = F.one_hot(r.expert, e) * r.keep[..., None]  # (B, S, K, E)
     frac = torch.sum(kept, dim=(0, 1, 2)).float() / (b * s)

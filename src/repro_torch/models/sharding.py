@@ -50,6 +50,10 @@ computes each layer on the shards explicitly, through :class:`ShardCtx`:
 computes on the shard (``shard``) or on the gathered whole
 (``gathered``), for every configuration.
 
+Sequence parallelism (:class:`ShardCtx`'s ``seq_parallel``, the train
+step's flag) splits the residual between the layers of a super-block
+over ``model`` along S, where :func:`seq_ok` allows it.
+
 Serving caches follow the attention layers: in ``heads`` mode each rank's
 attention keys and values are its own kv heads (:func:`cache_dims`,
 :func:`shard_cache`), the positions (``kpos``) whole on every rank; in
@@ -294,10 +298,26 @@ class ShardCtx:
     :class:`~repro_torch.core.distributed.Collectives`, whose ``model_*``
     calls the layers use.  At model size 1 (:data:`NULL_CTX`) every
     operation is the identity, so a layer computes exactly what it
-    computes on the whole leaf."""
+    computes on the whole leaf.
+
+    ``seq_parallel`` (sequence parallelism, Korthikanti et al.; the
+    reference's flag): between the layers of a super-block the residual
+    stream is split over the model axis along S (``seq_len`` long), where
+    :func:`seq_ok` allows it, and the layers' norms run on a rank's rows.
+    At each model-axis boundary Megatron-SP's conjugate pair replaces
+    Megatron-TP's: :meth:`sp_enter` gathers the rows (its backward a
+    reduce-scatter) where TP enters, :meth:`sp_reduce` reduce-scatters the
+    partial outputs (its backward an all-gather) where TP sums them; a
+    layer that computes whole on every rank gathers the rows and keeps its
+    own of the output.  The train step sets it (the transformer gives its
+    blocks a context with it and the embedding, the encoder, the tail and
+    the head one without); serving never does, as the reference's
+    ``_serve_ctx``."""
 
     model: int = 1
     axes: Any = None  # the mesh's Collectives
+    seq_parallel: bool = False
+    seq_len: int = 0  # S of the blocks' residual where seq_ok splits it (0 elsewhere)
 
     def modes(self, cfg) -> TPModes:
         return tp_modes(cfg, self.model)
@@ -331,15 +351,55 @@ class ShardCtx:
     def pmax(self, parts):
         return parts[0] if self.model == 1 else self.axes.model_max(parts)
 
+    # -- sequence parallelism: ``c`` is the context a layer computes under
+    # (this one where the layer splits over the model axis, else NULL_CTX)
+
+    def sp_enter(self, c: "ShardCtx", y):
+        """The whole activation a layer reads of the rank's normed rows
+        ``y`` (without sequence parallelism ``c.enter(y)``): Megatron-SP's
+        all-gather where the layer splits over the model axis, else the
+        rows gathered for a computation every rank runs alike."""
+        if not self.seq_parallel:
+            return c.enter(y)
+        if c.model > 1:
+            return self.axes.seq_enter(y, 1, self.seq_len)
+        return self.axes.model_full(y, 1, self.seq_len)
+
+    def sp_reduce(self, c: "ShardCtx", parts):
+        """The rank's rows of a layer's output (without sequence parallelism
+        ``c.reduce(parts)``): Megatron-SP's reduce-scatter of the ranks'
+        partials, or the rank's rows of an output every rank computed
+        alike."""
+        if not self.seq_parallel:
+            return c.reduce(parts)
+        if c.model > 1:
+            return self.axes.seq_reduce(parts, 1, self.seq_len)
+        return self.axes.model_cut(parts[0], 1)
+
+    def whole(self) -> "ShardCtx":
+        """This context outside the super-blocks: no sequence parallelism,
+        no block residual length."""
+        return dataclasses.replace(self, seq_parallel=False, seq_len=0) \
+            if self.seq_parallel or self.seq_len else self
+
 
 NULL_CTX = ShardCtx()
 
 
-def model_ctx(mesh) -> ShardCtx:
+def seq_ok(s: int, model: int) -> bool:
+    """Whether a residual of S = ``s`` splits over ``model`` ranks: the
+    reference's ``_ok`` rule (even, or uneven when at least half the
+    shards are non-empty); otherwise it stays whole."""
+    return model > 1 and shard_ok(s, ("model",), {"model": model})
+
+
+def model_ctx(mesh, seq_parallel: bool = False) -> ShardCtx:
     """The context of a train step on ``mesh``: its model axis when larger
     than 1, else :data:`NULL_CTX` (constraints over a size-1 axis are
-    no-ops, as in the reference's ``make_step_body``)."""
+    no-ops, as in the reference's ``make_step_body``, sequence
+    parallelism's included); ``seq_parallel`` as the step's
+    ``ParallelConfig``."""
     shape = dict(zip(mesh.axis_names, mesh.shape))
     if shape.get("model", 1) == 1:
         return NULL_CTX
-    return ShardCtx(shape["model"], mesh.axes)
+    return ShardCtx(shape["model"], mesh.axes, seq_parallel)

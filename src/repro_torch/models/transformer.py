@@ -48,7 +48,14 @@ F-split) MoE, the ``ssm`` / ``rec`` mixers on gathered in-projections
 with a row-parallel out-projection, the encoder and cross-attention in
 their own attention mode, a vocab-parallel embedding and cross-entropy
 (or a d_model split).  ``prefill`` and ``decode_step`` of a frontend
-configuration refuse a model axis (:func:`refuse_model_axis`).
+configuration refuse a model axis (:func:`refuse_model_axis`).  Under the
+context's ``seq_parallel`` the residual is split over the model axis
+along S between the layers of the ``blocks`` super-blocks (the embedding,
+the encoder, the tail and the head take it whole, as the reference
+constrains it only inside its block scan): each layer's norm runs on a
+rank's rows (its scale's gradient taken over the whole rows) and its
+model-axis boundaries are the context's ``sp_enter`` / ``sp_reduce``;
+the function is unchanged, bit for bit.
 
 Activation checkpointing (``remat``, the reference's default ``True``):
 ``forward`` and ``loss_fn`` run each super-block of the ``blocks`` group,
@@ -86,7 +93,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.sharding import NULL_CTX, ShardCtx
+from repro_torch.models.sharding import NULL_CTX, ShardCtx, seq_ok
 
 Params = Dict[str, Any]
 
@@ -354,6 +361,36 @@ def _on(ctx: ShardCtx, split: bool) -> ShardCtx:
     return ctx if split else NULL_CTX
 
 
+def _norm(ctx: ShardCtx, x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """``rms_norm(x, w)`` of a block's residual; under ``ctx.seq_parallel``
+    a rank's rows at a time (:func:`_rows_norm`)."""
+    if not ctx.seq_parallel:
+        return L.rms_norm(x, w, eps)
+    return _rows_norm(ctx, x, w, eps)
+
+
+def _rows_norm(ctx: ShardCtx, x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """``rms_norm(x, w)`` of the blocks' residual (``ctx.seq_len`` rows of
+    S) normalized a model rank's rows at a time, its scale's gradient
+    summed over the whole rows.  On a process group ``x`` is the rank's
+    rows, padded past the end, and the scale's gradient gathers the
+    ranks' rows (:meth:`~repro_torch.core.distributed.Collectives.seq_scale`);
+    in process ``x`` is the whole residual, normalized in the ranks'
+    chunks of rows, so that each row takes the autograd path it takes on
+    its rank and the bits are the process group's."""
+    ax, n = ctx.axes, ctx.seq_len
+    c = -(-n // ctx.model)
+    t = 1.0 + w.float()
+    if ax.holds_shards:
+        real = max(0, min(c, n - ax.model_ranks()[0] * c))
+        y = ax.seq_scale(L.rms_normalize(x.narrow(1, 0, real), eps), t, 1, n).to(x.dtype)
+        return y if real == c else torch.cat([y, y.new_zeros(
+            (y.shape[0], c - real) + tuple(y.shape[2:]))], 1)
+    xh = torch.cat([L.rms_normalize(x.narrow(1, a, min(c, n - a)), eps)
+                    for a in range(0, n, c)], 1)
+    return ax.seq_scale(xh, t, 1, n).to(x.dtype)
+
+
 def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
            ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """Token embeddings (B, S, D).  With V split each rank looks up the
@@ -400,7 +437,7 @@ def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """The attention layer's FFN half -> (x, the MoE's aux loss or 0).
     Split on F: column-parallel ``wg``/``wu``, row-parallel ``wd``, the
     ranks' partial outputs psummed."""
-    y = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y = _norm(ctx, x, p["ln2"], cfg.norm_eps)
     modes = ctx.modes(cfg)
     if cfg.moe is not None:
         router = p["router"]
@@ -411,13 +448,13 @@ def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
         return x + f, aux
     if cfg.d_ff:
         c = _on(ctx, modes.ffn)
-        ye = c.enter(y)
+        ye = ctx.sp_enter(c, y)
         parts = []
         for k in c.ranks():
             wg, wu, wd = c.shard(p["wg"], 1, k), c.shard(p["wu"], 1, k), c.shard(p["wd"], 0, k)
             yk = c.local(ye)
             parts.append((F.silu(yk @ wg) * (yk @ wu)) @ wd)
-        x = x + c.reduce(parts)
+        x = x + ctx.sp_reduce(c, parts)
     return x, _zero(x)
 
 
@@ -449,12 +486,12 @@ def _cross_attention(cp: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg: Mo
     holds them alike, their gradients are the ranks' summed) and its rows
     of ``wo``, the partials summed; in ``gathered`` the split leaves are
     gathered whole."""
-    b, s, _ = x.shape
     modes = ctx.modes(_enc_cfg(cfg))
     if modes.attn == "gathered":
         cp = dict(cp, **{n: ctx.full(cp[n], _ATTN_DIMS[n]) for n in modes.attn_split})
     c = _on(ctx, modes.attn == "heads")
-    ye, ee = c.enter(L.rms_norm(x, cp["ln1"], cfg.norm_eps)), c.enter(enc_out)
+    ye, ee = ctx.sp_enter(c, _norm(ctx, x, cp["ln1"], cfg.norm_eps)), c.enter(enc_out)
+    b, s, _ = ye.shape
     heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
     parts = []
     for r in c.ranks():
@@ -463,7 +500,7 @@ def _cross_attention(cp: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg: Mo
                                *_cross_kv(pr, c.local(ee), cfg, heads[1]),
                                causal=False, kv_block=kv_block)
         parts.append(o.reshape(b, s, heads[0] * cfg.hd) @ pr["wo"])
-    return c.reduce(parts)
+    return ctx.sp_reduce(c, parts)
 
 
 _ATTN_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}  # the split dim of a layer's leaf
@@ -484,16 +521,17 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
     leaves are gathered whole.  The returned k, v are the ranks' this
     process computes, their kv heads concatenated in rank order (in
     process every rank's: the whole heads; under a process group the
-    rank's own)."""
-    b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    rank's own).  Under the context's ``seq_parallel`` ``x`` is a rank's
+    rows of the residual and so is the result."""
+    y = _norm(ctx, x, p["ln1"], cfg.norm_eps)
     modes = ctx.modes(cfg)
     if modes.attn == "gathered":
         p = dict(p, **{n: ctx.full(p[n], _ATTN_DIMS[n]) for n in modes.attn_split})
     c = _on(ctx, modes.attn == "heads")
-    ye = c.enter(y)
+    ye = ctx.sp_enter(c, y)
+    b, s, _ = ye.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
     heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
     parts, ks, vs = [], [], []
     for r in c.ranks():
@@ -503,7 +541,7 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
         parts.append(o.reshape(b, s, heads[0] * cfg.hd) @ pr["wo"])
         ks.append(k)
         vs.append(v)
-    x = x + c.reduce(parts)
+    x = x + ctx.sp_reduce(c, parts)
     if len(ks) > 1:
         k, v = torch.cat(ks, 2), torch.cat(vs, 2)
     if enc_out is not None and cross_p is not None:
@@ -529,15 +567,18 @@ def _row_parallel(y: torch.Tensor, w: torch.Tensor, split: bool, ctx: ShardCtx) 
     take their chunk of."""
     c = _on(ctx, split)
     ye = c.enter(y)
-    return c.reduce([c.split(c.local(ye), -1, r) @ c.shard(w, 0, r) for r in c.ranks()])
+    return ctx.sp_reduce(c, [c.split(c.local(ye), -1, r) @ c.shard(w, 0, r)
+                             for r in c.ranks()])
 
 
-def _ssm_in(p: Params, x: torch.Tensor, cfg: ModelConfig, prev: Optional[torch.Tensor]):
+def _ssm_in(p: Params, x: torch.Tensor, cfg: ModelConfig, prev: Optional[torch.Tensor],
+            ctx: ShardCtx = NULL_CTX):
     """The SSM layer's input side: (z, the dt-scaled heads x·dt, x, loga,
-    B, C, the conv's new window)."""
+    B, C, the conv's new window); the mixer reads every position, so a
+    rank's rows under ``seq_parallel`` are gathered after the norm."""
     s_cfg, di, nheads, _ = _ssm_dims(cfg)
     n = s_cfg.d_state
-    y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    y = ctx.sp_enter(NULL_CTX, _norm(ctx, x, p["ln1"], cfg.norm_eps))
     z, xs, bm, cm, dt = torch.split(y @ p["w_in"], [di, di, n, n, nheads], dim=-1)
     conv_out, conv_state = ssm_lib.causal_conv1d(torch.cat([xs, bm, cm], dim=-1),
                                                  p["conv_w"], prev)
@@ -561,14 +602,15 @@ def _ssm_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx =
     Under a model axis the packed in-projection is gathered, the conv, the
     SSD and ``out_norm`` run whole and ``w_out`` is row-parallel."""
     p = _gather_in(p, cfg, ctx)
-    z, xdt, xh, loga, bm, cm, conv_state = _ssm_in(p, x, cfg, None)
+    z, xdt, xh, loga, bm, cm, conv_state = _ssm_in(p, x, cfg, None, ctx)
     y_ssd, state = ssm_lib.ssd_chunked(xdt, loga, bm, cm, chunk=_ssm_dims(cfg)[0].chunk)
     return (_ssm_out(p, x, y_ssd, xh, z, cfg, ctx), _zero(x),
             {"conv": conv_state, "ssd": state})
 
 
-def _rec_in(p: Params, x: torch.Tensor, prev: Optional[torch.Tensor], cfg: ModelConfig):
-    y = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+def _rec_in(p: Params, x: torch.Tensor, prev: Optional[torch.Tensor], cfg: ModelConfig,
+            ctx: ShardCtx = NULL_CTX):
+    y = ctx.sp_enter(NULL_CTX, _norm(ctx, x, p["ln1"], cfg.norm_eps))  # the scan reads all of S
     bg = F.gelu(y @ p["w_bg"], approximate="tanh")  # jax.nn.gelu's default
     conv_out, conv_state = ssm_lib.causal_conv1d(y @ p["w_bx"], p["conv_w"], prev)
     return bg, conv_out, conv_state
@@ -582,9 +624,10 @@ def _rec_out(p: Params, x: torch.Tensor, r: torch.Tensor, bg: torch.Tensor,
     modes = ctx.modes(cfg)
     x = x + _row_parallel(r * bg, p["w_ro"], "w_ro" in modes.mixer_out, ctx)
     c = _on(ctx, modes.ffn)
-    ye = c.enter(L.rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x + c.reduce([L.geglu(c.local(ye), c.shard(p["wg"], 1, k), c.shard(p["wu"], 1, k),
-                                 c.shard(p["wd"], 0, k)) for k in c.ranks()])
+    ye = ctx.sp_enter(c, _norm(ctx, x, p["ln2"], cfg.norm_eps))
+    return x + ctx.sp_reduce(c, [L.geglu(c.local(ye), c.shard(p["wg"], 1, k),
+                                         c.shard(p["wu"], 1, k), c.shard(p["wd"], 0, k))
+                                 for k in c.ranks()])
 
 
 def _rec_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx = NULL_CTX):
@@ -593,7 +636,7 @@ def _rec_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx =
     are gathered, the conv, the scan and the gate product run whole, and
     ``w_ro`` is row-parallel."""
     p = _gather_in(p, cfg, ctx)
-    bg, conv_out, conv_state = _rec_in(p, x, None, cfg)
+    bg, conv_out, conv_state = _rec_in(p, x, None, cfg, ctx)
     r, h = rglru_lib.rglru_scan(conv_out, p["w_a"], p["b_a"], p["w_xg"], p["b_x"], p["lam"])
     return _rec_out(p, x, r, bg, cfg, ctx), _zero(x), {"conv": conv_state, "h": h}
 
@@ -627,7 +670,7 @@ def _encoder_fwd(params: Params, frontend: torch.Tensor, cfg: ModelConfig,
     of the encoder config (RoPE at the default positions on top of the
     table, as in the reference; under ``ctx`` in the encoder's own
     attention mode), each checkpointed with ``remat``, then ``enc_norm``."""
-    ecfg = _enc_cfg(cfg)
+    ecfg, ctx = _enc_cfg(cfg), ctx.whole()
     x = frontend + L.sinusoidal_positions(frontend.shape[1], cfg.d_model, frontend.dtype,
                                           frontend.device)[None]
     for i in range(cfg.n_enc_layers):
@@ -673,12 +716,23 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             remat: bool = False):
     """The final-normed hidden states of the text positions and the aux
     loss.  Each super-block of ``blocks`` (its ``block_provider`` call
-    included) is one checkpointed function under ``remat``."""
-    x, enc_out, n_prefix = _frontend_in(params, tokens, cfg, frontend, kv_block, ctx, remat)
+    included) is one checkpointed function under ``remat``.  Under
+    ``ctx.seq_parallel`` the blocks run on a rank's rows of the residual
+    where :func:`~repro_torch.models.sharding.seq_ok` allows the split
+    (the residual cut after the embedding, gathered after the last
+    block); everything else runs on the whole residual."""
+    whole = ctx.whole()
+    x, enc_out, n_prefix = _frontend_in(params, tokens, cfg, frontend, kv_block, whole, remat)
     if not cfg.cross_attention:
         enc_out = None
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    n = x.shape[1]
+    positions = torch.arange(n, device=x.device)[None, :]
     [(pattern, n_super)], tail = layer_groups(cfg)
+    sp = ctx.seq_parallel and seq_ok(n, ctx.model)
+    bctx = (dataclasses.replace(ctx, seq_parallel=sp, seq_len=n) if seq_ok(n, ctx.model)
+            else whole)
+    if sp:
+        x = ctx.axes.model_cut(x, 1)
 
     def block(s: int, x: torch.Tensor, aux: torch.Tensor):
         leaves = {k: _stacked_at(g, s) for k, g in params["blocks"].items()}
@@ -687,16 +741,18 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         for i, kind in enumerate(pattern):
             where = Where("blocks", f"p{i}_{kind}", s, kind)
             x, a, _ = _layer_fwd(where, leaves[where.key], x, cfg, positions, kv_block,
-                                 _cross_at(params, where, enc_out), ctx)
+                                 _cross_at(params, where, enc_out), bctx)
             aux = aux + a
         return x, aux
 
     aux = _zero(x)
     for s in range(n_super):
         x, aux = _remat(lambda x, aux, s=s: block(s, x, aux), remat, x, aux)
+    if sp:
+        x = ctx.axes.model_full(x, 1, n)
     for j, kind in enumerate(tail):
         x, a, _ = _layer_fwd(Where("tail", j, None, kind), params["tail"][j], x, cfg, positions,
-                             kv_block, None, ctx)
+                             kv_block, None, whole)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, n_prefix:], aux
@@ -753,7 +809,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ``remat`` checkpoints each super-block and each encoder layer (module
     docstring); it changes no bit of the result."""
     x, aux = _hidden(params, tokens, cfg, frontend, kv_block, block_provider, ctx, remat)
-    return _logits(x, params["lm_head"], cfg, ctx), aux
+    return _logits(x, params["lm_head"], cfg, ctx.whole()), aux
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -765,6 +821,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     the whole logits).  ``remat`` as in :func:`forward`."""
     x, aux = _hidden(params, batch["tokens"], cfg, batch.get("frontend"), kv_block,
                      block_provider, ctx, remat)
+    ctx = ctx.whole()
     if ctx.modes(cfg).lm_head == 1:
         _, parts = _head_parts(x, params["lm_head"], cfg, ctx)
         ce = _vocab_parallel_ce(parts, batch["labels"], batch.get("mask"),
@@ -885,6 +942,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     if cache_len < s:
         raise ValueError(f"cache_len {cache_len} < prompt length {s}")
     refuse_model_axis(cfg, ctx.model)
+    ctx = ctx.whole()  # serving never splits the sequence, as the reference's _serve_ctx
     eff = cache_window(cfg, cache_len)
     x, enc_out, _ = _frontend_in(params, tokens, cfg, frontend, kv_block, ctx)
     if not cfg.cross_attention:

@@ -48,6 +48,9 @@ from repro_torch.tree import ravel, tree_leaves, tree_map, tree_unflatten_like
 # fixed seed of the shared count-sketch hash: one PUBLIC map (server and
 # all workers agree on it), not per-call randomness
 _SKETCH_SEED = 1729
+#: coordinates the card's sketch accumulates at a time (2^26: ~1 GiB of
+#: sort buffers)
+_SKETCH_BLOCK = 1 << 26
 #: base seed of the round programs' codec draws (the reference's PRNGKey(11))
 DRAW_SEED = 11
 
@@ -212,8 +215,35 @@ def _sketch_encode(x: torch.Tensor, knob: float, generator=None, draw=None):
     h = h.to(device=x.device, dtype=torch.int64)
     s = s.to(device=x.device, dtype=torch.float32)
     sketch = torch.zeros(x.shape[:-1] + (w,), dtype=torch.float32, device=x.device)
-    sketch.index_add_(x.dim() - 1, h, s * x)
+    sketch_accumulate(sketch, h, s * x)
     return {"sketch": sketch, "h": h, "s": s}
+
+
+def sketch_accumulate(sketch: torch.Tensor, h: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``sketch[..., h[i]] += vals[..., i]`` in place, every bucket's terms
+    added one at a time in the order of i: the same bits on every call and
+    on both devices.  On the CPU ``index_add_`` (a serial loop; the CPU's
+    ``index_put_`` accumulates in parallel, in no fixed order, past a few
+    thousand coordinates); on the card ``index_put_``'s accumulation
+    (:func:`_put_accumulate`; the card's ``index_add_`` adds with atomics,
+    in no fixed order)."""
+    if not sketch.is_cuda:
+        return sketch.index_add_(sketch.dim() - 1, h, vals)
+    return _put_accumulate(sketch, h, vals)
+
+
+def _put_accumulate(sketch: torch.Tensor, h: torch.Tensor, vals: torch.Tensor,
+                    block: int = None) -> torch.Tensor:
+    """:func:`sketch_accumulate` through ``index_put_(accumulate=True)``,
+    which sorts the indices stably and adds each bucket's terms in their
+    order, ``block`` (default ``_SKETCH_BLOCK``) coordinates at a time, as
+    its sort's buffers grow with the indices."""
+    block = block or _SKETCH_BLOCK
+    d, w = vals.shape[-1], sketch.shape[-1]
+    rows, flat = sketch.view(-1, w).T, vals.reshape(-1, d)
+    for a in range(0, d, block):
+        rows.index_put_((h[a:a + block],), flat[:, a:a + block].T, accumulate=True)
+    return sketch
 
 
 def _sketch_decode(enc, d: int, knob: float) -> torch.Tensor:

@@ -40,7 +40,7 @@ from repro_torch.core import distributed
 from repro_torch.rounds import comm
 from repro_torch.rounds import compression as comp_lib
 from repro_torch.rounds.one_round import OneRoundConfig
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 #: the codecs' key base when the caller gives none (the reference's PRNGKey(13))
 _COMP_KEY = 13
@@ -51,17 +51,30 @@ _ATTACK_KEY, _ROUND_COMP_KEY = 0, 11
 
 def compress_workers(ax: distributed.Collectives, axis_names: Sequence[str], g, name: str,
                      comp_key=None, draw: Optional[Callable[[int], object]] = None,
-                     residual=None):
+                     residual=None, model_dims=None, out=None):
     """Each worker's tree ``g`` through the codec ``name`` as ONE flat
     message (``compression.compress_tree``).  A randomized codec draws from
     the generator of (``comp_key``, worker), a shared-key codec from that
     of ``comp_key`` alone (one map for every worker); ``draw(worker)``
     injects a worker's draw instead.  With ``residual`` (varying (D,)
-    error-feedback rows) returns ``(g_hat, new_residual)``, else ``g_hat``."""
+    error-feedback rows) returns ``(g_hat, new_residual)``, else ``g_hat``,
+    written into ``out`` when given (``g``'s layout, with ``residual`` a
+    pair of trees; the inputs themselves may be given, as a worker's
+    result is computed before it is written).
+
+    Under a model axis the message is still the worker's whole raveled
+    gradient: where this process holds a model rank's shards
+    (``ax.holds_shards``, a process group), its split leaves
+    (``model_dims``, each leaf's split dim, -1 whole) are gathered over
+    the model axis into the whole tree, which is compressed (the same
+    generator on every model rank of a worker, and the error-feedback
+    residual a whole (D,) row on each of them), and the rank's chunks are
+    cut back out; in process the tree is the global view already."""
     names = tuple(axis_names)
     spec = comp_lib.get_compression(name)
     base = _COMP_KEY if comp_key is None else comp_key
     dev = tree_leaves(g)[0].device
+    dims = list(model_dims) if model_dims is not None and ax.holds_shards else None
 
     def one(w, tree, *res):
         gen = None
@@ -69,14 +82,20 @@ def compress_workers(ax: distributed.Collectives, axis_names: Sequence[str], g, 
             gen = rng.generator(base, w, device=dev)
         elif draw is None and spec.shared_key:
             gen = rng.generator(base, device=dev)
+        if dims is not None:
+            tree = tree_unflatten_like(tree, [t if d < 0 else ax.model_full(t, d)
+                                              for t, d in zip(tree_leaves(tree), dims)])
         hat, new = comp_lib.compress_tree(name, tree, generator=gen,
                                           draw=None if draw is None else draw(w),
                                           residual=res[0] if res else None)
+        if dims is not None:
+            hat = tree_unflatten_like(hat, [t if d < 0 else ax.model_cut(t, d)
+                                            for t, d in zip(tree_leaves(hat), dims)])
         return (hat, new) if res else hat
 
     if residual is None:
-        return ax.map_workers(one, names, g)
-    return ax.map_workers(one, names, g, residual)
+        return ax.map_workers(one, names, g, out=out)
+    return ax.map_workers(one, names, g, residual, out=out)
 
 
 def aggregate_by_strategy(
@@ -102,9 +121,15 @@ def aggregate_by_strategy(
     global view, the same bits: the estimators are coordinate-wise) and
     ``model_dims`` each leaf's split dim (:func:`tree_leaves` order, -1
     whole), with which the gather strategies complete a leaf-global
-    attack's sums over the model shards.  The bucketed strategies refuse
-    a leaf-global attack there: their buckets would be slices of a rank's
-    own ravel, not of the global one the reference's GSPMD cuts.
+    attack's sums over the model shards, a randomized attack draws its
+    payload over each whole leaf (the chunked and psum strategies too),
+    and a codec compresses each worker's whole gradient
+    (:func:`compress_workers`).  The bucketed strategies refuse a
+    leaf-global attack there: their buckets would be slices of a rank's
+    own ravel, not of the global one the reference's GSPMD cuts; a
+    randomized attack's buckets are drawn whole, so a rank holding shards
+    gathers its tree over the model axis, runs the strategy on the whole
+    tree (model 1's function) and keeps its chunks.
 
     ``strategy`` is any rounds.comm registry name except ``rs`` (which
     returns scattered shards); ``hierarchical`` needs exactly two worker
@@ -118,22 +143,33 @@ def aggregate_by_strategy(
         comp_lib.validate_compression_context(
             compression, stateful=False,
             where="the stateless aggregate_by_strategy dispatch")
-        g = compress_workers(ax, names, g, compression, comp_key, comp_draw)
+        g = compress_workers(ax, names, g, compression, comp_key, comp_draw,
+                             model_dims=model_dims)
     if strategy == "gather":
         return distributed.robust_gather_agg(
             g, ax, names, method, beta, attack, agg_dtype, attack_key=attack_key,
             model_dims=model_dims)
     if strategy == "bucketed":
         comm.refuse_leaf_global(attack, strategy, ax.model)
+        atk = comm.resolve_attack(attack)[0]
+        if atk is not None and atk.randomized and ax.holds_shards and model_dims is not None:
+            dims = list(model_dims)
+            whole = tree_unflatten_like(g, [t if d < 0 else ax.model_full(t, d)
+                                            for t, d in zip(tree_leaves(g), dims)])
+            agg = distributed.robust_bucketed_agg(
+                whole, ax, names, method, beta, attack, agg_dtype, attack_key=attack_key)
+            return tree_unflatten_like(g, [t if d < 0 else ax.model_cut(t, d)
+                                           for t, d in zip(tree_leaves(agg), dims)])
         return distributed.robust_bucketed_agg(
             g, ax, names, method, beta, attack, agg_dtype, attack_key=attack_key)
     if strategy == "chunked":
         return distributed.robust_chunked_agg(
             g, ax, names, method, beta, attack, agg_dtype, nbins=nbins,
-            attack_key=attack_key)
+            attack_key=attack_key, model_dims=model_dims)
     if strategy == "psum":
         return distributed.robust_psum_agg(
-            g, ax, names, method, beta, attack, agg_dtype, attack_key=attack_key)
+            g, ax, names, method, beta, attack, agg_dtype, attack_key=attack_key,
+            model_dims=model_dims)
     if strategy == "hierarchical":
         if len(names) != 2:
             raise ValueError(

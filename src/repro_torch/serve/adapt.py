@@ -46,8 +46,11 @@ mode) is split all the same: a rank's columns of it are its chunk of the
 whole gradient, in its ravel order.  Snapshots hold the
 global state, gathered over the model axis and written by global rank 0;
 a restore cuts each rank's shards, so a snapshot restores at any model
-size.  Randomized gradient attacks and the codecs read whole rows and do
-not run at model > 1 yet (ROADMAP queue A item 6, step 7).
+size.  The codecs and randomized gradient attacks act on whole rows, as
+at model 1: a rank gathers its columns over the model axis into the
+global (m, D) rows, compresses them (the error-feedback residual is the
+global (m, D) on every rank alike) and keeps its columns; a randomized
+payload is drawn over the global rows and cut to the rank's columns.
 """
 from __future__ import annotations
 
@@ -61,7 +64,6 @@ from repro_torch.attacks import base as atk_base
 from repro_torch.attacks import engine as atk_engine
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import aggregators
-from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import get_optimizer
@@ -200,20 +202,27 @@ def make_feedback_stages(cfg: ModelConfig, acfg: AdaptConfig, batch: Dict[str, t
         def compress(payload, res, r):
             gen = (rng.generator(_COMP_KEY, r, device=payload.device)
                    if (spec.randomized or spec.shared_key) else None)
+            # the message is the whole row: a rank's columns gathered first
             out, new_res = comp_lib.compress_rows(
-                acfg.compression, payload, generator=gen,
-                residual=res if spec.error_feedback else None)
+                acfg.compression, shards.gather_flat(payload) if per_rank else payload,
+                generator=gen, residual=res if spec.error_feedback else None)
+            if per_rank:
+                out = shards.cut_flat(out)
             return out, (new_res if spec.error_feedback else res)
 
     attack = None
     if acfg.grad_attack is not None and acfg.grad_alpha > 0:
+        whole = None
+        if per_rank and atk_engine.as_attack(acfg.grad_attack).randomized:
+            whole = ((m, shards.size), shards.cut_flat)  # drawn over the global rows
+
         def attack(payload, prev_agg, r):
             mask = atk_engine.byzantine_mask(acfg.grad_alpha, m, device=payload.device)
             gen = rng.generator(acfg.seed, r, device=payload.device)
             return atk_engine.apply_to_rows(
                 acfg.grad_attack, payload, mask, alpha=acfg.grad_alpha,
                 generator=gen, prev_agg=prev_agg, rnd=r,
-                row_sum=shards.row_sum if per_rank else None)
+                row_sum=shards.row_sum if per_rank else None, whole=whole)
 
     def aggregate(payload):
         return agg(payload.float())
@@ -237,28 +246,6 @@ def make_feedback_stages(cfg: ModelConfig, acfg: AdaptConfig, batch: Dict[str, t
         compress=compress, attack=attack, emit=emit)
 
 
-def refuse_model_axis(acfg: AdaptConfig, model: int) -> None:
-    """What an adaptation round does not run at model axis ``model`` > 1 yet:
-    ``NotImplementedError`` naming the ROADMAP item.  Every decoder runs
-    there, the ``ssm`` / ``rec`` families included (a frontend
-    configuration is refused before, by :func:`refuse_frontend`)."""
-    if model == 1:
-        return
-    later = "is not ported yet (ROADMAP queue A item 6, step 7)"
-    if acfg.compression != "none":
-        raise NotImplementedError(
-            f"compression {acfg.compression!r} at model axis {model}: a codec's message is the "
-            f"whole raveled gradient row, which no model rank holds; codecs under tensor "
-            f"parallelism {later}")
-    if acfg.grad_attack is not None and acfg.grad_alpha > 0:
-        atk = atk_engine.as_attack(acfg.grad_attack)
-        if atk.randomized:
-            raise NotImplementedError(
-                f"attack {atk.name!r} at model axis {model}: a randomized payload is drawn "
-                f"over the whole row, which no model rank holds; randomized attacks under "
-                f"tensor parallelism {later}")
-
-
 class RoundFn:
     """``round_fn(state, batch) -> (state, grad_norm)``: one round-engine
     round over ``batch`` (moved to the iterate's device).  It owns the
@@ -267,7 +254,6 @@ class RoundFn:
 
     def __init__(self, cfg: ModelConfig, acfg: AdaptConfig, mesh=None):
         refuse_frontend(cfg)
-        refuse_model_axis(acfg, mesh_lib.model_size(mesh) if mesh is not None else 1)
         self.cfg = cfg
         self.acfg = acfg
         self.opt = get_optimizer(acfg.optimizer, acfg.lr)
@@ -295,16 +281,18 @@ def make_round_fn(cfg: ModelConfig, acfg: AdaptConfig, mesh=None) -> RoundFn:
     return RoundFn(cfg, acfg, mesh)
 
 
-def init_adapt_state(params, acfg: AdaptConfig, num_shards: int) -> rounds_engine.RoundState:
+def init_adapt_state(params, acfg: AdaptConfig, num_shards: int,
+                     width: Optional[int] = None) -> rounds_engine.RoundState:
     """Fresh RoundState over the model parameters (the tree this process
     holds: a rank's shards under a process group with a model axis): a
     flat float32 previous aggregate (the wire is (m, D) rows), per-shard
-    residuals for error-feedback codecs, optimizer state from
+    residuals for error-feedback codecs (``width`` columns, default the
+    tree's: a rank's residual is the global rows'), optimizer state from
     repro_torch.optim."""
     opt = get_optimizer(acfg.optimizer, acfg.lr)
     d = num_coordinates(params)
     dev = tree_leaves(params)[0].device
-    comp_res = (torch.zeros((num_shards, d), dtype=torch.float32, device=dev)
+    comp_res = (torch.zeros((num_shards, width or d), dtype=torch.float32, device=dev)
                 if comp_lib.get_compression(acfg.compression).error_feedback else ())
     return rounds_engine.make_state(
         params, prev_agg=torch.zeros((d,), dtype=torch.float32, device=dev),
@@ -333,7 +321,8 @@ class FeedbackAdapter:
         self.round_fn = make_round_fn(cfg, acfg, mesh)
         self.shards = self.round_fn.shards
         held = self.shards.cut(params) if self.shards.per_rank else params
-        self.state = init_adapt_state(held, acfg, m)
+        self.state = init_adapt_state(held, acfg, m,
+                                      self.shards.size if self.shards.per_rank else None)
         self._last_round_tick = 0
         self.history: List[Dict[str, float]] = []
 

@@ -56,7 +56,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 from repro_torch.models import sharding
 from repro_torch.models import transformer as T
-from repro_torch.tree import ravel, tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def refuse_frontend(cfg: ModelConfig) -> None:
@@ -283,22 +283,36 @@ class ModelShards:
 
     # -- flat vectors in ravel order (the round's rows and aggregate)
 
-    @staticmethod
-    def _tree(v, sizes, like):
-        parts = iter(torch.split(v, sizes))
-        return tree_map(lambda t: next(parts).reshape(t.shape), like)
+    @property
+    def size(self) -> int:
+        """D, the global iterate's coordinate count (under ``per_rank``)."""
+        return sum(self.sizes)
+
+    def _flat(self, x, sizes, metas, fn):
+        """``x`` (..., D_x) split into its leaves' columns (``sizes``), each
+        taken to ``fn(leaf columns shaped lead + the leaf's shape, the
+        leaf's split dim in them)`` and raveled back, concatenated."""
+        lead = tuple(x.shape[:-1])
+        out = []
+        for p, t, d in zip(torch.split(x, sizes, dim=-1), tree_leaves(metas), self.dims):
+            p = p.reshape(lead + tuple(t.shape))
+            out.append((p if d < 0 else fn(p, len(lead) + d)).reshape(lead + (-1,)))
+        return torch.cat(out, dim=-1)
 
     def cut_flat(self, v):
-        """This rank's columns of a global flat vector."""
+        """This rank's columns (..., D_rank) of a global flat vector or of
+        global rows (..., D)."""
         if not self.per_rank:
             return v
-        return ravel(self.cut(self._tree(v, self.sizes, self.meta)))[0]
+        return self._flat(v, self.sizes, self.meta,
+                          lambda p, d: p.chunk(self.model, d)[self.k].contiguous())
 
     def gather_flat(self, v):
-        """The global flat vector of this rank's columns (a collective)."""
+        """The global columns (..., D) of this rank's flat vector or rows
+        (..., D_rank) (a collective)."""
         if not self.per_rank:
             return v
-        return ravel(self.gather(self._tree(v, self.rank_sizes, self.rank_meta)))[0]
+        return self._flat(v, self.rank_sizes, self.rank_meta, self.ctx.full)
 
     def _split_sums(self, x, fn):
         """(the sum of ``fn`` over the split leaves' columns, over the whole

@@ -659,11 +659,11 @@ def test_later_steps_still_raise(monkeypatch):
         mesh_lib.make_production_mesh(model=2, device="cpu")
     cfg = get_smoke_config("llama3.2-3b")
     opt = get_optimizer("adamw", 1e-3)
-    # the later steps at model 2 still raise, naming their ROADMAP items
-    with pytest.raises(NotImplementedError, match="step 7"):
-        steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), tp, opt)
-    with pytest.raises(NotImplementedError, match="step 7"):
-        steps.make_step_body(cfg, ParallelConfig(seq_parallel=True), tp, opt)
+    # step 7 (fsdp and seq_parallel on the model axis, the codecs and
+    # randomized attacks there) is ported: the step bodies build at model 2
+    for pcfg in (ParallelConfig(param_mode="fsdp"), ParallelConfig(seq_parallel=True),
+                 ParallelConfig(compression="int8")):
+        assert steps.make_step_body(cfg, pcfg, tp, opt).waxes == ("data",)
     # step 6 (the ssm / rec layers and the frontends) is ported
     steps.make_step_body(get_smoke_config("mamba2-2.7b"), ParallelConfig(), tp, opt)
     # step 5 (serving under tensor parallelism) is ported, the ssm layers'

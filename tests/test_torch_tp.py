@@ -846,8 +846,10 @@ def test_leaf_global_attack_sums_cover_every_model_shard():
 def test_the_model_axis_refusals():
     """What the model axis does not run names its ROADMAP step; every
     configuration trains on it (the ssm / rec families and the frontends
-    since step 6), and only the serving entry points of a frontend
-    configuration refuse it (step 8)."""
+    since step 6), fsdp, seq_parallel, the codecs and randomized attacks
+    build and run a step there (step 7), and only the serving entry points
+    of a frontend configuration refuse it (step 8); the reference's own
+    refusals stay."""
     tp = mesh_lib.make_debug_mesh(2, 2, device="cpu")
     cfg, opt = _tiny(), get_optimizer("adamw", 1e-3)
     smoke = configs.get_smoke_config
@@ -865,16 +867,37 @@ def test_the_model_axis_refusals():
                           frontend=fe, ctx=sharding.model_ctx(tp))
             with pytest.raises(NotImplementedError, match="frontend.*step 8"):
                 steps.make_decode_step(c, tp)
-    for pcfg, what in ((ParallelConfig(param_mode="fsdp"), "fsdp"),
-                       (ParallelConfig(seq_parallel=True), "seq_parallel"),
-                       (ParallelConfig(compression="int8"), "compression")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*step 7"):
-            steps.make_step_body(cfg, pcfg, tp, opt)
-    with pytest.raises(NotImplementedError, match="randomized.*step 7"):
-        steps.make_step_body(cfg, ParallelConfig(), tp, opt, AttackConfig("gauss", 0.25))
+    # step 7 is ported: each builds and runs a step at (2, 2), its loss and
+    # params finite
+    params = T.init_params(cfg, 0, "cpu")
+    batch = {k: v for k, v in pipeline.make_lm_batch(
+        pipeline.DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4, num_workers=2,
+                            seed=0), 0, None, device="cpu").items() if k in ("tokens", "labels")}
+    for pcfg, attack in ((ParallelConfig(param_mode="fsdp"), AttackConfig("alie", 0.25)),
+                         (ParallelConfig(seq_parallel=True), AttackConfig("alie", 0.25)),
+                         (ParallelConfig(compression="int8"), None),
+                         (ParallelConfig(compression="count_sketch"), None),
+                         (ParallelConfig(), AttackConfig("gauss", 0.25))):
+        step = steps.make_train_step(cfg, pcfg, tp, opt, attack)
+        new, _, met = step(params, opt.init(params), batch, 0)
+        assert bool(torch.isfinite(met["loss"])) and bool(torch.isfinite(met["grad_norm"]))
+        assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(new))
+    sb = steps.make_step_body(cfg, ParallelConfig(compression="topk"), tp, opt)
+    assert sb.comp_body is not None
     steps.make_step_body(cfg, ParallelConfig(), tp, opt, AttackConfig("random_label", 0.25))
+    # the reference's own refusals, at model 2 as at model 1
+    for pcfg, attack, match in (
+            (ParallelConfig(param_mode="fsdp", compression="int8"), None, "compression"),
+            (ParallelConfig(param_mode="fsdp"), AttackConfig("gauss", 0.25), "randomized"),
+            (ParallelConfig(param_mode="fsdp", local_steps=2), None, "local_steps"),
+            (ParallelConfig(), AttackConfig("stale", 0.25), "adaptive")):
+        with pytest.raises(ValueError, match=match):
+            steps.make_step_body(cfg, pcfg, tp, opt, attack)
     with pytest.raises(ValueError, match="whole buckets"):
         steps.make_step_body(cfg, ParallelConfig(agg_strategy="bucketed"), tp, opt,
+                             AttackConfig("mimic", 0.25))
+    with pytest.raises(ValueError, match="whole buckets"):  # fsdp's reduce-scatter
+        steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), tp, opt,
                              AttackConfig("mimic", 0.25))
     steps.make_step_body(cfg, ParallelConfig(agg_strategy="gather"), tp, opt,
                          AttackConfig("mimic", 0.25))
@@ -917,6 +940,20 @@ def test_the_model_axis_refusals():
 def test_the_train_cli_trains_at_model_two():
     text = _cli(["--config", "llama3.2-3b", "--smoke", "--model-par", "2", "--device", "cpu",
                  "--steps", "2", "--seq-len", "16", "--global-batch", "4"])
+    assert "mesh={'data': 4, 'model': 2} workers=4" in text
+    losses = [float(ln.split()[3]) for ln in _loss_lines(text)]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert "done: 2 steps" in text
+
+
+@pytest.mark.parametrize("extra", [["--compression", "int8"],
+                                   ["--attack", "gauss", "--attack-alpha", "0.25"]],
+                         ids=["int8", "gauss"])
+def test_the_train_cli_runs_codecs_and_randomized_attacks_at_model_two(extra):
+    """``--compression`` and a randomized ``--attack`` run at ``--model-par
+    2`` (ROADMAP item 6, step 7)."""
+    text = _cli(["--config", "llama3.2-3b", "--smoke", "--model-par", "2", "--device", "cpu",
+                 "--steps", "2", "--seq-len", "16", "--global-batch", "4"] + extra)
     assert "mesh={'data': 4, 'model': 2} workers=4" in text
     losses = [float(ln.split()[3]) for ln in _loss_lines(text)]
     assert len(losses) == 2 and all(np.isfinite(losses))

@@ -643,7 +643,9 @@ def test_the_serving_refusals():
     """mamba2 and recurrentgemma at model 2 build every serving piece (the
     steps, the engine, the round function; both CLIs serve them: the shim
     in test_shim_serves_at_data_four_model_two); codecs and randomized
-    gradient attacks raise naming step 7; whisper and internvl2 keep their
+    gradient attacks run there (step 7): a round at (2, 2) with
+    ``compression='int8'`` and one with ``grad_attack='gauss'`` build and
+    run, their aggregates finite; whisper and internvl2 keep their
     ValueError, and their prefill / decode steps at model 2 name step 8."""
     mesh = _mesh(2, 2)
     for arch in ("mamba2-2.7b", "recurrentgemma-2b"):
@@ -653,10 +655,11 @@ def test_the_serving_refusals():
         ServeEngine(cfg, SCFG, _params(cfg), mesh)
         RoundFn(cfg, AdaptConfig(), mesh)
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="compression.*step 7"):
-        RoundFn(cfg, AdaptConfig(compression="int8"), mesh)
-    with pytest.raises(NotImplementedError, match="randomized.*step 7"):
-        RoundFn(cfg, AdaptConfig(grad_attack="gauss", grad_alpha=0.5), mesh)
+    batch = _round_batch(cfg)
+    for acfg in (AdaptConfig(compression="int8", batch_per_shard=1),
+                 AdaptConfig(grad_attack="gauss", grad_alpha=0.5, batch_per_shard=1)):
+        state, norm = RoundFn(cfg, acfg, mesh)(init_adapt_state(_params(cfg), acfg, 2), batch)
+        assert bool(torch.isfinite(state["prev_agg"]).all()) and bool(torch.isfinite(norm))
     RoundFn(cfg, AdaptConfig(grad_attack="gauss", grad_alpha=0.5), _mesh(2, 1))
     RoundFn(cfg, AdaptConfig(grad_attack="mimic", grad_alpha=0.5), mesh)
     for arch in ("whisper-small", "internvl2-1b"):

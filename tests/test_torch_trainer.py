@@ -324,15 +324,14 @@ def test_make_lm_batch_in_distribution_and_its_label_corruption():
 def test_rejections():
     cfg, mesh = _cfg(), _mesh()
     opt = get_optimizer("adamw", LR)
-    # the model axis builds (tensor parallelism); what it does not run yet raises
+    # the model axis builds (tensor parallelism), fsdp and seq_parallel on
+    # it too (step 7)
     tp = mesh_lib.make_debug_mesh(4, 2, device="cpu")
     assert mesh_lib.mesh_shape_dict(tp) == {"data": 4, "model": 2}
     assert mesh_lib.num_workers(tp) == 4 and mesh_lib.worker_axes(tp) == ("data",)
     steps.make_step_body(cfg, ParallelConfig(), tp, opt)
-    with pytest.raises(NotImplementedError, match="fsdp.*step 7"):
-        steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp"), tp, opt)
-    with pytest.raises(NotImplementedError, match="seq_parallel.*step 7"):
-        steps.make_step_body(cfg, ParallelConfig(seq_parallel=True), tp, opt)
+    for pcfg in (ParallelConfig(param_mode="fsdp"), ParallelConfig(seq_parallel=True)):
+        assert steps.make_step_body(cfg, pcfg, tp, opt).waxes == ("data",)
     # the ssm / rec layers and the frontends train on it (step 6)
     steps.make_step_body(configs.get_smoke_config("mamba2-2.7b"), ParallelConfig(), tp, opt)
     steps.make_step_body(configs.get_smoke_config("whisper-small"), ParallelConfig(), tp, opt)
