@@ -64,14 +64,15 @@ Phases (any failure exits non-zero before the final line):
 6. the federated path: ``fed.rounds.run_rounds`` at benchmarks/fed_scale.py's
    configuration (200,000 clients, cohorts of 100,000 in chunks of 512,
    d=32, n=16, 512 bins, sign_flip alpha=0.1 scale 100, beta=0.15, lr 0.3,
-   sgd, cut to 20 rounds) for approx_median, approx_trimmed_mean and
+   sgd, cut to 5 rounds) for approx_median, approx_trimmed_mean and
    stream_mean.
    The launch counters are zeroed before each method and read after it:
    196 min/max and 196 histogram launches per round for the robust
    methods, none for the mean.  Robust ||w - w*|| < 0.5, the mean's more
    than 10x the median's; the sketch median within one bin of the exact
    median of an attacked 10^4 cohort; the first 2 rounds agree with the
-   CPU; the CLI runs twice with one sha256; a profile of one round (with
+   CPU; the CLI runs twice with one sha256 (in the CLI batch, below); a
+   profile of one round (with
    the sketch kernels' device ms in it);
 7. C1 on the card: the f16 median, trimmed-mean and fused programs bitwise
    against their plain versions (m in HALF_M, rows with NaN, ±0, ±inf,
@@ -159,11 +160,11 @@ Phases (any failure exits non-zero before the final line):
    grok-1, mamba2 and recurrentgemma at their smoke widths in f32, card
    against CPU as 14a (tokens, logits within 1e-5, one round; the round's
    B1 bitwise its plain version); (b) three full-width cells in bf16 from
-   a seed, phase 14b's traffic and adaptation: granite-moe-1b-a400m at all
-   24 layers (D = 1,384,963,072; median: its trimmed-mean run went when
+   a seed, phase 14b's traffic and adaptation: granite-moe-1b-a400m at 12
+   of 24 layers (D = 742,816,768; median: its trimmed-mean run went when
    phase 23 took its time),
-   mamba2-2.7b at 32 of 64 layers with 272-token prompts (D =
-   1,544,194,048; the prefill crosses the 256-token SSD chunk) and
+   mamba2-2.7b at 16 of 64 layers with 272-token prompts (D =
+   900,815,104; the prefill crosses the 256-token SSD chunk) and
    recurrentgemma-2b at 5 of 26 layers (D = 1,751,221,760; median), each
    run held as 14b (every request served, >= 2 rounds, one
    B1 / B2 launch a round over the (4, D) f32 rows and no other kernel,
@@ -176,11 +177,12 @@ Phases (any failure exits non-zero before the final line):
    <family>`` in this process for granite, mamba2 and recurrentgemma: B1
    launched once a step per dtype group and MAX_LEAVES (32) leaves;
 17. the distributed round programs and the process group: (a)
-   ``rounds.one_round_distributed`` at phase 8's configuration on
-   make_debug_mesh(10, 1): the median on the clean and random_label shards
-   and under sign_flip alpha 0.1 scale 15 by gather, bucketed and chunked,
-   and gather's three mean rows: gather and bucketed bitwise equal and
-   within 1e-5 of phase 8's one_round, chunked within one bin of the exact
+   ``rounds.one_round_distributed`` at phase 8's configuration, its local
+   solver cut to 50 GD steps, on make_debug_mesh(10, 1): the median on
+   the clean and random_label shards and under sign_flip alpha 0.1 scale
+   15 by gather, bucketed and chunked, and gather's three mean rows:
+   gather and bucketed bitwise equal and within 1e-5 of phase 8's
+   one_round, chunked within one bin of the exact
    median of its rows, Table 4's claim_holds on the gather rows; one B1
    launch a gather / bucketed call, 2 B4 + 2 B5 a chunked call; (b)
    ``rounds.make_local_update_round`` on phase 10's CNN (m = 10, sign_flip
@@ -211,7 +213,7 @@ Phases (any failure exits non-zero before the final line):
    whisper-small (12 + 12 layers, 1500 stub frames, D = 419,460,096 in 31
    leaves) and internvl2-1b (24 layers, 256 stub patches, D = 629,636,224
    in 12 leaves) at full width and depth in bf16, trained as 15b (4
-   workers, batch 8, seq 128, AdamW 1e-4) for 8 steps in windows of 4:
+   workers, batch 8, seq 128, AdamW 1e-4) for 4 steps in windows of 2:
    gather median and gather trimmed mean beta 0.25 under alie alpha 0.25,
    and gather median without an attack for 4 steps in windows of 2 (remat
    off; their first-window losses are 22c's model-1 reference).  One B1
@@ -234,8 +236,8 @@ Phases (any failure exits non-zero before the final line):
    median under sign_flip alpha 0.25, 3 SGD steps on the card and the CPU
    (within 1e-5) and the card's run bitwise its replicated run, one B1
    launch a step; (b) 15b's cell (llama3.2-3b's widths at 8 of 28 layers,
-   D = 1,593,363,456 bf16, 4 workers, batch 8, seq 128, AdamW 1e-4) for 8
-   steps in windows of 4: gather median and trimmed mean beta 0.25 under
+   D = 1,593,363,456 bf16, 4 workers, batch 8, seq 128, AdamW 1e-4) for 4
+   steps in windows of 2: gather median and trimmed mean beta 0.25 under
    alie alpha 0.25 (remat off), each with param_mode='fsdp' and then
    'replicated' (the fsdp runs profiled).  The
    params after each window bitwise equal between the two (compared on the
@@ -257,7 +259,7 @@ Phases (any failure exits non-zero before the final line):
    gradient at make_debug_mesh(4, 2) against make_debug_mesh(4, 1) (within
    1e-4 of each value's largest magnitude); (b) 15b's cell at (4, 2) beside
    the same run at model 1 (remat off): gather median and trimmed mean beta
-   0.25 under alie alpha 0.25, 8 steps in windows of 4, each window's loss
+   0.25 under alie alpha 0.25, 4 steps in one window, each window's loss
    within 1e-3
    of model 1's, the first window's grad norm within 1e-3 and the run's
    update (final - initial params) within 0.6 of model 1's (limits set
@@ -266,8 +268,8 @@ Phases (any failure exits non-zero before the final line):
    step's aggregate bitwise its plain version (column slices), steps/s, the
    step's split (gradients, model-axis sums, aggregation, B1/B2, AdamW),
    launches a step, busy share, peak memory, and B1/B2 over the rows
-   against the 4.756 ms HBM bound; (c) granite-moe-1b-a400m at all 24
-   layers, expert-parallel (16 experts a shard, embed and lm head split
+   against the 4.756 ms HBM bound; (c) granite-moe-1b-a400m at 12 of 24
+   layers (16b's cell), expert-parallel (16 experts a shard, embed and lm head split
    on d_model), 4 steps of gather median under alie at (4, 2) beside model
    1, losses within 1e-3, grad norms within 1e-2 and the update within
    0.6, every step's aggregate bitwise its plain version; (d) the bytes
@@ -293,7 +295,7 @@ Phases (any failure exits non-zero before the final line):
    these rows' shapes are timed in 14b and 16b), and the share of greedy
    tokens equal to 14b's model-1 runs (recorded, not held: bf16 partials
    summed in rank order may flip near-ties); (c) granite-moe-1b-a400m at
-   all 24 layers (16b's cell: expert-parallel, embed and lm head split on
+   12 of 24 layers (16b's cell: expert-parallel, embed and lm head split on
    d_model), 24 requests, the median run, held as (b); (d) ``python -m
    repro_torch.launch.serve --arch <arch> --smoke`` with its defaults
    (the debug mesh, 4 workers, model 2) on the card for
@@ -316,11 +318,11 @@ Phases (any failure exits non-zero before the final line):
    peak memory and the share of whole requests equal to 16b's model-1
    tokens (printed); (c) 18b's whisper-small and internvl2-1b cells at
    make_debug_mesh(4, 2), gather median under alie alpha 0.25, one window
-   of 4 steps: one B1 launch a step over every leaf, each held bitwise on
+   of 2 steps: one B1 launch a step over every leaf, each held bitwise on
    its rows, the window's loss within 1e-3 of 18b's model-1 first window,
    the step's split (with the model-axis sums), launches a step, busy,
    peak; (d) remat on 15b's cell, replicated and fsdp, gather median under
-   alie, 4 steps with remat off and then on: the losses, every
+   alie, 2 steps with remat off and then on: the losses, every
    aggregation call's input digests (the B1 inputs), the final params and
    the B1 launches equal, the remat runs' launches held bitwise, each
    run's step ms and peak memory; (e) the bytes a rank holds of
@@ -336,10 +338,10 @@ Phases (any failure exits non-zero before the final line):
    in seq_parallel's per-rank form; every aggregation call held bitwise
    on its rows, the step's split with the model-axis sums (23a also a
    profile: launches, busy); (c) int8 and count_sketch through
-   make_train_step and topk through the trainer's window, 4 steps each at
+   make_train_step and topk through the trainer's window, 2 steps each at
    15b's widths cut to 2 layers, every worker's codec call held against a
    rerun of the codec on the same rows and generator state (run first, by
-   digest); (d) gauss alpha 0.25, 4 steps at 2 layers, every payload
+   digest); (d) gauss alpha 0.25, 2 steps at 2 layers, every payload
    bitwise a rerun of the draw; (e) the feedback adapter on 21c's
    granite-moe cell cut to 4 layers with int8 and with gauss alpha 0.25,
    24 requests, >= 1 round each, each round's decoded or attacked (4, D)
@@ -349,7 +351,23 @@ Phases (any failure exits non-zero before the final line):
    which each model rank of a process group needs; the gather / cut / whole
    draw over the model axis is held by the gloo tests); (f) the bytes a rank holds of
    llama3.2-3b at 28 layers under fsdp × TP, fsdp and TP, and the residual
-   stream with and without seq_parallel at train_4k, computed.
+   stream with and without seq_parallel at train_4k, computed;
+24. serving a frontend configuration on the model axis, and the dry-run
+   held against a real rank: (a) whisper-small (prefill and 16
+   teacher-forced decode steps) and internvl2-1b (prefill) at published
+   widths and depth in f32, at make_debug_mesh(4, 2) against (4, 1): the
+   relative logit error within 22a's 1e-4 (21a's serving limit 1e-5
+   printed beside), the model-2 and model-1 ms; (b) llama3.2-3b's
+   ``train_4k``, ``prefill_32k`` and ``decode_32k`` planned by
+   ``repro_torch.launch.dryrun`` on the single mesh (meta stand-ins, a fake
+   group of 256 ranks; one subprocess each, on the CPU, started after
+   phase 1),
+   the first whose planned peak is under 70 GB then run once on the
+   card's real tensors in a subprocess under the same fake group (the
+   collectives move no data, so its values are not checked):
+   ``torch.cuda.max_memory_allocated()`` within 15 % of the plan's peak,
+   the plan's roofline bound (H100 SXM data sheet at 700 W) not above the
+   measured step time, and each kernel's launches the plan's.
 The launch counters are zeroed before each of phases 8-13, each run of
 phase 14b, 15b, 16b, 18b, 19b, 20b, 20c, 21b, 21c, 22b, 22c, 22d and 23a-23e, phases 15c, 19a, 19c and 20e, each 16d
 and 18d run and each call (17a), round (17b) or set of calls (17d) of phase
@@ -362,7 +380,11 @@ them and held against its plain version, bitwise (PathInputs); a kernel that
 launched on a path and was not held fails.  Phase 20's model-2 runs and
 phases 22's and 23's hold every launch's output against the plain version on that
 launch's own rows instead (HeldAggregation; a recorded copy of the rows does
-not fit beside them).  Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
+not fit beside them).  The CLI phases (6's CLI, 14c, 15d, 16c, 17c and
+17d's CLIs, 21d) run as a batch of subprocesses, three groups at a time,
+started after phase 1 beside phases 2-4 (which time nothing) and read
+before phase 5; their lines print there.  Each phase prints its seconds.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1362,7 +1384,8 @@ FED_POP = dict(num_clients=200_000, samples_per_client=16, dim=32, alpha=0.1, se
 FED_ROUNDS = dict(cohort_size=100_000, chunk_clients=512, beta=0.15, nbins=512, lr=0.3,
                   optimizer="sgd", seed=0)
 FED_NUM_ROUNDS = 30  # phase 12's async rounds
-FED_PATH_ROUNDS = 20  # phase 6's (30 before phase 23 took its time)
+FED_PATH_ROUNDS = 5  # phase 6's (30 before phase 23, 20 before phase 24, 10 before the
+# script was cut to run well inside its time limit)
 FED_METHODS = ("approx_median", "approx_trimmed_mean", "stream_mean")
 
 
@@ -1488,9 +1511,9 @@ def fed_cpu_agreement(dev):
               f"fed {method}: round-0 aggregates differ by more than one bin width")
 
 
-def fed_cli(dev):
+def fed_cli():
     """Phase 6: python -m repro_torch.fed.run twice on the card: exit 0 and
-    one sha256."""
+    one sha256.  Returns the lines to print."""
     import os
 
     args = [sys.executable, "-m", "repro_torch.fed.run", "--clients", "20000", "--cohort",
@@ -1506,8 +1529,8 @@ def fed_cli(dev):
         check(len(line) == 1, f"fed CLI printed no sha256 line: {out.stdout[-2000:]}")
         check("device=cuda" in out.stdout, "fed CLI did not run on the card")
         digests.append(line[0].split("=")[-1].strip())
-    print(f"phase 6: CLI twice on the card: sha256 {digests[0]} / {digests[1]}")
     check(digests[0] == digests[1], "the fed CLI is not deterministic on the card")
+    return [f"phase 6: CLI twice on the card: sha256 {digests[0]} / {digests[1]}"]
 
 
 def fed_profile(pop):
@@ -2726,10 +2749,10 @@ def serve_kernel_timings(rows, card: str, model: str, model_axis: int = 1):
         torch.cuda.empty_cache()
 
 
-def serve_cli(dev):
+def serve_cli():
     """Phase 14c: python -m repro_torch.serve.run --smoke twice on the card,
     both processes started together: exit 0, every request served, rounds
-    fired, one sha256."""
+    fired, one sha256.  Returns the lines to print."""
     import os
 
     args = [sys.executable, "-m", "repro_torch.serve.run", "--smoke", "--arch", "llama3_2_3b",
@@ -2756,13 +2779,13 @@ def serve_cli(dev):
                 proc.kill()
                 proc.wait()
     rounds = [ln for ln in stdout.splitlines() if ln.startswith("adaptation rounds")]
-    print(f"phase 14c: serve CLI twice on the card: {rounds[0] if rounds else '?'}; sha256 "
-          f"{digests[0]} / {digests[1]}")
     check(digests[0] == digests[1], "the serve CLI is not deterministic on the card")
+    return [f"phase 14c: serve CLI twice on the card: {rounds[0] if rounds else '?'}; sha256 "
+            f"{digests[0]} / {digests[1]}"]
 
 
 def serving(dev, card: str, served=None):
-    """Phase 14: 14a, 14b and 14c; returns B1's and B2's launches on the
+    """Phase 14: 14a and 14b (14c runs in the CLI batch); returns B1's and B2's launches on the
     serving path (14b's tokens into ``served``)."""
     t0 = time.perf_counter()
     serve_parity(dev)
@@ -2770,9 +2793,6 @@ def serving(dev, card: str, served=None):
     t0 = time.perf_counter()
     launches = serve_cell(dev, card, served)
     print(f"phase 14b: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    serve_cli(dev)
-    print(f"phase 14c: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3234,9 +3254,9 @@ def chunked_timings(dev, card: str):
     torch.cuda.empty_cache()
 
 
-def train_cli(dev):
+def train_cli():
     """Phase 15d: python -m repro_torch.launch.train on the card: exit 0,
-    the window lines and the done line."""
+    the window lines and the done line.  Returns the lines to print."""
     import os
 
     args = [sys.executable, "-m", "repro_torch.launch.train", "--config", "llama3.2-3b",
@@ -3249,11 +3269,12 @@ def train_cli(dev):
     check("device cuda" in out.stdout, f"train CLI: {out.stdout[-2000:]}")
     done = [ln for ln in out.stdout.splitlines() if ln.startswith("done: 4 steps")]
     check(len(done) == 1, f"train CLI printed no done line: {out.stdout[-2000:]}")
-    print(f"phase 15d: train CLI on the card: {done[0]}")
+    return [f"phase 15d: train CLI on the card: {done[0]}"]
 
 
 def training(dev, card: str, on_path):
-    """Phase 15: 15a-15d; returns the launches of 15b's and 15c's paths."""
+    """Phase 15: 15a-15c (15d runs in the CLI batch); returns the launches
+    of 15b's and 15c's paths."""
     t0 = time.perf_counter()
     train_parity(dev)
     print(f"phase 15a: {time.perf_counter() - t0:.1f} s")
@@ -3264,9 +3285,6 @@ def training(dev, card: str, on_path):
     chunked = on_path("phase 15c", lambda: train_chunked(dev), lambda c: c)
     chunked_timings(dev, card)
     print(f"phase 15c: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    train_cli(dev)
-    print(f"phase 15d: {time.perf_counter() - t0:.1f} s")
     return {"train": launches, "train_chunked": chunked}
 
 
@@ -3276,7 +3294,8 @@ def training(dev, card: str, on_path):
 # full-width cells, random weights from seed 0, bf16, cut in depth so that
 # the adapter's (4, D) f32 rows sit beside the served and adapted copies
 # (at full depth mamba2-2.7b's rows are 45.3 GB and recurrentgemma-2b's
-# 56.8 GB): granite-moe-1b-a400m at all 24 layers, mamba2-2.7b at 32 of 64
+# 56.8 GB) and so that the script runs well inside its time limit:
+# granite-moe-1b-a400m at 12 of 24 layers, mamba2-2.7b at 16 of 64
 # with 272-token prompts (its prefill crosses the 256-token SSD chunk and
 # takes the padded path), recurrentgemma-2b at 5 of 26 (one (rec, rec,
 # attn) super-block and the 2-layer rec tail, the smoke config's
@@ -3289,8 +3308,10 @@ FAMILY_SMOKE = ("granite_moe_1b_a400m", "grok_1_314b", "mamba2_2_7b", "recurrent
 FAMILY_CELLS = (  # (config, layers, D, prompt length, runs)
     # the median run only (its trimmed-mean run went to pay for phase 23;
     # B2 runs on 14b's, 15b's and 20b's paths)
-    ("granite_moe_1b_a400m", 24, 1_384_963_072, 16, ("median",)),
-    ("mamba2_2_7b", 32, 1_544_194_048, 272, ("median",)),
+    # (granite at 24 layers and mamba2 at 32 before the script was cut to run
+    # well inside its time limit)
+    ("granite_moe_1b_a400m", 12, 742_816_768, 16, ("median",)),
+    ("mamba2_2_7b", 16, 900_815_104, 272, ("median",)),
     ("recurrentgemma_2b", 5, 1_751_221_760, 16, ("median",)))
 FAMILY_TICKS = 2
 # phase 14b's 32 requests cut to 24 (66 ticks, 2 rounds a robust run, not
@@ -3338,7 +3359,7 @@ def family_serve_cli():
     """Phase 16c: python -m repro_torch.serve.run --smoke --arch <family>
     twice per family, all eight processes started together on the card:
     exit 0, every request served, rounds fired, the storage kept, one
-    sha256 per family."""
+    sha256 per family.  Returns the lines to print."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -3372,8 +3393,8 @@ def family_serve_cli():
                 proc.wait()
     for arch, (a, b) in digests.items():
         check(a == b, f"16c: the serve CLI is not deterministic on the card for {arch}")
-    print(f"phase 16c: serve CLI twice per family on the card, one sha256 each: "
-          f"{json.dumps({k: v[0][:16] for k, v in digests.items()})}")
+    return [f"phase 16c: serve CLI twice per family on the card, one sha256 each: "
+            f"{json.dumps({k: v[0][:16] for k, v in digests.items()})}"]
 
 
 def family_train_cli(dev):
@@ -3442,17 +3463,14 @@ def train_cli_counted(archs, label: str, one_launch: bool = False):
 
 
 def families(dev, card: str, served=None):
-    """Phase 16: 16a-16d; returns each kernel's launches on 16b's and 16d's
-    paths."""
+    """Phase 16: 16a, 16b and 16d (16c runs in the CLI batch); returns each
+    kernel's launches on 16b's and 16d's paths."""
     t0 = time.perf_counter()
     family_parity(dev)
     print(f"phase 16a: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     serve = family_cells(dev, card, served)
     print(f"phase 16b: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    family_serve_cli()
-    print(f"phase 16c: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     train_launches = family_train_cli(dev)
     print(f"phase 16d: {time.perf_counter() - t0:.1f} s")
@@ -3470,6 +3488,10 @@ def families(dev, card: str, served=None):
 # (tests/test_torch_process_group.py).
 DIST_STRATEGIES = ("gather", "bucketed", "chunked")
 DIST_ROUNDS = 5
+# 17a's local solver: phase 8's 150 GD steps cut to 50 so that the script runs
+# well inside its time limit (Table 4's claim holds at 50: 84.6 / 83.3 / 81.4 /
+# 0.0 / 81.2 % on the CPU, against 84.3 / 83.0 / 81.6 / 0.0 / 81.0 % at 150)
+DIST_GD_STEPS = 50
 # one_round_distributed vs one_round (map vs vmap solvers), the largest absolute
 # difference; read at 9.9e-8 on an H100 80GB HBM3 at 700 W
 DIST_ONE_ROUND_TOL = 1e-6
@@ -3506,7 +3528,7 @@ def _add(total: dict, counts: dict) -> None:
 
 def distributed_one_round(dev):
     """Phase 17a: one_round_distributed at phase 8's configuration (logistic
-    regression d = 784 x 10, m = 10, n = 500, 150 GD steps at lr 0.5) on
+    regression d = 784 x 10, m = 10, n = 500, lr 0.5) with DIST_GD_STEPS GD steps, on
     make_debug_mesh(10, 1): the median on the clean and the random_label
     alpha 0.1 shards and under the sign_flip alpha 0.1 scale 15 weight
     attack, by gather, bucketed and chunked, and the three mean rows by
@@ -3533,7 +3555,8 @@ def distributed_one_round(dev):
     attacked = make_classification_shards(cfg, AttackConfig("random_label", alpha=0.1),
                                           device=dev)
     test = mnist_analog(torch.Generator().manual_seed(1234), 2000, device=dev)
-    solver = make_gd_local_solver(logreg_loss, init_logreg(device=dev), steps=150, lr=0.5)
+    solver = make_gd_local_solver(logreg_loss, init_logreg(device=dev), steps=DIST_GD_STEPS,
+                                  lr=0.5)
     atk_w = AttackConfig("sign_flip", alpha=0.1, scale=15.0)
     mesh = make_debug_mesh(T4_M, 1, device=dev)
     rows = {"clean": (clean, None, "median"), "attacked": (attacked, None, "median"),
@@ -3709,7 +3732,8 @@ def distributed_clis():
     """Phases 17c and 17d's CLI half, four processes started together on the
     card: the serve CLI twice with the reference's CI smoke flags (one
     sha256), and the train CLI with --mesh single (NCCL, world size 1) and
-    --mesh debug --workers 1 (the same loss lines and params, bitwise)."""
+    --mesh debug --workers 1 (the same loss lines and params, bitwise).
+    Returns the lines to print."""
     import os
 
     import numpy as np
@@ -3726,7 +3750,6 @@ def distributed_clis():
                            ("debug", env, ["--mesh", "debug", "--workers", "1"])):
         jobs.append((mesh, e, ["-m", "repro_torch.launch.train"] + PG_TRAIN_ARGS + extra
                      + ["--ckpt", str(ckpt / mesh)]))
-    t0 = time.perf_counter()
     procs = []
     try:
         for name, e, args in jobs:
@@ -3751,8 +3774,9 @@ def distributed_clis():
         digests += [ln for ln in out.splitlines() if ln.startswith("final iterate sha256")]
     check(len(digests) == 2 and digests[0] == digests[1],
           f"17c: the serve CLI with the reference's CI flags printed {digests}")
-    print(f"phase 17c: serve CLI with the reference's CI smoke flags (--mesh debug --workers 2 "
-          f"--model-par 1) twice on the card: one sha256 {digests[0].split('=')[-1][:16]}")
+    lines_out = [f"phase 17c: serve CLI with the reference's CI smoke flags (--mesh debug "
+                 f"--workers 2 --model-par 1) twice on the card: one sha256 "
+                 f"{digests[0].split('=')[-1][:16]}"]
     lines = {name: [ln for ln in out.splitlines() if ln.startswith("step ")]
              for name, out in outs[2:]}
     single = dict(outs[2:])["single"]
@@ -3766,10 +3790,9 @@ def distributed_clis():
     same = all(np.load(ckpt / "single" / f).tobytes() == np.load(ckpt / "debug" / f).tobytes()
                for f in files)
     check(same, "17d: --mesh single's params are not bitwise --mesh debug --workers 1's")
-    print(f"phase 17d: train CLI --mesh single under NCCL at world size 1: its 4 loss lines "
-          f"and {len(files)} param leaves bitwise --mesh debug --workers 1's "
-          f"({lines['single'][-1]})")
-    return time.perf_counter() - t0
+    return lines_out + [f"phase 17d: train CLI --mesh single under NCCL at world size 1: its 4 "
+                        f"loss lines and {len(files)} param leaves bitwise --mesh debug "
+                        f"--workers 1's ({lines['single'][-1]})"]
 
 
 def process_group_strategies(dev):
@@ -3828,7 +3851,8 @@ def process_group_strategies(dev):
 
 
 def distributed(dev, card: str, on_path):
-    """Phase 17: 17a-17d; returns the launches of 17a's, 17b's and 17d's
+    """Phase 17: 17a, 17b and 17d in process (17c and 17d's CLIs run in the
+    CLI batch); returns the launches of 17a's, 17b's and 17d's
     paths."""
     t0 = time.perf_counter()
     one = on_path("phase 17a", lambda: distributed_one_round(dev), lambda c: c)
@@ -3836,8 +3860,6 @@ def distributed(dev, card: str, on_path):
     t0 = time.perf_counter()
     local = on_path("phase 17b", lambda: distributed_local_update(dev, card), lambda c: c)
     print(f"phase 17b: {time.perf_counter() - t0:.1f} s")
-    cli_s = distributed_clis()
-    print(f"phase 17c + 17d CLIs (four processes at once): {cli_s:.1f} s")
     t0 = time.perf_counter()
     pg = on_path("phase 17d", lambda: process_group_strategies(dev), lambda c: c)
     print(f"phase 17d in-process: {time.perf_counter() - t0:.1f} s")
@@ -3857,7 +3879,7 @@ FRONTEND_ARCHS = ("whisper-small", "internvl2-1b")
 FRONTEND_TOL = 1e-5  # card vs CPU at smoke width in f32 (TF32 off)
 FRONTEND_CACHE_TOL = 2e-3  # tests/test_models_smoke.py's prefill/decode tolerance
 FRONTEND_CELLS = (("whisper-small", 419_460_096, 31), ("internvl2-1b", 629_636_224, 12))
-FRONTEND_STEPS, FRONTEND_DS = 8, 4
+FRONTEND_STEPS, FRONTEND_DS = 4, 2  # 8 in windows of 4 before the script was cut
 # (aggregator, attack), gather strategy: the two robust runs under alie alpha
 # 0.25, then a clean control run (at m = 4 alie stalls internvl2-1b's loss)
 FRONTEND_RUNS = (("median", "alie"), ("trimmed_mean", "alie"), ("median", "none"))
@@ -4250,12 +4272,12 @@ def frontends(dev, card: str, on_path, firsts=None):
 # (a) 15a's tiny llama in f32 with param_mode='fsdp' over 4 in-process
 # workers, card against CPU and against the card's replicated gather; (b)
 # 15b's cell (llama3.2-3b's widths at 8 of 28 layers, D = 1,593,363,456 bf16,
-# m = 4, batch 8, seq 128, AdamW 1e-4) for 8 steps in windows of 4, each fsdp
+# m = 4, batch 8, seq 128, AdamW 1e-4) for 4 steps in windows of 2, each fsdp
 # run beside the same run replicated; (c) the process group at world size 1
 # under NCCL against InProcessAxes({"data": 1}); (d) the per-rank bytes of
 # llama3.2-3b at all 28 layers over 4 ranks, from the shapes.
 FSDP_TINY_STEPS = 3
-FSDP_STEPS, FSDP_DS = 8, 4
+FSDP_STEPS, FSDP_DS = 4, 2  # 8 in windows of 4 before the script was cut
 FSDP_METHODS = ("median", "trimmed_mean")  # gather, under alie alpha 0.25, beta 0.25
 FSDP_RANKS = 4  # phase 19d's process group
 
@@ -4640,8 +4662,8 @@ def fsdp(dev, card: str, on_path):
 # and every gradient at make_debug_mesh(4, 2)'s model axis against model 1;
 # (b) 15b's cell (8 of 28 layers, D = 1,593,363,456 bf16, m = 4, batch 8,
 # seq 128, AdamW 1e-4, alie alpha 0.25) at make_debug_mesh(4, 2) beside the
-# same run at model 1, gather median and trimmed mean beta 0.25, 8 steps in
-# windows of 4; (c) granite-moe-1b-a400m at all 24 layers, expert-parallel
+# same run at model 1, gather median and trimmed mean beta 0.25, 4 steps in
+# one window; (c) granite-moe-1b-a400m at 12 of 24 layers, expert-parallel
 # (16 experts a shard), 4 steps at (4, 2) beside model 1; (d) the per-rank
 # bytes of llama3.2-3b at 28 layers over (data 4, model 2), from the shapes.
 # A process group with model > 1 needs a card a rank (NCCL refuses two ranks
@@ -4666,9 +4688,9 @@ TP_UPDATE_RTOL = 0.6
 # 62.3 -> 6.1 in 20b's second window): printed, not held.
 TP_NORM_RTOL = {"20b": 1e-3, "20c": 1e-2}
 TP_NORM_STEPS = 4
-TP_STEPS, TP_DS = 8, 4
+TP_STEPS, TP_DS = 4, 4  # 8 in windows of 4 before the script was cut
 TP_METHODS = ("median", "trimmed_mean")  # gather, under alie alpha 0.25, beta 0.25
-TP_MOE_LAYERS, TP_MOE_D = 24, 1_384_963_072
+TP_MOE_LAYERS, TP_MOE_D = 12, 742_816_768  # 16b's cell (24 layers before the cut)
 TP_MOE_STEPS = 4
 TP_DATA_RANKS = 4  # phase 20d's worker axis
 
@@ -4837,7 +4859,8 @@ def tp_run(dev, card: str, cfg, model: int, method: str, steps_n: int, ds: int, 
     line = {"tp_run": run, "label": label, "layers": cfg.n_layers, "model": model,
             "steps": steps_n, "device_steps": ds, "workers": TRAIN_WORKERS,
             "tokens_per_step": dcfg.global_batch * dcfg.seq_len,
-            "steps_per_s": result.steps_per_s, "tokens_per_s": result.tokens_per_s,
+            "steps_per_s": result.steps_per_s if steps_n > ds else None,
+            "tokens_per_s": result.tokens_per_s if steps_n > ds else None,
             "first_window_s": result.compile_s, "window_times_s": result.window_times_s,
             "run_wall_s": wall, "losses": losses,
             "grad_norms": [h["grad_norm"] for h in result.history], "launches": launches,
@@ -4863,8 +4886,11 @@ def tp_run(dev, card: str, cfg, model: int, method: str, steps_n: int, ds: int, 
                f"{prof['launches']} launches, busy {prof['device_busy_share']:.3f}")
         del sb, batch
     print(json.dumps({"tp_train": line}))
+    # the trainer's steady rate leaves the first window out: none from one
+    rate = (f"{result.steps_per_s:.3f} steps/s" if steps_n > ds else
+            "one window (no steady steps/s)")
     print(f"phase {label}: {run}: loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
-          f"{result.steps_per_s:.3f} steps/s{msg}, peak {peak / 1e9:.2f} GB")
+          f"{rate}{msg}, peak {peak / 1e9:.2f} GB")
     check(peak < total_mem, f"{label} {run}: peak {peak} >= the card's {total_mem}")
     kept = held.kept
     final = [t.cpu() for t in tree_leaves(result.state["params"])]
@@ -5088,7 +5114,7 @@ def tensor_parallel(dev, card: str, on_path):
 #
 # (a) 14a's tiny model and granite-moe-smoke in f32 at make_debug_mesh(1, 2)
 # against model 1; (b) 14b's cell (llama3.2-3b widths, 8 of 28 layers,
-# bf16) and (c) 16b's granite-moe-1b-a400m cell (all 24 layers) at
+# bf16) and (c) 16b's granite-moe-1b-a400m cell (12 of 24 layers) at
 # make_debug_mesh(4, 2), the serve shim's default mesh, beside 14b's and
 # 16b's model-1 runs; (d) the serve shim's defaults on the card; (e) the
 # per-rank bytes of llama3.2-3b at 28 layers from the shapes.  As in phase
@@ -5209,7 +5235,7 @@ def tp_serve_shim():
     with its defaults on the card, the processes started together: llama,
     granite, mamba2 and recurrentgemma (their mixers on the model axis
     since phase 22's slice) serve every request at (data 4, model 2) and
-    exit 0."""
+    exit 0.  Returns the lines to print."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -5231,8 +5257,8 @@ def tp_serve_shim():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    print(f"phase 21d: the serve shim's defaults on the card: {', '.join(TPS_SHIM_ARCHS)} "
-          f"served 4/4 at (data 4, model {TP_MODEL})")
+    return [f"phase 21d: the serve shim's defaults on the card: {', '.join(TPS_SHIM_ARCHS)} "
+            f"served 4/4 at (data 4, model {TP_MODEL})"]
 
 
 def tp_serve_memory():
@@ -5282,8 +5308,9 @@ def tp_serve_memory():
 
 
 def tp_serving(dev, card: str, served):
-    """Phase 21: 21a-21e; returns the B1/B2 launches of 21b's and 21c's
-    model-2 runs (each round's aggregate held bitwise on its own rows)."""
+    """Phase 21: 21a-21c and 21e (21d runs in the CLI batch); returns the
+    B1/B2 launches of 21b's and 21c's model-2 runs (each round's aggregate
+    held bitwise on its own rows)."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
@@ -5294,9 +5321,6 @@ def tp_serving(dev, card: str, served):
                                              dtype="float32"), "21a granite")
     print(f"phase 21a: {time.perf_counter() - t0:.1f} s")
     out = tp_serve_cells(dev, card, served)
-    t0 = time.perf_counter()
-    tp_serve_shim()
-    print(f"phase 21d: {time.perf_counter() - t0:.1f} s")
     tp_serve_memory()
     return out
 
@@ -5307,7 +5331,7 @@ def tp_serving(dev, card: str, served):
 # one call (make_debug_mesh(1, 2)), the logits, the loss and every gradient
 # leaf; (b) 16b's mamba2-2.7b and recurrentgemma-2b cells served at (data 4,
 # model 2), one median run each, beside 16b's model-1 runs; (c) 18b's
-# whisper-small and internvl2-1b cells trained at (4, 2) for one window of 4
+# whisper-small and internvl2-1b cells trained at (4, 2) for one window of 2
 # steps, beside 18b's model-1 first window; (d) remat on 15b's cell,
 # replicated and fsdp; (e) the per-rank bytes of mamba2-2.7b and
 # recurrentgemma-2b at full depth from the shapes.  As in phases 20 and 21
@@ -5318,8 +5342,10 @@ TPF_PARITY = (("mamba2_2_7b", dict(n_layers=2)), ("recurrentgemma_2b", dict(n_la
 TPF_PARITY_TOL = TP_PARITY_TOL  # set before the run: 20a's limit (20a read 4.0e-6)
 TPF_SERVE = ("mamba2_2_7b", "recurrentgemma_2b")  # 16b's cells (FAMILY_CELLS)
 TPF_TICKS = 2
-TPF_TRAIN_STEPS = 4  # one window: 18b's first window over the same batches
-REMAT_STEPS = 4
+# one window: 18b's first window over the same batches (4 before the script
+# was cut to run well inside its time limit)
+TPF_TRAIN_STEPS = FRONTEND_DS
+REMAT_STEPS = 2  # 4 before phase 24 took its time
 REMAT_FULL = (("mamba2_2_7b", 64), ("recurrentgemma_2b", 26))
 
 
@@ -5389,7 +5415,7 @@ def tp_family_parity(dev):
 
 
 def tp_family_serving(dev, card: str, served):
-    """Phase 22b: 16b's mamba2-2.7b cell (32 of 64 layers, 272-token
+    """Phase 22b: 16b's mamba2-2.7b cell (16 of 64 layers, 272-token
     prompts) and recurrentgemma-2b cell (5 of 26 layers) in bf16 at
     make_debug_mesh(4, 2), the serve shim's default mesh: one median run
     each of 16b's 24-request stream, held as 16b (every request served, >=
@@ -5740,6 +5766,9 @@ def tp_families(dev, card: str, served, firsts):
 TP23_REF = {}  # filled by 20b's median model-2 run
 TP23_STEPS = 4  # one window, 20b's first
 CODEC23_LAYERS, CODEC23_D = 2, 989_346_816
+# 23c / 23d's steps, one window (4 before the script was cut to run well
+# inside its time limit)
+CODEC23_STEPS = 2
 CODEC23_RUNS = ("int8", "count_sketch", "topk")
 ADAPT23_LAYERS, ADAPT23_D = 4, 314_719_232
 ADAPT23_REQUESTS = 24
@@ -6047,7 +6076,7 @@ def held_attack(label: str, counts: dict):
 
 def tp23_codec_run(dev, card: str, cfg, name: str, attack: str, label: str):
     """One run of phase 23c / 23d on ``cfg`` at make_debug_mesh(4, 2):
-    TP23_STEPS steps of gather median (beta 0.25) under ``attack`` alpha
+    CODEC23_STEPS steps of gather median (beta 0.25) under ``attack`` alpha
     0.25 with the codec ``name`` (or none), through ``make_train_step``
     (``topk``, which carries a residual, through the trainer's window), the
     counters zeroed just before and read just after; every codec call or
@@ -6079,17 +6108,18 @@ def tp23_codec_run(dev, card: str, cfg, name: str, attack: str, label: str):
     try:
         with HeldAggregation(dev) as held:
             if name == "topk":
-                tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=TP23_STEPS,
-                                   device_steps=TP_DS)
+                tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, steps=CODEC23_STEPS,
+                                   device_steps=CODEC23_STEPS)
                 result = trainer.train_loop(cfg, pcfg, tcfg, mesh, dcfg=dcfg, attack=atk)
                 losses = [h["loss"] for h in result.history]
                 del result
             else:
                 state = trainer.init_state(cfg, mesh, opt, seed=0, pcfg=pcfg)
                 step = steps.make_train_step(cfg, pcfg, mesh, opt, atk)
-                batches = trainer.stack_window_batches(dcfg, 0, TP23_STEPS, mesh, atk, cfg)
+                batches = trainer.stack_window_batches(dcfg, 0, CODEC23_STEPS, mesh, atk,
+                                                       cfg)
                 params, opt_state, losses = state["params"], state["opt_state"], []
-                for i in range(TP23_STEPS):
+                for i in range(CODEC23_STEPS):
                     params, opt_state, met = step(params, opt_state,
                                                   {k: v[i] for k, v in batches.items()}, i)
                     losses.append(float(met["loss"]))
@@ -6102,23 +6132,23 @@ def tp23_codec_run(dev, card: str, cfg, name: str, attack: str, label: str):
     launches = _launches()  # read just after it
     peak = torch.cuda.max_memory_allocated()
     run = f"{name}/{attack}"
-    want_held = TP23_STEPS * TRAIN_WORKERS if name != "none" else None
+    want_held = CODEC23_STEPS * TRAIN_WORKERS if name != "none" else None
     check(counts["held"] > 0 and (want_held is None or counts["held"] == want_held),
           f"{label} {run}: {counts['held']} codec calls / payloads held")
-    check(held.held == held.calls == TP23_STEPS and launches["median"] == TP23_STEPS and all(
-        v == 0 for k, v in launches.items() if k != "median"),
+    check(held.held == held.calls == CODEC23_STEPS and launches["median"] == CODEC23_STEPS
+          and all(v == 0 for k, v in launches.items() if k != "median"),
         f"{label} {run}: launches {launches}, {held.held} of {held.calls} aggregates held")
     check(all(v == v and abs(v) < 1e4 for v in losses), f"{label} {run}: {losses}")
     line = {"tp23_codec": run, "label": label, "layers": cfg.n_layers,
-            "d": CODEC23_D, "steps": TP23_STEPS, "losses": losses,
+            "d": CODEC23_D, "steps": CODEC23_STEPS, "losses": losses,
             "held": counts["held"], "launches": launches, "run_wall_s": wall,
-            "step_s": wall / TP23_STEPS, "max_memory_allocated_gb": peak / 1e9, "card": card}
+            "step_s": wall / CODEC23_STEPS, "max_memory_allocated_gb": peak / 1e9, "card": card}
     print(json.dumps({"tp23": line}))
     what = ("worker messages' decoded rows (and residuals) digest alike on a rerun of the "
             "codec from the same generator state" if name != "none" else
             "payloads bitwise a rerun of the draw")
-    print(f"phase {label}: {run} at (4, {TP_MODEL}), {cfg.n_layers} layers: {TP23_STEPS} steps "
-          f"in {wall:.1f} s, {counts['held']} {what} (the card's determinism: in process the "
+    print(f"phase {label}: {run} at (4, {TP_MODEL}), {cfg.n_layers} layers: {CODEC23_STEPS} "
+          f"steps in {wall:.1f} s, {counts['held']} {what} (the card's determinism: in process the "
           f"model-2 call is model 1's on whole rows; the model axis's gather / cut / whole draw "
           f"is held by the gloo tests), one B1 launch a step held on its rows, "
           f"peak {peak / 1e9:.2f} GB")
@@ -6322,6 +6352,174 @@ def tp_step7(dev, card: str):
     return out
 
 
+# --------- phase 24: serving a frontend configuration on the model axis, and
+# the dry-run held against a real rank
+TPFE_DECODE_STEPS = 16
+TPFE_TOL = TPF_PARITY_TOL  # 22a's f32 limit for these configurations
+TPFE_BATCH, TPFE_PROMPT = 4, 16
+PLAN_ARCH = "llama3.2-3b"
+PLAN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+PLAN_PEAK = 70e9  # bytes a plan may peak at to run on one 80 GB card
+PLAN_MEM_RTOL = 0.15
+
+
+def tp_frontend_serving(dev):
+    """Phase 24a: each frontend configuration's serving at (4, 2) against
+    (4, 1), f32 at published widths and depth: the teacher-forced logits
+    of the prefill (and whisper's decode steps) and the ms of each run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch in FRONTEND_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), dtype="float32")
+        params = T.init_params(cfg, seed=0, device=dev)
+        rng = np.random.default_rng(24)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (TPFE_BATCH, TPFE_PROMPT)),
+                                 device=dev)
+        fe = torch.randn((TPFE_BATCH, cfg.n_frontend_tokens, cfg.d_model),
+                         generator=torch.Generator(device=dev).manual_seed(24), device=dev)
+        decodes = TPFE_DECODE_STEPS if cfg.cross_attention else 0
+        forced = torch.as_tensor(rng.integers(0, cfg.vocab, (decodes, TPFE_BATCH, 1)),
+                                 device=dev)
+        logits, ms = {}, {}
+        for model in (1, TP_MODEL, 1, TP_MODEL):  # timed in turns; the second of each kept
+            mesh = mesh_lib.make_debug_mesh(4, model, device=dev)
+            prefill = steps.make_prefill_step(cfg, cache_len=TPFE_PROMPT + decodes, mesh=mesh)
+            decode = steps.make_decode_step(cfg, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = prefill(params, tokens, fe)
+            seq = [lg[:, 0]]
+            for j in range(decodes):
+                lg, cache = decode(params, forced[j], cache, TPFE_PROMPT + j)
+                seq.append(lg[:, 0])
+            torch.cuda.synchronize()
+            ms[model] = (time.perf_counter() - t0) * 1e3
+            logits[model] = torch.stack(seq).float()
+            del cache, seq, lg
+        err = float((logits[TP_MODEL] - logits[1]).abs().max() / logits[1].abs().max())
+        check(bool(torch.isfinite(logits[TP_MODEL]).all()), f"24a {arch}: non-finite logits")
+        check(err <= TPFE_TOL, f"24a {arch}: model-2 logits differ from model 1's by {err} "
+                               f"(relative; limit {TPFE_TOL})")
+        what = f"prefill + {decodes} decode steps" if decodes else "prefill"
+        print(f"phase 24a: {arch} f32, {cfg.n_layers} layers, batch {TPFE_BATCH}, prompt "
+              f"{TPFE_PROMPT}: {what} at make_debug_mesh(4, {TP_MODEL}) within {err:.3g} of "
+              f"(4, 1)'s logits (relative; limit {TPFE_TOL}, 21a's serving limit "
+              f"{TPS_LOGIT_TOL}); {ms[TP_MODEL]:.1f} ms at model {TP_MODEL}, {ms[1]:.1f} ms at "
+              f"model 1")
+        out[arch] = {"rel_err": err, "model2_ms": ms[TP_MODEL], "model1_ms": ms[1]}
+        del params, logits
+    return out
+
+
+def _plan_spec(shape: str, real: bool = False) -> dict:
+    return {"arch": PLAN_ARCH, "shape": shape, "mesh": "single", "real": real}
+
+
+def dryrun_against_rank(card: str, plans):
+    """Phase 24b: the first of PLAN_SHAPES whose plan (``plans``, the
+    dry-run records) peaks under PLAN_PEAK, run once on the card's real
+    tensors in a subprocess under the same fake group of 256 ranks, held
+    against its plan; returns the real run's kernel launches."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    for shape, rec in zip(PLAN_SHAPES, plans):
+        check(rec.get("status") == "ok", f"24b: the plan of {PLAN_ARCH} {shape} failed: "
+                                         f"{rec.get('error')} {rec.get('trace', '')[-1500:]}")
+        print(f"phase 24b: plan {PLAN_ARCH} {shape} single: peak "
+              f"{rec['peak_memory_in_bytes'] / 1e9:.2f} GB, args "
+              f"{rec['argument_size_in_bytes'] / 1e9:.2f} GB, bound {rec['bound_s']:.4f} s "
+              f"({rec['dominant']}; compute {rec['compute_s']:.4f}, memory "
+              f"{rec['memory_s']:.4f}, collective {rec['collective_s']:.4f} s), launches "
+              f"{json.dumps(rec['kernel_launches'])}, planned in {rec['plan_s']} s")
+    chosen = next((i for i, r in enumerate(plans) if r["peak_memory_in_bytes"] < PLAN_PEAK),
+                  None)
+    check(chosen is not None, f"24b: no plan of {PLAN_SHAPES} peaks under {PLAN_PEAK / 1e9} GB")
+    shape, plan = PLAN_SHAPES[chosen], plans[chosen]
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks go back to the card
+    real = dryrun.plan_in_subprocess(_plan_spec(shape, real=True), timeout=600)
+    check(real.get("status") == "ok", f"24b: the real run of {shape} failed: "
+                                      f"{real.get('error')} {real.get('trace', '')[-1500:]}")
+    peak, want = real["max_memory_allocated"], plan["peak_memory_in_bytes"]
+    rel = abs(peak - want) / want
+    check(rel <= PLAN_MEM_RTOL, f"24b: {shape}: max_memory_allocated {peak} vs the plan's peak "
+                                f"{want}: {rel:.3f} apart (limit {PLAN_MEM_RTOL})")
+    check(plan["bound_s"] <= real["step_s"], f"24b: {shape}: the roofline bound "
+                                             f"{plan['bound_s']} s is above the measured step "
+                                             f"{real['step_s']} s")
+    check(real["kernel_launches"] == plan["kernel_launches"],
+          f"24b: {shape}: launches {real['kernel_launches']} != the plan's "
+          f"{plan['kernel_launches']}")
+    skipped = [f"{s} ({p['peak_memory_in_bytes'] / 1e9:.1f} GB)"
+               for s, p in zip(PLAN_SHAPES[:chosen], plans[:chosen])]
+    covered = sorted(plan["kernel_launches"]) or ["none: no kernel runs on this step"]
+    print(f"phase 24b: {PLAN_ARCH} {shape} on the single mesh, rank 0 on the card under a "
+          f"fake group of 256 ranks (collectives move no data; values not checked): "
+          f"max_memory_allocated {peak / 1e9:.3f} GB vs planned peak {want / 1e9:.3f} GB "
+          f"({rel * 100:.1f} % apart, limit {PLAN_MEM_RTOL * 100:.0f} %); step "
+          f"{real['step_s']:.3f} s measured vs roofline bound {plan['bound_s']:.3f} s "
+          f"({plan['bound_s'] / real['step_s'] * 100:.1f} % of it; {card}); launches "
+          f"{json.dumps(real['kernel_launches'])} = planned; kernels covered: {covered}; "
+          f"shapes whose plan does not fit under {PLAN_PEAK / 1e9:.0f} GB: "
+          f"{skipped or 'none'}")
+    print(json.dumps({"dryrun_vs_rank": shape, "plan": {k: plan[k] for k in (
+        "peak_memory_in_bytes", "argument_size_in_bytes", "bound_s", "compute_s", "memory_s",
+        "collective_s", "kernel_launches", "flops", "bytes_accessed")},
+        "real": real, "card": card}))
+    return real["kernel_launches"]
+
+
+def frontend_tp_and_dryrun(dev, card: str, plans):
+    """Phase 24: 24a, then 24b on ``plans`` (futures of PLAN_SHAPES' plans,
+    started on the CPU after phase 1); returns 24b's real run's kernel
+    launches."""
+    t0 = time.perf_counter()
+    tp_frontend_serving(dev)
+    print(f"phase 24a: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    launches = dryrun_against_rank(card, [p.result() for p in plans])
+    print(f"phase 24b: {time.perf_counter() - t1:.1f} s")
+    return launches
+
+
+# the CLI phases, subprocesses on the card: started after phase 1 beside
+# phases 2-4 (which time nothing), CLI_GROUPS_AT_ONCE groups at a time (a
+# group's own processes start together), and read before phase 5's timings
+CLI_GROUPS = (("6", fed_cli), ("14c", serve_cli), ("15d", train_cli),
+              ("16c", family_serve_cli), ("17c + 17d", distributed_clis),
+              ("21d", tp_serve_shim))
+CLI_GROUPS_AT_ONCE = 3
+
+
+def cli_batch():
+    """CLI_GROUPS, CLI_GROUPS_AT_ONCE at a time; returns each group's label,
+    lines to print and seconds, in CLI_GROUPS' order.  A failed check in a
+    group exits the script when its result is read."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        lines = fn()
+        return lines, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(CLI_GROUPS_AT_ONCE) as pool:
+        futures = [(label, pool.submit(timed, fn)) for label, fn in CLI_GROUPS]
+        return [(label, *f.result()) for label, f in futures]
+
+
 def main() -> None:
     import torch
 
@@ -6365,6 +6563,12 @@ def main() -> None:
     print(f"phase 1: most registers a kernel by program (med_ median, tm_ trimmed mean, "
           f"fu_ fused): {json.dumps(registers_by_program_kind(select_libs))}")
 
+    from repro_torch.launch import dryrun
+
+    # beside phases 2-4: phase 24b's plans on the CPU and the CLI batch
+    side = ThreadPoolExecutor(len(PLAN_SHAPES) + 1)
+    plans = [side.submit(dryrun.plan_in_subprocess, _plan_spec(s), 600) for s in PLAN_SHAPES]
+    clis = side.submit(cli_batch)
     t0 = time.perf_counter()
     worst = kernel_sweep(dev, CNN_LEAF_SIZES)
     multi_leaf_sweep(dev, worst)
@@ -6389,6 +6593,11 @@ def main() -> None:
     launches = on_path("phase 4", lambda: main_path(dev), lambda c: c)
     cpu_agreement(dev)
     table2_linreg(dev)
+    t0 = time.perf_counter()
+    for label, lines, secs in clis.result():
+        print("\n".join(lines))
+        print(f"phase {label}: {secs:.1f} s (in the CLI batch)")
+    print(f"CLI batch: read {time.perf_counter() - t0:.1f} s after phase 4 ended")
     rows = timings(dev, card)
     sketch_rows_ = sketch_timings(dev, card)
     cnn_step_time(dev)
@@ -6397,7 +6606,6 @@ def main() -> None:
     launches.update(fed_launches)
     fed_sketch_vs_exact(pop)
     fed_cpu_agreement(dev)
-    fed_cli(dev)
     fed_profile(pop)
     print(f"phase 6: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -6481,6 +6689,10 @@ def main() -> None:
     print(f"phase 23: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 23 built order-statistic programs that phase 1 did not")
+    t0 = time.perf_counter()
+    new_paths["dryrun_vs_rank"] = frontend_tp_and_dryrun(dev, card, plans)
+    side.shutdown()
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")
@@ -6515,7 +6727,7 @@ def main() -> None:
             "max_abs_err": worst[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
-    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_script:.1f} s")
+    print(f"chip_smoke: phases 1-24 in {time.perf_counter() - t_script:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

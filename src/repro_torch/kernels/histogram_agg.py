@@ -33,7 +33,13 @@ it.
 
 Device rule: a CPU tensor takes the plain version (:func:`minmax_plain`,
 :func:`histogram_plain`); a CUDA tensor launches the kernel or raises —
-nothing falls back.  ``LAUNCHES`` counts kernel launches per wrapper.
+nothing falls back; a meta tensor (a dry-run's stand-in) gets the
+outputs' shapes.  ``LAUNCHES`` counts kernel launches per wrapper.  A
+CUDA call goes through a dispatcher op (``torch.ops.repro_torch.minmax``,
+``torch.ops.repro_torch.histogram``) whose CUDA implementation is the
+ctypes launch and whose fake implementation returns the outputs' shapes
+and dtypes and builds nothing (a dry-run's fake or meta tensors pass
+through it).
 """
 from __future__ import annotations
 
@@ -42,10 +48,11 @@ import dataclasses
 import functools
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.device import takes_kernels
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import selection_network as SN
 
@@ -146,7 +153,7 @@ def sketch_array(x: torch.Tensor, nbins: int, with_sums: bool = True
     (:func:`minmax`, then :func:`histogram`), whose sums are added in row
     order, so the result is the same on every run; a CPU tensor through
     ``amin``/``amax`` and :func:`hist_update`."""
-    if x.is_cuda:
+    if takes_kernels(x):
         xk = (x if x.dtype in _KERNEL_DTYPES else x.float()).contiguous()
         lo, width = edges(*minmax(xk), nbins)
         counts, sums = histogram(xk, lo, width, nbins, with_sums)
@@ -357,7 +364,7 @@ def _check_chunk(x: torch.Tensor) -> None:
     The common case is checked first: on the sketch's small chunks the
     wrapper's host time is most of a call."""
     if x.dim() == 2 and x.dtype in _KERNEL_DTYPES and x.is_contiguous() \
-            and (x.is_cuda or x.is_cpu):
+            and (takes_kernels(x) or x.is_cpu):
         rows, n = x.shape
         if 1 <= rows < 2 ** 31 and n >= 1:
             return
@@ -389,8 +396,13 @@ def minmax_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def minmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-coordinate f32 (min, max) of a ``(rows, n)`` chunk -> two (n,)."""
     _check_chunk(x)
-    if not x.is_cuda:
+    if not takes_kernels(x):
         return minmax_plain(x)
+    return _MINMAX(x)
+
+
+def _minmax_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The op's CUDA implementation: one launch on the (checked) chunk."""
     lib = load()
     rows, n = x.shape
     plan = minmax_plan_for(x)
@@ -402,6 +414,11 @@ def minmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _build.check_launch(lib, "minmax", err)
     LAUNCHES["minmax"] += 1
     return lo, hi
+
+
+def _minmax_fake(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    lo = x.new_empty(x.shape[1], dtype=torch.float32)
+    return lo, torch.empty_like(lo)
 
 
 def histogram_plain(x: torch.Tensor, lo: torch.Tensor, width: torch.Tensor, nbins: int,
@@ -437,9 +454,18 @@ def histogram(x: torch.Tensor, lo: torch.Tensor, width: torch.Tensor, nbins: int
                              f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
     if not 1 <= nbins < 2 ** 31:
         raise ValueError(f"nbins must be >= 1, got {nbins}")
-    if not x.is_cuda:
+    if not takes_kernels(x):
         return histogram_plain(x, lo, width, nbins, with_sums)
+    out = _HISTOGRAM(x, lo, width, nbins, with_sums)
+    return out[0], (out[1] if with_sums else None)
+
+
+def _histogram_cuda(x: torch.Tensor, lo: torch.Tensor, width: torch.Tensor, nbins: int,
+                    with_sums: bool) -> List[torch.Tensor]:
+    """The op's CUDA implementation: one launch on the (checked) chunk ->
+    [counts] or [counts, sums]."""
     lib = load()
+    n = x.shape[1]
     plan = histogram_plan(x.shape[0], n, nbins, with_sums)
     counts = x.new_empty((nbins, n), dtype=torch.float32)
     sums = torch.empty_like(counts) if with_sums else None
@@ -449,4 +475,21 @@ def histogram(x: torch.Tensor, lo: torch.Tensor, width: torch.Tensor, nbins: int
         plan.log2_tile, plan.threads, plan.stage_rows, plan.smem_bytes, stream))
     _build.check_launch(lib, "histogram", err)
     LAUNCHES["histogram"] += 1
-    return counts, sums
+    return [counts] if sums is None else [counts, sums]
+
+
+def _histogram_fake(x, lo, width, nbins: int, with_sums: bool) -> List[torch.Tensor]:
+    counts = x.new_empty((nbins, x.shape[1]), dtype=torch.float32)
+    return [counts, torch.empty_like(counts)] if with_sums else [counts]
+
+
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("minmax(Tensor x) -> (Tensor, Tensor)")
+_OPS.define("histogram(Tensor x, Tensor lo, Tensor width, int nbins, bool with_sums) "
+            "-> Tensor[]")
+_OPS.impl("minmax", _minmax_cuda, "CUDA")
+_OPS.impl("histogram", _histogram_cuda, "CUDA")
+torch.library.register_fake("repro_torch::minmax", _minmax_fake, lib=_OPS)
+torch.library.register_fake("repro_torch::histogram", _histogram_fake, lib=_OPS)
+_MINMAX = torch.ops.repro_torch.minmax.default
+_HISTOGRAM = torch.ops.repro_torch.histogram.default

@@ -43,12 +43,13 @@ def _check_network_m(m: int) -> None:
 
 def route(m: int, n: int, dtype: torch.dtype, device_type: str) -> str:
     """The route ``backend="auto"`` takes for m rows of n coordinates of
-    ``dtype`` on a ``device_type`` ("cpu" or "cuda") tensor."""
+    ``dtype`` on a ``device_type`` ("cpu" or "cuda"; "meta", a dry-run's
+    stand-in, routes as "cuda") tensor."""
     if n == 0:
         return "empty"
     if m > NETWORK_MAX_M:
         return "sort"
-    if device_type == "cuda" and dtype in robust_agg.DTYPES:
+    if device_type in ("cuda", "meta") and dtype in robust_agg.DTYPES:
         return "cuda"
     return "network" if m >= 2 else "sort"
 

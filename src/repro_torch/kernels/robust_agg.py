@@ -29,14 +29,24 @@ design does about it.
 
 Device rule: a CPU tensor takes the plain version (the torch executor of
 the same comparator program in :mod:`selection_network`); a CUDA tensor
-launches the kernel or raises — nothing falls back.  ``LAUNCHES`` counts
+launches the kernel or raises — nothing falls back; a meta tensor (a
+dry-run's stand-in) gets the outputs' shapes.  ``LAUNCHES`` counts
 kernel launches per wrapper and ``LEAVES`` the leaves they aggregated, so
 a run can show that its aggregation went through the kernels.
+
+A CUDA call goes through the dispatcher op ``torch.ops.repro_torch.select``
+(``kind``, ``trim``, the leaves) -> the one flat output buffer the kernel
+writes, which the wrapper splits into the leaves' views.  Its CUDA
+implementation is the ctypes launch; its fake implementation returns the
+buffer's shape and dtype and builds nothing, so a fake or meta tensor (a
+dry-run's stand-in, :mod:`repro_torch.launch.dryrun`) passes through the
+wrapper, and a dispatch mode sees every launch.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
 import ctypes
+import functools
 import hashlib
 import os
 import threading
@@ -45,6 +55,7 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
+from repro_torch.device import takes_kernels
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import select_codegen as G
 from repro_torch.kernels import selection_network as SN
@@ -143,7 +154,7 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError("the kernels need at least one coordinate")
     if not x.is_contiguous():
         raise ValueError("the kernels need a contiguous (m, n) matrix")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
 
 
@@ -180,41 +191,67 @@ def _select_many(kind: str, xs: Sequence[torch.Tensor], trim: int) -> List[List[
                              f"{tuple(x0.shape)} {dtype} on {device}")
     if kind != "median":
         _check_trim(m, trim)
-    if not x0.is_cuda:
+    if not takes_kernels(x0):
         if kind == "median":
             return [[SN.median_select(x) for x in xs]]
         if kind == "trimmed_mean":
             return [[SN.trimmed_mean_select(x, trim) for x in xs]]
         return [list(outs) for outs in zip(*(SN.median_and_trimmed_select(x, trim)
                                              for x in xs))]
-    fn, lib = _handle(kind, m, trim, dtype)
-    return _launch_many(kind, fn, lib, xs, m, dtype, device)
+    flat = _SELECT(kind, trim, xs)
+    _, sizes, pieces, _ = _layout(xs, dtype, kind == FUSED)
+    parts = flat.split_with_sizes(sizes + sizes if kind == FUSED else sizes)
+    result = [[parts[i] for i in pieces]]
+    if kind == FUSED:
+        result.append([parts[len(sizes) + i] for i in pieces])
+    return result
 
 
-def _launch_many(kind, fn, lib, xs, m, dtype, device) -> List[List[torch.Tensor]]:
-    """Launch ``fn`` over the leaves ``xs`` (checked), MAX_LEAVES at a time,
-    into one flat output per output of the kernel, in which each leaf's
-    segment starts on a 16-byte boundary (a gap is left only where the
+def _layout(xs, dtype, fused: bool):
+    """The flat output of leaves ``xs``: (each leaf's offset, the segment
+    sizes, each leaf's segment index, the elements an output takes), cached
+    by the leaves' widths (the wrapper's host time is most of a call on
+    small leaves)."""
+    return _layout_of(tuple(x.shape[1] for x in xs), 16 // dtype.itemsize, fused)
+
+
+@functools.lru_cache(maxsize=4096)
+def _layout_of(ns: Tuple[int, ...], pad: int, fused: bool):
+    """:func:`_layout` of widths ``ns``: each leaf's segment starts on a
+    16-byte boundary (``pad`` elements; a gap is left only where the
     previous segments end off it); the fused kernel's two outputs are the
     halves of one buffer, each leaf at the same offset in both."""
-    s = torch.finfo(dtype).bits // 8
-    width = G.coords_per_thread(m, dtype) * s  # bytes of a V-wide load
-    pad = 16 // s
-    fused = kind == FUSED
-    records, sizes, pieces, total = [], [], [], 0
-    for x in xs:
+    offsets, sizes, pieces, total = [], [], [], 0
+    for n in ns:
         if total % pad:
             sizes.append(pad - total % pad)
             total += sizes[-1]
-        n, xp = x.shape[1], x.data_ptr()
-        scalar = G.select_plan(m, n, dtype, xp % width == 0).scalar
-        records.append((xp, total * s, n, 0 if scalar else 1))
+        offsets.append(total)
         pieces.append(len(sizes))
         sizes.append(n)
         total += n
     if fused and total % pad:  # the second half starts on a 16-byte boundary too
         sizes.append(pad - total % pad)
         total += sizes[-1]
+    return tuple(offsets), tuple(sizes), tuple(pieces), total
+
+
+def _select_cuda(kind: str, trim: int, xs: List[torch.Tensor]) -> torch.Tensor:
+    """The op's CUDA implementation: launch ``kind``'s program over the
+    (checked) leaves ``xs``, MAX_LEAVES at a time, into one flat buffer
+    (:func:`_layout`)."""
+    x0 = xs[0]
+    m, dtype, device = x0.shape[0], x0.dtype, x0.device
+    fn, lib = _handle(kind, m, trim, dtype)
+    s = dtype.itemsize
+    width = G.coords_per_thread(m, dtype) * s  # bytes of a V-wide load
+    fused = kind == FUSED
+    offsets, _, _, total = _layout(xs, dtype, fused)
+    records = []
+    for x, off in zip(xs, offsets):
+        n, xp = x.shape[1], x.data_ptr()
+        scalar = G.select_plan(m, n, dtype, xp % width == 0).scalar
+        records.append((xp, off * s, n, 0 if scalar else 1))
     flat = torch.empty(2 * total if fused else total, dtype=dtype, device=device)
     base = flat.data_ptr()
     dev = device.index if device.index is not None else torch.cuda.current_device()
@@ -228,11 +265,25 @@ def _launch_many(kind, fn, lib, xs, m, dtype, device) -> List[List[torch.Tensor]
         _build.check_launch(lib, kind, err)
         LAUNCHES[kind] += 1
         LEAVES[kind] += len(chunk)
-    parts = flat.split_with_sizes(sizes + sizes if fused else sizes)
-    result = [[parts[i] for i in pieces]]
-    if fused:
-        result.append([parts[len(sizes) + i] for i in pieces])
-    return result
+    return flat
+
+
+def _select_fake(kind: str, trim: int, xs: List[torch.Tensor]) -> torch.Tensor:
+    """The op's fake implementation: the flat buffer's shape and dtype."""
+    total = _layout(xs, xs[0].dtype, kind == FUSED)[3]
+    return xs[0].new_empty(2 * total if kind == FUSED else total)
+
+
+def launches_for(leaves: int) -> int:
+    """Kernel launches one op call over ``leaves`` leaves makes."""
+    return -(-leaves // G.MAX_LEAVES)
+
+
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("select(str kind, int trim, Tensor[] xs) -> Tensor")
+_OPS.impl("select", _select_cuda, "CUDA")
+torch.library.register_fake("repro_torch::select", _select_fake, lib=_OPS)
+_SELECT = torch.ops.repro_torch.select.default
 
 
 def median_many(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:

@@ -323,6 +323,16 @@ def cache_shardings(cfg: ModelConfig, mesh: mesh_lib.Mesh, cache):
     return tree_map_with_path(visit, cache)
 
 
+def long_context_cfg(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
+    """For ``long_500k`` on a full-attention architecture with a documented
+    sliding-window decode variant (``long_context_window``), that variant,
+    named ``cfg.name + "+swa"`` (the reference's DESIGN.md §Input-shape
+    handling); every other combination as it is."""
+    if shape.name == "long_500k" and cfg.long_context_window and not cfg.sliding_window:
+        return dataclasses.replace(cfg, name=cfg.name + "+swa")
+    return cfg
+
+
 @dataclasses.dataclass(frozen=True)
 class InputSpec:
     """A step input's stand-in: a meta tensor (shape and dtype, nothing
@@ -787,13 +797,10 @@ def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
 # ---------------------------------------------------------------------------
 
 
-def _serving_ctx(cfg: ModelConfig, mesh: Optional[mesh_lib.Mesh]) -> sharding.ShardCtx:
+def _serving_ctx(mesh: Optional[mesh_lib.Mesh]) -> sharding.ShardCtx:
     """The model axis the serving steps run over (:data:`NULL_CTX` without a
-    mesh or at model size 1); a frontend configuration at model size > 1
-    raises (:func:`repro_torch.models.transformer.refuse_model_axis`)."""
-    ctx = sharding.NULL_CTX if mesh is None else sharding.model_ctx(mesh)
-    T.refuse_model_axis(cfg, ctx.model)
-    return ctx
+    mesh or at model size 1)."""
+    return sharding.NULL_CTX if mesh is None else sharding.model_ctx(mesh)
 
 
 def _splits_rows(mesh: Optional[mesh_lib.Mesh], b: int) -> bool:
@@ -816,7 +823,7 @@ def make_prefill_step(cfg: ModelConfig, kv_block: int = 1024,
     holds alike, and the rank returns its block of rows (where the batch
     divides over the workers) with its kv heads of the cache: the slice
     :func:`cache_shardings` names.  Its logits are whole over V."""
-    ctx = _serving_ctx(cfg, mesh)
+    ctx = _serving_ctx(mesh)
     waxes = mesh_lib.worker_axes(mesh) if mesh is not None else ()
 
     def step(params, tokens, frontend=None):
@@ -835,7 +842,7 @@ def make_decode_step(cfg: ModelConfig, mesh: Optional[mesh_lib.Mesh] = None) -> 
     """``step(params, token, cache, pos) -> (logits, cache)``, the cache
     updated in place; ``token`` and ``cache`` as :func:`make_prefill_step`'s
     step returns them (under a process group the rank's rows and heads)."""
-    ctx = _serving_ctx(cfg, mesh)
+    ctx = _serving_ctx(mesh)
 
     def step(params, token, cache, pos):
         with torch.no_grad():
@@ -850,7 +857,7 @@ def make_slot_prefill_step(cfg: ModelConfig, cache_len: int,
     (1, 1, V), a slot cache sized ``cache_len``): no batch axes (the pool is
     replicated over the workers, as the reference's ``_serve_ctx`` has it),
     the kv heads over the model axis."""
-    ctx = _serving_ctx(cfg, mesh)
+    ctx = _serving_ctx(mesh)
 
     def step(params, tokens, frontend=None):
         with torch.no_grad():
@@ -869,7 +876,7 @@ def make_decode_pool_step(cfg: ModelConfig, mesh: Optional[mesh_lib.Mesh] = None
     the argmax is taken on the whole logits (under a process group one
     all-gather of the (S, V/M) vocab shards a tick, where V splits), so
     ``torch.argmax``'s first-index rule holds as at model 1."""
-    ctx = _serving_ctx(cfg, mesh)
+    ctx = _serving_ctx(mesh)
 
     def tick(params, tokens, pool, pos):
         with torch.no_grad():

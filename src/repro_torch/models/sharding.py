@@ -231,23 +231,29 @@ def cache_dims(cfg, model: int, cache, specs):
     tuple per leaf): the serving counterpart of :func:`tp_dims`, in a
     tree shaped like ``cache`` (whose leaves may be meta tensors).
 
-    Only the attention keys and values of ``heads`` mode are split, on
-    their kv-head dim.  In ``gathered`` mode (kv heads not divisible by
-    ``model``, e.g. one kv head) the reference's spec falls to the head
-    dim ``hd``: a GSPMD layout of the same function, which the port does
-    not compute split (the layer computes from gathered leaves), so the
+    Only the attention keys and values of ``heads`` mode are split, on their
+    kv-head dim: the self-attention caches in the layers' mode, the cross
+    caches (``cross/k``, ``cross/v``) in the cross layers' (the encoder
+    config's, :func:`tp_plan`).  In ``gathered`` mode (kv heads not
+    divisible by ``model``, e.g. one kv head) the reference's spec falls to
+    the head dim ``hd``: a GSPMD layout of the same function, which the port
+    does not compute split (the layer computes from gathered leaves), so the
     caches stay whole on every rank.  The ``ssm`` / ``rec`` states
     (``conv``, ``ssd``, ``h``) stay whole for the same reason: the
     reference's specs split ``ssd`` on its heads and ``conv`` / ``h`` on
     channels, but the port's mixer runs whole on every rank from the
     gathered in-projections, so every rank updates the whole state alike.
     The worker-axis entries (the batch) are not read here."""
+    from repro_torch.models import transformer as T
+
     heads = tp_modes(cfg, model).attn == "heads"
+    cross_heads = tp_modes(T._enc_cfg(cfg), model).attn == "heads"
     spec_of = []
     tree_map(lambda _, spec: spec_of.append(spec), cache, specs)
 
     def dim(path, spec):
-        if not heads or path.split("/")[-1] not in ("k", "v") or path.startswith("cross"):
+        if not (cross_heads if path.startswith("cross") else heads) \
+                or path.split("/")[-1] not in ("k", "v"):
             return -1
         d = next((i for i, e in enumerate(spec) if e == "model"), -1)
         return d if d == len(spec) - 2 else -1

@@ -44,18 +44,18 @@ after the other), and the layers compute as the module doc of
 :mod:`repro_torch.models.sharding` sets out: column-parallel q/k/v and
 row-parallel ``wo`` on whole kv heads (else the attention leaves
 gathered), column/row-parallel FFN and GeGLU, expert-parallel (else
-F-split) MoE, the ``ssm`` / ``rec`` mixers on gathered in-projections
-with a row-parallel out-projection, the encoder and cross-attention in
-their own attention mode, a vocab-parallel embedding and cross-entropy
-(or a d_model split).  ``prefill`` and ``decode_step`` of a frontend
-configuration refuse a model axis (:func:`refuse_model_axis`).  Under the
-context's ``seq_parallel`` the residual is split over the model axis
-along S between the layers of the ``blocks`` super-blocks (the embedding,
-the encoder, the tail and the head take it whole, as the reference
-constrains it only inside its block scan): each layer's norm runs on a
-rank's rows (its scale's gradient taken over the whole rows) and its
-model-axis boundaries are the context's ``sp_enter`` / ``sp_reduce``;
-the function is unchanged, bit for bit.
+F-split) MoE, the ``ssm`` / ``rec`` mixers on gathered in-projections with
+a row-parallel out-projection, the encoder and cross-attention in their
+own attention mode, a vocab-parallel embedding and cross-entropy (or a
+d_model split).  ``prefill`` and ``decode_step`` serve under a model axis
+too, a frontend configuration's cross caches on each rank's kv heads in
+``heads`` mode.  Under the context's ``seq_parallel`` the residual is
+split over the model axis along S between the layers of the ``blocks``
+super-blocks (the embedding, the encoder, the tail and the head take it
+whole, as the reference constrains it only inside its block scan): each
+layer's norm runs on a rank's rows (its scale's gradient taken over the
+whole rows) and its model-axis boundaries are the context's ``sp_enter`` /
+``sp_reduce``; the function is unchanged, bit for bit.
 
 Activation checkpointing (``remat``, the reference's default ``True``):
 ``forward`` and ``loss_fn`` run each super-block of the ``blocks`` group,
@@ -325,18 +325,6 @@ def count_active_params(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 # layers over a full sequence (train / prefill)
 # ---------------------------------------------------------------------------
-
-
-def refuse_model_axis(cfg: ModelConfig, model: int) -> None:
-    """``prefill`` / ``decode_step`` of a frontend configuration at model
-    axis ``model`` > 1: ``NotImplementedError`` naming the ROADMAP item.
-    No entry point serves a frontend configuration (the reference's engine
-    prefills without one), so its serving caches are not split."""
-    if model > 1 and (cfg.frontend != "none" or cfg.n_enc_layers):
-        raise NotImplementedError(
-            f"{cfg.name}: prefill / decode_step with the {cfg.frontend} frontend at model "
-            f"axis {model}: serving a frontend configuration under tensor parallelism is not "
-            "ported yet (ROADMAP queue A item 6, step 8)")
 
 
 def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -918,6 +906,24 @@ def _fill_attn_cache(k: torch.Tensor, v: torch.Tensor, eff: int, s: int) -> Para
     return {"k": k[:, s - eff:][:, order], "kpos": pos[order], "v": v[:, s - eff:][:, order]}
 
 
+def _cross_cache(cp: Params, enc_out: torch.Tensor, cfg: ModelConfig,
+                 ctx: ShardCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block's cross keys and values for the cache: in the cross
+    layers' ``heads`` mode each model rank projects its kv heads, which are
+    concatenated in rank order (in process every rank's: the whole heads;
+    under a process group the rank's own); in ``gathered`` mode ``wk`` /
+    ``wv`` are gathered and the cache is whole."""
+    modes = ctx.modes(_enc_cfg(cfg))
+    if modes.attn == "gathered":  # the keys' and values' projections only
+        cp = dict(cp, **{n: ctx.full(cp[n], _ATTN_DIMS[n]) for n in modes.attn_split
+                         if n in ("wk", "wv")})
+    c = _on(ctx, modes.attn == "heads")
+    kv = cfg.n_kv_heads // c.model
+    ks, vs = zip(*(_cross_kv({n: c.shard(cp[n], 1, r) for n in ("wk", "wv")}, enc_out, cfg, kv)
+                   for r in c.ranks()))
+    return (torch.cat(ks, 2), torch.cat(vs, 2)) if len(ks) > 1 else (ks[0], vs[0])
+
+
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             frontend: Optional[torch.Tensor] = None, kv_block: int = 1024,
             cache_len: Optional[int] = None,
@@ -930,18 +936,18 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ``heads`` mode each rank's cache holds its own kv heads (in process the
     ranks' heads side by side: the whole cache), ``kpos`` whole; the
     ``ssm`` / ``rec`` states are whole on every rank; the logits are whole
-    on every rank (:func:`_logits`).  A frontend configuration refuses a
-    model axis (:func:`refuse_model_axis`).
+    on every rank (:func:`_logits`).
 
     Audio: the encoder runs once and each super-block's cross keys and
-    values go to ``cache["cross"]``.  Vision: as in the reference, the
-    patch prefix stays in the attention caches while their ``kpos`` is
-    sized by the text alone, a cache :func:`decode_step` refuses."""
+    values go to ``cache["cross"]`` (under a model axis in the cross layers'
+    attention mode: in ``heads`` each rank's kv heads, as the self caches).
+    Vision: as in the reference, the patch prefix stays in the attention
+    caches while their ``kpos`` is sized by the text alone, a cache
+    :func:`decode_step` refuses."""
     b, s = tokens.shape
     cache_len = cache_len or s
     if cache_len < s:
         raise ValueError(f"cache_len {cache_len} < prompt length {s}")
-    refuse_model_axis(cfg, ctx.model)
     ctx = ctx.whole()  # serving never splits the sequence, as the reference's _serve_ctx
     eff = cache_window(cfg, cache_len)
     x, enc_out, _ = _frontend_in(params, tokens, cfg, frontend, kv_block, ctx)
@@ -955,7 +961,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                                  cx, ctx)
         per_layer.append(_fill_attn_cache(*state, eff, s) if where.kind == "attn" else state)
         if cx is not None:
-            cross.append(_cross_kv(cx[1], enc_out, cfg))
+            cross.append(_cross_cache(cx[1], enc_out, cfg, ctx))
     cache = _stack_layers(cfg, per_layer)
     if cross:
         cache["cross"] = {"k": torch.stack([k for k, _ in cross]),
@@ -1002,8 +1008,8 @@ def _attn_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
     posv = pos.reshape(-1, 1)
     slot = pos % eff
     rows = torch.arange(b, device=x.device) if lc["kpos"].dim() == 2 else None
-    if rows is None:  # one position for the whole batch
-        lc["kpos"][slot] = pos.to(torch.int32)
+    if rows is None:  # one position for the whole batch (an index tensor: no host read)
+        lc["kpos"].index_fill_(0, slot.reshape(1), pos.to(torch.int32))
     else:  # a position per row (the slot pool)
         lc["kpos"][rows, slot] = pos.to(torch.int32)
     modes = ctx.modes(cfg)
@@ -1021,23 +1027,49 @@ def _attn_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
         if len(ranks) > 1:  # rank r's heads of the whole cache
             kc, vc = kc.narrow(2, i * heads[1], heads[1]), vc.narrow(2, i * heads[1], heads[1])
         if rows is None:
-            kc[:, slot] = k[:, 0]
-            vc[:, slot] = v[:, 0]
+            kc.index_copy_(1, slot.reshape(1), k)
+            vc.index_copy_(1, slot.reshape(1), v)
         else:
             kc[rows, slot] = k[:, 0]
             vc[rows, slot] = v[:, 0]
         o = _cache_attention(q, kc.contiguous(), vc.contiguous(), lc["kpos"], pos, window)
         parts.append(o.reshape(b, 1, heads[0] * cfg.hd) @ pr["wo"])
     x = x + c.reduce(parts)
-    if cross is not None:  # every encoder slot valid: kpos 0..t-1, pos 2^30
-        ck, cp = cross
-        t = ck["k"].shape[1]
-        oc = _cache_attention(_cross_q(cp, L.rms_norm(x, cp["ln1"], cfg.norm_eps), cfg),
-                              ck["k"], ck["v"],
-                              torch.arange(t, dtype=torch.int32, device=x.device),
-                              torch.full((), 2 ** 30, dtype=torch.int64, device=x.device), 0)
-        x = x + oc.reshape(b, 1, cfg.n_heads * cfg.hd) @ cp["wo"]
+    if cross is not None:
+        x = x + _cross_decode(cross, x, cfg, ctx)
     return _ffn(p, x, cfg, ctx)[0]
+
+
+def _cross_decode(cross, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx) -> torch.Tensor:
+    """One decode step's cross-attention output (B, 1, D) over the cached
+    encoder keys and values (every slot valid: kpos 0..t-1, pos 2^30);
+    ``cross`` is (this block's cross cache, its cross-attention params).
+    In the cross layers' ``heads`` mode each model rank attends with its
+    heads over its kv heads of the cache (:func:`_cross_cache`'s layout)
+    and its rows of ``wo``, the partials summed in rank order, as
+    :func:`_cross_attention` in training; in ``gathered`` mode ``wq`` /
+    ``wo`` are gathered whole."""
+    ck, cp = cross
+    modes = ctx.modes(_enc_cfg(cfg))
+    if modes.attn == "gathered":  # the keys and values are cached
+        cp = dict(cp, **{n: ctx.full(cp[n], _ATTN_DIMS[n]) for n in modes.attn_split
+                         if n in ("wq", "wo")})
+    c = _on(ctx, modes.attn == "heads")
+    b, t = x.shape[0], ck["k"].shape[1]
+    ye = c.enter(L.rms_norm(x, cp["ln1"], cfg.norm_eps))
+    heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
+    kpos = torch.arange(t, dtype=torch.int32, device=x.device)
+    pos = torch.full((), 2 ** 30, dtype=torch.int64, device=x.device)
+    ranks = c.ranks()
+    parts = []
+    for i, r in enumerate(ranks):
+        pr = {n: c.shard(cp[n], _ATTN_DIMS[n], r) for n in ("wq", "wo")}
+        kc, vc = ck["k"], ck["v"]
+        if len(ranks) > 1:  # rank r's heads of the whole cache
+            kc, vc = kc.narrow(2, i * heads[1], heads[1]), vc.narrow(2, i * heads[1], heads[1])
+        o = _cache_attention(_cross_q(pr, c.local(ye), cfg, heads), kc, vc, kpos, pos, 0)
+        parts.append(o.reshape(b, 1, heads[0] * cfg.hd) @ pr["wo"])
+    return c.reduce(parts)
 
 
 def _ssm_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
@@ -1076,7 +1108,6 @@ def decode_step(params: Params, token: torch.Tensor, cache: Params, pos,
     keys and positions differ in length (a vision prefill's) raises, as
     the reference's decode does.  Under a model axis (``ctx``) the cache
     is :func:`prefill`'s layout and the logits are whole on every rank."""
-    refuse_model_axis(cfg, ctx.model)
     x = _embed(params, token, cfg, ctx)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     window = decode_window(cfg)

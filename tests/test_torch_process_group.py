@@ -666,12 +666,11 @@ def test_later_steps_still_raise(monkeypatch):
         assert steps.make_step_body(cfg, pcfg, tp, opt).waxes == ("data",)
     # step 6 (the ssm / rec layers and the frontends) is ported
     steps.make_step_body(get_smoke_config("mamba2-2.7b"), ParallelConfig(), tp, opt)
-    # step 5 (serving under tensor parallelism) is ported, the ssm layers'
-    # too; a frontend configuration's serving steps name step 8
+    # steps 5 and 8 (serving under tensor parallelism, a frontend
+    # configuration's serving steps included) are ported
     steps.make_decode_pool_step(cfg, tp)
     steps.make_decode_pool_step(get_smoke_config("mamba2-2.7b"), tp)
-    with pytest.raises(NotImplementedError, match="step 8"):
-        steps.make_decode_pool_step(get_smoke_config("whisper-small"), tp)
+    steps.make_decode_pool_step(get_smoke_config("whisper-small"), tp)
     mesh = mesh_lib.make_debug_mesh(2, 1, device="cpu")
     # step 3 (fsdp) is ported: it refuses what the reference's refuses
     with pytest.raises(ValueError, match="compression needs param_mode='replicated'"):

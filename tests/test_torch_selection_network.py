@@ -206,4 +206,15 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError, match="trim"):
         robust_agg.trimmed_mean(torch.zeros(4, 3), 2)
     with pytest.raises(ValueError, match="device"):
-        robust_agg.median(torch.zeros(3, 4, device="meta"))
+        robust_agg.median(torch.zeros(3, 4).as_subclass(_OtherDevice))
+    # a meta tensor is a dry-run's stand-in: the kernel op's shapes, no launch
+    out = robust_agg.median(torch.zeros(3, 4, device="meta"))
+    assert out.shape == (4,) and out.is_meta
+
+
+class _OtherDevice(torch.Tensor):
+    """A CPU tensor that reports a device the kernels do not take."""
+
+    @property
+    def device(self):
+        return torch.device("xpu", 0)
