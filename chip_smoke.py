@@ -163,8 +163,8 @@ Phases (any failure exits non-zero before the final line):
    a seed, phase 14b's traffic and adaptation: granite-moe-1b-a400m at 12
    of 24 layers (D = 742,816,768; median: its trimmed-mean run went when
    phase 23 took its time),
-   mamba2-2.7b at 16 of 64 layers with 272-token prompts (D =
-   900,815,104; the prefill crosses the 256-token SSD chunk) and
+   mamba2-2.7b at 8 of 64 layers with 272-token prompts (D =
+   579,125,632; the prefill crosses the 256-token SSD chunk) and
    recurrentgemma-2b at 5 of 26 layers (D = 1,751,221,760; median), each
    run held as 14b (every request served, >= 2 rounds, one
    B1 / B2 launch a round over the (4, D) f32 rows and no other kernel,
@@ -1383,7 +1383,10 @@ def sketch_timings(dev, card: str):
 FED_POP = dict(num_clients=200_000, samples_per_client=16, dim=32, alpha=0.1, seed=0)
 FED_ROUNDS = dict(cohort_size=100_000, chunk_clients=512, beta=0.15, nbins=512, lr=0.3,
                   optimizer="sgd", seed=0)
-FED_NUM_ROUNDS = 30  # phase 12's async rounds
+# phase 12's async rounds (30 before 24b ran mamba2's decode rank; on the
+# CPU the iterate's ||w - w*|| after 10 rounds is 0.3348 / 0.1015, after 30
+# 0.3701 / 0.0066: converged by round 7)
+FED_NUM_ROUNDS = 10
 FED_PATH_ROUNDS = 5  # phase 6's (30 before phase 23, 20 before phase 24, 10 before the
 # script was cut to run well inside its time limit)
 FED_METHODS = ("approx_median", "approx_trimmed_mean", "stream_mean")
@@ -2589,7 +2592,9 @@ def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
     ticks when > 0).  With a ``mesh`` the engine and the adapter run on
     it.  Returns each run's launches; ``served`` (a dict) gets each run's
     tokens by request under (model name, run, model size), and with model
-    1's there already the share of equal tokens is printed."""
+    1's there already the share of equal tokens is printed; under
+    ("ticks", model name, run, model size) its tick profile (tick ms,
+    launches a tick, busy share, the shares equal to model 1's)."""
     import numpy as np
     import torch
 
@@ -2711,6 +2716,12 @@ def serve_runs(dev, card: str, cfg, d_want: int, runs, scfg, label: str,
                                    tick_ms * n_ticks, top=10)
             print(json.dumps({"profile_serve_ticks": n_ticks, "run": run, "model": cfg.name,
                               "model_axis": model, "tick_ms": tick_ms, **prof}))
+            if served is not None:
+                served[("ticks", cfg.name, run, model)] = {
+                    "tick_ms": tick_ms, "launches_a_tick": prof["launches"] / n_ticks,
+                    "busy_share": prof["device_busy_share"],
+                    "tokens_equal_model_1": line.get("tokens_equal_model_1"),
+                    "requests_equal_model_1": line.get("requests_equal_model_1")}
         del engine, adapter
         torch.cuda.empty_cache()
         print(f"phase {label}: {run}: {time.perf_counter() - t_run:.1f} s")
@@ -3295,7 +3306,7 @@ def training(dev, card: str, on_path):
 # the adapter's (4, D) f32 rows sit beside the served and adapted copies
 # (at full depth mamba2-2.7b's rows are 45.3 GB and recurrentgemma-2b's
 # 56.8 GB) and so that the script runs well inside its time limit:
-# granite-moe-1b-a400m at 12 of 24 layers, mamba2-2.7b at 16 of 64
+# granite-moe-1b-a400m at 12 of 24 layers, mamba2-2.7b at 8 of 64
 # with 272-token prompts (its prefill crosses the 256-token SSD chunk and
 # takes the padded path), recurrentgemma-2b at 5 of 26 (one (rec, rec,
 # attn) super-block and the 2-layer rec tail, the smoke config's
@@ -3308,10 +3319,10 @@ FAMILY_SMOKE = ("granite_moe_1b_a400m", "grok_1_314b", "mamba2_2_7b", "recurrent
 FAMILY_CELLS = (  # (config, layers, D, prompt length, runs)
     # the median run only (its trimmed-mean run went to pay for phase 23;
     # B2 runs on 14b's, 15b's and 20b's paths)
-    # (granite at 24 layers and mamba2 at 32 before the script was cut to run
-    # well inside its time limit)
+    # (granite at 24 layers and mamba2 at 32, then 16, before the script was
+    # cut to run well inside its time limit)
     ("granite_moe_1b_a400m", 12, 742_816_768, 16, ("median",)),
-    ("mamba2_2_7b", 16, 900_815_104, 272, ("median",)),
+    ("mamba2_2_7b", 8, 579_125_632, 272, ("median",)),
     ("recurrentgemma_2b", 5, 1_751_221_760, 16, ("median",)))
 FAMILY_TICKS = 2
 # phase 14b's 32 requests cut to 24 (66 ticks, 2 rounds a robust run, not
@@ -5405,8 +5416,9 @@ def tp_family_parity(dev):
                             "logits": worst["logits"], "worst_gradient": grad_worst}
         print(f"phase 22a: {cfg.name} widths at {cfg.n_layers} layers"
               + (f" + {cfg.n_enc_layers} encoder layers" if cfg.n_enc_layers else "")
-              + f", f32: model {TP_MODEL} ({modes.attn} attention, gathered "
-              f"{list(modes.mixer_in)}, row-parallel {list(modes.mixer_out)}) against model 1: "
+              + f", f32: model {TP_MODEL} ({modes.attn} attention, ssm mixer {modes.ssm}, rec "
+              f"mixer {modes.rec}, in-projections {list(modes.mixer_in)}, row-parallel "
+              f"{list(modes.mixer_out)}) against model 1: "
               f"loss {worst['loss']:.3g}, logits {worst['logits']:.3g}, worst gradient "
               f"{grad_worst:.3g} (tolerance {TPF_PARITY_TOL})")
         del params, out, z1, z2, g1, g2
@@ -5415,7 +5427,7 @@ def tp_family_parity(dev):
 
 
 def tp_family_serving(dev, card: str, served):
-    """Phase 22b: 16b's mamba2-2.7b cell (16 of 64 layers, 272-token
+    """Phase 22b: 16b's mamba2-2.7b cell (8 of 64 layers, 272-token
     prompts) and recurrentgemma-2b cell (5 of 26 layers) in bf16 at
     make_debug_mesh(4, 2), the serve shim's default mesh: one median run
     each of 16b's 24-request stream, held as 16b (every request served, >=
@@ -5424,7 +5436,9 @@ def tp_family_serving(dev, card: str, served):
     profile of TPF_TICKS ticks (tick ms, launches a tick, busy share), peak
     memory, and the share of whole requests (and of tokens) equal to 16b's
     model-1 median run (printed: bf16 partials summed in rank order flip
-    near-ties).  Returns each kernel's launches over the two runs."""
+    near-ties), beside 16b's model-1 tick; the mixers run on each rank's
+    heads (mamba2) and channels (recurrentgemma).  Returns each kernel's
+    launches over the two runs."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5446,9 +5460,18 @@ def tp_family_serving(dev, card: str, served):
         got, ref = served.get((cfg.name, "median", TP_MODEL)), served.get((cfg.name, "median", 1))
         check(got is not None and ref is not None, f"22b {arch}: no model-1 tokens from 16b")
         same = sum(toks == ref.get(rid) for rid, toks in got.items()) / len(got)
+        ticks = {m: served.get(("ticks", cfg.name, "median", m)) for m in (1, TP_MODEL)}
+        check(ticks[TP_MODEL] is not None, f"22b {arch}: no tick profile at model {TP_MODEL}")
+        t2 = ticks[TP_MODEL]
         print(f"phase 22b: {arch} at (data 4, model {TP_MODEL}): {same:.3f} of the requests "
-              f"served the same tokens as 16b's model-1 median run; "
-              f"{time.perf_counter() - t0:.1f} s")
+              f"and {t2['tokens_equal_model_1']:.3f} of the tokens served the same as 16b's "
+              f"model-1 median run; tick {t2['tick_ms']:.2f} ms, "
+              f"{t2['launches_a_tick']:.0f} launches a tick, busy {t2['busy_share']:.3f}"
+              + (f" (model 1: {ticks[1]['tick_ms']:.2f} ms, {ticks[1]['launches_a_tick']:.0f}, "
+                 f"{ticks[1]['busy_share']:.3f})" if ticks[1] else "")
+              + f"; {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"tp_family_ticks": cfg.name, "model_axis": TP_MODEL, **t2,
+                          "model_1": ticks[1], "card": card}))
     return total
 
 
@@ -5678,8 +5701,10 @@ def tp_family_memory():
     """Phase 22e: the bytes a rank holds to serve and adapt mamba2-2.7b at
     64 layers and recurrentgemma-2b at 26 over (data TP_DATA_RANKS, model
     TP_MODEL) against model 1: the bf16 params, the slot pool (TPS_POOL;
-    the ssm / rec states whole on every rank) and the (4, D_rank) f32 rows,
-    from the shapes on the meta device: computed, not measured."""
+    a rank's ``ssd``, ``h`` and ``rec`` ``conv`` exactly 1/TP_MODEL of the
+    whole, the ``ssm`` conv window its x channels and B and C) and the (4,
+    D_rank) f32 rows, from the shapes on the meta device: computed, not
+    measured."""
     import dataclasses
 
     import torch
@@ -5690,7 +5715,7 @@ def tp_family_memory():
     from repro_torch.launch import steps
     from repro_torch.models import sharding
     from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
 
     report = {}
     for arch, layers in REMAT_FULL:
@@ -5707,19 +5732,34 @@ def tp_family_memory():
                                            steps.cache_shardings(cfg, mesh, pool))
                 pool = sharding.shard_cache(pool, dims, 0, model)
             d_rank = sum(t.numel() for t in tree_leaves(params))
+            states = {p: t.numel() * t.element_size() for p, t in tree_leaves_with_path(pool)
+                      if p.split("/")[-1] in ("ssd", "h", "conv")}
             out[name] = {"params": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
                          "pool": sum(t.numel() * t.element_size() for t in tree_leaves(pool)),
-                         "rows": 4 * d_rank * 4}
+                         "rows": 4 * d_rank * 4,
+                         # the recurrent states split whole/model: ssd, h and rec's conv
+                         "split_states": sum(b for p, b in states.items()
+                                             if cfg.ssm is None or not p.endswith("conv")),
+                         "ssm_conv": sum(b for p, b in states.items()
+                                         if cfg.ssm is not None and p.endswith("conv"))}
         d = T.count_params(cfg)
         check(out["replicated"]["params"] < 2 * d * 1.001 and out["replicated"]["rows"] == 16 * d,
               f"22e {arch}: {out}")
         check(all(out["replicated"][k] / TP_MODEL <= out["tp"][k] < out["replicated"][k]
                   / TP_MODEL * 1.01 for k in ("params", "rows")), f"22e {arch}: {out}")
+        check(out["replicated"]["split_states"] > 0 and out["tp"]["split_states"] * TP_MODEL
+              == out["replicated"]["split_states"], f"22e {arch}: recurrent states {out}")
+        if cfg.ssm is not None:  # a rank's x channels of the window, B and C whole
+            s_cfg, di = T._ssm_dims(cfg)[:2]
+            check(out["tp"]["ssm_conv"] * (di + 2 * s_cfg.d_state) == out["replicated"][
+                "ssm_conv"] * (di // TP_MODEL + 2 * s_cfg.d_state), f"22e {arch}: conv {out}")
         report[cfg.name] = {"layers": layers, "d": d, **out}
-        gb = {m: sum(v.values()) / 1e9 for m, v in out.items()}
+        gb = {m: sum(v[k] for k in ("params", "pool", "rows")) / 1e9 for m, v in out.items()}
         print(f"phase 22e: {cfg.name} at {layers} layers (D = {d:,}), params + pool + (4, D_rank) "
               f"f32 rows a rank at (data {TP_DATA_RANKS}, model {TP_MODEL}): {gb['tp']:.2f} GB "
-              f"against {gb['replicated']:.2f} GB at model 1 (computed from the shapes, not "
+              f"against {gb['replicated']:.2f} GB at model 1; the recurrent states "
+              f"{out['tp']['split_states'] / 1e6:.2f} MB a rank, 1/{TP_MODEL} of "
+              f"{out['replicated']['split_states'] / 1e6:.2f} MB (computed from the shapes, not "
               f"measured)")
     print(json.dumps({"tp_family_rank_bytes": report, "pool": TPS_POOL,
                       "ranks": {"data": TP_DATA_RANKS, "model": TP_MODEL},
@@ -6361,6 +6401,9 @@ PLAN_ARCH = "llama3.2-3b"
 PLAN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 PLAN_PEAK = 70e9  # bytes a plan may peak at to run on one 80 GB card
 PLAN_MEM_RTOL = 0.15
+# the split mixers' decode on the single mesh: each rank's heads of the
+# SSD state at model 16 (24b runs it beside llama's shape)
+PLAN_MIXER = ("mamba2-2.7b", "decode_32k")
 
 
 def tp_frontend_serving(dev):
@@ -6420,21 +6463,53 @@ def tp_frontend_serving(dev):
     return out
 
 
-def _plan_spec(shape: str, real: bool = False) -> dict:
-    return {"arch": PLAN_ARCH, "shape": shape, "mesh": "single", "real": real}
+def _plan_spec(shape: str, real: bool = False, arch: str = PLAN_ARCH) -> dict:
+    return {"arch": arch, "shape": shape, "mesh": "single", "real": real}
 
 
-def dryrun_against_rank(card: str, plans):
-    """Phase 24b: the first of PLAN_SHAPES whose plan (``plans``, the
-    dry-run records) peaks under PLAN_PEAK, run once on the card's real
-    tensors in a subprocess under the same fake group of 256 ranks, held
-    against its plan; returns the real run's kernel launches."""
+def _real_runs(specs) -> list:
+    """Each (arch, shape) of ``specs`` run once on the card's real tensors
+    under the fake group of 256 ranks, one after the other in one
+    subprocess (one process start and CUDA context for all)."""
     import gc
 
     import torch
 
     from repro_torch.launch import dryrun
 
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks go back to the card
+    return dryrun.plan_in_subprocess([_plan_spec(shape, real=True, arch=arch)
+                                      for arch, shape in specs], timeout=600)
+
+
+def _hold_rank(arch: str, shape: str, plan: dict, real: dict) -> float:
+    """A real run of ``arch`` ``shape`` held against its ``plan``:
+    ``max_memory_allocated`` within PLAN_MEM_RTOL of the planned peak, the
+    roofline bound at most the step's time, the planned kernel launches;
+    returns the memory's relative distance."""
+    check(real.get("status") == "ok", f"24b: the real run of {arch} {shape} failed: "
+                                      f"{real.get('error')} {real.get('trace', '')[-1500:]}")
+    peak, want = real["max_memory_allocated"], plan["peak_memory_in_bytes"]
+    rel = abs(peak - want) / want
+    check(rel <= PLAN_MEM_RTOL, f"24b: {arch} {shape}: max_memory_allocated {peak} vs the "
+                                f"plan's peak {want}: {rel:.3f} apart (limit {PLAN_MEM_RTOL})")
+    check(plan["bound_s"] <= real["step_s"], f"24b: {arch} {shape}: the roofline bound "
+                                             f"{plan['bound_s']} s is above the measured step "
+                                             f"{real['step_s']} s")
+    check(real["kernel_launches"] == plan["kernel_launches"],
+          f"24b: {arch} {shape}: launches {real['kernel_launches']} != the plan's "
+          f"{plan['kernel_launches']}")
+    return rel
+
+
+def dryrun_against_rank(card: str, plans, mixer_plan):
+    """Phase 24b: the first of PLAN_SHAPES whose plan (``plans``, the
+    dry-run records) peaks under PLAN_PEAK, and PLAN_MIXER's plan
+    (``mixer_plan``: mamba2-2.7b's decode_32k on the single mesh, the SSD on
+    each rank's heads at model 16), each run once on the card's real
+    tensors under the same fake group of 256 ranks and held against its
+    plan (:func:`_hold_rank`); returns the real runs' kernel launches."""
     for shape, rec in zip(PLAN_SHAPES, plans):
         check(rec.get("status") == "ok", f"24b: the plan of {PLAN_ARCH} {shape} failed: "
                                          f"{rec.get('error')} {rec.get('trace', '')[-1500:]}")
@@ -6444,25 +6519,18 @@ def dryrun_against_rank(card: str, plans):
               f"({rec['dominant']}; compute {rec['compute_s']:.4f}, memory "
               f"{rec['memory_s']:.4f}, collective {rec['collective_s']:.4f} s), launches "
               f"{json.dumps(rec['kernel_launches'])}, planned in {rec['plan_s']} s")
+    arch, mshape = PLAN_MIXER
+    check(mixer_plan.get("status") == "ok", f"24b: the plan of {arch} {mshape} failed: "
+                                            f"{mixer_plan.get('error')} "
+                                            f"{mixer_plan.get('trace', '')[-1500:]}")
     chosen = next((i for i, r in enumerate(plans) if r["peak_memory_in_bytes"] < PLAN_PEAK),
                   None)
     check(chosen is not None, f"24b: no plan of {PLAN_SHAPES} peaks under {PLAN_PEAK / 1e9} GB")
     shape, plan = PLAN_SHAPES[chosen], plans[chosen]
-    gc.collect()
-    torch.cuda.empty_cache()  # the earlier phases' cached blocks go back to the card
-    real = dryrun.plan_in_subprocess(_plan_spec(shape, real=True), timeout=600)
-    check(real.get("status") == "ok", f"24b: the real run of {shape} failed: "
-                                      f"{real.get('error')} {real.get('trace', '')[-1500:]}")
+    real, mreal = _real_runs([(PLAN_ARCH, shape), PLAN_MIXER])
+    rel = _hold_rank(PLAN_ARCH, shape, plan, real)
+    mrel = _hold_rank(arch, mshape, mixer_plan, mreal)
     peak, want = real["max_memory_allocated"], plan["peak_memory_in_bytes"]
-    rel = abs(peak - want) / want
-    check(rel <= PLAN_MEM_RTOL, f"24b: {shape}: max_memory_allocated {peak} vs the plan's peak "
-                                f"{want}: {rel:.3f} apart (limit {PLAN_MEM_RTOL})")
-    check(plan["bound_s"] <= real["step_s"], f"24b: {shape}: the roofline bound "
-                                             f"{plan['bound_s']} s is above the measured step "
-                                             f"{real['step_s']} s")
-    check(real["kernel_launches"] == plan["kernel_launches"],
-          f"24b: {shape}: launches {real['kernel_launches']} != the plan's "
-          f"{plan['kernel_launches']}")
     skipped = [f"{s} ({p['peak_memory_in_bytes'] / 1e9:.1f} GB)"
                for s, p in zip(PLAN_SHAPES[:chosen], plans[:chosen])]
     covered = sorted(plan["kernel_launches"]) or ["none: no kernel runs on this step"]
@@ -6475,22 +6543,33 @@ def dryrun_against_rank(card: str, plans):
           f"{json.dumps(real['kernel_launches'])} = planned; kernels covered: {covered}; "
           f"shapes whose plan does not fit under {PLAN_PEAK / 1e9:.0f} GB: "
           f"{skipped or 'none'}")
-    print(json.dumps({"dryrun_vs_rank": shape, "plan": {k: plan[k] for k in (
-        "peak_memory_in_bytes", "argument_size_in_bytes", "bound_s", "compute_s", "memory_s",
-        "collective_s", "kernel_launches", "flops", "bytes_accessed")},
-        "real": real, "card": card}))
-    return real["kernel_launches"]
+    print(f"phase 24b: {arch} {mshape} on the single mesh (the SSD on each rank's heads), the "
+          f"same: max_memory_allocated {mreal['max_memory_allocated'] / 1e9:.3f} GB vs planned "
+          f"peak {mixer_plan['peak_memory_in_bytes'] / 1e9:.3f} GB ({mrel * 100:.1f} % apart); "
+          f"step {mreal['step_s']:.4f} s measured vs roofline bound "
+          f"{mixer_plan['bound_s']:.4f} s; planned collectives "
+          f"{json.dumps(mixer_plan['collectives'])}")
+    keys = ("peak_memory_in_bytes", "argument_size_in_bytes", "bound_s", "compute_s",
+            "memory_s", "collective_s", "kernel_launches", "flops", "bytes_accessed",
+            "collectives")
+    for name, p, r in ((shape, plan, real), (f"{arch} {mshape}", mixer_plan, mreal)):
+        print(json.dumps({"dryrun_vs_rank": name, "plan": {k: p[k] for k in keys}, "real": r,
+                          "card": card}))
+    launches = dict(real["kernel_launches"])
+    _add(launches, mreal["kernel_launches"])
+    return launches
 
 
 def frontend_tp_and_dryrun(dev, card: str, plans):
-    """Phase 24: 24a, then 24b on ``plans`` (futures of PLAN_SHAPES' plans,
-    started on the CPU after phase 1); returns 24b's real run's kernel
-    launches."""
+    """Phase 24: 24a, then 24b on ``plans`` (futures of PLAN_SHAPES' plans
+    and PLAN_MIXER's, started on the CPU after phase 1); returns 24b's real
+    runs' kernel launches."""
     t0 = time.perf_counter()
     tp_frontend_serving(dev)
     print(f"phase 24a: {time.perf_counter() - t0:.1f} s")
     t1 = time.perf_counter()
-    launches = dryrun_against_rank(card, [p.result() for p in plans])
+    recs = [p.result() for p in plans]
+    launches = dryrun_against_rank(card, recs[:len(PLAN_SHAPES)], recs[len(PLAN_SHAPES)])
     print(f"phase 24b: {time.perf_counter() - t1:.1f} s")
     return launches
 
@@ -6566,8 +6645,10 @@ def main() -> None:
     from repro_torch.launch import dryrun
 
     # beside phases 2-4: phase 24b's plans on the CPU and the CLI batch
-    side = ThreadPoolExecutor(len(PLAN_SHAPES) + 1)
+    side = ThreadPoolExecutor(len(PLAN_SHAPES) + 2)
     plans = [side.submit(dryrun.plan_in_subprocess, _plan_spec(s), 600) for s in PLAN_SHAPES]
+    plans.append(side.submit(dryrun.plan_in_subprocess,
+                             _plan_spec(PLAN_MIXER[1], arch=PLAN_MIXER[0]), 600))
     clis = side.submit(cli_batch)
     t0 = time.perf_counter()
     worst = kernel_sweep(dev, CNN_LEAF_SIZES)

@@ -72,7 +72,13 @@ of it, over which a randomized payload is drawn), and ``seq_enter`` /
 ``seq_reduce``, Megatron-SP's pair (in process the global view, whose
 reduce sums each rank's rows in turn; under a process group autograd
 ``Function``s whose reduce-scatter is an all-reduce and the rank's chunk,
-as gloo has no reduce-scatter).
+as gloo has no reduce-scatter).  The split mixers add two: ``model_columns``,
+an all-to-all that hands each rank the columns it wants of an activation
+the ranks hold in even chunks (the ``ssm`` mixer's packed in-projection to
+each rank's heads; its backward the reverse all-to-all, a column several
+ranks read summed in rank order), and ``model_gather``, an all-gather whose
+backward is a reduce-scatter (the ``rec`` mixer's conv output, which each
+rank's gate columns read whole).
 
 Byzantine simulation as in the reference: gradient-space attacks run where
 the per-worker rows are visible (after the gather / all_to_all), by the
@@ -244,6 +250,28 @@ class Collectives:
         computation every rank runs alike (in process the global view is
         whole already); its gradient is kept as the rank's chunk."""
         return w
+
+    def model_gather(self, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+        """The ranks' pieces of an activation concatenated along ``dim``, read
+        by each rank's own computation through :meth:`model_local`: an
+        all-gather whose gradient is the ranks' summed and the rank's chunk
+        kept (a reduce-scatter).  In process the concatenation, entered."""
+        return self.model_enter(self.model_cat(parts, dim))
+
+    def model_columns(self, parts: Sequence[torch.Tensor], dim: int,
+                      wants: Sequence[Sequence[Tuple[int, int]]]) -> list:
+        """An all-to-all over the model axis: the ranks hold an activation in
+        even chunks along ``dim`` (``parts``, the ranks' this process
+        computes, in rank order), and each rank ``k`` gets the columns of
+        ``wants[k]`` ((start, stop) ranges of the whole, ascending),
+        concatenated; a column several ranks want goes to each of them.  Its
+        gradient goes back the same way, a column's the ranks' that read it
+        summed (under a process group in rank order).  Returns the results
+        of the ranks this process computes, in order; in process each rank's
+        columns are cut from the chunks concatenated."""
+        whole = self.model_cat(parts, dim)
+        return [torch.cat([whole.narrow(dim, a, b - a) for a, b in wants[k]], dim)
+                for k in self.model_ranks()]
 
     def model_max(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The element-wise max of the ranks' (detached) parts."""
@@ -623,6 +651,16 @@ class ProcessGroupAxes(_NamedAxes):
     def model_cut(self, w, dim):
         return w if self.model == 1 else _CutToModel.apply(w, self, dim)
 
+    def model_gather(self, parts, dim):
+        (p,) = parts
+        return p if self.model == 1 else _SeqEnter.apply(p, self, dim, p.shape[dim] * self.model)
+
+    def model_columns(self, parts, dim, wants):
+        (p,) = parts
+        if self.model == 1:
+            return super().model_columns(parts, dim, wants)
+        return [_ModelColumns.apply(p, self, dim, wants)]
+
     def whole_rows(self, shape, dim):
         if self.model == 1 or dim is None or dim < 0:
             return None
@@ -727,6 +765,67 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _own_rows(g, ctx.ax, ctx.dim), None, None, None
+
+
+def _overlap(start: int, n: int, ranges) -> list:
+    """The parts of ``ranges`` ((start, stop), ascending) inside [start,
+    start + n), as (offset from ``start``, length) pairs."""
+    out = []
+    for a, b in ranges:
+        lo, hi = max(a, start), min(b, start + n)
+        if lo < hi:
+            out.append((lo - start, hi - lo))
+    return out
+
+
+def _exchange(x: torch.Tensor, ax, dim: int, send, recv) -> torch.Tensor:
+    """One all-to-all over the model subgroup: to rank j the pieces
+    ``send[j]`` ((offset, length) along ``dim`` of ``x``) concatenated; from
+    rank i ``recv[i]`` columns.  The pieces received, in source order,
+    concatenated along ``dim``, contiguous (a strided view would send the
+    computations that read it down other reduction orders than in
+    process)."""
+    import torch.distributed as dist
+
+    ax.calls["model_all_to_all"] += 1
+    xt = x.movedim(dim, 0)
+    pieces = [xt.narrow(0, a, n) for per in send for a, n in per]
+    out_t = torch.empty((sum(recv),) + tuple(xt.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.all_to_all_single(out_t, torch.cat(pieces, 0) if pieces else xt.narrow(0, 0, 0),
+                           output_split_sizes=list(recv),
+                           input_split_sizes=[sum(n for _, n in per) for per in send],
+                           group=ax._group(("model",)))
+    return out_t.movedim(0, dim).contiguous()
+
+
+class _ModelColumns(torch.autograd.Function):
+    """:meth:`Collectives.model_columns` over a process group: each rank
+    sends every other the columns of its chunk that rank wants (one
+    all-to-all); backward the gradients of those columns go back (one
+    all-to-all) and are added into the chunk's gradient in rank order."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim, wants):
+        dim = dim % x.dim()
+        c, k = x.shape[dim], ax.coords["model"]
+        send = [_overlap(k * c, c, wants[j]) for j in range(ax.model)]
+        recv = [sum(n for _, n in _overlap(i * c, c, wants[k])) for i in range(ax.model)]
+        ctx.ax, ctx.dim, ctx.send, ctx.recv, ctx.shape = ax, dim, send, recv, x.shape
+        return _exchange(x.contiguous(), ax, dim, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        ax, dim, send = ctx.ax, ctx.dim, ctx.send
+        back = [[(sum(ctx.recv[:i]), n)] if n else [] for i, n in enumerate(ctx.recv)]
+        got = _exchange(g.contiguous(), ax, dim, back,
+                        [sum(n for _, n in per) for per in send])
+        out = g.new_zeros(ctx.shape)
+        at = 0
+        for per in send:  # rank order
+            for a, n in per:
+                out.narrow(dim, a, n).add_(got.narrow(dim, at, n))
+                at += n
+        return out, None, None, None
 
 
 class _CutToModel(torch.autograd.Function):

@@ -927,8 +927,9 @@ def init_slot_pool(cfg: ModelConfig, slots: int, cache_len: int, device="cuda",
     (:func:`repro_torch.models.sharding.cache_dims`): under a process group
     a rank holds its heads, on the in-process mesh the pool holds every
     head and each model rank reads and writes its heads' slice in turn.
-    The ``ssm`` / ``rec`` states are whole on every rank (the mixers run
-    whole from gathered in-projections).
+    The ``ssm`` state is split on its heads and the ``rec`` states on
+    their channels in the same way; a rank's ``ssm`` conv window holds its
+    x channels and B and C whole.
     The reference pins its pool replicated; that is a layout, and the
     function is the same."""
     pool = T.init_cache(cfg, slots, cache_len, device=device)

@@ -6,7 +6,7 @@ The port keeps the reference's parameter layout (HWIO conv weights,
 and dtypes and moves tensors; it never reshapes.  ``linreg`` parameters
 are a bare (d,) vector in both packages.  :func:`round_state_from_reference`
 carries a round engine state (iterate, previous aggregate, optimizer
-slots, round) across.  :func:`transformer_from_reference` /
+slots, error-feedback residual, round) across.  :func:`transformer_from_reference` /
 :func:`transformer_to_reference` carry the transformer's tree
 (``blocks`` stacked, the ``tail`` a list), bfloat16 leaves and float32
 leaves of bfloat16 models included, with every dict's keys in sorted
@@ -96,19 +96,28 @@ def round_state_from_reference(state_np: dict, *, seed: int = 0, device="cuda") 
 
     The reference's threefry ``key`` has no counterpart (the port derives
     its draws from an integer seed), so the port's ``seed`` is given here.
-    Compression residuals are not ported: ``comp_res`` must be empty.
+    ``comp_res``, an error-feedback codec's per-client residual (a float32
+    (num_clients, d) array: each client's row, :func:`repro_torch.fed.
+    rounds.init_comp_residual`'s layout), is carried as it is; ``()`` (a
+    stateless codec) stays ``()``.
     """
     from repro_torch.rounds import engine
 
     dev = resolve(device)
-    comp_res = state_np.get("comp_res", ())
-    if not (isinstance(comp_res, (tuple, list)) and len(comp_res) == 0):
-        raise ValueError("compression residuals are not ported: comp_res must be ()")
     w = _tensor("w", state_np["w"], dev)
     prev = _tensor("prev_agg", state_np["prev_agg"], dev)
     if prev.shape != w.shape:
         raise ValueError(f"prev_agg has shape {tuple(prev.shape)}, w {tuple(w.shape)}")
-    return engine.make_state(w, prev_agg=prev, opt_state=_opt_state(state_np["opt_state"], dev),
+    comp_res = state_np.get("comp_res", ())
+    if isinstance(comp_res, (tuple, list)) and len(comp_res) == 0:
+        comp_res = ()
+    else:
+        comp_res = _tensor("comp_res", comp_res, dev)
+        if comp_res.dim() != 2 or comp_res.shape[1:] != w.shape:
+            raise ValueError(f"comp_res has shape {tuple(comp_res.shape)}: expected a row of "
+                             f"w's shape {tuple(w.shape)} per client")
+    return engine.make_state(w, prev_agg=prev, comp_res=comp_res,
+                             opt_state=_opt_state(state_np["opt_state"], dev),
                              seed=seed, rnd=int(np.asarray(state_np["round"])))
 
 

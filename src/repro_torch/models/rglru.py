@@ -23,14 +23,18 @@ import torch.nn.functional as F
 RG_LRU_C = 8.0
 
 
-def _gates(x, w_a, b_a, w_x, b_x, lam):
-    """(a, gated input) in float32."""
+def _gates(x, w_a, b_a, w_x, b_x, lam, own=None):
+    """(a, gated input) in float32.  ``own``: the channels the gates apply
+    to where ``w_a`` / ``w_x`` (and ``b_a``, ``b_x``, ``lam``) are a model
+    rank's columns of them (the gates read every channel of ``x``);
+    default ``x``."""
     xf = x.float()
     r = torch.sigmoid(xf @ w_a.float() + b_a)
     i = torch.sigmoid(xf @ w_x.float() + b_x)
     log_a = -RG_LRU_C * F.softplus(lam.float()) * r  # (B, S, C) <= 0
     a = torch.exp(log_a)
-    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * i * xf
+    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * i * (
+        xf if own is None else own.float())
     return a, gated
 
 
@@ -74,9 +78,13 @@ def associative_scan(fn, elems: Tuple[torch.Tensor, ...], dim: int):
 
 
 def rglru_scan(x: torch.Tensor, w_a, b_a, w_x, b_x, lam,
-               h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, C) -> (y (B, S, C) in x's dtype, h_final (B, C) f32)."""
-    a, u = _gates(x, w_a, b_a, w_x, b_x, lam)
+               h0: Optional[torch.Tensor] = None, own: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, C) -> (y (B, S, C) in x's dtype, h_final (B, C) f32).  With
+    ``own`` (B, S, c), a model rank's channels of ``x`` whose gate columns
+    ``w_a`` / ``w_x`` (C, c) and ``b_a``, ``b_x``, ``lam`` (c,) are: y (B, S,
+    c) and h_final (B, c) of those channels."""
+    a, u = _gates(x, w_a, b_a, w_x, b_x, lam, own)
     if h0 is not None:
         # fold the initial state into the first input: h_0' = a_0 h0 + u_0
         u = torch.cat([u[:, :1] + a[:, :1] * h0.float()[:, None], u[:, 1:]], dim=1)
@@ -84,9 +92,10 @@ def rglru_scan(x: torch.Tensor, w_a, b_a, w_x, b_x, lam,
     return hs.to(x.dtype), hs[:, -1]
 
 
-def rglru_decode_step(state: torch.Tensor, x: torch.Tensor, w_a, b_a, w_x, b_x, lam
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """state (B, C), x (B, 1, C) -> (y (B, 1, C) in x's dtype, new f32 state)."""
-    a, u = _gates(x, w_a, b_a, w_x, b_x, lam)
+def rglru_decode_step(state: torch.Tensor, x: torch.Tensor, w_a, b_a, w_x, b_x, lam,
+                      own: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """state (B, C), x (B, 1, C) -> (y (B, 1, C) in x's dtype, new f32 state);
+    ``own`` as :func:`rglru_scan`'s (the state then the rank's (B, c))."""
+    a, u = _gates(x, w_a, b_a, w_x, b_x, lam, own)
     h = a[:, 0] * state.float() + u[:, 0]
     return h[:, None].to(x.dtype), h

@@ -26,16 +26,28 @@ computes each layer on the shards explicitly, through :class:`ShardCtx`:
 - the dense FFN is column-parallel on F (``wg``/``wu``) and row-parallel
   (``wd``); the MoE experts are expert-parallel where E divides by M, else
   split on F, as the rule falls back;
-- the ``ssm`` (Mamba-2 SSD) and ``rec`` (RG-LRU) mixers read every
-  channel of their in-projections: the SSM's ``w_in`` packs z | x | B | C
-  | dt, so a contiguous chunk cuts across the pieces, and the RG-LRU's
-  square gates ``w_a`` / ``w_xg`` mix all channels.  Those split leaves
-  (with the branch projections ``w_bx`` / ``w_bg``) are gathered; the
-  conv, the SSD or the scan and the gate product run whole on every
-  rank, and the out-projections ``w_out`` / ``w_ro`` are row-parallel (a
-  rank's chunk of the mixer output times its rows, the partials psummed).
-  The per-channel leaves are replicated.  ``rec``'s GeGLU splits on F as
-  the dense FFN;
+- the ``ssm`` (Mamba-2 SSD) mixer in ``heads`` mode (its heads divide by
+  M, the reference's ``("b", None, "m", None)`` on the SSD's heads): each
+  rank multiplies by its even chunk of the packed ``w_in`` (z | x | B | C
+  | dt, so a chunk cuts across the pieces), and one all-to-all over
+  ``model`` hands every rank its heads' z, x and dt columns and the B and
+  C columns whole; the conv runs on the rank's x channels and B, C, the
+  SSD and the gate on its heads, ``out_norm``'s mean square is the ranks'
+  partial sums summed, and ``w_out`` is row-parallel.  Where the heads do
+  not divide (``gathered``) the split ``w_in`` is gathered and the mixer
+  runs whole on every rank before the row-parallel ``w_out``, as where
+  ``w_in`` does not split at all;
+- the ``rec`` (RG-LRU) mixer in ``channels`` mode (the reference's
+  ``("b", None, "m")`` on its output): ``w_bx`` / ``w_bg`` are
+  column-parallel on the rank's channels and so is the conv; the square
+  gates ``w_a`` / ``w_xg`` read every channel of the conv output, which is
+  all-gathered over ``model`` (its gradient reduce-scattered), and the
+  rank's gate columns come from its chunks; the scan, its state and the
+  gate product are on the rank's channels and ``w_ro`` is row-parallel.
+  The per-channel leaves (``A_log``, ``dt_bias``, ``D_skip``,
+  ``out_norm``, ``conv_w``, ``b_a``, ``b_x``, ``lam``) are replicated and a
+  rank reads its heads' or channels' entries; ``rec``'s GeGLU splits on F
+  as the dense FFN;
 - the whisper encoder's layers and the cross-attention take the attention
   mode of the encoder config (no MoE, no qk-norm) and its F-split FFN;
   the vision prefix is concatenated to the whole embedding and needs no
@@ -54,11 +66,14 @@ Sequence parallelism (:class:`ShardCtx`'s ``seq_parallel``, the train
 step's flag) splits the residual between the layers of a super-block
 over ``model`` along S, where :func:`seq_ok` allows it.
 
-Serving caches follow the attention layers: in ``heads`` mode each rank's
+Serving caches follow the layers: in ``heads`` mode each rank's
 attention keys and values are its own kv heads (:func:`cache_dims`,
 :func:`shard_cache`), the positions (``kpos``) whole on every rank; in
-``gathered`` mode the caches stay whole on every rank, as do the ``ssm``
-/ ``rec`` states.
+``gathered`` mode the caches stay whole on every rank.  The ``ssm``
+state (``ssd``) is split on its heads and the ``rec`` conv window and
+state (``conv``, ``h``) on channels, as the reference's specs split them;
+the ``ssm`` conv window holds the rank's x channels and the B and C
+channels whole (:class:`HeadsConv`).
 """
 from __future__ import annotations
 
@@ -138,9 +153,13 @@ class TPModes(NamedTuple):
     dense FFN (and ``rec``'s GeGLU) split on F; ``moe``: None,
     ``"experts"`` or ``"hidden"``; ``router``, ``embed`` and ``lm_head``:
     the split dim of the (unstacked) leaf, or None; ``mixer_in``: the
-    ``ssm`` / ``rec`` in-projections the rules split (gathered for the
-    compute), ``mixer_out``: their out-projections the rules split
-    (row-parallel)."""
+    ``ssm`` / ``rec`` in-projections the rules split, ``mixer_out``: their
+    out-projections the rules split (row-parallel); ``ssm``: None (nothing
+    split), ``"heads"`` (the SSD on each rank's heads: they divide by the
+    model size and ``w_in`` splits) or ``"gathered"`` (the split ``w_in``
+    gathered, the mixer whole); ``rec``: None or ``"channels"`` (the
+    RG-LRU on each rank's channels; its rules split every projection or
+    none)."""
 
     attn: Optional[str]
     attn_split: Tuple[str, ...]
@@ -151,6 +170,8 @@ class TPModes(NamedTuple):
     lm_head: Optional[int]
     mixer_in: Tuple[str, ...] = ()
     mixer_out: Tuple[str, ...] = ()
+    ssm: Optional[str] = None
+    rec: Optional[str] = None
 
 
 _NO_TP = TPModes(None, (), False, None, None, None, None)
@@ -184,18 +205,24 @@ def tp_modes(cfg, model: int) -> TPModes:
     elif cfg.d_ff:
         ffn = dim("wg", (d, cfg.d_ff)) is not None
     mixer = {}
-    for kind in sorted({cfg.layer_kind(i) for i in range(cfg.n_layers)} - {"attn"}):
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+    for kind in sorted(kinds - {"attn"}):
         for name, spec in T._layer_specs(kind, cfg).items():
             if name in _MIXER_IN + _MIXER_OUT and dim(name, spec.shape) is not None:
                 mixer[name] = True
+    ssm = rec = None
+    if "ssm" in kinds and ("w_in" in mixer or "w_out" in mixer):
+        ssm = "heads" if "w_in" in mixer and T._ssm_dims(cfg)[2] % model == 0 else "gathered"
+    if "rec" in kinds and "w_bx" in mixer:
+        rec = "channels"
     return TPModes(attn, attn_split, ffn, moe, router, dim("embed", (cfg.vocab, d)),
                    dim("lm_head", (d, cfg.vocab)),
                    tuple(n for n in sorted(mixer) if n in _MIXER_IN),
-                   tuple(n for n in sorted(mixer) if n in _MIXER_OUT))
+                   tuple(n for n in sorted(mixer) if n in _MIXER_OUT), ssm, rec)
 
 
 _ATTN = ("wq", "wk", "wv", "wo")
-_MIXER_IN = ("w_a", "w_bg", "w_bx", "w_in", "w_xg")  # ssm / rec, gathered
+_MIXER_IN = ("w_a", "w_bg", "w_bx", "w_in", "w_xg")  # ssm / rec in-projections
 _MIXER_OUT = ("w_out", "w_ro")  # ssm / rec, row-parallel
 
 
@@ -204,9 +231,10 @@ def tp_plan(cfg, model: int) -> Dict[str, Tuple[int, str]]:
     splits at size ``model`` (dims of the leaf as stored, the stacking dim
     included): ``shard`` where the layer computes on the rank's shard,
     ``gathered`` where the leaf is all-gathered for the compute (attention
-    leaves in ``gathered`` mode, the MoE router, the ``ssm`` / ``rec``
-    in-projections).  The encoder and cross-attention groups follow the
-    encoder config's attention mode.  Replicated leaves are not listed."""
+    leaves in ``gathered`` mode, the MoE router, ``w_in`` in the ``ssm``
+    mixer's ``gathered`` mode).  The encoder and cross-attention groups
+    follow the encoder config's attention mode.  Replicated leaves are not
+    listed."""
     from repro_torch.models import transformer as T
 
     modes = tp_modes(cfg, model)
@@ -219,9 +247,28 @@ def tp_plan(cfg, model: int) -> Dict[str, Tuple[int, str]]:
         group, name = path.split("/")[0], path.split("/")[-1]
         attn = (enc if group in ("enc_blocks", "cross_blocks") else modes).attn
         gathered = ((name in _ATTN and attn == "gathered") or name == "router"
-                    or name in _MIXER_IN)
+                    or (name == "w_in" and modes.ssm == "gathered"))
         out[path] = (d, "gathered" if gathered else "shard")
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadsConv:
+    """:func:`cache_dims`' entry for an ``ssm`` layer's conv window (.., B,
+    W - 1, di + 2n) in the mixer's ``heads`` mode: along ``dim`` a rank
+    holds its chunk of the first ``di`` channels (its heads' x) and the
+    last ``2n`` (B and C) whole, di / model + 2n a row.  The reference
+    splits the window evenly over its last dim, which does not follow the
+    heads; the port keeps the channels a rank's conv reads instead, B and
+    C's window on every rank (2n · (W - 1) values a row a layer more)."""
+
+    dim: int
+    di: int
+
+    def cut(self, t: torch.Tensor, k: int, model: int) -> torch.Tensor:
+        c = self.di // model
+        return torch.cat([t.narrow(self.dim, k * c, c),
+                          t.narrow(self.dim, self.di, t.shape[self.dim] - self.di)], self.dim)
 
 
 def cache_dims(cfg, model: int, cache, specs):
@@ -231,32 +278,43 @@ def cache_dims(cfg, model: int, cache, specs):
     tuple per leaf): the serving counterpart of :func:`tp_dims`, in a
     tree shaped like ``cache`` (whose leaves may be meta tensors).
 
-    Only the attention keys and values of ``heads`` mode are split, on their
+    The attention keys and values of ``heads`` mode are split on their
     kv-head dim: the self-attention caches in the layers' mode, the cross
     caches (``cross/k``, ``cross/v``) in the cross layers' (the encoder
     config's, :func:`tp_plan`).  In ``gathered`` mode (kv heads not
     divisible by ``model``, e.g. one kv head) the reference's spec falls to
     the head dim ``hd``: a GSPMD layout of the same function, which the port
     does not compute split (the layer computes from gathered leaves), so the
-    caches stay whole on every rank.  The ``ssm`` / ``rec`` states
-    (``conv``, ``ssd``, ``h``) stay whole for the same reason: the
-    reference's specs split ``ssd`` on its heads and ``conv`` / ``h`` on
-    channels, but the port's mixer runs whole on every rank from the
-    gathered in-projections, so every rank updates the whole state alike.
-    The worker-axis entries (the batch) are not read here."""
+    caches stay whole on every rank.  The recurrent states follow the
+    mixers' modes: in the ``ssm`` mixer's ``heads`` mode ``ssd`` is split
+    on its heads, as the reference's spec, and the conv window is a
+    :class:`HeadsConv`; in the ``rec`` mixer's ``channels`` mode ``conv``
+    and ``h`` are split on their channels, as the reference's specs; in
+    ``gathered`` mode (and where nothing splits) they stay whole.  The
+    worker-axis entries (the batch) are not read here."""
     from repro_torch.models import transformer as T
 
-    heads = tp_modes(cfg, model).attn == "heads"
+    modes = tp_modes(cfg, model)
+    heads = modes.attn == "heads"
     cross_heads = tp_modes(T._enc_cfg(cfg), model).attn == "heads"
+    kinds = {(f"blocks/{w.key}" if w.part == "blocks" else f"tail/{w.key}"): w.kind
+             for w in T.layer_slots(cfg)}
     spec_of = []
     tree_map(lambda _, spec: spec_of.append(spec), cache, specs)
 
     def dim(path, spec):
-        if not (cross_heads if path.startswith("cross") else heads) \
-                or path.split("/")[-1] not in ("k", "v"):
+        name, n = path.split("/")[-1], len(spec)
+        split = next((i for i, e in enumerate(spec) if e == "model"), -1)
+        kind = kinds.get(path.rsplit("/", 1)[0])
+        if kind == "ssm" and modes.ssm == "heads":
+            if name == "ssd":
+                return split if split == n - 3 else -1
+            return HeadsConv(n - 1, T._ssm_dims(cfg)[1]) if name == "conv" else -1
+        if kind == "rec" and modes.rec == "channels":
+            return split if name in ("conv", "h") and split == n - 1 else -1
+        if not (cross_heads if path.startswith("cross") else heads) or name not in ("k", "v"):
             return -1
-        d = next((i for i, e in enumerate(spec) if e == "model"), -1)
-        return d if d == len(spec) - 2 else -1
+        return split if split == n - 2 else -1
 
     return tree_unflatten_like(cache, [dim(path, spec) for (path, _), spec
                                        in zip(tree_leaves_with_path(cache), spec_of)])
@@ -264,12 +322,15 @@ def cache_dims(cfg, model: int, cache, specs):
 
 def shard_cache(cache, dims, k: int, model: int):
     """Model rank ``k``'s slice of a whole cache tree: chunk ``k`` along each
-    leaf's dim of ``dims`` (:func:`cache_dims`), copied; a leaf with dim -1
-    as it is.  At model size 1 the tree itself."""
+    leaf's dim of ``dims`` (:func:`cache_dims`; a :class:`HeadsConv` its
+    cut), copied; a leaf with dim -1 as it is.  At model size 1 the tree
+    itself."""
     if model == 1:
         return cache
 
     def cut(t, d):
+        if isinstance(d, HeadsConv):
+            return d.cut(t, k, model).contiguous()
         return t if d < 0 else t.chunk(model, d)[k].clone(memory_format=torch.contiguous_format)
 
     return tree_map(cut, cache, dims)
@@ -353,6 +414,14 @@ class ShardCtx:
 
     def full(self, w, dim: int):
         return w if self.model == 1 else self.axes.model_full(w, dim)
+
+    def gather(self, parts, dim: int):
+        return parts[0] if self.model == 1 else self.axes.model_gather(parts, dim)
+
+    def columns(self, parts, dim: int, wants):
+        if self.model == 1:
+            return [torch.cat([parts[0].narrow(dim, a, b - a) for a, b in wants[0]], dim)]
+        return self.axes.model_columns(parts, dim, wants)
 
     def pmax(self, parts):
         return parts[0] if self.model == 1 else self.axes.model_max(parts)

@@ -44,8 +44,11 @@ after the other), and the layers compute as the module doc of
 :mod:`repro_torch.models.sharding` sets out: column-parallel q/k/v and
 row-parallel ``wo`` on whole kv heads (else the attention leaves
 gathered), column/row-parallel FFN and GeGLU, expert-parallel (else
-F-split) MoE, the ``ssm`` / ``rec`` mixers on gathered in-projections with
-a row-parallel out-projection, the encoder and cross-attention in their
+F-split) MoE, the ``ssm`` mixer on each rank's heads (one all-to-all of
+the packed in-projection's columns; gathered where the heads do not
+divide) and the ``rec`` mixer on each rank's channels (the conv output
+gathered for the gates), each with a row-parallel out-projection, the
+encoder and cross-attention in their
 own attention mode, a vocab-parallel embedding and cross-entropy (or a
 d_model split).  ``prefill`` and ``decode_step`` serve under a model axis
 too, a frontend configuration's cross caches on each rank's kv heads in
@@ -505,8 +508,10 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
     (:func:`_cross_attention`).  Under ``ctx``'s
     ``heads`` mode each model rank projects, rotates and attends its own
     kv heads and its row of ``wo``, the partial outputs psummed (the
-    returned k, v are the last rank's); under ``gathered`` the split
-    leaves are gathered whole.  The returned k, v are the ranks' this
+    returned k, v are the last rank's), each rank's heads normed by the
+    replicated qk-norm scales read through an enter (their gradient the
+    ranks' summed); under ``gathered`` the split leaves are gathered
+    whole.  The returned k, v are the ranks' this
     process computes, their kv heads concatenated in rank order (in
     process every rank's: the whole heads; under a process group the
     rank's own).  Under the context's ``seq_parallel`` ``x`` is a rank's
@@ -521,9 +526,11 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
+    norms = _entered(p, ("k_norm", "q_norm"), c) if cfg.qk_norm else {}
     parts, ks, vs = [], [], []
     for r in c.ranks():
-        pr = dict(p, **{n: c.shard(p[n], d, r) for n, d in _ATTN_DIMS.items()})
+        pr = dict(p, **{n: c.shard(p[n], d, r) for n, d in _ATTN_DIMS.items()},
+                  **{n: c.local(w) for n, w in norms.items()})
         q, k, v = _qkv(pr, c.local(ye), cfg, positions, heads)
         o = attn_lib.attention(q, k, v, causal=causal, window=window, kv_block=kv_block)
         parts.append(o.reshape(b, s, heads[0] * cfg.hd) @ pr["wo"])
@@ -539,9 +546,9 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
 
 
 def _gather_in(p: Params, cfg: ModelConfig, ctx: ShardCtx) -> Params:
-    """An ``ssm`` / ``rec`` layer's leaves with the in-projections the model
-    axis splits (on their last dim) gathered whole: the mixer reads every
-    channel of them, so it runs whole on every rank."""
+    """An ``ssm`` layer's leaves in the mixer's ``gathered`` mode, with the
+    packed in-projection the model axis splits gathered whole: the mixer
+    then runs whole on every rank."""
     names = ctx.modes(cfg).mixer_in
     return dict(p, **{n: ctx.full(p[n], 1) for n in names if n in p}) if names else p
 
@@ -559,11 +566,18 @@ def _row_parallel(y: torch.Tensor, w: torch.Tensor, split: bool, ctx: ShardCtx) 
                              for r in c.ranks()])
 
 
+def _entered(p: Params, names, c: ShardCtx) -> Params:
+    """Replicated per-head or per-channel leaves a rank reads its entries
+    of: entered, so that their gradient is the ranks' summed."""
+    return {n: c.enter(p[n]) for n in names}
+
+
 def _ssm_in(p: Params, x: torch.Tensor, cfg: ModelConfig, prev: Optional[torch.Tensor],
             ctx: ShardCtx = NULL_CTX):
-    """The SSM layer's input side: (z, the dt-scaled heads x·dt, x, loga,
-    B, C, the conv's new window); the mixer reads every position, so a
-    rank's rows under ``seq_parallel`` are gathered after the norm."""
+    """The SSM layer's input side, whole on every rank: (z, the dt-scaled
+    heads x·dt, x, loga, B, C, the conv's new window); the mixer reads
+    every position, so a rank's rows under ``seq_parallel`` are gathered
+    after the norm."""
     s_cfg, di, nheads, _ = _ssm_dims(cfg)
     n = s_cfg.d_state
     y = ctx.sp_enter(NULL_CTX, _norm(ctx, x, p["ln1"], cfg.norm_eps))
@@ -585,10 +599,98 @@ def _ssm_out(p: Params, x: torch.Tensor, y_ssd: torch.Tensor, xh: torch.Tensor,
     return x + _row_parallel(y_out, p["w_out"], "w_out" in ctx.modes(cfg).mixer_out, ctx)
 
 
+def _ssm_cols(cfg: ModelConfig, model: int):
+    """Each model rank's columns of the packed in-projection in the mixer's
+    ``heads`` mode, as (start, stop) ranges: its heads' z and x, B and C
+    whole, its heads' dt."""
+    s_cfg, di, nheads, _ = _ssm_dims(cfg)
+    cd, ch, bc = di // model, nheads // model, 2 * di + 2 * s_cfg.d_state
+    return [((k * cd, (k + 1) * cd), (di + k * cd, di + (k + 1) * cd), (2 * di, bc),
+             (bc + k * ch, bc + (k + 1) * ch)) for k in range(model)]
+
+
+def _ssm_heads(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx,
+               lc: Optional[Params] = None):
+    """An SSM layer in the mixer's ``heads`` mode -> (x, the state this
+    process holds): a full sequence, or with the layer cache ``lc`` one
+    decode step, which updates ``lc`` in place.
+
+    Each model rank multiplies the normed input by its chunk of ``w_in``,
+    and one all-to-all (:meth:`ShardCtx.columns`) hands every rank its
+    heads' z, x and dt columns and the B and C columns whole.  The conv
+    runs on the rank's x channels and B and C, the SSD on its heads, and
+    ``out_norm``'s mean square is the ranks' sums of squares summed in rank
+    order; ``w_out`` is row-parallel.  The state is the rank's heads of
+    ``ssd`` and its conv window of x, B and C
+    (:class:`~repro_torch.models.sharding.HeadsConv`); in process each
+    rank's in turn of the whole (the global view), the B and C window
+    written once."""
+    s_cfg, di, nheads, _ = _ssm_dims(cfg)
+    n, hd = s_cfg.d_state, s_cfg.head_dim
+    model, ranks = ctx.model, ctx.ranks()
+    cd, ch = di // model, nheads // model
+    whole = len(ranks) > 1  # in process: every rank of a whole cache
+    ye = ctx.sp_enter(ctx, _norm(ctx, x, p["ln1"], cfg.norm_eps))
+    cols = ctx.columns([ctx.local(ye) @ ctx.shard(p["w_in"], 1, k) for k in ranks], -1,
+                       _ssm_cols(cfg, model))
+    e = _entered(p, ("A_log", "D_skip", "conv_w", "dt_bias", "out_norm"), ctx)
+    prevs = [None] * len(ranks)
+    if lc is not None:
+        prevs = [torch.cat([lc["conv"].narrow(-1, k * cd, cd), lc["conv"].narrow(-1, di, 2 * n)],
+                           -1) if whole else lc["conv"] for k in ranks]
+    ys, sqs, convs, states = [], [], [], []
+    for i, k in enumerate(ranks):
+        z, xs, bc, dt = torch.split(cols[i], [cd, cd, 2 * n, ch], dim=-1)
+        conv_w = ctx.local(e["conv_w"])
+        wk = torch.cat([conv_w.narrow(1, k * cd, cd), conv_w.narrow(1, di, 2 * n)], 1)
+        conv_out, conv_state = ssm_lib.causal_conv1d(torch.cat([xs, bc], -1), wk, prevs[i])
+        xs, bm, cm = torch.split(conv_out, [cd, n, n], dim=-1)
+        dt = F.softplus(dt.float() + ctx.split(ctx.local(e["dt_bias"]), 0, k))
+        loga = -torch.exp(ctx.split(ctx.local(e["A_log"]), 0, k)) * dt
+        xh = xs.reshape(xs.shape[:2] + (ch, hd))
+        xdt = xh * dt[..., None].to(xh.dtype)
+        if lc is None:
+            y_ssd, state = ssm_lib.ssd_chunked(xdt, loga, bm, cm, chunk=s_cfg.chunk)
+        else:
+            h0 = lc["ssd"].narrow(1, k * ch, ch) if whole else lc["ssd"]
+            y_ssd, state = ssm_lib.ssd_decode_step(h0, xdt[:, 0], loga[:, 0], bm[:, 0],
+                                                   cm[:, 0])
+            y_ssd = y_ssd[:, None]
+        d_skip = ctx.split(ctx.local(e["D_skip"]), 0, k)
+        y = (y_ssd + d_skip[:, None].to(y_ssd.dtype) * xh).reshape(z.shape) * F.silu(z)
+        yf = y.float()
+        ys.append(y)
+        sqs.append(torch.sum(yf * yf, dim=-1, keepdim=True))
+        convs.append(conv_state)
+        states.append(state)
+    ms = ctx.enter(ctx.reduce(sqs))  # the whole row's sum of squares, every rank's
+    parts = []
+    for i, k in enumerate(ranks):
+        scale = 1.0 + ctx.split(ctx.local(e["out_norm"]), 0, k).float()
+        y = ys[i].float() * torch.rsqrt(ctx.local(ms) / di + cfg.norm_eps) * scale
+        parts.append(y.to(ys[i].dtype) @ ctx.shard(p["w_out"], 0, k))
+    x = x + ctx.sp_reduce(ctx, parts)
+    if whole:
+        conv = torch.cat([c.narrow(-1, 0, cd) for c in convs] + [convs[0].narrow(-1, cd, 2 * n)],
+                         -1)
+        state = {"conv": conv, "ssd": torch.cat(states, 1)}
+    else:
+        state = {"conv": convs[0], "ssd": states[0]}
+    if lc is not None:
+        lc["conv"].copy_(state["conv"])
+        lc["ssd"].copy_(state["ssd"])
+    return x, state
+
+
 def _ssm_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx = NULL_CTX):
     """One SSM layer over a full sequence -> (x, aux 0, its final state).
-    Under a model axis the packed in-projection is gathered, the conv, the
-    SSD and ``out_norm`` run whole and ``w_out`` is row-parallel."""
+    Under a model axis in the mixer's ``heads`` mode on each rank's heads
+    (:func:`_ssm_heads`); in ``gathered`` mode the packed in-projection is
+    gathered, the conv, the SSD and ``out_norm`` run whole and ``w_out`` is
+    row-parallel."""
+    if ctx.modes(cfg).ssm == "heads":
+        x, state = _ssm_heads(p, x, cfg, ctx)
+        return x, _zero(x), state
     p = _gather_in(p, cfg, ctx)
     z, xdt, xh, loga, bm, cm, conv_state = _ssm_in(p, x, cfg, None, ctx)
     y_ssd, state = ssm_lib.ssd_chunked(xdt, loga, bm, cm, chunk=_ssm_dims(cfg)[0].chunk)
@@ -596,37 +698,74 @@ def _ssm_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx =
             {"conv": conv_state, "ssd": state})
 
 
-def _rec_in(p: Params, x: torch.Tensor, prev: Optional[torch.Tensor], cfg: ModelConfig,
-            ctx: ShardCtx = NULL_CTX):
-    y = ctx.sp_enter(NULL_CTX, _norm(ctx, x, p["ln1"], cfg.norm_eps))  # the scan reads all of S
-    bg = F.gelu(y @ p["w_bg"], approximate="tanh")  # jax.nn.gelu's default
-    conv_out, conv_state = ssm_lib.causal_conv1d(y @ p["w_bx"], p["conv_w"], prev)
-    return bg, conv_out, conv_state
+def _rec_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx,
+               lc: Optional[Params] = None):
+    """A recurrent layer -> (x, the state this process holds): a full
+    sequence, or with the layer cache ``lc`` one decode step, which
+    updates ``lc`` in place.
 
-
-def _rec_out(p: Params, x: torch.Tensor, r: torch.Tensor, bg: torch.Tensor,
-             cfg: ModelConfig, ctx: ShardCtx) -> torch.Tensor:
-    """The gated branch's row-parallel ``w_ro``, then the GeGLU split on F
-    (column-parallel ``wg`` / ``wu``, row-parallel ``wd``, as the dense
-    FFN)."""
-    modes = ctx.modes(cfg)
-    x = x + _row_parallel(r * bg, p["w_ro"], "w_ro" in modes.mixer_out, ctx)
-    c = _on(ctx, modes.ffn)
-    ye = ctx.sp_enter(c, _norm(ctx, x, p["ln2"], cfg.norm_eps))
-    return x + ctx.sp_reduce(c, [L.geglu(c.local(ye), c.shard(p["wg"], 1, k),
-                                         c.shard(p["wu"], 1, k), c.shard(p["wd"], 0, k))
-                                 for k in c.ranks()])
+    In the mixer's ``channels`` mode each model rank computes its channels
+    of the branches (``w_bx`` / ``w_bg`` column-parallel) and of the conv;
+    the conv output is gathered over the model axis
+    (:meth:`ShardCtx.gather`: its gradient reduce-scattered), since the
+    gates read every channel, and each rank takes its gate columns of
+    ``w_a`` / ``w_xg`` and its entries of ``b_a``, ``b_x`` and ``lam``.
+    The scan, its state and ``r · bg`` are on the rank's channels and
+    ``w_ro`` is row-parallel; in process each rank's slice of a whole cache
+    in turn.  Without that mode the mixer runs whole (one rank).  Then the
+    GeGLU, split on F (column-parallel ``wg`` / ``wu``, row-parallel
+    ``wd``, as the dense FFN)."""
+    c = _on(ctx, ctx.modes(cfg).rec == "channels")
+    ranks = c.ranks()
+    cc = cfg.d_model // c.model  # the LRU's width is d_model
+    whole = len(ranks) > 1
+    ye = ctx.sp_enter(c, _norm(ctx, x, p["ln1"], cfg.norm_eps))  # the scan reads all of S
+    e = _entered(p, ("b_a", "b_x", "conv_w", "lam"), c)
+    bgs, outs, convs = [], [], []
+    for k in ranks:
+        yk = c.local(ye)
+        bgs.append(F.gelu(yk @ c.shard(p["w_bg"], 1, k), approximate="tanh"))  # jax's default
+        prev = None
+        if lc is not None:
+            prev = lc["conv"].narrow(-1, k * cc, cc) if whole else lc["conv"]
+        out, conv_state = ssm_lib.causal_conv1d(yk @ c.shard(p["w_bx"], 1, k),
+                                                c.split(c.local(e["conv_w"]), 1, k), prev)
+        outs.append(out)
+        convs.append(conv_state)
+    full = c.gather(outs, -1)
+    parts, hs = [], []
+    for i, k in enumerate(ranks):
+        own = outs[i] if c.model > 1 else None  # one rank: the gates' input itself
+        gates = (c.shard(p["w_a"], 1, k), c.split(c.local(e["b_a"]), 0, k),
+                 c.shard(p["w_xg"], 1, k), c.split(c.local(e["b_x"]), 0, k),
+                 c.split(c.local(e["lam"]), 0, k))
+        if lc is None:
+            r, h = rglru_lib.rglru_scan(c.local(full), *gates, own=own)
+        else:
+            h0 = lc["h"].narrow(-1, k * cc, cc) if whole else lc["h"]
+            r, h = rglru_lib.rglru_decode_step(h0, c.local(full), *gates, own=own)
+        hs.append(h)
+        parts.append((r * bgs[i]) @ c.shard(p["w_ro"], 0, k))
+    x = x + ctx.sp_reduce(c, parts)
+    f = _on(ctx, ctx.modes(cfg).ffn)
+    ye = ctx.sp_enter(f, _norm(ctx, x, p["ln2"], cfg.norm_eps))
+    x = x + ctx.sp_reduce(f, [L.geglu(f.local(ye), f.shard(p["wg"], 1, k),
+                                      f.shard(p["wu"], 1, k), f.shard(p["wd"], 0, k))
+                              for k in f.ranks()])
+    state = {"conv": torch.cat(convs, -1), "h": torch.cat(hs, -1)} if whole else \
+        {"conv": convs[0], "h": hs[0]}
+    if lc is not None:
+        lc["conv"].copy_(state["conv"])
+        lc["h"].copy_(state["h"])
+    return x, state
 
 
 def _rec_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx = NULL_CTX):
     """One recurrent layer over a full sequence -> (x, aux 0, its final
-    state).  Under a model axis the branch projections and the square gates
-    are gathered, the conv, the scan and the gate product run whole, and
-    ``w_ro`` is row-parallel."""
-    p = _gather_in(p, cfg, ctx)
-    bg, conv_out, conv_state = _rec_in(p, x, None, cfg, ctx)
-    r, h = rglru_lib.rglru_scan(conv_out, p["w_a"], p["b_a"], p["w_xg"], p["b_x"], p["lam"])
-    return _rec_out(p, x, r, bg, cfg, ctx), _zero(x), {"conv": conv_state, "h": h}
+    state); under a model axis on each rank's channels
+    (:func:`_rec_mixer`)."""
+    x, state = _rec_mixer(p, x, cfg, ctx)
+    return x, _zero(x), state
 
 
 def _attn_window(cfg: ModelConfig) -> int:
@@ -935,8 +1074,9 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     Under a model axis (``ctx``) the layers run as in :func:`forward`; in
     ``heads`` mode each rank's cache holds its own kv heads (in process the
     ranks' heads side by side: the whole cache), ``kpos`` whole; the
-    ``ssm`` / ``rec`` states are whole on every rank; the logits are whole
-    on every rank (:func:`_logits`).
+    ``ssm`` state its heads and the ``rec`` states its channels (the
+    layout :func:`~repro_torch.models.sharding.cache_dims` names); the
+    logits are whole on every rank (:func:`_logits`).
 
     Audio: the encoder runs once and each super-block's cross keys and
     values go to ``cache["cross"]`` (under a model axis in the cross layers'
@@ -1075,8 +1215,10 @@ def _cross_decode(cross, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx) -> to
 def _ssm_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
                 ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """One-token SSM step; updates the layer cache's conv window and state
-    in place.  Under a model axis as :func:`_ssm_layer_fwd`: the state is
-    whole on every rank."""
+    in place.  Under a model axis as :func:`_ssm_layer_fwd`: in ``heads``
+    mode the rank's heads of the state, in ``gathered`` mode the whole."""
+    if ctx.modes(cfg).ssm == "heads":
+        return _ssm_heads(p, x, cfg, ctx, lc)[0]
     p = _gather_in(p, cfg, ctx)
     z, xdt, xh, loga, bm, cm, conv_state = _ssm_in(p, x, cfg, lc["conv"])
     yh, state = ssm_lib.ssd_decode_step(lc["ssd"], xdt[:, 0], loga[:, 0], bm[:, 0], cm[:, 0])
@@ -1087,15 +1229,9 @@ def _ssm_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
 
 def _rec_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
                 ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
-    """One-token recurrent step; updates the layer cache in place (whole on
-    every rank under a model axis, as :func:`_rec_layer_fwd`)."""
-    p = _gather_in(p, cfg, ctx)
-    bg, conv_out, conv_state = _rec_in(p, x, lc["conv"], cfg)
-    r, h = rglru_lib.rglru_decode_step(lc["h"], conv_out, p["w_a"], p["b_a"], p["w_xg"],
-                                       p["b_x"], p["lam"])
-    lc["conv"].copy_(conv_state)
-    lc["h"].copy_(h)
-    return _rec_out(p, x, r, bg, cfg, ctx)
+    """One-token recurrent step; updates the layer cache in place (under a
+    model axis the rank's channels, as :func:`_rec_layer_fwd`)."""
+    return _rec_mixer(p, x, cfg, ctx, lc)[0]
 
 
 def decode_step(params: Params, token: torch.Tensor, cache: Params, pos,

@@ -191,10 +191,10 @@ def test_aggregate_cohort_matches_reference(method, attack):
             assert (np.abs(got - want) <= width * 1.0001 + 1e-6).all(), backend
 
 
-def _trajectories(optimizer, schedule, rounds=4, ckpt_dir=None):
+def _trajectories(optimizer, schedule, rounds=4, ckpt_dir=None, compression="none"):
     ref, port = _pops(dim=8, clients=1000, n=16)
     kw = dict(num_rounds=rounds, cohort_size=128, chunk_clients=64, method="approx_median",
-              nbins=256, optimizer=optimizer, lr=0.3, seed=0)
+              nbins=256, optimizer=optimizer, lr=0.3, seed=0, compression=compression)
     names = ("sign_flip", "alie")
     jmix = JR.AttackMixture(tuple(_attacks(a)[0] for a in names), schedule)
     mix = R.AttackMixture(tuple(_attacks(a)[1] for a in names), schedule)
@@ -234,8 +234,33 @@ def test_resume_from_reference_state_continues_its_trajectory(tmp_path):
     assert [h["round"] for h in resumed] == [0, 1, 2, 3]
     np.testing.assert_allclose([h["err"] for h in resumed[2:]], [h["err"] for h in jh[2:]],
                                rtol=0, atol=1e-4)
+
+
+def test_resume_from_reference_state_carries_its_error_feedback_residual(tmp_path):
+    """A reference snapshot taken under topk (an error-feedback codec: a
+    (clients, d) residual that outlives the rounds a client sits out) at
+    round 2 resumes on the port through models.convert, residual included:
+    the resumed rounds' err within 1e-4 of the reference's own run.  A
+    residual of another row width is refused."""
+    ck = str(tmp_path / "ref")
+    ref, port, kw, mix, jh, th = _trajectories("sgd", "cycle", ckpt_dir=ck, compression="topk")
+    w0 = jnp.zeros(8)
+    like = jengine.make_state(w0, comp_res=JR.init_comp_residual(ref, JR.RoundConfig(**kw)),
+                              opt_state=(), key=jax.random.PRNGKey(0))
+    jstate, host = jengine.load_snapshot(ck, like, 2)
+    state_np = jax.tree.map(np.asarray, jstate)
+    assert state_np["comp_res"].shape == (1000, 8) and np.abs(state_np["comp_res"]).max() > 0
+    state = convert.round_state_from_reference(state_np, seed=0, device="cpu")
+    np.testing.assert_array_equal(state["comp_res"].numpy(), state_np["comp_res"])
+    port_ck = str(tmp_path / "port")
+    engine.save_snapshot(port_ck, state, host=host)
+    _, resumed = R.run_rounds(port, R.RoundConfig(**kw), mix, ckpt_dir=port_ck, resume=True)
+    assert [h["round"] for h in resumed] == [0, 1, 2, 3]
+    np.testing.assert_allclose([h["err"] for h in resumed[2:]], [h["err"] for h in jh[2:]],
+                               rtol=0, atol=1e-4)
     with pytest.raises(ValueError, match="comp_res"):
-        convert.round_state_from_reference(dict(state_np, comp_res=np.zeros(3)), device="cpu")
+        convert.round_state_from_reference(dict(state_np, comp_res=np.zeros((3, 5), np.float32)),
+                                           device="cpu")
 
 
 # ------------------------------------------------------- the port's own contracts

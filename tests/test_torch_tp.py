@@ -104,12 +104,12 @@ GATHERED = {
                                         ("router", "wk", "wo", "wq", "wv")),
     ("llama3-405b", "full"): ((), (), ("wk", "wo", "wq", "wv")),
     ("llama3-405b", "smoke"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
-    ("mamba2-2.7b", "full"): (("w_in",),) * 3,
-    ("mamba2-2.7b", "smoke"): (("w_in",), ("w_in",), ()),
+    ("mamba2-2.7b", "full"): ((),) * 3,
+    ("mamba2-2.7b", "smoke"): ((),) * 3,
     ("whisper-small", "full"): ((), (), ("wk", "wo", "wq", "wv")),
     ("whisper-small", "smoke"): ((), (), ("wk", "wo", "wq", "wv")),
-    ("recurrentgemma-2b", "full"): (("w_a", "w_bg", "w_bx", "w_xg", "wk", "wo", "wq", "wv"),) * 3,
-    ("recurrentgemma-2b", "smoke"): (("w_a", "w_bg", "w_bx", "w_xg", "wk", "wo", "wq", "wv"),) * 3,
+    ("recurrentgemma-2b", "full"): (("wk", "wo", "wq", "wv"),) * 3,
+    ("recurrentgemma-2b", "smoke"): (("wk", "wo", "wq", "wv"),) * 3,
     ("llama3.2-3b", "full"): ((), (), ("wk", "wo", "wq", "wv")),
     ("llama3.2-3b", "smoke"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
     ("internvl2-1b", "full"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
@@ -420,10 +420,11 @@ def test_tp_plan_lists_the_gathered_leaves(arch, size):
     """``tp_plan``'s gathered leaves at model 2, 4 and 16: the attention
     leaves where the split falls inside a kv head (kv % M != 0; the
     encoder and cross groups by the encoder config's heads), the MoE
-    router wherever it is split, the ``ssm`` / ``rec`` in-projections
-    (the packed ``w_in``, the branch projections and the square gates);
-    every other split leaf (the row-parallel ``w_out`` / ``w_ro`` among
-    them) computes on its shard, and no mode is left unported."""
+    router wherever it is split, the packed ``w_in`` where the ``ssm``
+    mixer's heads do not divide; every other split leaf (the ``ssm`` /
+    ``rec`` in-projections of the ``heads`` / ``channels`` modes, the
+    row-parallel ``w_out`` / ``w_ro``) computes on its shard, and no mode
+    is left unported."""
     cfg, _ = _configs(arch, size)
     enc = dataclasses.replace(cfg, moe=None, qk_norm=False)
     for model, want in zip(MODELS, GATHERED[(arch, size)]):
@@ -438,7 +439,8 @@ def test_tp_plan_lists_the_gathered_leaves(arch, size):
         for path, (_, mode) in plan.items():
             name = path.split("/")[-1]
             if name in ("w_in", "w_bx", "w_bg", "w_a", "w_xg"):
-                assert mode == "gathered" and name in modes.mixer_in, (model, path)
+                assert mode == ("gathered" if modes.ssm == "gathered" else "shard") \
+                    and name in modes.mixer_in, (model, path)
             elif name in ("w_out", "w_ro"):
                 assert mode == "shard" and name in modes.mixer_out, (model, path)
             elif path.split("/")[0] in ("enc_blocks", "cross_blocks") and name in (

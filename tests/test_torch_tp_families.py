@@ -9,8 +9,10 @@ model 2 and 4 against the reference at model 1 (``FORWARD``) and on 4 gloo
 ranks (``RANK_CELLS``), and tests/test_torch_tp_serve.py holds mamba2 and
 recurrentgemma's prefill, decode and engine tokens there.  This file
 holds them against the port's model 1: the forward, the loss and every
-gradient leaf, the serving caches, and one train step per family at
-(data 2, model 2) with the same aggregation calls.  Smoke widths, float32.
+gradient leaf, the serving caches (the recurrent states split on heads
+and channels; tests/test_torch_mixer_tp.py holds the split mixers across
+processes), and one train step per family at (data 2, model 2) with the
+same aggregation calls.  Smoke widths, float32.
 
 Tolerances, stated where used:
 - logits and loss against model 1: 1e-5 absolute (tests/test_torch_tp.py's
@@ -84,9 +86,10 @@ def test_forward_and_gradients_match_the_port_s_model_one(arch, model):
     ctx = _ctx(model)
     modes = ctx.modes(cfg)
     if cfg.ssm is not None:
-        assert modes.mixer_out == ("w_out",)
+        assert modes.mixer_out == ("w_out",) and modes.ssm == "heads"
     if arch == "recurrentgemma-2b":
         assert modes.mixer_in == ("w_a", "w_bg", "w_bx", "w_xg") and modes.mixer_out == ("w_ro",)
+        assert modes.rec == "channels"
     with torch.no_grad():
         want, _ = T.forward(params, batch["tokens"], cfg, frontend=batch.get("frontend"),
                             kv_block=0)
@@ -105,10 +108,15 @@ def test_forward_and_gradients_match_the_port_s_model_one(arch, model):
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b"])
 def test_recurrent_states_are_whole_on_every_rank(arch):
-    """The prefill cache at (1, 2) is model 1's (the ssm / rec states
-    within 1e-5), ``cache_dims`` keeps those states whole (-1), a rank's
-    slot pool under a process group holds them whole, and a decode step at
-    model 2 updates them as model 1's does."""
+    """The recurrent states split over the model axis as the reference's
+    specs split them (the name is the test's from before the split; it
+    pins the new layout).  The prefill cache at (1, 2), the global view of
+    the ranks' states, is model 1's (within 1e-5), and so is it after a
+    decode step at model 2; ``cache_dims`` splits ``ssd`` on its heads and
+    ``rec``'s ``conv`` and ``h`` on channels, and holds the ``ssm`` conv
+    window as a HeadsConv (a rank's x channels, B and C whole); a rank's
+    slot pool under a process group holds whole/model of ``ssd``, ``h`` and
+    ``rec``'s ``conv``, and di/model + 2n channels of the ``ssm`` window."""
     cfg = _cfg(arch)
     params = T.init_params(cfg, 0, "cpu")
     tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (2, 8)))
@@ -128,13 +136,20 @@ def test_recurrent_states_are_whole_on_every_rank(arch):
     dims = dict(tree_leaves_with_path(sharding.cache_dims(cfg, 2, c2,
                                                           steps.cache_shardings(cfg, mesh, c2))))
     recurrent = [p for p in dims if p.split("/")[-1] in ("conv", "ssd", "h")]
-    assert recurrent and all(dims[p] == -1 for p in recurrent)
+    assert recurrent
     per_rank = mesh_lib.Mesh(("data", "model"), (2, 2), torch.device("cpu"), None, rank=1,
                              per_rank=True)
     pool = dict(tree_leaves_with_path(steps.init_slot_pool(cfg, 3, 12, "cpu", mesh=per_rank)))
     whole = dict(tree_leaves_with_path(steps.init_slot_pool(cfg, 3, 12, "cpu")))
     for p in recurrent:
-        assert pool[p].shape == whole[p].shape, p
+        d = dims[p]
+        if isinstance(d, sharding.HeadsConv):
+            s_cfg, di = T._ssm_dims(cfg)[:2]
+            assert d.di == di and pool[p].shape[d.dim] == di // 2 + 2 * s_cfg.d_state, p
+            continue
+        assert d == pool[p].dim() - (3 if p.endswith("ssd") else 1), p
+        assert pool[p].numel() * 2 == whole[p].numel() and pool[p].shape[d] * 2 \
+            == whole[p].shape[d], p
 
 
 def _count_calls(monkeypatch):
