@@ -4,20 +4,22 @@ readings that set ``chip_smoke.py`` phase 20b's and 20c's limits.
 
     python3 scripts/tp_witness.py [--config llama3.2-3b] [--layers 8]
                                   [--dtype bfloat16] [--steps 8]
-                                  [--runs 1,1,2,2f] [--agg median]
+                                  [--device-steps 1] [--runs 1,1,2,2f]
+                                  [--agg median]
 
 Each entry of ``--runs`` is one ``launch.trainer.train_loop`` from the
 same seeded params over ``make_debug_mesh(4, model)`` at phase 20b's
 settings (gather ``--agg``, median or trimmed mean beta 0.25, under ALIE
-alpha 0.25, AdamW 1e-4, batch 8, seq 128), in windows of one step so
-that every step is read: ``1`` at model 1, ``2`` at model 2, ``2f`` at
-model 2 with every leaf the model axis splits frozen (its AdamW update
-dropped) -- what a tensor-parallel update that never reaches the split
-leaves reads.  TF32 is off.
+alpha 0.25, AdamW 1e-4, batch 8, seq 128), in windows of
+``--device-steps`` steps (one by default, so that every step is read;
+the phase's window reads as the phase does): ``1`` at model 1, ``2`` at
+model 2, ``2f`` at model 2 with every leaf the model axis splits frozen
+(its AdamW update dropped) -- what a tensor-parallel update that never
+reaches the split leaves reads.  TF32 is off.
 
 For each run it prints one JSON line: the losses and the aggregate's
-gradient norms a step, each step's relative distance from the first run's
-(loss and norm), and the update against the first run's:
+gradient norms a window (each the mean of its steps'), each window's
+relative distance from the first run's (loss and norm), and the update against the first run's:
 ``|u - u_ref| / |u_ref|`` with ``u`` = final params - initial params, over
 all leaves, the split ones and the replicated ones, and the share of
 coordinates whose final value is bitwise the first run's.  Then the
@@ -41,6 +43,7 @@ def main() -> None:
     ap.add_argument("--layers", type=int, default=8)
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--device-steps", type=int, default=1)
     ap.add_argument("--runs", default="1,1,2,2f")
     ap.add_argument("--agg", default="median")
     args = ap.parse_args()
@@ -72,7 +75,8 @@ def main() -> None:
     dcfg = DataConfig(vocab=cfg.vocab, **CS.TRAIN_DATA)
     pcfg = ParallelConfig(agg_method=args.agg, agg_strategy="gather", agg_beta=CS.TRAIN_BETA,
                           remat=False, attn_chunk=0)  # phase 20b's settings
-    tcfg = TrainConfig(optimizer="adamw", lr=CS.TRAIN_LR, steps=args.steps, device_steps=1)
+    tcfg = TrainConfig(optimizer="adamw", lr=CS.TRAIN_LR, steps=args.steps,
+                       device_steps=args.device_steps)
     atk = AttackConfig("alie", CS.TRAIN_ALPHA)
     plan = sharding.tp_plan(cfg, CS.TP_MODEL)
     paths = [p for p, _ in tree_leaves_with_path(trainer.T.meta_params(cfg))]

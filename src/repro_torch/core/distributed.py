@@ -222,15 +222,28 @@ class Collectives:
         """Megatron's f: an activation every rank holds alike, about to be
         read by each rank's shard; its gradient is the sum of the ranks'.
         Each rank reads it through :meth:`model_local`.  In process a node
-        of its own, so that the ranks' gradients are summed (two commute)
-        before they meet any other, as the psum is under a process group."""
-        return x if self.model == 1 else x.view_as(x)
+        of its own, whose gradient is the ranks' summed in rank order
+        (:class:`_EnterInProcess`) before it meets any other, as the psum
+        is under a process group."""
+        if self.model == 1:
+            return x
+        reads = [None] * self.model  # each rank's gradient, filled by model_local's reads
+        y = _EnterInProcess.apply(x, reads)
+        y._model_reads = reads
+        return y
 
-    def model_local(self, x: torch.Tensor) -> torch.Tensor:
-        """A rank's read of an entered activation: in process a node per
-        rank, so that each rank's gradients add up among themselves before
-        the ranks' are summed, as on a rank of a process group."""
-        return x if self.model == 1 else x.view_as(x)
+    def model_local(self, x: torch.Tensor, k: int) -> torch.Tensor:
+        """Rank ``k``'s read of an entered activation: in process a node of
+        its own whose gradient (the sum of the rank's uses, however many
+        reads) waits in the rank's slot until the entered node adds the
+        ranks' in rank order, as on a rank of a process group.  Read the
+        entered tensor itself: a view of it has no slots, and its read's
+        gradient reaches the entered node in autograd's order (the same
+        sum, rounded otherwise)."""
+        if self.model == 1:
+            return x
+        reads = getattr(x, "_model_reads", None)
+        return x.view_as(x) if reads is None else _ReadInProcess.apply(x, reads, k)
 
     def model_sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """Megatron's g: the sum of the ranks' partial results, in rank
@@ -264,14 +277,15 @@ class Collectives:
         even chunks along ``dim`` (``parts``, the ranks' this process
         computes, in rank order), and each rank ``k`` gets the columns of
         ``wants[k]`` ((start, stop) ranges of the whole, ascending),
-        concatenated; a column several ranks want goes to each of them.  Its
-        gradient goes back the same way, a column's the ranks' that read it
-        summed (under a process group in rank order).  Returns the results
-        of the ranks this process computes, in order; in process each rank's
-        columns are cut from the chunks concatenated."""
+        concatenated; a column several ranks want goes to each of them, and a
+        rank that wants none gets a zero-width tensor.  Its gradient goes
+        back the same way, a column's the ranks' that read it summed (under
+        a process group in rank order).  Returns the results of the ranks
+        this process computes, in order; in process each rank's columns are
+        cut from the chunks concatenated."""
         whole = self.model_cat(parts, dim)
         return [torch.cat([whole.narrow(dim, a, b - a) for a, b in wants[k]], dim)
-                for k in self.model_ranks()]
+                if wants[k] else whole.narrow(dim, 0, 0) for k in self.model_ranks()]
 
     def model_max(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The element-wise max of the ranks' (detached) parts."""
@@ -632,8 +646,8 @@ class ProcessGroupAxes(_NamedAxes):
     def model_enter(self, x):
         return x if self.model == 1 else _CopyToModel.apply(x, self)
 
-    def model_local(self, x):
-        return x  # one rank reads it here
+    def model_local(self, x, k):
+        return x  # one rank, k, reads it here
 
     def model_sum(self, parts):
         (p,) = parts
@@ -699,9 +713,57 @@ class ProcessGroupAxes(_NamedAxes):
         import torch.distributed as dist
 
         self.calls["model_psum"] += 1
+        if self.model > 2 and dist.get_backend(self._group(("model",))) == "gloo":
+            # gloo's ring adds each chunk in another order; the ranks' parts
+            # gathered and added in rank order are bitwise the in-process sum
+            rows = self._gather(x, ("model",))
+            acc = rows[0]
+            for row in rows[1:]:
+                acc = acc + row
+            return acc
         acc = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=self._group(("model",)))
         return acc
+
+
+class _ReadInProcess(torch.autograd.Function):
+    """Rank ``k``'s read of an entered activation in process: identity
+    forward; backward the rank's gradient is added into its slot of
+    ``reads`` and none goes on, so that :class:`_EnterInProcess` adds the
+    ranks' in rank order."""
+
+    @staticmethod
+    def forward(ctx, x, reads, k):
+        ctx.reads, ctx.k = reads, k
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        got = ctx.reads[ctx.k]
+        ctx.reads[ctx.k] = g if got is None else got + g
+        return None, None, None
+
+
+class _EnterInProcess(torch.autograd.Function):
+    """Megatron's f in process: identity forward; backward the ranks'
+    gradients summed in rank order, ((g0 + g1) + g2) + ..., the order of a
+    process group's rank-ordered sum, whatever order autograd ran the
+    ranks' reads in (plus a direct read's, if any)."""
+
+    @staticmethod
+    def forward(ctx, x, reads):
+        ctx.set_materialize_grads(False)
+        ctx.reads = reads
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        acc = g
+        for k, t in enumerate(ctx.reads):
+            if t is not None:
+                acc = t if acc is None else acc + t
+            ctx.reads[k] = None
+        return acc, None
 
 
 class _CopyToModel(torch.autograd.Function):

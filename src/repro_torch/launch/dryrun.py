@@ -25,10 +25,13 @@ group) and emits one JSON record: its memory (``argument_size_in_bytes``,
 measured).  The reference's ``compile_s`` is ``plan_s`` here, its
 ``xla_*`` fields have no counterpart.
 
-Where kv heads do not divide the model axis the port computes attention
-from gathered leaves and keeps the caches whole (``gathered`` mode,
-:mod:`repro_torch.models.sharding`), where the reference lets GSPMD pad
-uneven shards: per-rank bytes differ there (ROADMAP queue C).
+Where the kv heads do not divide the model axis but the reference's
+``_ok`` splits them unevenly (GSPMD pads), each rank attends with its
+ceil(kv / M) kv heads, the last ranks with fewer or none (``padded`` mode,
+:mod:`repro_torch.models.sharding`); its caches hold those heads, where
+the reference's cache spec falls to the head dim (ROADMAP queue C).  Where
+the reference replicates the kv heads (``2·kv < M``) the port computes
+attention from gathered leaves and keeps the caches whole.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k --mesh single

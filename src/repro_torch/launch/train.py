@@ -27,8 +27,8 @@ ranks in turn; under ``--mesh single|multi`` the world is workers × N
 ranks, a worker's N ranks consecutive (``torchrun --nproc-per-node 4 ...
 --mesh single --model-par 2``: 2 workers of 2 model ranks).  Every
 configuration runs at N > 1: the dense and MoE families, mamba2 and
-recurrentgemma (their mixers whole on every rank from gathered
-in-projections, the out-projections row-parallel), whisper's encoder and
+recurrentgemma (their mixers on each rank's heads or channels, the
+out-projections row-parallel), whisper's encoder and
 cross-attention and internvl2's vision prefix; so do ``--compression``
 (each worker's whole gradient compressed) and a randomized ``--attack``
 (``gauss``: each payload drawn over the whole leaf).  The train step runs with

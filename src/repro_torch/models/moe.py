@@ -121,7 +121,7 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     xe, weight = c.enter(x), c.enter(r.weight)
     parts = []
     for k in c.ranks():
-        xk, wk = c.local(xe), c.local(weight)
+        xk, wk = c.local(xe, k), c.local(weight, k)
         if split == "experts":
             el = e // c.model
             e0 = k * el

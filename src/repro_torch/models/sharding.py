@@ -17,12 +17,23 @@ computes each layer on the shards explicitly, through :class:`ShardCtx`:
 
 - ``heads``: q/k/v are column-parallel on the local heads and ``wo`` is
   row-parallel, when the split falls on whole kv heads (``kv % M == 0``);
-- ``gathered``: where the rule cuts through a head or through ``hd``
-  (RoPE pairs ``i`` with ``i + hd/2``, so half a head cannot be rotated
-  alone), the split attention leaves are all-gathered over ``model`` for
-  the compute and each rank keeps its chunk of the whole gradient; the
-  MoE router is always gathered (its product is small), so routing is
-  the global top-k;
+- ``padded``: where the kv heads do not divide ``M`` but the reference's
+  ``_ok`` still splits them unevenly (``2·kv >= M``: GSPMD pads), rank
+  ``r`` attends with the kv heads of :func:`kv_heads` (ceil(kv / M) a rank,
+  the last ranks fewer or none) and their query groups.  The leaves keep
+  their even chunks, which cut through heads: one all-to-all over
+  ``model`` hands every rank its heads' columns of ``wq``/``wk``/``wv``
+  and a second its heads' rows of ``wo`` (row-parallel, the partials
+  summed in rank order); where the tokens are fewer than d_model (decode)
+  the products by the chunks travel instead, and ``wo`` reads the output's
+  columns of its even chunk;
+- ``gathered``: where the reference replicates the kv heads too
+  (``2·kv < M``, e.g. one kv head over 4 ranks), the split attention
+  leaves are all-gathered over ``model`` for the compute and each rank
+  keeps its chunk of the whole gradient (RoPE pairs ``i`` with ``i +
+  hd/2``, so a rank cannot rotate the half head its chunk holds); the MoE
+  router is always gathered (its product is small), so routing is the
+  global top-k;
 - the dense FFN is column-parallel on F (``wg``/``wu``) and row-parallel
   (``wd``); the MoE experts are expert-parallel where E divides by M, else
   split on F, as the rule falls back;
@@ -66,10 +77,11 @@ Sequence parallelism (:class:`ShardCtx`'s ``seq_parallel``, the train
 step's flag) splits the residual between the layers of a super-block
 over ``model`` along S, where :func:`seq_ok` allows it.
 
-Serving caches follow the layers: in ``heads`` mode each rank's
-attention keys and values are its own kv heads (:func:`cache_dims`,
-:func:`shard_cache`), the positions (``kpos``) whole on every rank; in
-``gathered`` mode the caches stay whole on every rank.  The ``ssm``
+Serving caches follow the layers: in ``heads`` and ``padded`` modes each
+rank's attention keys and values are its own kv heads (:func:`cache_dims`,
+:func:`shard_cache`; a rank past the last kv head holds a zero-width
+cache), the positions (``kpos``) whole on every rank; in ``gathered``
+mode the caches stay whole on every rank.  The ``ssm``
 state (``ssd``) is split on its heads and the ``rec`` conv window and
 state (``conv``, ``h``) on channels, as the reference's specs split them;
 the ``ssm`` conv window holds the rank's x channels and the B and C
@@ -148,7 +160,10 @@ def split_dim(path: str, shape: Tuple[int, ...], model: int) -> int:
 class TPModes(NamedTuple):
     """How a configuration's layers compute at one model size.
 
-    ``attn``: None (nothing split), ``"heads"`` or ``"gathered"``, and
+    ``attn``: None (nothing split), ``"heads"`` (the kv heads divide by
+    the model size), ``"padded"`` (they do not, and the reference's ``_ok``
+    splits them unevenly: ``2·kv >= model``, the rules splitting all four
+    leaves) or ``"gathered"`` (the leaves gathered whole), and
     ``attn_split`` the attention leaves the rules split; ``ffn``: the
     dense FFN (and ``rec``'s GeGLU) split on F; ``moe``: None,
     ``"experts"`` or ``"hidden"``; ``router``, ``embed`` and ``lm_head``:
@@ -194,7 +209,11 @@ def tp_modes(cfg, model: int) -> TPModes:
     attn_split = tuple(n for n, s in (("wk", (d, kv * hd)), ("wo", (h * hd, d)),
                                       ("wq", (d, h * hd)), ("wv", (d, kv * hd)))
                        if dim(n, s) is not None)
-    attn = None if not attn_split else ("heads" if kv % model == 0 else "gathered")
+    attn = None
+    if attn_split:
+        attn = ("heads" if kv % model == 0 else "padded"
+                if len(attn_split) == 4 and shard_ok(kv, ("model",), {"model": model})
+                else "gathered")
     moe = router = None
     ffn = False
     if cfg.moe is not None:
@@ -222,6 +241,16 @@ def tp_modes(cfg, model: int) -> TPModes:
 
 
 _ATTN = ("wq", "wk", "wv", "wo")
+HEAD_MODES = ("heads", "padded")  # the attention modes that split the kv heads
+
+
+def kv_heads(kv: int, model: int, k: int) -> Tuple[int, int]:
+    """Model rank ``k``'s kv heads ``[start, stop)`` in the attention's
+    ``heads`` and ``padded`` modes: ceil(kv / model) a rank in order, as
+    GSPMD pads an uneven split, so the last ranks hold fewer or none (kv 8
+    over 16 ranks: one each on ranks 0-7, none on 8-15)."""
+    c = -(-kv // model)
+    return min(k * c, kv), min((k + 1) * c, kv)
 _MIXER_IN = ("w_a", "w_bg", "w_bx", "w_in", "w_xg")  # ssm / rec in-projections
 _MIXER_OUT = ("w_out", "w_ro")  # ssm / rec, row-parallel
 
@@ -229,7 +258,8 @@ _MIXER_OUT = ("w_out", "w_ro")  # ssm / rec, row-parallel
 def tp_plan(cfg, model: int) -> Dict[str, Tuple[int, str]]:
     """``{leaf path: (split dim, mode)}`` for every leaf the model axis
     splits at size ``model`` (dims of the leaf as stored, the stacking dim
-    included): ``shard`` where the layer computes on the rank's shard,
+    included): ``shard`` where the layer computes on the rank's shard (the
+    attention leaves in ``heads`` and ``padded`` modes among them),
     ``gathered`` where the leaf is all-gathered for the compute (attention
     leaves in ``gathered`` mode, the MoE router, ``w_in`` in the ``ssm``
     mixer's ``gathered`` mode).  The encoder and cross-attention groups
@@ -278,14 +308,18 @@ def cache_dims(cfg, model: int, cache, specs):
     tuple per leaf): the serving counterpart of :func:`tp_dims`, in a
     tree shaped like ``cache`` (whose leaves may be meta tensors).
 
-    The attention keys and values of ``heads`` mode are split on their
-    kv-head dim: the self-attention caches in the layers' mode, the cross
-    caches (``cross/k``, ``cross/v``) in the cross layers' (the encoder
-    config's, :func:`tp_plan`).  In ``gathered`` mode (kv heads not
-    divisible by ``model``, e.g. one kv head) the reference's spec falls to
-    the head dim ``hd``: a GSPMD layout of the same function, which the port
-    does not compute split (the layer computes from gathered leaves), so the
-    caches stay whole on every rank.  The recurrent states follow the
+    The attention keys and values of ``heads`` and ``padded`` modes are
+    split on their kv-head dim, a rank's heads those of :func:`kv_heads`:
+    the self-attention caches in the layers' mode, the cross caches
+    (``cross/k``, ``cross/v``) in the cross layers' (the encoder config's,
+    :func:`tp_plan`).  In ``padded`` mode the reference's spec, which
+    splits only where the dim divides, falls to the head dim ``hd`` (a
+    sixteenth of a row a rank at kv 8 over 16); the port keeps the heads
+    its ranks attend with (an eighth on ranks 0-7, nothing on 8-15).  In
+    ``gathered`` mode (``2·kv < model``, e.g. one kv head over 4) the
+    reference's spec falls to ``hd`` too, a GSPMD layout the port does not
+    compute split (the layer computes from gathered leaves), so the caches
+    stay whole on every rank.  The recurrent states follow the
     mixers' modes: in the ``ssm`` mixer's ``heads`` mode ``ssd`` is split
     on its heads, as the reference's spec, and the conv window is a
     :class:`HeadsConv`; in the ``rec`` mixer's ``channels`` mode ``conv``
@@ -295,8 +329,8 @@ def cache_dims(cfg, model: int, cache, specs):
     from repro_torch.models import transformer as T
 
     modes = tp_modes(cfg, model)
-    heads = modes.attn == "heads"
-    cross_heads = tp_modes(T._enc_cfg(cfg), model).attn == "heads"
+    heads = modes.attn in HEAD_MODES
+    cross_heads = tp_modes(T._enc_cfg(cfg), model).attn in HEAD_MODES
     kinds = {(f"blocks/{w.key}" if w.part == "blocks" else f"tail/{w.key}"): w.kind
              for w in T.layer_slots(cfg)}
     spec_of = []
@@ -314,24 +348,33 @@ def cache_dims(cfg, model: int, cache, specs):
             return split if name in ("conv", "h") and split == n - 1 else -1
         if not (cross_heads if path.startswith("cross") else heads) or name not in ("k", "v"):
             return -1
-        return split if split == n - 2 else -1
+        return n - 2
 
     return tree_unflatten_like(cache, [dim(path, spec) for (path, _), spec
                                        in zip(tree_leaves_with_path(cache), spec_of)])
 
 
+def padded_chunk(t: torch.Tensor, dim: int, k: int, model: int) -> torch.Tensor:
+    """Chunk ``k`` of ``t`` along ``dim`` as GSPMD pads an uneven split:
+    ceil(n / model) long, the last chunks shorter or empty (:func:`kv_heads`
+    on the kv-head dim); an even split's chunk ``k``."""
+    a, b = kv_heads(t.shape[dim], model, k)
+    return t.narrow(dim, a, b - a)
+
+
 def shard_cache(cache, dims, k: int, model: int):
-    """Model rank ``k``'s slice of a whole cache tree: chunk ``k`` along each
-    leaf's dim of ``dims`` (:func:`cache_dims`; a :class:`HeadsConv` its
-    cut), copied; a leaf with dim -1 as it is.  At model size 1 the tree
-    itself."""
+    """Model rank ``k``'s slice of a whole cache tree: :func:`padded_chunk`
+    ``k`` along each leaf's dim of ``dims`` (:func:`cache_dims`; a
+    :class:`HeadsConv` its cut), copied; a leaf with dim -1 as it is.  At
+    model size 1 the tree itself."""
     if model == 1:
         return cache
 
     def cut(t, d):
         if isinstance(d, HeadsConv):
             return d.cut(t, k, model).contiguous()
-        return t if d < 0 else t.chunk(model, d)[k].clone(memory_format=torch.contiguous_format)
+        return t if d < 0 else padded_chunk(t, d, k, model).clone(
+            memory_format=torch.contiguous_format)
 
     return tree_map(cut, cache, dims)
 
@@ -403,8 +446,8 @@ class ShardCtx:
     def enter(self, x):
         return x if self.model == 1 else self.axes.model_enter(x)
 
-    def local(self, x):
-        return x if self.model == 1 else self.axes.model_local(x)
+    def local(self, x, k: int):
+        return x if self.model == 1 else self.axes.model_local(x, k)
 
     def reduce(self, parts):
         return parts[0] if self.model == 1 else self.axes.model_sum(parts)

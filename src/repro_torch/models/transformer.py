@@ -42,8 +42,10 @@ identity).  At model size M > 1 each weight the partition rules split is
 the rank's shard (the global view in process, whose model ranks run one
 after the other), and the layers compute as the module doc of
 :mod:`repro_torch.models.sharding` sets out: column-parallel q/k/v and
-row-parallel ``wo`` on whole kv heads (else the attention leaves
-gathered), column/row-parallel FFN and GeGLU, expert-parallel (else
+row-parallel ``wo`` on each rank's kv heads (whole ones where the kv heads
+divide; else ceil(kv / M) a rank as GSPMD pads them, one all-to-all
+bringing a rank its heads' columns and one its ``wo`` rows; the leaves
+gathered where the reference replicates the kv heads), column/row-parallel FFN and GeGLU, expert-parallel (else
 F-split) MoE, the ``ssm`` mixer on each rank's heads (one all-to-all of
 the packed in-projection's columns; gathered where the heads do not
 divide) and the ``rec`` mixer on each rank's channels (the conv output
@@ -80,6 +82,7 @@ Entry points:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import zlib
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -96,7 +99,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.sharding import NULL_CTX, ShardCtx, seq_ok
+from repro_torch.models.sharding import HEAD_MODES, NULL_CTX, ShardCtx, kv_heads, seq_ok
 
 Params = Dict[str, Any]
 
@@ -404,25 +407,6 @@ def _embed(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return c.reduce(parts).to(_dt(cfg))
 
 
-def _qkv(p: Params, y: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-         heads: Optional[Tuple[int, int]] = None):
-    """Projections, qk-norm and RoPE of one layer: q (B, S, KV, G, hd),
-    k and v (B, S, KV, hd); ``heads`` (H, KV) of a model rank's shard."""
-    b, s, _ = y.shape
-    h, kv = heads or (cfg.n_heads, cfg.n_kv_heads)
-    hd = cfg.hd
-    g = h // kv
-    q = (y @ p["wq"]).reshape(b, s, kv, g, hd)
-    k = (y @ p["wk"]).reshape(b, s, kv, hd)
-    v = (y @ p["wv"]).reshape(b, s, kv, hd)
-    if cfg.qk_norm:
-        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = L.rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta).reshape(b, s, kv, g, hd)
-    k = L.rope(k, positions, cfg.rope_theta)
-    return q, k, v
-
-
 def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
          ctx: ShardCtx = NULL_CTX) -> Tuple[torch.Tensor, torch.Tensor]:
     """The attention layer's FFN half -> (x, the MoE's aux loss or 0).
@@ -443,58 +427,191 @@ def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
         parts = []
         for k in c.ranks():
             wg, wu, wd = c.shard(p["wg"], 1, k), c.shard(p["wu"], 1, k), c.shard(p["wd"], 0, k)
-            yk = c.local(ye)
+            yk = c.local(ye, k)
             parts.append((F.silu(yk @ wg) * (yk @ wu)) @ wd)
         x = x + ctx.sp_reduce(c, parts)
     return x, _zero(x)
 
 
-def _cross_kv(cp: Params, enc_out: torch.Tensor, cfg: ModelConfig,
-              kv: Optional[int] = None):
-    """Cross-attention keys and values (B, T, KV, hd) of the encoder output;
-    ``kv`` the kv heads of a model rank's shard."""
-    b, t, _ = enc_out.shape
-    kv = kv or cfg.n_kv_heads
-    return ((enc_out @ cp["wk"]).reshape(b, t, kv, cfg.hd),
-            (enc_out @ cp["wv"]).reshape(b, t, kv, cfg.hd))
+# ---------------------------------------------------------------------------
+# attention on the model axis
+# ---------------------------------------------------------------------------
+
+_ATTN_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}  # the split dim of a layer's leaf
+_QKV = ("wq", "wk", "wv")
 
 
-def _cross_q(cp: Params, y: torch.Tensor, cfg: ModelConfig,
-             heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """Cross-attention queries (B, S, KV, G, hd) of the normed ``y``: no
-    qk-norm, no RoPE; ``heads`` (H, KV) of a model rank's shard."""
-    b, s, _ = y.shape
-    h, kv = heads or (cfg.n_heads, cfg.n_kv_heads)
-    return (y @ cp["wq"]).reshape(b, s, kv, h // kv, cfg.hd)
+def _attn_ctx(ctx: ShardCtx, cfg: ModelConfig) -> ShardCtx:
+    """The context attention computes under in ``cfg``'s mode: ``ctx`` in
+    ``heads`` and ``padded`` modes (each model rank its kv heads), else one
+    rank (nothing split, or the leaves gathered by :func:`_gathered`)."""
+    return _on(ctx, ctx.modes(cfg).attn in HEAD_MODES)
+
+
+def _gathered(p: Params, cfg: ModelConfig, ctx: ShardCtx, names=tuple(_ATTN_DIMS)) -> Params:
+    """``p`` with its split attention leaves among ``names`` gathered whole
+    in ``gathered`` mode; as it is in the other modes."""
+    modes = ctx.modes(cfg)
+    if modes.attn != "gathered":
+        return p
+    return dict(p, **{n: ctx.full(p[n], _ATTN_DIMS[n]) for n in modes.attn_split if n in names})
+
+
+def _per_head(cfg: ModelConfig, name: str) -> int:
+    """The columns of one kv head in the product by leaf ``name`` (its query
+    group's for ``wq``, and ``wo``'s rows)."""
+    return cfg.hd * (cfg.n_heads // cfg.n_kv_heads if name in ("wq", "wo") else 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _padded_wants(cfg: ModelConfig, model: int, names: Tuple[str, ...]):
+    """The all-to-all of ``padded`` mode's projections: each rank holds its
+    even chunks of the leaves ``names`` (or their products) side by side,
+    and rank ``k`` wants the columns of its kv heads
+    (:func:`~repro_torch.models.sharding.kv_heads`) of each, which may
+    straddle chunks.  -> (per rank its (start, stop) ranges of the ranks'
+    packed chunks end to end, ascending; per rank the received pieces in
+    that order as (index in ``names``, width))."""
+    widths = [_per_head(cfg, n) * cfg.n_kv_heads // model for n in names]  # a chunk's
+    whole = sum(widths)
+    offs = [sum(widths[:i]) for i in range(len(widths))]
+    wants, pieces = [], []
+    for k in range(model):
+        h0, h1 = kv_heads(cfg.n_kv_heads, model, k)
+        got = []
+        for i, (name, w) in enumerate(zip(names, widths)):
+            a, b = h0 * _per_head(cfg, name), h1 * _per_head(cfg, name)
+            while a < b:  # a piece a source chunk
+                src = a // w
+                e = min(b, (src + 1) * w)
+                at = src * whole + offs[i] + a - src * w
+                got.append((at, at + e - a, i))
+                a = e
+        got.sort()
+        wants.append(tuple((a, b) for a, b, _ in got))
+        pieces.append(tuple((i, b - a) for a, b, i in got))
+    return tuple(wants), tuple(pieces)
+
+
+def _moves_weights(x: torch.Tensor, cfg: ModelConfig) -> bool:
+    """Whether ``padded`` mode moves the weights' columns (and ``wo``'s
+    rows) rather than the activations' for an input ``x`` (.., D): a rank's
+    heads take as many columns of either, D rows of the weights against
+    the tokens' rows of the products, so the weights travel once the
+    tokens outnumber d_model (training and prefill), the products below
+    (decode)."""
+    return math.prod(x.shape[:-1]) > cfg.d_model
+
+
+def _on_heads(c: ShardCtx, cfg: ModelConfig, x: torch.Tensor, p: Params, names) -> list:
+    """The products of ``x`` (entered: each rank reads it through its own
+    ``local``) by the leaves ``names``, on each rank's kv heads: per rank of
+    ``c.ranks()`` a list with one (.., its heads' columns) tensor a name.
+    In ``heads`` mode (and on one rank) each rank multiplies by its chunks
+    of the leaves, which are its heads'.  In ``padded`` mode one
+    all-to-all (:meth:`ShardCtx.columns`) hands every rank its heads'
+    columns, zero wide on a rank with none: of the chunks of the leaves
+    side by side, which it then multiplies by, or of the products by its
+    chunks side by side, whichever is smaller (:func:`_moves_weights`)."""
+    ranks = c.ranks()
+    if c.modes(cfg).attn != "padded":
+        parts = []
+        for r in ranks:
+            xl = c.local(x, r)
+            parts.append([xl @ c.shard(p[n], 1, r) for n in names])
+        return parts
+    wants, pieces = _padded_wants(cfg, c.model, tuple(names))
+    packed = [torch.cat([c.shard(p[n], 1, r) for n in names], -1) for r in ranks]
+    if _moves_weights(x, cfg):
+        got = [c.local(x, r) @ w for r, w in zip(ranks, c.columns(packed, -1, wants))]
+    else:
+        got = c.columns([c.local(x, r) @ w for r, w in zip(ranks, packed)], -1, wants)
+    out = []
+    for r, g in zip(ranks, got):
+        per = [[] for _ in names]
+        if pieces[r]:
+            for (i, _), t in zip(pieces[r], torch.split(g, [n for _, n in pieces[r]], -1)):
+                per[i].append(t)
+        out.append([torch.cat(ts, -1) if len(ts) > 1 else ts[0] if ts else g.narrow(-1, 0, 0)
+                    for ts in per])
+    return out
+
+
+def _kv_split(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """Keys or values (.., KV_r·hd) as (.., KV_r, hd)."""
+    return t.reshape(t.shape[:-1] + (t.shape[-1] // hd, hd))
+
+
+def _to_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+              positions: Optional[torch.Tensor] = None, norms: Optional[Params] = None):
+    """A rank's projections (.., its kv heads' columns) as q (B, S, KV_r, G,
+    hd) and k, v (B, T, KV_r, hd); qk-normed by ``norms``' scales under
+    ``cfg.qk_norm`` and rotated at ``positions`` (None: neither, the
+    cross-attention's).  A rank with no kv heads gets zero-size heads."""
+    hd, g = cfg.hd, cfg.n_heads // cfg.n_kv_heads
+    k, v = _kv_split(k, hd), _kv_split(v, hd)
+    nk = k.shape[-2]
+    q = q.reshape(q.shape[:-1] + (nk, g, hd))
+    if positions is None:
+        return q, k, v
+    if cfg.qk_norm:
+        q = L.rms_norm(q, norms["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, norms["k_norm"], cfg.norm_eps)
+    b, s = q.shape[:2]
+    q = L.rope(q.reshape(b, s, nk * g, hd), positions, cfg.rope_theta).reshape(b, s, nk, g, hd)
+    return q, L.rope(k, positions, cfg.rope_theta), v
+
+
+def _wo_parts(c: ShardCtx, cfg: ModelConfig, outs: list, wo: torch.Tensor) -> list:
+    """The ranks' partial outputs by their rows of ``wo`` (row-parallel), to
+    be summed in rank order, from their attention outputs ``outs`` (.., their
+    heads' columns).  In ``heads`` mode (and on one rank) a rank's chunk of
+    ``wo`` is its heads' rows.  In ``padded`` mode one all-to-all hands
+    every rank either its heads' rows of ``wo`` (a rank with none adds a
+    zero partial) or, where the outputs are the smaller message
+    (:func:`_moves_weights`), the outputs' columns of its even chunk of
+    ``wo``'s rows, each output padded to ceil(kv / M) kv heads' columns as
+    GSPMD pads the heads (the padding is no rank's)."""
+    ranks = c.ranks()
+    chunks = [c.shard(wo, 0, r) for r in ranks]
+    if c.modes(cfg).attn != "padded":
+        return [o @ w for o, w in zip(outs, chunks)]
+    if _moves_weights(outs[0], cfg):
+        wants, _ = _padded_wants(cfg, c.model, ("wo",))
+        return [o @ w for o, w in zip(outs, c.columns(chunks, 0, wants))]
+    width = -(-cfg.n_kv_heads // c.model) * _per_head(cfg, "wo")
+    rows = cfg.n_heads * cfg.hd // c.model
+    cols = c.columns([F.pad(o, (0, width - o.shape[-1])) for o in outs], -1,
+                     tuple(((k * rows, (k + 1) * rows),) for k in range(c.model)))
+    return [o @ w for o, w in zip(cols, chunks)]
+
+
+def _flat_heads(o: torch.Tensor) -> torch.Tensor:
+    """An attention output (B, S, KV_r, G, hd) as (B, S, KV_r·G·hd), zero
+    wide on a rank with no kv heads."""
+    return o.reshape(o.shape[:2] + (math.prod(o.shape[2:]),))
 
 
 def _cross_attention(cp: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig,
                      kv_block: int, ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """One block's cross-attention output (B, S, D), added to ``x`` by the
     caller.  The cross leaves are the encoder config's attention leaves, so
-    they take its mode: in ``heads`` each model rank projects its kv heads
-    of the normed ``x`` and of the encoder output (both entered: every rank
-    holds them alike, their gradients are the ranks' summed) and its rows
-    of ``wo``, the partials summed; in ``gathered`` the split leaves are
-    gathered whole."""
-    modes = ctx.modes(_enc_cfg(cfg))
-    if modes.attn == "gathered":
-        cp = dict(cp, **{n: ctx.full(cp[n], _ATTN_DIMS[n]) for n in modes.attn_split})
-    c = _on(ctx, modes.attn == "heads")
+    they take its mode: in ``heads`` and ``padded`` each model rank
+    projects its kv heads of the normed ``x`` and of the encoder output
+    (both entered: every rank holds them alike, their gradients are the
+    ranks' summed; in ``padded`` one all-to-all each) and attends with
+    them, ``wo`` row-parallel (:func:`_wo_parts`), the partials summed; in
+    ``gathered`` the split leaves are gathered whole."""
+    ecfg = _enc_cfg(cfg)
+    cp = _gathered(cp, ecfg, ctx)
+    c = _attn_ctx(ctx, ecfg)
     ye, ee = ctx.sp_enter(c, _norm(ctx, x, cp["ln1"], cfg.norm_eps)), c.enter(enc_out)
-    b, s, _ = ye.shape
-    heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
-    parts = []
-    for r in c.ranks():
-        pr = dict(cp, **{n: c.shard(cp[n], d, r) for n, d in _ATTN_DIMS.items()})
-        o = attn_lib.attention(_cross_q(pr, c.local(ye), cfg, heads),
-                               *_cross_kv(pr, c.local(ee), cfg, heads[1]),
-                               causal=False, kv_block=kv_block)
-        parts.append(o.reshape(b, s, heads[0] * cfg.hd) @ pr["wo"])
-    return ctx.sp_reduce(c, parts)
-
-
-_ATTN_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}  # the split dim of a layer's leaf
+    outs = []
+    for (q,), (k, v) in zip(_on_heads(c, ecfg, ye, cp, ("wq",)),
+                            _on_heads(c, ecfg, ee, cp, ("wk", "wv"))):
+        outs.append(_flat_heads(attn_lib.attention(*_to_heads(q, k, v, ecfg), causal=False,
+                                                   kv_block=kv_block)))
+    return ctx.sp_reduce(c, _wo_parts(c, ecfg, outs, cp["wo"]))
 
 
 def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
@@ -505,40 +622,36 @@ def _attn_layer_fwd(p: Params, x: torch.Tensor, cfg: ModelConfig, *, causal: boo
 
     With ``enc_out`` and ``cross_p`` it attends to the encoder output
     (non-causal) between its self-attention and its FFN
-    (:func:`_cross_attention`).  Under ``ctx``'s
-    ``heads`` mode each model rank projects, rotates and attends its own
-    kv heads and its row of ``wo``, the partial outputs psummed (the
-    returned k, v are the last rank's), each rank's heads normed by the
-    replicated qk-norm scales read through an enter (their gradient the
-    ranks' summed); under ``gathered`` the split leaves are gathered
-    whole.  The returned k, v are the ranks' this
-    process computes, their kv heads concatenated in rank order (in
-    process every rank's: the whole heads; under a process group the
-    rank's own).  Under the context's ``seq_parallel`` ``x`` is a rank's
-    rows of the residual and so is the result."""
+    (:func:`_cross_attention`).  Under ``ctx``'s ``heads`` and ``padded``
+    modes each model rank projects, rotates and attends its own kv heads
+    (:func:`_on_heads`: in ``padded`` one all-to-all of the weights' or the
+    products' columns), and ``wo`` is row-parallel (:func:`_wo_parts`: in
+    ``padded`` one all-to-all of its rows or of the output's columns), the
+    partial outputs psummed; each rank's heads are normed by the replicated
+    qk-norm scales read through an enter (their gradient the ranks'
+    summed).  Under ``gathered`` the split leaves are gathered whole.  The
+    returned k, v are the ranks' this process computes, their kv heads
+    concatenated in rank order (in process every rank's: the whole heads;
+    under a process group the rank's own, zero wide past the last kv
+    head).  Under the context's ``seq_parallel`` ``x`` is a rank's rows of
+    the residual and so is the result."""
     y = _norm(ctx, x, p["ln1"], cfg.norm_eps)
-    modes = ctx.modes(cfg)
-    if modes.attn == "gathered":
-        p = dict(p, **{n: ctx.full(p[n], _ATTN_DIMS[n]) for n in modes.attn_split})
-    c = _on(ctx, modes.attn == "heads")
+    p = _gathered(p, cfg, ctx)
+    c = _attn_ctx(ctx, cfg)
     ye = ctx.sp_enter(c, y)
-    b, s, _ = ye.shape
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
+        positions = torch.arange(ye.shape[1], device=x.device)[None, :]
     norms = _entered(p, ("k_norm", "q_norm"), c) if cfg.qk_norm else {}
-    parts, ks, vs = [], [], []
-    for r in c.ranks():
-        pr = dict(p, **{n: c.shard(p[n], d, r) for n, d in _ATTN_DIMS.items()},
-                  **{n: c.local(w) for n, w in norms.items()})
-        q, k, v = _qkv(pr, c.local(ye), cfg, positions, heads)
-        o = attn_lib.attention(q, k, v, causal=causal, window=window, kv_block=kv_block)
-        parts.append(o.reshape(b, s, heads[0] * cfg.hd) @ pr["wo"])
+    outs, ks, vs = [], [], []
+    for r, (q, k, v) in zip(c.ranks(), _on_heads(c, cfg, ye, p, _QKV)):
+        q, k, v = _to_heads(q, k, v, cfg, positions,
+                            {n: c.local(w, r) for n, w in norms.items()})
+        outs.append(_flat_heads(attn_lib.attention(q, k, v, causal=causal, window=window,
+                                                   kv_block=kv_block)))
         ks.append(k)
         vs.append(v)
-    x = x + ctx.sp_reduce(c, parts)
-    if len(ks) > 1:
-        k, v = torch.cat(ks, 2), torch.cat(vs, 2)
+    x = x + ctx.sp_reduce(c, _wo_parts(c, cfg, outs, p["wo"]))
+    k, v = (torch.cat(ks, 2), torch.cat(vs, 2)) if len(ks) > 1 else (ks[0], vs[0])
     if enc_out is not None and cross_p is not None:
         x = x + _cross_attention(cross_p, x, enc_out, cfg, kv_block, ctx)
     x, aux = _ffn(p, x, cfg, ctx)
@@ -562,7 +675,7 @@ def _row_parallel(y: torch.Tensor, w: torch.Tensor, split: bool, ctx: ShardCtx) 
     take their chunk of."""
     c = _on(ctx, split)
     ye = c.enter(y)
-    return ctx.sp_reduce(c, [c.split(c.local(ye), -1, r) @ c.shard(w, 0, r)
+    return ctx.sp_reduce(c, [c.split(c.local(ye, r), -1, r) @ c.shard(w, 0, r)
                              for r in c.ranks()])
 
 
@@ -631,7 +744,7 @@ def _ssm_heads(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx,
     cd, ch = di // model, nheads // model
     whole = len(ranks) > 1  # in process: every rank of a whole cache
     ye = ctx.sp_enter(ctx, _norm(ctx, x, p["ln1"], cfg.norm_eps))
-    cols = ctx.columns([ctx.local(ye) @ ctx.shard(p["w_in"], 1, k) for k in ranks], -1,
+    cols = ctx.columns([ctx.local(ye, k) @ ctx.shard(p["w_in"], 1, k) for k in ranks], -1,
                        _ssm_cols(cfg, model))
     e = _entered(p, ("A_log", "D_skip", "conv_w", "dt_bias", "out_norm"), ctx)
     prevs = [None] * len(ranks)
@@ -641,12 +754,12 @@ def _ssm_heads(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx,
     ys, sqs, convs, states = [], [], [], []
     for i, k in enumerate(ranks):
         z, xs, bc, dt = torch.split(cols[i], [cd, cd, 2 * n, ch], dim=-1)
-        conv_w = ctx.local(e["conv_w"])
+        conv_w = ctx.local(e["conv_w"], k)
         wk = torch.cat([conv_w.narrow(1, k * cd, cd), conv_w.narrow(1, di, 2 * n)], 1)
         conv_out, conv_state = ssm_lib.causal_conv1d(torch.cat([xs, bc], -1), wk, prevs[i])
         xs, bm, cm = torch.split(conv_out, [cd, n, n], dim=-1)
-        dt = F.softplus(dt.float() + ctx.split(ctx.local(e["dt_bias"]), 0, k))
-        loga = -torch.exp(ctx.split(ctx.local(e["A_log"]), 0, k)) * dt
+        dt = F.softplus(dt.float() + ctx.split(ctx.local(e["dt_bias"], k), 0, k))
+        loga = -torch.exp(ctx.split(ctx.local(e["A_log"], k), 0, k)) * dt
         xh = xs.reshape(xs.shape[:2] + (ch, hd))
         xdt = xh * dt[..., None].to(xh.dtype)
         if lc is None:
@@ -656,7 +769,7 @@ def _ssm_heads(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx,
             y_ssd, state = ssm_lib.ssd_decode_step(h0, xdt[:, 0], loga[:, 0], bm[:, 0],
                                                    cm[:, 0])
             y_ssd = y_ssd[:, None]
-        d_skip = ctx.split(ctx.local(e["D_skip"]), 0, k)
+        d_skip = ctx.split(ctx.local(e["D_skip"], k), 0, k)
         y = (y_ssd + d_skip[:, None].to(y_ssd.dtype) * xh).reshape(z.shape) * F.silu(z)
         yf = y.float()
         ys.append(y)
@@ -666,8 +779,8 @@ def _ssm_heads(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx,
     ms = ctx.enter(ctx.reduce(sqs))  # the whole row's sum of squares, every rank's
     parts = []
     for i, k in enumerate(ranks):
-        scale = 1.0 + ctx.split(ctx.local(e["out_norm"]), 0, k).float()
-        y = ys[i].float() * torch.rsqrt(ctx.local(ms) / di + cfg.norm_eps) * scale
+        scale = 1.0 + ctx.split(ctx.local(e["out_norm"], k), 0, k).float()
+        y = ys[i].float() * torch.rsqrt(ctx.local(ms, k) / di + cfg.norm_eps) * scale
         parts.append(y.to(ys[i].dtype) @ ctx.shard(p["w_out"], 0, k))
     x = x + ctx.sp_reduce(ctx, parts)
     if whole:
@@ -723,33 +836,33 @@ def _rec_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx,
     e = _entered(p, ("b_a", "b_x", "conv_w", "lam"), c)
     bgs, outs, convs = [], [], []
     for k in ranks:
-        yk = c.local(ye)
+        yk = c.local(ye, k)
         bgs.append(F.gelu(yk @ c.shard(p["w_bg"], 1, k), approximate="tanh"))  # jax's default
         prev = None
         if lc is not None:
             prev = lc["conv"].narrow(-1, k * cc, cc) if whole else lc["conv"]
         out, conv_state = ssm_lib.causal_conv1d(yk @ c.shard(p["w_bx"], 1, k),
-                                                c.split(c.local(e["conv_w"]), 1, k), prev)
+                                                c.split(c.local(e["conv_w"], k), 1, k), prev)
         outs.append(out)
         convs.append(conv_state)
     full = c.gather(outs, -1)
     parts, hs = [], []
     for i, k in enumerate(ranks):
         own = outs[i] if c.model > 1 else None  # one rank: the gates' input itself
-        gates = (c.shard(p["w_a"], 1, k), c.split(c.local(e["b_a"]), 0, k),
-                 c.shard(p["w_xg"], 1, k), c.split(c.local(e["b_x"]), 0, k),
-                 c.split(c.local(e["lam"]), 0, k))
+        gates = (c.shard(p["w_a"], 1, k), c.split(c.local(e["b_a"], k), 0, k),
+                 c.shard(p["w_xg"], 1, k), c.split(c.local(e["b_x"], k), 0, k),
+                 c.split(c.local(e["lam"], k), 0, k))
         if lc is None:
-            r, h = rglru_lib.rglru_scan(c.local(full), *gates, own=own)
+            r, h = rglru_lib.rglru_scan(c.local(full, k), *gates, own=own)
         else:
             h0 = lc["h"].narrow(-1, k * cc, cc) if whole else lc["h"]
-            r, h = rglru_lib.rglru_decode_step(h0, c.local(full), *gates, own=own)
+            r, h = rglru_lib.rglru_decode_step(h0, c.local(full, k), *gates, own=own)
         hs.append(h)
         parts.append((r * bgs[i]) @ c.shard(p["w_ro"], 0, k))
     x = x + ctx.sp_reduce(c, parts)
     f = _on(ctx, ctx.modes(cfg).ffn)
     ye = ctx.sp_enter(f, _norm(ctx, x, p["ln2"], cfg.norm_eps))
-    x = x + ctx.sp_reduce(f, [L.geglu(f.local(ye), f.shard(p["wg"], 1, k),
+    x = x + ctx.sp_reduce(f, [L.geglu(f.local(ye, k), f.shard(p["wg"], 1, k),
                                       f.shard(p["wu"], 1, k), f.shard(p["wd"], 0, k))
                               for k in f.ranks()])
     state = {"conv": torch.cat(convs, -1), "h": torch.cat(hs, -1)} if whole else \
@@ -890,7 +1003,7 @@ def _head_parts(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, ctx: ShardCt
     (or the whole logits with nothing split)."""
     c = _on(ctx, ctx.modes(cfg).lm_head is not None)
     xe = c.enter(x)
-    return c, [c.local(xe) @ c.shard(w, 1, k) for k in c.ranks()]
+    return c, [c.local(xe, k) @ c.shard(w, 1, k) for k in c.ranks()]
 
 
 def _logits(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx) -> torch.Tensor:
@@ -1048,18 +1161,16 @@ def _fill_attn_cache(k: torch.Tensor, v: torch.Tensor, eff: int, s: int) -> Para
 def _cross_cache(cp: Params, enc_out: torch.Tensor, cfg: ModelConfig,
                  ctx: ShardCtx) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block's cross keys and values for the cache: in the cross
-    layers' ``heads`` mode each model rank projects its kv heads, which are
-    concatenated in rank order (in process every rank's: the whole heads;
-    under a process group the rank's own); in ``gathered`` mode ``wk`` /
-    ``wv`` are gathered and the cache is whole."""
-    modes = ctx.modes(_enc_cfg(cfg))
-    if modes.attn == "gathered":  # the keys' and values' projections only
-        cp = dict(cp, **{n: ctx.full(cp[n], _ATTN_DIMS[n]) for n in modes.attn_split
-                         if n in ("wk", "wv")})
-    c = _on(ctx, modes.attn == "heads")
-    kv = cfg.n_kv_heads // c.model
-    ks, vs = zip(*(_cross_kv({n: c.shard(cp[n], 1, r) for n in ("wk", "wv")}, enc_out, cfg, kv)
-                   for r in c.ranks()))
+    layers' ``heads`` and ``padded`` modes each model rank projects its kv
+    heads (:func:`_on_heads`), which are concatenated in rank order (in
+    process every rank's: the whole heads; under a process group the rank's
+    own); in ``gathered`` mode ``wk`` / ``wv`` are gathered and the cache is
+    whole."""
+    ecfg = _enc_cfg(cfg)
+    cp = _gathered(cp, ecfg, ctx, ("wk", "wv"))  # the keys' and values' projections only
+    c = _attn_ctx(ctx, ecfg)
+    ks, vs = zip(*((_kv_split(k, cfg.hd), _kv_split(v, cfg.hd))
+                   for k, v in _on_heads(c, ecfg, enc_out, cp, ("wk", "wv"))))
     return (torch.cat(ks, 2), torch.cat(vs, 2)) if len(ks) > 1 else (ks[0], vs[0])
 
 
@@ -1072,15 +1183,17 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     returns the last token's logits (B, 1, V) and the cache.
 
     Under a model axis (``ctx``) the layers run as in :func:`forward`; in
-    ``heads`` mode each rank's cache holds its own kv heads (in process the
-    ranks' heads side by side: the whole cache), ``kpos`` whole; the
+    ``heads`` and ``padded`` modes each rank's cache holds its own kv heads
+    (in process the ranks' heads side by side: the whole cache; zero wide
+    on a rank past the last kv head), ``kpos`` whole; the
     ``ssm`` state its heads and the ``rec`` states its channels (the
     layout :func:`~repro_torch.models.sharding.cache_dims` names); the
     logits are whole on every rank (:func:`_logits`).
 
     Audio: the encoder runs once and each super-block's cross keys and
     values go to ``cache["cross"]`` (under a model axis in the cross layers'
-    attention mode: in ``heads`` each rank's kv heads, as the self caches).
+    attention mode: in ``heads`` and ``padded`` each rank's kv heads, as the
+    self caches).
     Vision: as in the reference, the patch prefix stays in the attention
     caches while their ``kpos`` is sized by the text alone, a cache
     :func:`decode_step` refuses."""
@@ -1131,10 +1244,12 @@ def _attn_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
     """One-token attention layer step; writes the new key/value and its
     position into the layer cache ``lc`` in place (slot = pos % eff).
     ``cross``: (this block's cross k/v cache, its cross-attention params)
-    or None.  Under ``ctx``'s ``heads`` mode each model rank projects its
-    kv heads, writes them into its heads of the cache (in process a slice
-    of the whole cache, under a process group the rank's own cache) and
-    attends over them; ``wo`` is row-parallel, the partials psummed."""
+    or None.  Under ``ctx``'s ``heads`` and ``padded`` modes each model
+    rank projects its kv heads (:func:`_on_heads`), writes them into its
+    heads of the cache (in process a slice of the whole cache, under a
+    process group the rank's own cache, zero wide past the last kv head)
+    and attends over them; ``wo`` is row-parallel (:func:`_wo_parts`), the
+    partials psummed."""
     b = x.shape[0]
     eff = lc["k"].shape[1]
     if lc["kpos"].shape[-1] != eff:
@@ -1152,29 +1267,25 @@ def _attn_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,
         lc["kpos"].index_fill_(0, slot.reshape(1), pos.to(torch.int32))
     else:  # a position per row (the slot pool)
         lc["kpos"][rows, slot] = pos.to(torch.int32)
-    modes = ctx.modes(cfg)
-    if modes.attn == "gathered":
-        p = dict(p, **{n: ctx.full(p[n], _ATTN_DIMS[n]) for n in modes.attn_split})
-    c = _on(ctx, modes.attn == "heads")
-    ye = c.enter(y)
-    heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
+    p = _gathered(p, cfg, ctx)
+    c = _attn_ctx(ctx, cfg)
     ranks = c.ranks()
-    parts = []
-    for i, r in enumerate(ranks):
-        pr = dict(p, **{n: c.shard(p[n], d, r) for n, d in _ATTN_DIMS.items()})
-        q, k, v = _qkv(pr, c.local(ye), cfg, posv, heads)
+    outs = []
+    for r, (q, k, v) in zip(ranks, _on_heads(c, cfg, c.enter(y), p, _QKV)):
+        q, k, v = _to_heads(q, k, v, cfg, posv, p)
         kc, vc = lc["k"], lc["v"]
         if len(ranks) > 1:  # rank r's heads of the whole cache
-            kc, vc = kc.narrow(2, i * heads[1], heads[1]), vc.narrow(2, i * heads[1], heads[1])
+            h0, h1 = kv_heads(cfg.n_kv_heads, c.model, r)
+            kc, vc = kc.narrow(2, h0, h1 - h0), vc.narrow(2, h0, h1 - h0)
         if rows is None:
             kc.index_copy_(1, slot.reshape(1), k)
             vc.index_copy_(1, slot.reshape(1), v)
         else:
             kc[rows, slot] = k[:, 0]
             vc[rows, slot] = v[:, 0]
-        o = _cache_attention(q, kc.contiguous(), vc.contiguous(), lc["kpos"], pos, window)
-        parts.append(o.reshape(b, 1, heads[0] * cfg.hd) @ pr["wo"])
-    x = x + c.reduce(parts)
+        outs.append(_flat_heads(_cache_attention(q, kc.contiguous(), vc.contiguous(),
+                                                 lc["kpos"], pos, window)))
+    x = x + c.reduce(_wo_parts(c, cfg, outs, p["wo"]))
     if cross is not None:
         x = x + _cross_decode(cross, x, cfg, ctx)
     return _ffn(p, x, cfg, ctx)[0]
@@ -1184,32 +1295,29 @@ def _cross_decode(cross, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx) -> to
     """One decode step's cross-attention output (B, 1, D) over the cached
     encoder keys and values (every slot valid: kpos 0..t-1, pos 2^30);
     ``cross`` is (this block's cross cache, its cross-attention params).
-    In the cross layers' ``heads`` mode each model rank attends with its
-    heads over its kv heads of the cache (:func:`_cross_cache`'s layout)
-    and its rows of ``wo``, the partials summed in rank order, as
-    :func:`_cross_attention` in training; in ``gathered`` mode ``wq`` /
-    ``wo`` are gathered whole."""
+    In the cross layers' ``heads`` and ``padded`` modes each model rank
+    attends with its heads over its kv heads of the cache
+    (:func:`_cross_cache`'s layout) and ``wo`` is row-parallel, the
+    partials summed in rank order, as :func:`_cross_attention` in
+    training; in ``gathered`` mode ``wq`` / ``wo`` are gathered whole."""
     ck, cp = cross
-    modes = ctx.modes(_enc_cfg(cfg))
-    if modes.attn == "gathered":  # the keys and values are cached
-        cp = dict(cp, **{n: ctx.full(cp[n], _ATTN_DIMS[n]) for n in modes.attn_split
-                         if n in ("wq", "wo")})
-    c = _on(ctx, modes.attn == "heads")
-    b, t = x.shape[0], ck["k"].shape[1]
+    ecfg = _enc_cfg(cfg)
+    cp = _gathered(cp, ecfg, ctx, ("wq", "wo"))  # the keys and values are cached
+    c = _attn_ctx(ctx, ecfg)
+    t = ck["k"].shape[1]
     ye = c.enter(L.rms_norm(x, cp["ln1"], cfg.norm_eps))
-    heads = (cfg.n_heads // c.model, cfg.n_kv_heads // c.model)
     kpos = torch.arange(t, dtype=torch.int32, device=x.device)
     pos = torch.full((), 2 ** 30, dtype=torch.int64, device=x.device)
     ranks = c.ranks()
-    parts = []
-    for i, r in enumerate(ranks):
-        pr = {n: c.shard(cp[n], _ATTN_DIMS[n], r) for n in ("wq", "wo")}
+    outs = []
+    for r, (q,) in zip(ranks, _on_heads(c, ecfg, ye, cp, ("wq",))):
         kc, vc = ck["k"], ck["v"]
         if len(ranks) > 1:  # rank r's heads of the whole cache
-            kc, vc = kc.narrow(2, i * heads[1], heads[1]), vc.narrow(2, i * heads[1], heads[1])
-        o = _cache_attention(_cross_q(pr, c.local(ye), cfg, heads), kc, vc, kpos, pos, 0)
-        parts.append(o.reshape(b, 1, heads[0] * cfg.hd) @ pr["wo"])
-    return c.reduce(parts)
+            h0, h1 = kv_heads(cfg.n_kv_heads, c.model, r)
+            kc, vc = kc.narrow(2, h0, h1 - h0), vc.narrow(2, h0, h1 - h0)
+        q = q.reshape(q.shape[:-1] + (kc.shape[2], cfg.n_heads // cfg.n_kv_heads, cfg.hd))
+        outs.append(_flat_heads(_cache_attention(q, kc, vc, kpos, pos, 0)))
+    return c.reduce(_wo_parts(c, ecfg, outs, cp["wo"]))
 
 
 def _ssm_decode(p: Params, x: torch.Tensor, lc: Params, cfg: ModelConfig,

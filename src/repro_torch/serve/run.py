@@ -28,8 +28,8 @@ replicated over them, as the reference's).  ``--model-par`` > 1 is tensor
 parallelism, for every decoder: the engine, its pool and the adaptation
 rounds run on the model shards (on ``debug`` each layer's model ranks in
 turn on the global view; under a process group a rank holds its shards
-and its kv heads; the mamba2 and recurrentgemma mixers run whole on every
-rank from their gathered in-projections, their states whole too), with
+and its kv heads, mamba2's SSD its heads and recurrentgemma's RG-LRU its
+channels, with their states), with
 ``--compression`` and a randomized gradient attack on the global rows.  The
 header names the mesh (``mesh={'data': 4, 'model': 2}``) and the sha256
 is taken over the global iterate, so a run prints the same digest at

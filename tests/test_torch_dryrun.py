@@ -174,20 +174,25 @@ def test_long_context_cfg_matches_the_reference():
 
 def test_production_decode_bytes_match_their_closed_form(plans):
     """llama3.2-3b decode_32k on the single mesh (data 16 × model 16): 8 kv
-    heads do not divide 16, so each layer gathers its attention leaves
-    whole over the model axis; the logits are gathered over V; the
-    embedding's lookup and each FFN's row-parallel output are all-reduced.
+    heads do not divide 16, so rank 0 attends with one kv head's group
+    (``padded``): a layer moves the products' q, k and v columns of its
+    head and the attention output's columns of its ``wo`` rows, one
+    all-to-all each (8 tokens: the products, not the weights); the logits
+    are gathered over V; the embedding's lookup and each attention's and
+    FFN's row-parallel output are all-reduced.  No leaf is gathered whole.
     No robust aggregation runs in decode (no kernel launch)."""
     rec = _ok(plans["production"])
     cfg = configs.get_config("llama3.2-3b")
     L, D, H, KV, hd, V = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                           cfg.vocab)
-    rows, s = 128 // 16, 2  # a worker's batch rows; bf16
-    gather = L * (2 * D * H * hd + 2 * D * KV * hd) * s + rows * V * s
-    reduce = (L + 1) * rows * D * s
+    rows, s, M = 128 // 16, 2, 16  # a worker's batch rows; bf16; the model axis
+    gather = rows * V * s
+    reduce = (2 * L + 1) * rows * D * s
+    a2a = L * rows * (H // KV * hd + 2 * hd + H * hd // M) * s
     assert rec["mesh_shape"] == {"data": 16, "model": 16} and rec["workers"] == 16
-    assert rec["collectives_by_axis"] == {"model": {"all-gather": gather, "all-reduce": reduce}}
-    assert rec["collectives"]["total"] == gather + 2 * reduce
+    assert rec["collectives_by_axis"] == {"model": {"all-gather": gather, "all-reduce": reduce,
+                                                    "all-to-all": a2a}}
+    assert rec["collectives"]["total"] == gather + 2 * reduce + a2a
     assert rec["kernel_launches"] == {} and rec["links"] == {"model": 50e9}
 
 

@@ -217,31 +217,34 @@ def test_model_two_matches_model_one(arch):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kv,heads", [(4, True), (1, False)], ids=["heads", "gathered"])
-def test_cross_cache_split_on_kv_heads_in_heads_mode(kv, heads):
-    """whisper's cross cache at model 2: ``cache_dims`` names its kv-head dim
-    in ``heads`` mode (4 kv heads) and nothing in ``gathered`` mode (one
-    kv head); a rank's slice is its kv heads of the whole cache, and a
-    process-group rank's prefill writes exactly those heads."""
+@pytest.mark.parametrize("kv,heads,model", [(4, True, 2), (1, False, 4)],
+                         ids=["heads", "gathered"])
+def test_cross_cache_split_on_kv_heads_in_heads_mode(kv, heads, model):
+    """whisper's cross cache: ``cache_dims`` names its kv-head dim in
+    ``heads`` mode (4 kv heads at model 2) and nothing in ``gathered`` mode
+    (one kv head at model 4, which the reference replicates: 2·kv < M); a
+    rank's slice is its kv heads of the whole cache, and a process-group
+    rank's prefill writes exactly those heads."""
     _, pc = _cfgs("whisper-small", "float32", n_kv_heads=kv)
     params = T.init_params(pc, 0, "cpu")
     tokens, fe, _ = _inputs(pc)
-    mesh = mesh_lib.make_debug_mesh(2, 2, device="cpu")
+    mesh = mesh_lib.make_debug_mesh(4 // model, model, device="cpu")
+    assert sharding.tp_modes(pc, model).attn == ("heads" if heads else "gathered")
     _, cache = T.prefill(params, torch.as_tensor(tokens, dtype=torch.int64), pc,
                          frontend=torch.as_tensor(fe), ctx=sharding.model_ctx(mesh))
-    dims = sharding.cache_dims(pc, 2, cache, steps.cache_shardings(pc, mesh, cache))
+    dims = sharding.cache_dims(pc, model, cache, steps.cache_shardings(pc, mesh, cache))
     assert dims["cross"] == {"k": 3 if heads else -1, "v": 3 if heads else -1}
-    for k in range(2):
-        part = sharding.shard_cache(cache, dims, k, 2)["cross"]
-        assert part["k"].shape[3] == (kv // 2 if heads else kv)
+    for k in range(model):
+        part = sharding.shard_cache(cache, dims, k, model)["cross"]
+        assert part["k"].shape[3] == (kv // model if heads else kv)
         if heads:
-            assert torch.equal(part["v"], cache["cross"]["v"][:, :, :, k * kv // 2:
-                                                                (k + 1) * kv // 2])
+            assert torch.equal(part["v"], cache["cross"]["v"][:, :, :, k * kv // model:
+                                                                (k + 1) * kv // model])
         else:
             assert torch.equal(part["v"], cache["cross"]["v"])
-    # the dry-run's cache: init_cache cut by the same dims, decoded at model 2
+    # the dry-run's cache: init_cache cut by the same dims, decoded at this model size
     empty = T.init_cache(pc, B, 12, device="cpu")
-    assert sharding.cache_dims(pc, 2, empty, steps.cache_shardings(pc, mesh, empty)) == dims
+    assert sharding.cache_dims(pc, model, empty, steps.cache_shardings(pc, mesh, empty)) == dims
 
 
 @pytest.mark.parametrize("arch", ARCHS)

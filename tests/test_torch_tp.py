@@ -98,29 +98,27 @@ CLI_ARGS = ["--config", "llama3.2-3b", "--smoke", "--device", "cpu", "--steps", 
             "gather", "--attack", "alie", "--attack-alpha", "0.25"]
 # (a): the leaves each configuration gathers (by name), at model 2, 4 and 16
 GATHERED = {
-    ("granite-moe-1b-a400m", "full"): (("router",), ("router",),
-                                       ("router", "wk", "wo", "wq", "wv")),
-    ("granite-moe-1b-a400m", "smoke"): (("router",), ("router", "wk", "wo", "wq", "wv"),
+    ("granite-moe-1b-a400m", "full"): (("router",),) * 3,
+    ("granite-moe-1b-a400m", "smoke"): (("router",), ("router",),
                                         ("router", "wk", "wo", "wq", "wv")),
-    ("llama3-405b", "full"): ((), (), ("wk", "wo", "wq", "wv")),
-    ("llama3-405b", "smoke"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
+    ("llama3-405b", "full"): ((),) * 3,
+    ("llama3-405b", "smoke"): ((), (), ("wk", "wo", "wq", "wv")),
     ("mamba2-2.7b", "full"): ((),) * 3,
     ("mamba2-2.7b", "smoke"): ((),) * 3,
-    ("whisper-small", "full"): ((), (), ("wk", "wo", "wq", "wv")),
+    ("whisper-small", "full"): ((),) * 3,
     ("whisper-small", "smoke"): ((), (), ("wk", "wo", "wq", "wv")),
-    ("recurrentgemma-2b", "full"): (("wk", "wo", "wq", "wv"),) * 3,
-    ("recurrentgemma-2b", "smoke"): (("wk", "wo", "wq", "wv"),) * 3,
-    ("llama3.2-3b", "full"): ((), (), ("wk", "wo", "wq", "wv")),
-    ("llama3.2-3b", "smoke"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
-    ("internvl2-1b", "full"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
-    ("internvl2-1b", "smoke"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
-    ("qwen3-14b", "full"): ((), (), ("wk", "wo", "wq", "wv")),
-    ("qwen3-14b", "smoke"): (("wk", "wo", "wq", "wv"),) * 3,
-    ("grok-1-314b", "full"): (("router",), ("router",), ("router", "wk", "wo", "wq", "wv")),
-    ("grok-1-314b", "smoke"): (("router",), ("router", "wk", "wo", "wq", "wv"),
-                               ("router", "wk", "wo", "wq", "wv")),
-    ("h2o-danube-1.8b", "full"): ((), (), ("wk", "wo", "wq", "wv")),
-    ("h2o-danube-1.8b", "smoke"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
+    ("recurrentgemma-2b", "full"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
+    ("recurrentgemma-2b", "smoke"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
+    ("llama3.2-3b", "full"): ((),) * 3,
+    ("llama3.2-3b", "smoke"): ((), (), ("wk", "wo", "wq", "wv")),
+    ("internvl2-1b", "full"): ((), (), ("wk", "wo", "wq", "wv")),
+    ("internvl2-1b", "smoke"): ((), (), ("wk", "wo", "wq", "wv")),
+    ("qwen3-14b", "full"): ((),) * 3,
+    ("qwen3-14b", "smoke"): ((), ("wk", "wo", "wq", "wv"), ("wk", "wo", "wq", "wv")),
+    ("grok-1-314b", "full"): (("router",),) * 3,
+    ("grok-1-314b", "smoke"): (("router",), ("router",), ("router", "wk", "wo", "wq", "wv")),
+    ("h2o-danube-1.8b", "full"): ((),) * 3,
+    ("h2o-danube-1.8b", "smoke"): ((), (), ("wk", "wo", "wq", "wv")),
 }
 MODELS = (2, 4, 16)
 SPEC_MESHES = {"4x2": (4, 2, 0), "2x2x2": (2, 2, 2)}  # (data, model, pod)
@@ -418,8 +416,10 @@ def test_partition_specs_match_the_reference(arch, size, model):
 @pytest.mark.parametrize("arch,size", VARIANTS, ids=[f"{a}-{s}" for a, s in VARIANTS])
 def test_tp_plan_lists_the_gathered_leaves(arch, size):
     """``tp_plan``'s gathered leaves at model 2, 4 and 16: the attention
-    leaves where the split falls inside a kv head (kv % M != 0; the
-    encoder and cross groups by the encoder config's heads), the MoE
+    leaves where the reference replicates the kv heads (2·kv < M: the
+    ``gathered`` mode; where kv % M != 0 and 2·kv >= M the ``padded`` mode
+    computes on the shards; the encoder and cross groups by the encoder
+    config's heads), the MoE
     router wherever it is split, the packed ``w_in`` where the ``ssm``
     mixer's heads do not divide; every other split leaf (the ``ssm`` /
     ``rec`` in-projections of the ``heads`` / ``channels`` modes, the
@@ -448,8 +448,9 @@ def test_tp_plan_lists_the_gathered_leaves(arch, size):
                 assert (mode == "gathered") == (sharding.tp_modes(enc, model).attn
                                                 == "gathered"), (model, path)
         heads = cfg.n_kv_heads % model == 0
-        assert modes.attn in ((None,) if not modes.attn_split else
-                              ("heads",) if heads else ("gathered",)), (model, modes)
+        padded = 2 * cfg.n_kv_heads >= model
+        assert modes.attn in ((None,) if not modes.attn_split else ("heads",) if heads else
+                              ("padded",) if padded else ("gathered",)), (model, modes)
 
 
 def test_tp_modes_of_the_slice_configurations():
@@ -461,7 +462,8 @@ def test_tp_modes_of_the_slice_configurations():
     assert (granite.moe, granite.router, granite.embed, granite.lm_head) == ("experts", 1, 1, 0)
     grok = sharding.tp_modes(smoke("grok-1-314b"), 8)
     assert (grok.attn, grok.moe, grok.router) == ("gathered", "hidden", 0)
-    assert sharding.tp_modes(smoke("qwen3-14b"), 2).attn == "gathered"
+    assert sharding.tp_modes(smoke("qwen3-14b"), 2).attn == "padded"
+    assert sharding.tp_modes(smoke("qwen3-14b"), 4).attn == "gathered"
     assert sharding.tp_modes(smoke("llama3.2-3b"), 1) == sharding.tp_modes(smoke("qwen3-14b"), 1)
     assert sharding.NULL_CTX.model == 1 and sharding.NULL_CTX.ranks() == (0,)
 
@@ -483,7 +485,7 @@ def test_shard_ctx_keeps_the_reference_ok_rule():
     assert (null.model, null.ranks()) == (1, (0,)) and null.modes(
         configs.get_smoke_config("grok-1-314b")) == \
         sharding.tp_modes(configs.get_smoke_config("llama3.2-3b"), 1)
-    for out in (null.shard(x, 1, 0), null.split(x, 1, 0), null.enter(x), null.local(x),
+    for out in (null.shard(x, 1, 0), null.split(x, 1, 0), null.enter(x), null.local(x, 0),
                 null.full(x, 0), null.reduce([x]), null.cat([x], -1), null.pmax([x])):
         assert out is x
 

@@ -36,6 +36,7 @@ import io
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -71,8 +72,9 @@ SCFG = ServeConfig(slots=3, prompt_len=8, max_new=6, window=16)
 # (name, config, overrides of both packages' smoke configs): every attention
 # mode of the model axis at model 2 — whole kv heads (llama), expert-parallel
 # MoE with the lm head split on V (granite) or, at an odd vocab, on d_model
-# (its partial logits summed), gathered attention (qwen3-smoke's one kv
-# head) and the ring cache of a sliding window (h2o-danube-smoke's 16,
+# (its partial logits summed), one kv head split over two ranks, rank 1
+# holding none (qwen3-smoke's ``padded`` attention, the key's name older
+# than the mode) and the ring cache of a sliding window (h2o-danube-smoke's 16,
 # crossed by a 12-token prompt and 10 new tokens); the SSD mixer (mamba2)
 # and the RG-LRU hybrid (recurrentgemma) whole on every rank from gathered
 # in-projections, their out-projections row-parallel
@@ -433,11 +435,12 @@ def test_prefill_and_decode_at_model_two_match_the_reference(ref_case, mesh_shap
 def test_model_two_cache_holds_each_rank_s_kv_heads():
     """The prefill cache at (2, 2) is model 1's cache (in process the ranks'
     heads side by side), and a rank's slice (``cache_dims`` /
-    ``shard_cache``) is its kv heads; gathered attention keeps it whole;
+    ``shard_cache``) is its kv heads: half of llama-smoke's two, and of
+    qwen3-smoke's one kv head (``padded``) rank 0's all and rank 1's none;
     the slot pool under a process group is a rank's heads."""
     from repro_torch.models import sharding
 
-    for arch, heads in (("llama3.2-3b", True), ("qwen3-14b", False)):
+    for arch in ("llama3.2-3b", "qwen3-14b"):
         cfg = _cfg(arch)
         params = _params(cfg)
         tokens = torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(1))
@@ -450,20 +453,21 @@ def test_model_two_cache_holds_each_rank_s_kv_heads():
         dims = sharding.cache_dims(cfg, 2, cache, steps.cache_shardings(cfg, mesh, cache))
         kv = cfg.n_kv_heads
         for path_dim, leaf in zip(tree_leaves(dims), tree_leaves(cache)):
-            assert path_dim == (leaf.dim() - 2 if heads and leaf.dim() >= 4 else -1)
+            assert path_dim == (leaf.dim() - 2 if leaf.dim() >= 4 else -1)
         for k in range(2):
             part = sharding.shard_cache(cache, dims, k, 2)
             k_leaf = part["blocks"]["p0_attn"]["k"]
-            assert k_leaf.shape[-2] == (kv // 2 if heads else kv)
-            if heads:
-                assert torch.equal(k_leaf, cache["blocks"]["p0_attn"]["k"][..., k * kv // 2:
-                                                                          (k + 1) * kv // 2, :])
+            a, b = sharding.kv_heads(kv, 2, k)
+            assert k_leaf.shape[-2] == b - a == (kv // 2 if kv % 2 == 0 else 1 - k)
+            assert torch.equal(k_leaf, cache["blocks"]["p0_attn"]["k"][..., a:b, :])
             assert torch.equal(part["blocks"]["p0_attn"]["kpos"],
                                cache["blocks"]["p0_attn"]["kpos"])
-        per_rank = mesh_lib.Mesh(("data", "model"), (2, 2), torch.device("cpu"), None, rank=1,
+        per_rank = mesh_lib.Mesh(("data", "model"), (2, 2), torch.device("cpu"),
+                                 SimpleNamespace(coords={"data": 0, "model": 1}), rank=1,
                                  per_rank=True)
-        pool = steps.init_slot_pool(cfg, 3, 12, "cpu", mesh=per_rank)
-        assert pool["blocks"]["p0_attn"]["k"].shape[-2] == (kv // 2 if heads else kv)
+        pool = steps.init_slot_pool(cfg, 3, 12, "cpu", mesh=per_rank)  # model rank 1
+        a, b = sharding.kv_heads(kv, 2, 1)
+        assert pool["blocks"]["p0_attn"]["k"].shape[-2] == b - a
         assert pool["blocks"]["p0_attn"]["kpos"].shape == (cfg.n_layers, 3, 12)
 
 
