@@ -32,8 +32,9 @@ Phases (any failure exits non-zero before the final line):
    global histogram) must have run;
 2c. approx_median and approx_trimmed_mean on the card twice: bitwise equal,
    and within the CPU tests' tolerance of the CPU result;
-3. the quickstart configuration (examples/quickstart.py): median and
-   trimmed mean ROBUST (||w - w*|| < 0.2), mean BROKEN;
+3. the quickstart, ``examples/torch_quickstart.py``'s ``main`` on the card
+   (examples/quickstart.py's configuration): median and trimmed mean
+   ROBUST (||w - w*|| < 0.2), mean BROKEN;
 4. the main path: Algorithm 1 on the paper's CNN at full width (53,370
    parameters in 8 leaves), the Table 3 layout (m=10, n=400 per worker,
    sign_flip alpha=0.1 scale 20), median and trimmed mean (beta=0.1) for
@@ -382,13 +383,26 @@ Phases (any failure exits non-zero before the final line):
    and every gradient, and 24a's prefill and 16 decode steps, within 1e-4,
    with each size's ms; (c) 24b's llama3.2-3b ``prefill_32k`` rank, which
    24b held to its plan, printed beside its step when the attention was
-   gathered (40.4-41.0 s).
+   gathered (40.4-41.0 s);
+26. the reference's examples on the card through the port's: (a)
+   ``examples/torch_train_lm_robust.py``'s ``main`` at full width
+   (demo-100m: 8 layers, d 768, 99,496,704 params, bf16) on its 4 x 2
+   in-process mesh for 30 steps (300 cut for time) under label_flip with
+   the bucketed median: every loss and grad norm finite, the last loss
+   below the first by 2.0, B1 launched once a step as the code implies
+   (``launches_for`` the bucketed strategy's super-buckets) and nothing
+   else, the checkpoint restored on the card bitwise, its s/step printed;
+   (b) ``examples/torch_one_round_federated.py``'s ``main`` at its
+   defaults: the median within 3 points of the mean (Table 4's claim; at
+   these defaults neither package's median beats its mean), the streaming
+   median within one bin width of the exact one on the same rows, B1 once
+   and B4 / B5 once a chunk of 4 workers.
 The launch counters are zeroed before each of phases 8-13, each run of
-phase 14b, 15b, 16b, 18b, 19b, 20b, 20c, 21b, 21c, 22b, 22c, 22d and 23a-23e, phases 15c, 19a, 19c and 20e, each 16d
+phase 14b, 15b, 16b, 18b, 19b, 20b, 20c, 21b, 21c, 22b, 22c, 22d and 23a-23e, phases 15c, 19a, 19c, 20e, 26a and 26b, each 16d
 and 18d run and each call (17a), round (17b) or set of calls (17d) of phase
 17, and read after; the kernels line gives each kernel's launches on them
 (``launches_new_paths``).
-In phases 4, 6, 8-13, 15c, 17, 18, 19 and 20e the inputs each kernel wrapper gets
+In phases 4, 6, 8-13, 15c, 17, 18, 19, 20e and 26 the inputs each kernel wrapper gets
 (the first call of each shape) are
 recorded, and after the path's counts were read each kernel is run again on
 them and held against its plain version, bitwise (PathInputs); a kernel that
@@ -405,6 +419,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -666,9 +681,9 @@ def sweep_trim(m: int) -> int:
 def select_specs():
     """Every (kind, m, trim, dtype) of the order-statistic kernels this
     script runs: in f32 and bf16, phase 2's sweeps, the quickstart (m=8,
-    beta 0.3), the CNN (m=10, beta 0.1; also phase 17's rows), linreg
-    m=40 (beta 0.05), phase 5's shapes, phases 14-15's rows (m=4: the
-    median, beta 0.25) and m=1 (phase 2); the fused kernel at each (m, trim)
+    beta 0.3), the CNN (m=10, beta 0.1; also phase 17's and 26b's rows),
+    linreg m=40 (beta 0.05), phase 5's shapes, phases 14-15's and 26a's rows
+    (m=4: the median, beta 0.25) and m=1 (phase 2); the fused kernel at each (m, trim)
     of the trimmed mean.  In
     f16 only what phase 7 and phase 5 run: the three kinds at HALF_M with
     sweep_trim(m), which is also int(0.1 * m) at the timed m = 31, 32.  In f32
@@ -846,20 +861,35 @@ def multi_leaf_sweep(dev, worst):
           f"(max |err| {json.dumps(worst)})")
 
 
-def quickstart(dev):
-    """Phase 3: examples/quickstart.py on the port."""
-    from repro_torch.core.attacks import AttackConfig
-    from repro_torch.core.robust_gd import RobustGDConfig, run_linreg_experiment
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
 
-    attack = AttackConfig("sign_flip", alpha=0.25, scale=10.0)
-    errs = {}
-    for method in ("mean", "median", "trimmed_mean"):
-        cfg = RobustGDConfig(method=method, beta=0.3, step_size=0.5, num_iters=100)
-        err, _ = run_linreg_experiment(0, d=20, n=500, m=8, sigma=0.5, cfg=cfg,
-                                       attack=attack, device=dev)
-        errs[method] = float(err)
-        status = "ROBUST" if errs[method] < 0.2 else "BROKEN"
-        print(f"phase 3: {method:13s} ||w - w*|| = {errs[method]:8.4f}   [{status}]")
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_printed(label: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with each line it prints prefixed by ``label``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args, **kwargs)
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"{label}: {line}" if line else f"{label}:")
+
+
+def quickstart(dev):
+    """Phase 3: examples/torch_quickstart.py on the card (its ``main``)."""
+    out = run_printed("phase 3", load_example("torch_quickstart").main,
+                      ["--device", str(dev)])
+    errs = out["err"]
     check(errs["median"] < 0.2 and errs["trimmed_mean"] < 0.2,
           f"quickstart: a robust aggregator is BROKEN: {errs}")
     check(not errs["mean"] < 0.2, f"quickstart: mean is not BROKEN: {errs}")
@@ -6933,6 +6963,152 @@ def cli_batch():
         return [(label, *f.result()) for label, f in futures]
 
 
+# ------------------------------------ phase 26: the examples on the card
+
+EX_LM_STEPS = 30  # the example's 300 steps cut for the script's time
+EX_LM_PARAMS = 99_496_704  # demo-100m by count_params (the reference's too)
+# the last of the 30 losses below the first by at least this much: a run on
+# an H100 80GB HBM3 at 700 W read 10.5347 -> 5.2326 (a drop of 5.30); a
+# model whose updates were dropped stays near ln(32000) = 10.37
+EX_LM_DROP = 2.0
+EX_STREAM_TOL = 1e-6  # added to a bin width: the card's rows vs a rerun of the solver
+EX_ONE_ROUND_GAP = 0.03  # Table 4's claim: median above mean - 0.03 under random labels
+
+
+def lm_example(dev, on_path):
+    """Phase 26a: examples/torch_train_lm_robust.py's ``main`` on the card at
+    full width (demo-100m, 99,496,704 params, bf16) on its 4 x 2 mesh for
+    EX_LM_STEPS steps, the counters zeroed just before and read just
+    after.  Holds: every loss and grad norm finite, the last loss below the
+    first by EX_LM_DROP, B1's launches the code's count (a step: one
+    aggregation call over the bucketed strategy's super-buckets,
+    ``launches_for`` of their number; nothing else launches), the
+    checkpoint restored on the card bitwise.  Returns the launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import load_extra, restore
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.kernels import robust_agg
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    lm = load_example("torch_train_lm_robust")
+    check(T.count_params(lm.CFG) == EX_LM_PARAMS,
+          f"26a: demo-100m has {T.count_params(lm.CFG):,} params, want {EX_LM_PARAMS:,}")
+    ckpt = tempfile.mkdtemp(prefix="phase26_ckpt_")
+    try:
+        def run():
+            torch.cuda.synchronize()
+            robust_agg.reset_launches()  # zeroed just before the example
+            H.reset_launches()
+            out = run_printed("phase 26a", lm.main, ["--steps", str(EX_LM_STEPS),
+                                                     "--ckpt", ckpt, "--device", str(dev)])
+            torch.cuda.synchronize()
+            return out, {**robust_agg.LAUNCHES, **H.LAUNCHES}  # read just after
+
+        t0 = time.perf_counter()
+        out, launches = on_path("phase 26a", run, lambda r: r[1])
+        secs = time.perf_counter() - t0
+        losses, norms = out["losses"], out["grad_norms"]
+        check(len(losses) == len(norms) == EX_LM_STEPS, "26a: a step's metrics are missing")
+        check(all(map(math.isfinite, losses + norms)), f"26a: not finite: {losses} {norms}")
+        drop = losses[0] - losses[-1]
+        print(f"phase 26a: loss {losses[0]:.4f} -> {losses[-1]:.4f} (drop {drop:.4f}, "
+              f"limit {EX_LM_DROP}), |g| {norms[0]:.3f} -> {norms[-1]:.3f}; "
+              f"{out['s_per_step']:.4f} s/step (the example's clock, first step "
+              f"included), phase {secs:.1f} s")
+        check(drop > EX_LM_DROP, f"26a: the loss fell {drop:.4f}, want > {EX_LM_DROP}")
+        groups = D._coalesce_groups(tree_leaves(out["params"]))
+        want = EX_LM_STEPS * robust_agg.launches_for(len(groups))
+        print(f"phase 26a: B1 launches {launches['median']}, derived {want} "
+              f"({EX_LM_STEPS} steps x launches_for({len(groups)} super-buckets)); "
+              f"launches {json.dumps(launches)}")
+        check(launches["median"] == want, f"26a: B1 launched {launches['median']}, want {want}")
+        check(sum(launches.values()) == want, f"26a: other kernels launched: {launches}")
+        like = {"params": out["params"]}
+        got, step = restore(ckpt, like)
+        same = all(a.dtype == b.dtype and a.device == b.device and compare(a, b)[0] == 0
+                   for (_, a), (_, b) in zip(tree_leaves_with_path(got),
+                                             tree_leaves_with_path(like)))
+        extra = load_extra(ckpt)
+        print(f"phase 26a: checkpoint step {step}, extra {extra}, restored on the card "
+              f"bitwise: {same}")
+        check(same and step == EX_LM_STEPS and extra == {"arch": "demo-100m", "agg": "median"},
+              "26a: the checkpoint does not restore bitwise")
+        return {"median": launches["median"]}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def one_round_example(dev, on_path):
+    """Phase 26b: examples/torch_one_round_federated.py's ``main`` on the card
+    at its defaults (m 10, n 500, d 784, 150 GD steps), the counters zeroed
+    just before and read just after.  Holds: the median within
+    EX_ONE_ROUND_GAP of the mean (Table 4's claim; at these defaults the
+    median does not beat the mean in either package), the streaming median
+    within one bin width of the exact one on the same rows, and the
+    launches the code implies: B1 one (the median's two leaves in one
+    call), B4 and B5 one a chunk of ``chunk_workers`` workers each.
+    Returns the launches."""
+    import torch
+
+    from repro_torch.kernels import histogram_agg as H
+    from repro_torch.kernels import robust_agg
+
+    ex = load_example("torch_one_round_federated")
+
+    def run():
+        torch.cuda.synchronize()
+        robust_agg.reset_launches()  # zeroed just before the example
+        H.reset_launches()
+        out = run_printed("phase 26b", ex.main, ["--device", str(dev)])
+        torch.cuda.synchronize()
+        return out, {**robust_agg.LAUNCHES, **H.LAUNCHES}  # read just after
+
+    t0 = time.perf_counter()
+    out, launches = on_path("phase 26b", run, lambda r: r[1])
+    secs = time.perf_counter() - t0
+    acc = out["acc"]
+    check(acc["median"] > acc["mean"] - EX_ONE_ROUND_GAP and min(acc.values()) > 0.75,
+          f"26b: accuracies {acc}")
+    rows = torch.func.vmap(out["solver"])(out["shards"])
+    worst = float("-inf")
+    for k in ("w", "b"):
+        r = rows[k].reshape(rows[k].shape[0], -1)
+        width = (r.amax(0) - r.amin(0)) / ex.NBINS
+        dev_ = (out["w"]["median_stream"][k] - out["w"]["median"][k]).reshape(-1).abs()
+        worst = max(worst, float((dev_ - width).max()))
+        check(bool((dev_ <= width + EX_STREAM_TOL).all()),
+              f"26b: streaming median {k} beyond a bin width by {float((dev_ - width).max())}")
+    chunks = -(-ex.M // ex.CHUNK_WORKERS)
+    want = {"median": robust_agg.launches_for(len(out["w"]["median"])), "minmax": chunks,
+            "histogram": chunks}
+    print(f"phase 26b: accuracy mean {acc['mean']:.4f}, median {acc['median']:.4f}, "
+          f"streaming {acc['median_stream']:.4f}; streaming - exact - bin width at most "
+          f"{worst:.3g}; launches {json.dumps(launches)}, derived {json.dumps(want)}; "
+          f"phase {secs:.1f} s")
+    for name, n in want.items():
+        check(launches[name] == n, f"26b: {name} launched {launches[name]}, want {n}")
+    check(sum(launches.values()) == sum(want.values()), f"26b: other kernels: {launches}")
+    return {k: launches[k] for k in want}
+
+
+def examples_on_card(dev, card: str, on_path):
+    """Phase 26: the examples' entry points on the card (the quickstart is
+    phase 3)."""
+    t0 = time.perf_counter()
+    out = {"lm_example": lm_example(dev, on_path)}
+    print(f"phase 26a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["one_round_example"] = one_round_example(dev, on_path)
+    print(f"phase 26b: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -7113,6 +7289,12 @@ def main() -> None:
     t0 = time.perf_counter()
     padded_attention(dev, card, held)
     print(f"phase 25: {time.perf_counter() - t0:.1f} s")
+    libs_before = len(robust_agg.select_libraries())
+    t0 = time.perf_counter()
+    new_paths.update(examples_on_card(dev, card, on_path))
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    check(len(robust_agg.select_libraries()) == libs_before,
+          "phase 26 built order-statistic programs that phase 1 did not")
     late = [p for p in robust_agg.select_libraries() if p not in select_libs]
     check_spills(late, "programs built after phase 1")
     print(f"phase 1: {len(late)} order-statistic libraries were built after phase 1")
@@ -7147,7 +7329,7 @@ def main() -> None:
             "max_abs_err": worst[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
-    print(f"chip_smoke: phases 1-25 in {time.perf_counter() - t_script:.1f} s")
+    print(f"chip_smoke: phases 1-26 in {time.perf_counter() - t_script:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

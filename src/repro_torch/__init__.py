@@ -6,17 +6,23 @@ tensors take ``device=`` (default ``"cuda"``) and raise when CUDA is
 missing rather than carrying on on the CPU; functions that receive
 tensors compute on the tensors' device.
 
-Ported so far, on one device: Algorithm 1 (robust distributed GD) —
-kernels (selection network, the hand-written CUDA order-statistic and
-sketch kernels), core (aggregators, attacks shim, robust_gd, theory),
-attacks, data, models, checkpoint and the round engine; synchronous
-federated rounds (``fed``); the round programs (``rounds``: Algorithm
-2, local-update rounds, payload compression, communication accounting);
-buffered async rounds and the robustness matrix; robust serving
-(``serve``: the continuous-batching engine over the decoder families of
-``models.transformer`` (dense, MoE, SSM, hybrid RG-LRU), with robust
-continual adaptation from feedback); and robust LM training (``launch``)
-over in-process workers.
+Ported: every module and public name of the reference (the JAX-only
+ones aside: the Pallas entry points, shard_map and sharding-spec helpers,
+HLO parsing, typed PRNG keys; tests/test_torch_api_parity.py lists them).
+Algorithm 1 (robust distributed GD) — kernels (selection network, the
+hand-written CUDA order-statistic and sketch kernels), core (aggregators,
+attacks shim, robust_gd, theory, the robust collectives), attacks, data,
+models, checkpoint (bf16 and float8 as raw bits) and the round engine;
+synchronous federated rounds (``fed``); the round programs (``rounds``:
+Algorithm 2, local-update rounds, payload compression, communication
+accounting); buffered async rounds and the robustness matrix; robust
+serving (``serve``: the continuous-batching engine over the decoder
+families of ``models.transformer`` (dense, MoE, SSM, hybrid RG-LRU, the
+audio and vision frontends), with robust continual adaptation from
+feedback); robust LM training (``launch``) over in-process workers or a
+``torch.distributed`` process group, with FSDP, a model axis and sequence
+parallelism; the dry-run with its cost analysis and roofline.  The
+reference's examples are ``examples/torch_*.py``.
 """
 import torch
 

@@ -29,3 +29,4 @@ from repro_torch.attacks.engine import (  # noqa: F401
     payload_from_stats,
 )
 from repro_torch.attacks.registry import alias, get_attack, register, registered  # noqa: F401
+from repro_torch.attacks.schedule import GreedyScheduler  # noqa: F401

@@ -4,9 +4,10 @@ A checkpoint directory holds one ``leaf_XXXX.npy`` per tensor and a
 ``manifest.json`` mapping each leaf's path to its file, shape and dtype,
 plus the step and an ``extra`` dict of JSON host state.
 
-Round trips are exact: bfloat16 (which numpy cannot hold) is stored as
-its raw 16-bit patterns and restored to bfloat16; every leaf comes back
-at its RECORDED dtype on the template leaf's device.
+Round trips are exact: bfloat16 and the float8 formats (which numpy
+cannot hold) are stored as their raw 16-bit and 8-bit patterns and
+restored to their dtype bit for bit (NaN payloads included); every leaf
+comes back at its RECORDED dtype on the template leaf's device.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import torch
 
 from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 
-_BITS = {torch.bfloat16: torch.int16}  # dtypes numpy cannot hold -> same-width ints
+# dtypes numpy cannot hold -> same-width ints
+_BITS = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8,
+         torch.float8_e5m2: torch.uint8}
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

@@ -10,7 +10,7 @@ trainer's worker axis computes its gradient on.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -21,12 +21,14 @@ from repro_torch.device import resolve
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    kind: str = "lm"  # lm|mnist|linreg
     vocab: int = 32000  # LM batches
     seq_len: int = 1024
     global_batch: int = 32
     num_workers: int = 4  # m
     seed: int = 0
-    d: int = 784  # classification feature dim
+    d: int = 784  # classification/regression feature dim
+    sigma: float = 0.5  # linreg noise
 
 
 def _corrupt_labels(cfg: DataConfig, attack: Optional[AttackConfig],
@@ -79,3 +81,12 @@ def make_classification_shards(cfg: DataConfig, attack: Optional[AttackConfig] =
         xs.append(d["x"])
         ys.append(y)
     return {"x": torch.stack(xs).to(dev), "y": torch.stack(ys).to(dev)}
+
+
+def lm_iterator(cfg: DataConfig, attack: Optional[AttackConfig] = None,
+                start_step: int = 0, *, device="cuda") -> Iterator[Dict[str, torch.Tensor]]:
+    """``make_lm_batch`` at ``start_step``, ``start_step + 1``, ... without end."""
+    step = start_step
+    while True:
+        yield make_lm_batch(cfg, step, attack, device=device)
+        step += 1

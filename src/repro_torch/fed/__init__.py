@@ -11,6 +11,7 @@ card) and synchronous cohort rounds.
               model is ``population.ArrivalConfig``)
 - run:        the CLI, ``python -m repro_torch.fed.run``
 """
+from repro_torch.fed import async_rounds, population, rounds, staleness, streaming  # noqa: F401
 from repro_torch.fed.async_rounds import AsyncConfig, run_async_rounds  # noqa: F401
 from repro_torch.fed.population import (  # noqa: F401
     ArrivalConfig,

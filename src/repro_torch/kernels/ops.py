@@ -20,8 +20,13 @@ float64 only through its jnp selection network, never a kernel), else
 ``sort``.  A kernel that fails to build or launch raises; nothing falls
 back.
 ``fused_median_trimmed`` returns median AND trimmed mean from one pass.
+``median`` and ``trimmed_mean`` are the reference's partials of
+``robust_aggregate``: ``trimmed_mean`` is ``robust_aggregate`` itself, so
+it takes the median unless ``method="trimmed_mean"`` is passed.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -134,3 +139,6 @@ def fused_median_trimmed(
         med, tm = ref.median_ref(flat), ref.trimmed_mean_ref(flat, beta)
     return med.reshape(x.shape[1:]), tm.reshape(x.shape[1:])
 
+
+median = functools.partial(robust_aggregate, method="median")
+trimmed_mean = robust_aggregate  # explicit method kwarg recommended

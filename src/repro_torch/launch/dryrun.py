@@ -40,6 +40,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -87,6 +88,19 @@ def fake_world(world: int, local_world: int) -> None:
     os.environ["LOCAL_WORLD_SIZE"] = str(local_world)
     os.environ["LOCAL_RANK"] = "0"
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+
+
+@contextlib.contextmanager
+def fake_group(sizes: Tuple[int, int, int]):
+    """This process as rank 0 of the fake group of a (pods, data, model)
+    mesh for the ``with`` block, the group destroyed after it."""
+    pods, data, model = sizes
+    world = (pods or 1) * data * model
+    fake_world(world, world // (pods or 1))
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +245,21 @@ def record(arch: str, shape_name: str, mesh_kind: str, pcfg: ParallelConfig, cfg
     return rec
 
 
+def run_combo(arch: str, shape_name: str, mesh_kind: str, pcfg: ParallelConfig,
+              optimizer: str = "adamw", device_steps: int = 1) -> dict:
+    """Plan one (arch × shape × mesh) combo at published widths in THIS
+    process -> its record (:func:`record`): the process joins the fake
+    group of ``mesh_kind``'s production mesh for the call and leaves it
+    after, so it must hold no other default group.  ``main`` plans each
+    combo in a subprocess instead (:func:`plan_in_subprocess`)."""
+    sizes = MESHES[mesh_kind]
+    shape = INPUT_SHAPES[shape_name]
+    cfg = steps.long_context_cfg(get_config(arch), shape)
+    with fake_group(sizes):
+        return record(arch, shape_name, mesh_kind, pcfg, cfg, shape, sizes, optimizer,
+                      device_steps)
+
+
 # ---------------------------------------------------------------------------
 # a combo in a subprocess
 # ---------------------------------------------------------------------------
@@ -273,12 +302,10 @@ def run_child(spec: dict) -> dict:
     shp = spec["shape"]
     shape = INPUT_SHAPES[shp] if isinstance(shp, str) else ShapeConfig(*shp)
     pods, data, model = spec.get("sizes") or MESHES[spec["mesh"]]
-    world = (pods or 1) * data * model
-    fake_world(world, world // (pods or 1))
     cfg = (get_smoke_config if spec.get("smoke") else get_config)(arch)
     cfg = steps.long_context_cfg(dataclasses.replace(cfg, **spec.get("over", {})), shape)
     pcfg = ParallelConfig(**spec.get("pcfg", {}))
-    try:
+    with fake_group((pods, data, model)):
         if spec.get("real"):
             mesh = mesh_lib.make_production_mesh(multi_pod=pods > 0, model=model,
                                                  device="cuda")
@@ -286,8 +313,6 @@ def run_child(spec: dict) -> dict:
                              spec.get("device_steps", 1))
         return record(arch, shape.name, spec["mesh"], pcfg, cfg, shape, (pods, data, model),
                       spec.get("optimizer", "adamw"), spec.get("device_steps", 1))
-    finally:
-        torch.distributed.destroy_process_group()
 
 
 def plan_in_subprocess(spec, timeout: float = 3600):

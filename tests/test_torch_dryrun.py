@@ -6,7 +6,9 @@ strategies; fsdp; seq_parallel; a long-context decode), ``fsdp_dims``
 avoiding the model dim, ``long_context_cfg`` against the reference's for
 every architecture × shape, one production-width combo (llama3.2-3b
 ``decode_32k`` on the single mesh) with its collective bytes against their
-closed form, the kernel ops' fake implementations, and the committed
+closed form and again through the reference's entry point ``run_combo``
+(in a process of its own, which joins the fake group itself), the kernel
+ops' fake implementations, and the committed
 sweep ``dryrun_torch_results.jsonl`` (the counterparts of
 tests/test_deliverables.py's dry-run checks, and the robust gather's bytes
 of ``train_4k`` against their closed form).
@@ -20,6 +22,8 @@ import dataclasses
 import json
 import math
 import os
+import subprocess
+import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import pytest
@@ -69,6 +73,18 @@ SMOKE[("long", "mamba2-2.7b")] = _spec("mamba2-2.7b", LONG, (0, 2, 2))
 SMOKE[("long", "llama3.2-3b")] = _spec("llama3.2-3b", LONG, (0, 2, 2),
                                        over={"long_context_window": 64})
 PRODUCTION = {"arch": "llama3.2-3b", "shape": "decode_32k", "mesh": "single"}
+RUN_COMBO = ("import json; from repro_torch.configs import ParallelConfig; "
+             "from repro_torch.launch.dryrun import run_combo; "
+             "print(json.dumps(run_combo('llama3.2-3b', 'decode_32k', 'single', "
+             "ParallelConfig())))")
+
+
+def _run_combo():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, "-c", RUN_COMBO], capture_output=True, text=True,
+                       env=env, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    return json.loads(r.stdout.splitlines()[-1])
 
 
 @pytest.fixture(scope="module")
@@ -77,12 +93,14 @@ def plans():
     in turn) and the production combo's (a third), all at once."""
     keys = list(SMOKE)
     halves = [keys[::2], keys[1::2]]
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         prod = pool.submit(dryrun.plan_in_subprocess, PRODUCTION, 600)
+        combo = pool.submit(_run_combo)
         done = list(pool.map(lambda ks: dryrun.plan_in_subprocess([SMOKE[k] for k in ks], 600),
                              halves))
         out = {k: r for ks, recs in zip(halves, done) for k, r in zip(ks, recs)}
         out["production"] = prod.result()
+        out["run_combo"] = combo.result()
     return out
 
 
@@ -282,3 +300,15 @@ def test_report_renders_the_sweep(capsys):
     out = capsys.readouterr().out
     assert "computed, not measured" in out and "| llama3.2-3b | train_4k |" in out
     assert math.isfinite(sum(r.get("bound_s", 0) for r in rows))
+
+
+def test_run_combo_is_the_subprocess_plan(plans):
+    """``dryrun.run_combo`` (the reference's signature, in its own process,
+    the default ``ParallelConfig``) gives the record ``main`` gets from a
+    subprocess for the same combo: every field but the planning seconds
+    and the subprocess's ``status``."""
+    want, got = _ok(plans["production"]), plans["run_combo"]
+    assert got["arch"] == "llama3.2-3b" and got["shape"] == "decode_32k"
+    drop = ("plan_s", "status")
+    assert {k: v for k, v in got.items() if k not in drop} == {
+        k: v for k, v in want.items() if k not in drop}

@@ -2,8 +2,10 @@
 SSM and hybrid families, on the CPU.
 
 The reference's ``make_window_step`` at ``device_steps=1`` runs in one
-subprocess on ``make_debug_mesh(4, 1)`` (4 forced CPU devices, replicated
-params; tests/test_torch_trainer.py's harness) for mamba2, granite and
+subprocess per family, the three started when the module starts (the CLI
+tests run meanwhile), on ``make_debug_mesh(4, 1)`` (4 forced CPU devices,
+replicated params; tests/test_torch_trainer.py's harness) for mamba2,
+granite and
 recurrentgemma (its unrolled tail) at smoke width in float32: 2 steps of SGD 0.5, gather median under ALIE
 alpha 0.25 (granite's loss carries the 0.01-weighted MoE aux loss).  The
 port runs its window from the same params on the same batches with 4
@@ -107,49 +109,33 @@ def _nested(flat, prefix):
     return lists(tree)
 
 
-@pytest.fixture(scope="module")
-def ref(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def _ref_runs(tmp_path_factory):
+    """The reference's window, one subprocess per family, started when the
+    module starts."""
     d = tmp_path_factory.mktemp("ref_families_train")
-    spec = {"archs": list(ARCHS), "data": DATA, "lr": LR, "steps": STEPS}
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", REF_SCRIPT, json.dumps(spec), str(d / "out.npz")],
-                       capture_output=True, text=True, env=env, timeout=600)
-    assert r.returncode == 0, r.stderr[-4000:]
-    return dict(np.load(d / "out.npz"))
+    procs = {}
+    for arch in ARCHS:
+        spec = {"archs": [arch], "data": DATA, "lr": LR, "steps": STEPS}
+        procs[arch] = subprocess.Popen(
+            [sys.executable, "-c", REF_SCRIPT, json.dumps(spec), str(d / f"{arch}.npz")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    yield procs, d
+    for proc in procs.values():
+        proc.kill()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_window_ds1_matches_the_reference(ref, arch):
-    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
-    mesh = mesh_lib.make_debug_mesh(4, 1, device="cpu")
-    pcfg = ParallelConfig(agg_method="median", agg_strategy="gather", agg_beta=0.25,
-                          remat=False)
-    opt = get_optimizer("sgd", LR)
-    state = trainer.init_state(cfg, mesh, opt, seed=0, pcfg=pcfg)
-    state["params"] = convert.transformer_from_reference(cfg, _nested(ref, f"{arch}/init/"),
-                                                         "cpu")
-    state["opt_state"] = opt.init(state["params"])
-    window = trainer.make_window_step(cfg, pcfg, mesh, opt, AttackConfig("alie", 0.25), 1)
-    losses, norms = [], []
-    for i in range(STEPS):
-        before = {k: float(v) for k, v in state["metrics"].items()}
-        batch = {k: torch.from_numpy(ref[f"{arch}/batch/{i}/{k}"])[None]
-                 for k in ("tokens", "labels")}
-        state = window(state, batch)
-        met = trainer.window_metrics(before, state)
-        losses.append(met["loss"])
-        norms.append(met["grad_norm"])
-    np.testing.assert_allclose(losses, ref[f"{arch}/loss"], rtol=1e-6)
-    np.testing.assert_allclose(norms, ref[f"{arch}/grad_norm"], rtol=1e-6)
-    want = _nested(ref, f"{arch}/params/")
-    for path, t in tree_leaves_with_path(state["params"]):
-        w = want
-        for p in path.split("/"):
-            w = w[int(p)] if isinstance(w, list) else w[p]
-        np.testing.assert_allclose(t.numpy(), w, rtol=0, atol=1e-5, err_msg=path)
-    init = _nested(ref, f"{arch}/init/")
-    assert not np.array_equal(state["params"]["embed"].numpy(), init["embed"])
+@pytest.fixture(scope="module")
+def ref(_ref_runs):
+    procs, d = _ref_runs
+    out = {}
+    for arch, proc in procs.items():
+        log = proc.communicate(timeout=600)[0]
+        assert proc.returncode == 0, f"{arch}: {log[-4000:]}"
+        out.update(np.load(d / f"{arch}.npz"))
+    return out
 
 
 def _count_groups(monkeypatch):
@@ -186,3 +172,36 @@ def test_cli_trains_each_family_in_bf16(monkeypatch, arch):
     assert len(losses) == 2 and all(np.isfinite(losses))
     mixed = arch in ("mamba2_2_7b", "recurrentgemma_2b")
     assert calls == [["torch.bfloat16", "torch.float32"] if mixed else ["torch.bfloat16"]] * 2
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_window_ds1_matches_the_reference(ref, arch):
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), dtype="float32")
+    mesh = mesh_lib.make_debug_mesh(4, 1, device="cpu")
+    pcfg = ParallelConfig(agg_method="median", agg_strategy="gather", agg_beta=0.25,
+                          remat=False)
+    opt = get_optimizer("sgd", LR)
+    state = trainer.init_state(cfg, mesh, opt, seed=0, pcfg=pcfg)
+    state["params"] = convert.transformer_from_reference(cfg, _nested(ref, f"{arch}/init/"),
+                                                         "cpu")
+    state["opt_state"] = opt.init(state["params"])
+    window = trainer.make_window_step(cfg, pcfg, mesh, opt, AttackConfig("alie", 0.25), 1)
+    losses, norms = [], []
+    for i in range(STEPS):
+        before = {k: float(v) for k, v in state["metrics"].items()}
+        batch = {k: torch.from_numpy(ref[f"{arch}/batch/{i}/{k}"])[None]
+                 for k in ("tokens", "labels")}
+        state = window(state, batch)
+        met = trainer.window_metrics(before, state)
+        losses.append(met["loss"])
+        norms.append(met["grad_norm"])
+    np.testing.assert_allclose(losses, ref[f"{arch}/loss"], rtol=1e-6)
+    np.testing.assert_allclose(norms, ref[f"{arch}/grad_norm"], rtol=1e-6)
+    want = _nested(ref, f"{arch}/params/")
+    for path, t in tree_leaves_with_path(state["params"]):
+        w = want
+        for p in path.split("/"):
+            w = w[int(p)] if isinstance(w, list) else w[p]
+        np.testing.assert_allclose(t.numpy(), w, rtol=0, atol=1e-5, err_msg=path)
+    init = _nested(ref, f"{arch}/init/")
+    assert not np.array_equal(state["params"]["embed"].numpy(), init["embed"])

@@ -367,11 +367,11 @@ def run_rank(rank: int, rendezvous: str, inputs: str, outdir: str) -> None:
     dist.destroy_process_group()
 
 
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """(inputs, each rank's outputs, the run directory, the reference's
-    outputs): the 4 ranks and the reference's subprocess run once, at the
-    same time."""
+@pytest.fixture(scope="module", autouse=True)
+def _started(tmp_path_factory):
+    """The 4 ranks and the reference's subprocess, started when the module
+    starts (the tests that read neither run meanwhile): (inputs, the run
+    directory, the processes)."""
     d = tmp_path_factory.mktemp("process_group")
     data = _inputs()
     np.savez(d / "in.npz", **data)
@@ -386,13 +386,18 @@ def ranks(tmp_path_factory):
                                 str(r), str(d / "rendezvous"), str(d / "in.npz"), str(d)],
                                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                text=True) for r in range(WORLD)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            p.kill()
+    yield data, d, procs
+    for p in procs:
+        p.kill()
+
+
+@pytest.fixture(scope="module")
+def ranks(_started, in_process):
+    """(inputs, each rank's outputs, the run directory, the reference's
+    outputs): waited for after the in-process jobs, which run while the
+    processes do."""
+    data, d, procs = _started
+    logs = [p.communicate(timeout=300)[0] for p in procs]
     for name, p, log in zip(["reference"] + [f"rank {r}" for r in range(WORLD)], procs, logs):
         assert p.returncode == 0, f"{name}: {log[-4000:]}"
     outs = [dict(np.load(d / f"rank{r}.npz")) for r in range(WORLD)]
@@ -414,8 +419,87 @@ def _in_process(data):
 
 
 @pytest.fixture(scope="module")
-def in_process(ranks):
-    return _in_process(ranks[0])
+def in_process(_started):
+    return _in_process(_started[0])
+
+
+def test_debug_mesh_snapshots_in_the_root():
+    """The debug mesh keeps its snapshots in ``ckpt_dir`` itself; every rank
+    of a process group in ``ckpt_dir/rank{r}``, a group of one rank too."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_debug_mesh(4, 1, device="cpu")
+    assert mesh.snapshot_dir("s") == "s"
+    pg = mesh_lib.Mesh(("data", "model"), (1, 1), torch.device("cpu"), mesh.axes, rank=0,
+                       per_rank=True)
+    assert pg.snapshot_dir("s") == os.path.join("s", "rank0")
+
+
+def test_later_steps_still_raise(monkeypatch):
+    from repro_torch.configs import ParallelConfig, get_smoke_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, trainer
+    from repro_torch.optim.optimizers import get_optimizer
+
+    # step 4 (tensor parallelism) is ported: the meshes take a model axis;
+    # the production mesh now stops only at the missing process group
+    tp = mesh_lib.make_debug_mesh(2, 2, device="cpu")
+    assert mesh_lib.mesh_shape_dict(tp) == {"data": 2, "model": 2}
+    assert mesh_lib.num_workers(tp) == 2 and mesh_lib.model_size(tp) == 2
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        mesh_lib.make_production_mesh(model=2, device="cpu")
+    cfg = get_smoke_config("llama3.2-3b")
+    opt = get_optimizer("adamw", 1e-3)
+    # step 7 (fsdp and seq_parallel on the model axis, the codecs and
+    # randomized attacks there) is ported: the step bodies build at model 2
+    for pcfg in (ParallelConfig(param_mode="fsdp"), ParallelConfig(seq_parallel=True),
+                 ParallelConfig(compression="int8")):
+        assert steps.make_step_body(cfg, pcfg, tp, opt).waxes == ("data",)
+    # step 6 (the ssm / rec layers and the frontends) is ported
+    steps.make_step_body(get_smoke_config("mamba2-2.7b"), ParallelConfig(), tp, opt)
+    # steps 5 and 8 (serving under tensor parallelism, a frontend
+    # configuration's serving steps included) are ported
+    steps.make_decode_pool_step(cfg, tp)
+    steps.make_decode_pool_step(get_smoke_config("mamba2-2.7b"), tp)
+    steps.make_decode_pool_step(get_smoke_config("whisper-small"), tp)
+    mesh = mesh_lib.make_debug_mesh(2, 1, device="cpu")
+    # step 3 (fsdp) is ported: it refuses what the reference's refuses
+    with pytest.raises(ValueError, match="compression needs param_mode='replicated'"):
+        steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp", compression="int8"), mesh,
+                             opt)
+    with pytest.raises(ValueError, match="local_steps > 1 needs param_mode='replicated'"):
+        trainer.make_window_step(cfg, ParallelConfig(param_mode="fsdp", local_steps=2), mesh,
+                                 opt)
+
+
+def test_production_mesh_without_a_group_names_torchrun(monkeypatch):
+    from repro_torch.launch import mesh as mesh_lib
+
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        mesh_lib.make_production_mesh(device="cpu")
+
+
+def test_serve_cli_takes_the_reference_ci_smoke_flags():
+    """The reference's CI serve smoke command (``--workers 2 --model-par
+    1``), with ``--device cpu``: the mesh header and one sha256 on two runs;
+    with ``--model-par 2`` it serves on the model axis, one sha256 on two
+    runs too."""
+    from repro_torch.serve import run as serve_run
+
+    for model in ("1", "2"):
+        argv = [a if a != "1" or SERVE_CI[i - 1] != "--model-par" else model
+                for i, a in enumerate(SERVE_CI)]
+        digests = []
+        for _ in range(2):
+            text = str(_cli(serve_run.main, argv))
+            assert f"mesh debug workers=2 model_par={model}; device cpu" in text
+            assert "served 24/24 requests" in text
+            digests += _digests(text)
+        assert len(digests) == 2 and digests[0] == digests[1]
 
 
 def _bits_equal(a, b):
@@ -626,87 +710,8 @@ def test_train_cli_mesh_multi_is_mesh_single(ranks):
                               np.load(d / "ckpt_gather_median" / f)), f
 
 
-def test_debug_mesh_snapshots_in_the_root():
-    """The debug mesh keeps its snapshots in ``ckpt_dir`` itself; every rank
-    of a process group in ``ckpt_dir/rank{r}``, a group of one rank too."""
-    from repro_torch.launch import mesh as mesh_lib
-
-    mesh = mesh_lib.make_debug_mesh(4, 1, device="cpu")
-    assert mesh.snapshot_dir("s") == "s"
-    pg = mesh_lib.Mesh(("data", "model"), (1, 1), torch.device("cpu"), mesh.axes, rank=0,
-                       per_rank=True)
-    assert pg.snapshot_dir("s") == os.path.join("s", "rank0")
-
-
 def _digests(text):
     return [ln for ln in text.splitlines() if ln.startswith("final iterate sha256")]
-
-
-def test_later_steps_still_raise(monkeypatch):
-    from repro_torch.configs import ParallelConfig, get_smoke_config
-    from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.launch import steps, trainer
-    from repro_torch.optim.optimizers import get_optimizer
-
-    # step 4 (tensor parallelism) is ported: the meshes take a model axis;
-    # the production mesh now stops only at the missing process group
-    tp = mesh_lib.make_debug_mesh(2, 2, device="cpu")
-    assert mesh_lib.mesh_shape_dict(tp) == {"data": 2, "model": 2}
-    assert mesh_lib.num_workers(tp) == 2 and mesh_lib.model_size(tp) == 2
-    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
-        monkeypatch.delenv(k, raising=False)
-    with pytest.raises(RuntimeError, match="torchrun"):
-        mesh_lib.make_production_mesh(model=2, device="cpu")
-    cfg = get_smoke_config("llama3.2-3b")
-    opt = get_optimizer("adamw", 1e-3)
-    # step 7 (fsdp and seq_parallel on the model axis, the codecs and
-    # randomized attacks there) is ported: the step bodies build at model 2
-    for pcfg in (ParallelConfig(param_mode="fsdp"), ParallelConfig(seq_parallel=True),
-                 ParallelConfig(compression="int8")):
-        assert steps.make_step_body(cfg, pcfg, tp, opt).waxes == ("data",)
-    # step 6 (the ssm / rec layers and the frontends) is ported
-    steps.make_step_body(get_smoke_config("mamba2-2.7b"), ParallelConfig(), tp, opt)
-    # steps 5 and 8 (serving under tensor parallelism, a frontend
-    # configuration's serving steps included) are ported
-    steps.make_decode_pool_step(cfg, tp)
-    steps.make_decode_pool_step(get_smoke_config("mamba2-2.7b"), tp)
-    steps.make_decode_pool_step(get_smoke_config("whisper-small"), tp)
-    mesh = mesh_lib.make_debug_mesh(2, 1, device="cpu")
-    # step 3 (fsdp) is ported: it refuses what the reference's refuses
-    with pytest.raises(ValueError, match="compression needs param_mode='replicated'"):
-        steps.make_step_body(cfg, ParallelConfig(param_mode="fsdp", compression="int8"), mesh,
-                             opt)
-    with pytest.raises(ValueError, match="local_steps > 1 needs param_mode='replicated'"):
-        trainer.make_window_step(cfg, ParallelConfig(param_mode="fsdp", local_steps=2), mesh,
-                                 opt)
-
-
-def test_production_mesh_without_a_group_names_torchrun(monkeypatch):
-    from repro_torch.launch import mesh as mesh_lib
-
-    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
-        monkeypatch.delenv(k, raising=False)
-    with pytest.raises(RuntimeError, match="torchrun"):
-        mesh_lib.make_production_mesh(device="cpu")
-
-
-def test_serve_cli_takes_the_reference_ci_smoke_flags():
-    """The reference's CI serve smoke command (``--workers 2 --model-par
-    1``), with ``--device cpu``: the mesh header and one sha256 on two runs;
-    with ``--model-par 2`` it serves on the model axis, one sha256 on two
-    runs too."""
-    from repro_torch.serve import run as serve_run
-
-    for model in ("1", "2"):
-        argv = [a if a != "1" or SERVE_CI[i - 1] != "--model-par" else model
-                for i, a in enumerate(SERVE_CI)]
-        digests = []
-        for _ in range(2):
-            text = str(_cli(serve_run.main, argv))
-            assert f"mesh debug workers=2 model_par={model}; device cpu" in text
-            assert "served 24/24 requests" in text
-            digests += _digests(text)
-        assert len(digests) == 2 and digests[0] == digests[1]
 
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])

@@ -2,9 +2,11 @@
 launch.trainer, launch.train, optim.schedules, data.make_lm_batch) on the
 CPU, against the reference's trainer where it runs here.
 
-The reference's ``make_window_step`` at ``device_steps=1`` runs in one
-subprocess on ``make_debug_mesh(4, 1)`` over 4 forced CPU devices (its own
-tests' harness) with replicated params (the model-axis sharding of its
+The reference's ``make_window_step`` at ``device_steps=1`` runs in two
+subprocesses (half the cells each, both started when the module starts, so
+that the tests that do not read them run meanwhile) on
+``make_debug_mesh(4, 1)`` over 4 forced CPU devices (its own tests'
+harness) with replicated params (the model-axis sharding of its
 ``param_shardings`` makes the embedding gather raise ``ShardingTypeError``
 in some JAX versions even at model size 1; the replicated window is the
 same program), on tests/test_trainer.py's tiny llama in float32, for a
@@ -149,19 +151,37 @@ def _nested(flat, prefix):
     return tree
 
 
-@pytest.fixture(scope="module")
-def ref(tmp_path_factory):
+@pytest.fixture(scope="module", autouse=True)
+def _ref_runs(tmp_path_factory):
+    """The reference's cells in two subprocesses (each dumps the same
+    initial params and batches), started when the module starts."""
     import json
 
     d = tmp_path_factory.mktemp("ref_trainer")
-    spec = {"tiny": TINY, "data": DATA, "lr": CELL_LR, "steps": STEPS,
-            "cells": {k: list(v) for k, v in CELLS.items()}}
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", REF_SCRIPT, json.dumps(spec), str(d / "out.npz")],
-                       capture_output=True, text=True, env=env, timeout=600)
-    assert r.returncode == 0, r.stderr[-4000:]
-    return dict(np.load(d / "out.npz"))
+    names = list(CELLS)
+    procs = []
+    for i, half in enumerate((names[::2], names[1::2])):
+        spec = {"tiny": TINY, "data": DATA, "lr": CELL_LR, "steps": STEPS,
+                "cells": {k: list(CELLS[k]) for k in half}}
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", REF_SCRIPT, json.dumps(spec), str(d / f"out{i}.npz")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            d / f"out{i}.npz"))
+    yield procs
+    for proc, _ in procs:
+        proc.kill()
+
+
+@pytest.fixture(scope="module")
+def ref(_ref_runs):
+    out = {}
+    for proc, path in _ref_runs:
+        log = proc.communicate(timeout=600)[0]
+        assert proc.returncode == 0, log[-4000:]
+        out.update(np.load(path))
+    return out
 
 
 def _port_run(ref, optim, strategy, method, attack, alpha, extra):
@@ -183,21 +203,6 @@ def _port_run(ref, optim, strategy, method, attack, alpha, extra):
         losses.append(met["loss"])
         norms.append(met["grad_norm"])
     return np.array(losses), np.array(norms), state["params"]
-
-
-@pytest.mark.parametrize("cell", list(CELLS))
-def test_window_ds1_matches_the_reference(ref, cell):
-    losses, norms, params = _port_run(ref, *CELLS[cell])
-    np.testing.assert_allclose(losses, ref[f"{cell}/loss"], rtol=LOSS_RTOL)
-    np.testing.assert_allclose(norms, ref[f"{cell}/grad_norm"], rtol=LOSS_RTOL)
-    want = _nested(ref, f"{cell}/params/")
-    for path, t in tree_leaves_with_path(params):
-        w = want
-        for p in path.split("/"):
-            w = w[p]
-        np.testing.assert_allclose(t.numpy(), w, rtol=0, atol=PARAM_ATOL, err_msg=path)
-    init = _nested(ref, "init/")
-    assert not np.array_equal(params["embed"].numpy(), init["embed"])  # it trained
 
 
 def _final(ds, attack, strategy="bucketed", method="median", steps=4, **extra):
@@ -393,3 +398,18 @@ def test_cli_trains_end_to_end():
     assert "done: 4 steps in windows of 2" in out
     losses = [float(line.split()[3]) for line in out.splitlines() if line.startswith("step ")]
     assert all(np.isfinite(losses))
+
+
+@pytest.mark.parametrize("cell", list(CELLS))
+def test_window_ds1_matches_the_reference(ref, cell):
+    losses, norms, params = _port_run(ref, *CELLS[cell])
+    np.testing.assert_allclose(losses, ref[f"{cell}/loss"], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(norms, ref[f"{cell}/grad_norm"], rtol=LOSS_RTOL)
+    want = _nested(ref, f"{cell}/params/")
+    for path, t in tree_leaves_with_path(params):
+        w = want
+        for p in path.split("/"):
+            w = w[p]
+        np.testing.assert_allclose(t.numpy(), w, rtol=0, atol=PARAM_ATOL, err_msg=path)
+    init = _nested(ref, "init/")
+    assert not np.array_equal(params["embed"].numpy(), init["embed"])  # it trained
