@@ -18,6 +18,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import histogram_agg as H
 from repro_torch.kernels import ops, robust_agg
 from repro_torch.kernels.selection_network import NETWORK_MAX_M
@@ -242,6 +243,7 @@ def get_aggregator(method: str, beta: float = 0.1) -> AggFn:
     return get_aggregator_spec(method).make(beta)
 
 
+@trace.spanned("aggregate.select")
 def aggregate_leaves(leaves, method: str, beta: float = 0.1) -> list:
     """Aggregate each (m, ...) leaf with ``method``; equal, leaf for leaf, to
     ``[get_aggregator(method, beta)(x) for x in leaves]``.

@@ -99,7 +99,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import rng
+from repro_torch import rng, trace
 from repro_torch.attacks import base as attack_base
 from repro_torch.attacks import engine as attack_engine
 from repro_torch.core import aggregators
@@ -481,7 +481,8 @@ class InProcessAxes(_NamedAxes):
                 w = w * self.sizes[a] + i
             res = fn(w, *(tree_map(lambda t: t[idx], x) for x in xs))
             if out is not None:
-                tree_map(lambda o, r: o[idx].copy_(r), out, res)
+                with trace.span("worker.stack"):
+                    tree_map(lambda o, r: o[idx].copy_(r), out, res)
             else:
                 results.append(res)
         if out is not None:
@@ -632,7 +633,8 @@ class ProcessGroupAxes(_NamedAxes):
         res = fn(self._linear(names), *xs)
         if out is None:
             return res
-        tree_map(lambda o, r: o.copy_(r), out, res)
+        with trace.span("worker.stack"):
+            tree_map(lambda o, r: o.copy_(r), out, res)
         return out
 
     # -- the model axis: this rank's shard, the others through the group
@@ -977,6 +979,7 @@ def _generator(key, device, *data) -> torch.Generator:
     return rng.generator(0 if key is None else key, *data, device=device)
 
 
+@trace.spanned("attack")
 def _maybe_attack(ax: Collectives, outer, rows: torch.Tensor, attack, m: int, key,
                   row_sum=None, model_dim=None):
     """Byzantine rows of the gathered ``rows`` (m, ...) replaced, on each

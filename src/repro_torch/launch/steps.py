@@ -101,7 +101,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import rng
+from repro_torch import rng, trace
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.core import distributed
 from repro_torch.core.attacks import AttackConfig
@@ -591,6 +591,7 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
                                          for g, d in zip(leaves, mdims) if d < 0)
     buf = {}  # the worker-stacked gradients, allocated at the first step
 
+    @trace.spanned("worker.fwd_bwd")
     def local(w, batch, pieces):
         if tau == 1:
             return vg(pieces, batch)
@@ -600,6 +601,7 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
                                                  pcfg.local_lr)
         return loss, delta
 
+    @trace.spanned("worker.grads")
     def worker_grads(params, batch):
         """(losses (vs), grads tree of (vs + shape) leaves) of every worker."""
         if "g" not in buf or any(b.shape != vs + p.shape or b.dtype != p.dtype
@@ -752,7 +754,11 @@ def make_step_body(cfg: ModelConfig, pcfg: ParallelConfig, mesh: mesh_lib.Mesh,
                            "grad_norm": torch.sqrt(ax.psum(sq, waxes))}
             return new_params, new_opt, comp, metrics
 
-    core = fsdp_core if fsdp else _core
+    step_core = fsdp_core if fsdp else _core
+
+    def core(params, opt_state, comp, batch, step: int, atk_base: int):
+        with trace.span("step", step):
+            return step_core(params, opt_state, comp, batch, step, atk_base)
 
     def body(params, opt_state, batch, step: int, atk_base: int):
         new_params, new_opt, _, metrics = core(params, opt_state, None, batch, step, atk_base)

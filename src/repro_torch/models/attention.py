@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
+
 NEG_INF = -1e30
 
 
@@ -30,8 +32,20 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool, window: int) -> 
     return ok
 
 
+def _count_block(q, block: int, k_lo: int, k_hi: int, causal: bool, window: int,
+                 q_offset: int) -> None:
+    """The trace's ``attn.scores`` / ``attn.kept`` of one block of ``block``
+    keys, of which ``k_lo .. k_hi`` are real (the rest padding)."""
+    b, sq, kv, g, _ = q.shape
+    trace.count("attn.scores", b * kv * g * sq * block)
+    kept = trace.kept_pairs(sq, q_offset, k_lo, k_hi, causal, window)
+    trace.count("attn.kept", b * kv * g * kept)
+
+
 def plain_attention(q, k, v, causal: bool = True, window: int = 0, q_offset: int = 0):
     """Full-materialisation attention: q (B, Sq, KV, G, hd), k/v (B, Sk, KV, hd)."""
+    if trace.on():
+        _count_block(q, k.shape[1], 0, k.shape[1], causal, window, q_offset)
     scale = softmax_scale(q.shape[-1])
     logits = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
     qpos = q_offset + torch.arange(q.shape[1], device=q.device)
@@ -61,6 +75,8 @@ def chunked_attention(q, k, v, causal: bool = True, window: int = 0, q_offset: i
         if pad:  # the reference pads the last block with zeros and masks it
             kc = torch.nn.functional.pad(kc, (0, 0, 0, 0, 0, pad))
             vc = torch.nn.functional.pad(vc, (0, 0, 0, 0, 0, pad))
+        if trace.on():
+            _count_block(q, kv_block, start, min(start + kv_block, sk), causal, window, q_offset)
         kpos = start + torch.arange(kv_block, device=q.device)
         logits = torch.einsum("bqkgd,bskd->bkgqs", qf, kc) * scale
         msk = _mask(qpos, kpos, causal, window) & (kpos < sk)[None, :]
@@ -75,6 +91,7 @@ def chunked_attention(q, k, v, causal: bool = True, window: int = 0, q_offset: i
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)  # (B, Sq, KV, G, hd)
 
 
+@trace.spanned("attention")
 def attention(q, k, v, causal: bool = True, window: int = 0, q_offset: int = 0,
               kv_block: int = 1024):
     """Dispatch: plain for short sequences (or ``kv_block`` 0), chunked otherwise."""

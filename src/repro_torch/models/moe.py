@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.models.sharding import NULL_CTX, ShardCtx
 
 
@@ -78,6 +79,7 @@ def route(probs: torch.Tensor, top_k: int, cap: int) -> Routing:
                    weight=torch.where(keep, top_p.float(), torch.zeros_like(top_p.float())))
 
 
+@trace.spanned("moe.experts")
 def _experts(x: torch.Tensor, r: Routing, weight: torch.Tensor, w_gate: torch.Tensor,
              w_up: torch.Tensor, w_down: torch.Tensor, cap: int, e0: int = 0,
              mine: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -115,8 +117,9 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     b, s, d = x.shape
     e = w_router.shape[1]
     cap = capacity(s, e, top_k, capacity_factor)
-    probs = torch.softmax(x.float() @ w_router.float(), dim=-1)  # (B, S, E)
-    r = route(probs, top_k, cap)
+    with trace.span("moe.route"):
+        probs = torch.softmax(x.float() @ w_router.float(), dim=-1)  # (B, S, E)
+        r = route(probs, top_k, cap)
     c = ctx if split is not None else NULL_CTX
     xe, weight = c.enter(x), c.enter(r.weight)
     parts = []
@@ -134,7 +137,10 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     y = ctx.sp_reduce(c, parts)
 
     kept = F.one_hot(r.expert, e) * r.keep[..., None]  # (B, S, K, E)
-    frac = torch.sum(kept, dim=(0, 1, 2)).float() / (b * s)
+    per_expert = torch.sum(kept, dim=(0, 1, 2))
+    trace.count("moe.pairs", b * s * top_k)
+    trace.count("moe.kept", per_expert)
+    frac = per_expert.float() / (b * s)
     mean_p = torch.mean(probs, dim=(0, 1))
     aux = e * torch.sum(frac * mean_p) / top_k
     return y.to(x.dtype), aux

@@ -91,7 +91,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import rng
+from repro_torch import rng, trace
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn_lib
@@ -974,6 +974,7 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     if sp:
         x = ctx.axes.model_cut(x, 1)
 
+    @trace.spanned("block")  # inside the checkpointed function: its recompute is spanned too
     def block(s: int, x: torch.Tensor, aux: torch.Tensor):
         leaves = {k: _stacked_at(g, s) for k, g in params["blocks"].items()}
         if block_provider is not None:

@@ -16,6 +16,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.tree import tree_map
 
 
@@ -33,6 +34,7 @@ def sgd(lr: float) -> Optimizer:
     def init(params):
         return ()
 
+    @trace.spanned("update")
     def update(grads, state, params, step):
         new = tree_map(lambda p, g: (p.float() - lr * g.float()).to(p.dtype), params, grads)
         return new, state
@@ -44,6 +46,7 @@ def momentum(lr: float, beta: float = 0.9) -> Optimizer:
     def init(params):
         return tree_map(_f32_zeros, params)
 
+    @trace.spanned("update")
     def update(grads, state, params, step):
         new_state = tree_map(lambda m, g: beta * m + g.float(), state, grads)
         new = tree_map(lambda p, m: (p.float() - lr * m).to(p.dtype), params, new_state)
@@ -62,6 +65,7 @@ def adamw(
     def init(params):
         return {"m": tree_map(_f32_zeros, params), "v": tree_map(_f32_zeros, params)}
 
+    @trace.spanned("update")
     def update(grads, state, params, step):
         t = torch.as_tensor(step).cpu().to(torch.float32) + 1.0
         c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32), t)

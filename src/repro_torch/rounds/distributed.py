@@ -35,7 +35,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from repro_torch import rng
+from repro_torch import rng, trace
 from repro_torch.core import distributed
 from repro_torch.rounds import comm
 from repro_torch.rounds import compression as comp_lib
@@ -98,6 +98,7 @@ def compress_workers(ax: distributed.Collectives, axis_names: Sequence[str], g, 
     return ax.map_workers(one, names, g, residual, out=out)
 
 
+@trace.spanned("aggregate")
 def aggregate_by_strategy(
     g,
     ax: distributed.Collectives,
