@@ -176,7 +176,12 @@ Phases (any failure exits non-zero before the final line):
    <family>`` twice per family, all eight processes at once: one sha256
    each; (d) ``python -m repro_torch.launch.train --smoke --arch
    <family>`` in this process for granite, mamba2 and recurrentgemma: B1
-   launched once a step per dtype group and MAX_LEAVES (32) leaves;
+   launched once a step per dtype group and MAX_LEAVES (32) leaves; (e)
+   the MoE combine's two kernels (``kernels/moe_combine.py``, no TPU
+   kernel's port) against their plain versions at granite-moe's training
+   shapes with most pairs dropped, as rank 1 of split="experts" and at a
+   decode step, bf16 and f32 (y and d_weight within MC_TOL, d_ye bitwise),
+   and timed at the training shapes against the HBM bound;
 17. the distributed round programs and the process group: (a)
    ``rounds.one_round_distributed`` at phase 8's configuration, its local
    solver cut to 50 GD steps, on make_debug_mesh(10, 1): the median on
@@ -401,7 +406,10 @@ The launch counters are zeroed before each of phases 8-13, each run of
 phase 14b, 15b, 16b, 18b, 19b, 20b, 20c, 21b, 21c, 22b, 22c, 22d and 23a-23e, phases 15c, 19a, 19c, 20e, 26a and 26b, each 16d
 and 18d run and each call (17a), round (17b) or set of calls (17d) of phase
 17, and read after; the kernels line gives each kernel's launches on them
-(``launches_new_paths``).
+(``launches_new_paths``).  The combine's counters are zeroed before
+phases 16, 20, 21 and 23 (each runs the MoE layer on the card) and read
+after, and the first call of each shape each of them made is recorded and
+held as 16e holds its own (CombineCalls).
 In phases 4, 6, 8-13, 15c, 17, 18, 19, 20e and 26 the inputs each kernel wrapper gets
 (the first call of each shape) are
 recorded, and after the path's counts were read each kernel is run again on
@@ -3537,6 +3545,184 @@ def families(dev, card: str, served=None):
     train_launches = family_train_cli(dev)
     print(f"phase 16d: {time.perf_counter() - t0:.1f} s")
     return {"families_serve": serve, "families_train_cli": train_launches}
+
+
+# ------------------ phase 16e: the MoE combine's kernels (kernels/moe_combine.py)
+#
+# Both kernels against their plain versions on the card, at granite-moe's
+# training shapes (the benchmark cell's: B 4, S 2048, top-8 of 32, D 1024,
+# cap 640) with the router skewed to 8 experts so that most pairs drop, at
+# the same shapes as rank 1 of split="experts" at model 2 (its ``mine``
+# mask: the other half of the experts' pairs are not kept and their rows
+# lie outside its buffer) and at a serving decode step (B 4, S 1, cap 1),
+# in bf16 (the cells') and f32 (the parity phases'); then timed at the
+# training shapes in bf16 for the kernels line.  Phases 16, 20, 21 and 23,
+# which run the MoE layer on the card, each zero the launch counters just
+# before and read them just after, and hold the first call of each shape
+# they made (CombineCalls) the same way.
+MC_SHAPES = (("train", 4, 2048, False), ("train, rank 1 of split=experts", 4, 2048, True),
+             ("decode", 4, 1, False))
+MC_HOT = 8  # experts the router's logits favour (by 3.0) in 16e's routing
+# y against the plain version over max |y|, and d_weight over each pair's
+# sum_d |ye * dy|: f32 rounding of a K-term and a D-term sum; d_ye bitwise
+MC_TOL = 1e-6
+MC_HBM = 3.35e12  # bytes/s, the H100 SXM's HBM3 (launch/roofline.py)
+
+
+def combine_inputs(dev, b: int, s: int, split: bool, dtype, seed: int):
+    """(ye, rows, keep, weight, dy) as ``moe._experts`` hands them to the
+    combine at granite-moe-1b-a400m's widths, the routing skewed to MC_HOT
+    experts; ``split``: rank 1 of split="experts" at model 2."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("granite_moe_1b_a400m")
+    e, k, d = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn(b, s, e, device=dev, generator=g)
+    logits[..., :MC_HOT] += 3.0
+    cap = moe.capacity(s, e, k)
+    r = moe.route(torch.softmax(logits, dim=-1), k, cap)
+    el = e // 2 if split else e
+    e0 = e - el
+    keep = r.keep & (r.expert >= e0)
+    rows = ((r.expert - e0) * b + torch.arange(b, device=dev)[:, None, None]) * cap + r.slot
+    ye = torch.randn(el * b * cap, d, device=dev, generator=g).to(dtype)
+    dy = torch.randn(b, s, d, device=dev, generator=g)
+    return ye, rows, keep, r.weight, dy
+
+
+def combine_errors(label: str, ye, rows, keep, weight, dy=None) -> dict:
+    """The kernels against the plain versions on one set of inputs: the
+    forward's error over max |y|, or (with ``dy``) the backward's d_ye
+    bitwise and d_weight's error over each kept pair's sum_d |ye * dy|
+    (exactly 0 where not kept).  Returns {kernel: error}."""
+    import torch
+
+    from repro_torch.kernels import moe_combine as MC
+
+    if dy is None:
+        got, want = MC._COMBINE(ye, rows, keep, weight), MC.combine_plain(ye, rows, keep, weight)
+        err = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+        check(err <= MC_TOL, f"{label}: the combine's y off by {err:.3g} of max |y|")
+        return {"moe_combine": err}
+    d_ye, d_w = MC._COMBINE_BACKWARD(dy, ye, rows, keep, weight)
+    d_ye_p, d_w_p = MC.combine_backward_plain(dy, ye, rows, keep, weight)
+    bits = torch.int32 if ye.dtype == torch.float32 else torch.int16
+    check(torch.equal(d_ye.view(bits), d_ye_p.view(bits)),
+          f"{label}: the combine's d_ye differs from the plain version's")
+    check(bool(torch.all(d_w[~keep] == 0)), f"{label}: d_weight not 0 where not kept")
+    picked = ye[torch.where(keep, rows, torch.zeros_like(rows))].float()
+    scale = torch.sum((picked * dy[..., None, :]).abs(), dim=-1)
+    err = float(((d_w - d_w_p).abs() / scale.clamp(min=1e-30))[keep].max()) if keep.any() else 0.0
+    check(err <= MC_TOL, f"{label}: the combine's d_weight off by {err:.3g} of sum |ye dy|")
+    return {"moe_combine_backward": err}
+
+
+class CombineCalls:
+    """Inside ``with``: records the first call of each shape and dtype that
+    a path makes to the combine's dispatcher ops (forward and backward), as
+    copies on the card (no host sync: phase 20 runs under the sync-debug
+    mode); ``hold`` runs the kernels again on them against the plain
+    versions (combine_errors).  Call it after the path's launches were
+    read: its launches are not the path's."""
+
+    def __enter__(self):
+        from repro_torch.kernels import moe_combine as MC
+
+        self.calls, self._orig = {}, (MC._COMBINE, MC._COMBINE_BACKWARD)
+
+        def recording(kind, fn):
+            def recorded(*args):
+                key = (kind,) + tuple((tuple(a.shape), a.dtype) for a in args)
+                if args[0].is_cuda and key not in self.calls:
+                    self.calls[key] = [a.clone() for a in args]
+                return fn(*args)
+            return recorded
+
+        MC._COMBINE = recording("forward", self._orig[0])
+        MC._COMBINE_BACKWARD = recording("backward", self._orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import moe_combine as MC
+
+        MC._COMBINE, MC._COMBINE_BACKWARD = self._orig
+
+    def hold(self, label: str, worst: dict) -> None:
+        import torch
+
+        shapes = []
+        for key, args in self.calls.items():
+            dy = args.pop(0) if key[0] == "backward" else None
+            for name, err in combine_errors(label, *args, dy=dy).items():
+                worst[name] = max(worst.get(name, 0.0), err)
+            shapes.append(f"{key[0]} ye {tuple(args[0].shape)} {args[0].dtype}, pairs "
+                          f"{tuple(args[1].shape)}, {int(args[2].sum())} kept")
+        self.calls.clear()
+        torch.cuda.empty_cache()
+        print(f"{label}: the combine's kernels held against their plain versions on the "
+              f"path's own inputs (d_ye bitwise): {shapes}")
+
+
+def combine_bound(ye, rows, keep, backward: bool):
+    """(ms, bytes) the combine moves at HBM bandwidth: the forward reads the
+    kept rows and the pairs' (row, keep, weight), writes y (f32); the
+    backward reads dy, the kept rows and the pairs, writes every row of
+    d_ye once and d_weight."""
+    n, k = rows.numel() // rows.shape[-1], rows.shape[-1]
+    d, s = ye.shape[1], ye.element_size()
+    kept = int(keep.sum())
+    by = kept * d * s + n * k * 13 + n * d * 4
+    if backward:
+        by += ye.shape[0] * d * s + n * k * 4
+    return by / MC_HBM * 1e3, by
+
+
+def combine_check(dev, card: str, worst: dict) -> list:
+    """Phase 16e: returns the forward's and the backward's timing rows at
+    granite's training shapes in bf16."""
+    import torch
+
+    from repro_torch.kernels import moe_combine as MC
+
+    held = []
+    for label, b, s, split in MC_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            ye, rows, keep, weight, dy = combine_inputs(dev, b, s, split, dtype, seed=b + s)
+            dropped = 1 - float(keep.float().mean())
+            if s > 1:
+                check(dropped > 0.5, f"16e {label}: {dropped:.1%} of the pairs dropped")
+            errs = {}
+            for g in (None, dy):
+                errs.update(combine_errors(f"16e {label}", ye, rows, keep, weight, dy=g))
+            for name, err in errs.items():
+                worst[name] = max(worst.get(name, 0.0), err)
+            held.append({"shape": label, "dtype": str(dtype).removeprefix("torch."),
+                         "rows": ye.shape[0], "dropped": round(dropped, 4), **errs})
+    print(json.dumps({"moe_combine_held": held, "tolerance": MC_TOL, "d_ye": "bitwise"}))
+    ye, rows, keep, weight, dy = combine_inputs(dev, 4, 2048, False, torch.bfloat16, seed=2052)
+    out = []
+    for name, kernel, plain, backward in (
+            ("moe_combine", lambda: MC._COMBINE(ye, rows, keep, weight),
+             lambda: MC.combine_plain(ye, rows, keep, weight), False),
+            ("moe_combine_backward", lambda: MC._COMBINE_BACKWARD(dy, ye, rows, keep, weight),
+             lambda: MC.combine_backward_plain(dy, ye, rows, keep, weight), True)):
+        b_ms, b_by = combine_bound(ye, rows, keep, backward)
+        row = {"shape": "granite train", "kernel": name, "b": 4, "s": 2048, "k": rows.shape[-1],
+               "d": ye.shape[1], "rows": ye.shape[0], "kept": int(keep.sum()),
+               "dtype": "bfloat16", "ms": time_ms(kernel, 200),
+               # the backward's memset of d_ye is part of its device time
+               "device_ms": device_ms(kernel, 20, "" if backward else "combine_kernel"),
+               "plain_ms": time_ms(plain, 20), "library_ms": None,
+               "bound_ms": b_ms, "bound_bytes": b_by, "bound_by": "bytes", "card": card}
+        print(json.dumps({"timing": row}))
+        out.append(row)
+    del ye, rows, keep, weight, dy
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------ phase 17: distributed round programs and the process group
@@ -7115,6 +7301,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script drives the CUDA port")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import moe_combine as MC
     from repro_torch.kernels import robust_agg
 
     t_script = time.perf_counter()
@@ -7181,6 +7368,18 @@ def main() -> None:
                            f"path's inputs")
         return out
 
+    mc_paths, mc_worst = {}, {}
+
+    def mc_counted(phase: str, fn):
+        """fn() with the combine's launches zeroed just before and read just
+        after, and the first call of each shape it made held (CombineCalls)."""
+        with CombineCalls() as rec:
+            MC.reset_launches()
+            out = fn()
+            mc_paths[phase] = dict(MC.LAUNCHES)
+        rec.hold(f"phase {phase}", mc_worst)
+        return out
+
     launches = on_path("phase 4", lambda: main_path(dev), lambda c: c)
     cpu_agreement(dev)
     table2_linreg(dev)
@@ -7235,8 +7434,11 @@ def main() -> None:
           "phase 15 built order-statistic programs that phase 1 did not")
     libs_before = len(robust_agg.select_libraries())
     t0 = time.perf_counter()
-    new_paths.update(families(dev, card, served))
+    new_paths.update(mc_counted("16", lambda: families(dev, card, served)))
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mc_rows = combine_check(dev, card, mc_worst)
+    print(f"phase 16e: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 16 built order-statistic programs that phase 1 did not")
     libs_before = len(robust_agg.select_libraries())
@@ -7260,13 +7462,13 @@ def main() -> None:
           "phase 19 built order-statistic programs that phase 1 did not")
     libs_before = len(robust_agg.select_libraries())
     t0 = time.perf_counter()
-    new_paths.update(tensor_parallel(dev, card, on_path))
+    new_paths.update(mc_counted("20", lambda: tensor_parallel(dev, card, on_path)))
     print(f"phase 20: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 20 built order-statistic programs that phase 1 did not")
     libs_before = len(robust_agg.select_libraries())
     t0 = time.perf_counter()
-    new_paths.update(tp_serving(dev, card, served))
+    new_paths.update(mc_counted("21", lambda: tp_serving(dev, card, served)))
     print(f"phase 21: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 21 built order-statistic programs that phase 1 did not")
@@ -7278,7 +7480,7 @@ def main() -> None:
           "phase 22 built order-statistic programs that phase 1 did not")
     libs_before = len(robust_agg.select_libraries())
     t0 = time.perf_counter()
-    new_paths.update(tp_step7(dev, card))
+    new_paths.update(mc_counted("23", lambda: tp_step7(dev, card)))
     print(f"phase 23: {time.perf_counter() - t0:.1f} s")
     check(len(robust_agg.select_libraries()) == libs_before,
           "phase 23 built order-statistic programs that phase 1 did not")
@@ -7329,6 +7531,24 @@ def main() -> None:
             "max_abs_err": worst[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # the combine, no TPU kernel's port: launches a phase on 16 (16a-16d:
+    # granite and grok served and adapted, granite trained), 20 (20c,
+    # split="experts"), 21 (21a, 21c: served and adapted at model 2) and 23
+    # (23e: served and adapted), forward and backward in each
+    print(json.dumps({"moe_combine_launches": mc_paths}))
+    for phase, counts in mc_paths.items():
+        check(counts["forward"] > 0 and counts["backward"] > 0,
+              f"phase {phase}: the combine's kernels did not launch: {counts}")
+    for row in mc_rows:
+        kind = "backward" if row["kernel"].endswith("backward") else "forward"
+        kernels.append({
+            "name": row["kernel"], "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_combine.cu", "replaces": None,
+            "launches": sum(c[kind] for c in mc_paths.values()),
+            "launches_new_paths": {p: c[kind] for p, c in mc_paths.items()},
+            "max_rel_err": mc_worst[row["kernel"]], "ms": row["ms"],
+            "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None})
     print(f"chip_smoke: phases 1-26 in {time.perf_counter() - t_script:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

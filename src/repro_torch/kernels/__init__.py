@@ -9,7 +9,9 @@
   at first use or in a batch (``prepare``)
 - ops.py: dispatch (cuda kernel / torch network / torch.sort)
 - histogram_agg.py: histogram-sketch math for the approx_* aggregators
+- moe_combine.py: the MoE combine and its backward (one kernel each),
+  which the MoE layer calls
 - ref.py: torch.sort oracle
 """
 from repro_torch.kernels import (  # noqa: F401
-    histogram_agg, ops, ref, robust_agg, select_codegen, selection_network)
+    histogram_agg, moe_combine, ops, ref, robust_agg, select_codegen, selection_network)

@@ -11,8 +11,10 @@ The reference builds dense one-hot dispatch / combine tensors (B, S, E, C)
 and contracts them with einsums.  Here :func:`route` gives the same
 assignment in index form, the kept tokens are gathered into one
 (E, B·C, D) buffer, and the experts run as one batched product over E;
-the combine gathers each token's k outputs back and sums them, weighted,
-in float32.  Nothing reads the card's values on the host.
+the combine (:func:`repro_torch.kernels.moe_combine.moe_combine`, a
+hand-written kernel on the card) sums each token's kept outputs,
+weighted, in float32, and its backward writes each kept row's gradient
+once.  Nothing reads the card's values on the host.
 
 Under a model axis (``ctx``, ``split``) the router is whole on every rank
 (its caller gathers it), so routing is the global top-k.  ``experts``:
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import trace
+from repro_torch.kernels.moe_combine import moe_combine
 from repro_torch.models.sharding import NULL_CTX, ShardCtx
 
 
@@ -98,11 +101,7 @@ def _experts(x: torch.Tensor, r: Routing, weight: torch.Tensor, w_gate: torch.Te
     xe = x.new_zeros((trash + 1, d)).index_copy(0, dest, src)[:trash].view(el, b * cap, d)
     h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
     ye = torch.bmm(h, w_down).reshape(trash, d)
-    # combine in float32; a dropped pair has weight 0 (its row index is 0)
-    picked = ye[torch.where(keep, rows, torch.zeros_like(rows))].float()  # (B, S, K, D)
-    if mine is not None:
-        weight = torch.where(mine, weight, torch.zeros_like(weight))
-    return torch.sum(picked * weight[..., None], dim=2)
+    return moe_combine(ye, rows, keep, weight)
 
 
 def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,

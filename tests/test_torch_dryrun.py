@@ -112,13 +112,17 @@ def _ok(rec):
 @pytest.mark.parametrize("arch", FAMS)
 def test_train_and_decode_plan_at_data_four_model_two(plans, arch):
     """Train (the robust gather over the data axis: one all-gather, B1
-    launches) and decode plan for each family at (4, 2)."""
+    launches) and decode plan for each family at (4, 2).  Decode aggregates
+    nothing: its one kernel is the MoE combine, where the family has one."""
     train, decode = _ok(plans[(arch, "train")]), _ok(plans[(arch, "decode")])
     assert train["mesh_shape"] == {"data": 4, "model": 2} and train["workers"] == 4
     assert train["kernel_launches"].get("median", 0) >= 1
     assert train["collectives_by_axis"]["data"]["all-gather"] > 0
     assert train["flops"] > 0 and train["peak_memory_in_bytes"] > train["argument_size_in_bytes"]
-    assert decode["flops"] > 0 and decode["kernel_launches"] == {}
+    combine = {"moe_combine"} if configs.get_config(arch).moe is not None else set()
+    assert set(train["kernel_launches"]) == {"median"} | combine | {c + "_backward"
+                                                                   for c in combine}
+    assert decode["flops"] > 0 and set(decode["kernel_launches"]) == combine
     for rec in (train, decode):
         assert rec["bound_s"] == max(rec["compute_s"], rec["memory_s"], rec["collective_s"])
         assert set(rec["links"].values()) == {450e9}  # 8 ranks: one host

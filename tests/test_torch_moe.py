@@ -21,6 +21,8 @@ import torch
 
 from repro.models import moe as RM
 from repro_torch import configs
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import moe_combine as MC
 from repro_torch.models import moe
 
 torch.set_num_threads(2)
@@ -63,10 +65,11 @@ def _dense(r: moe.Routing, e: int, cap: int):
     return dispatch, combine
 
 
-def _probs(b, s, e, seed, skew=0.0):
-    """Softmax of N(0, 1) logits (numpy f64 -> f32); ``skew`` raises expert 0."""
+def _probs(b, s, e, seed, skew=0.0, hot=1):
+    """Softmax of N(0, 1) logits (numpy f64 -> f32); ``skew`` raises the
+    first ``hot`` experts."""
     logits = np.random.default_rng(seed).standard_normal((b, s, e))
-    logits[..., 0] += skew
+    logits[..., :hot] += skew
     p = np.exp(logits - logits.max(-1, keepdims=True))
     return (p / p.sum(-1, keepdims=True)).astype(np.float32)
 
@@ -147,3 +150,156 @@ def test_capacity_formula():
                     (7, 8, 2), (1024, 8, 2)):
         want = min(s, max(4, RM._round_up(int(1.25 * k * s / e), 4)))
         assert moe.capacity(s, e, k) == want
+
+
+# ---------------------------------------------------------------------------
+# the combine op (kernels/moe_combine.py): its plain route and autograd
+# wiring against the gather-and-sum the layer used before it, kept here as
+# the oracle
+# ---------------------------------------------------------------------------
+
+
+def _gather_and_sum(ye, rows, keep, weight, mine):
+    """The combine as ``_experts`` wrote it before the op: every pair not
+    kept gathers row 0 with weight 0, and autograd's gather backward
+    accumulates the duplicates."""
+    picked = ye[torch.where(keep, rows, torch.zeros_like(rows))].float()
+    if mine is not None:
+        weight = torch.where(mine, weight, torch.zeros_like(weight))
+    return torch.sum(picked * weight[..., None], dim=2)
+
+
+def _combine_inputs(b, s, e, top_k, hot, skew, split, dtype, seed):
+    """(ye, rows, keep, mine, top_p, route keep, dy) for routing skewed to
+    the first ``hot`` experts; ``split`` "experts" takes rank 1's half of
+    the experts (``mine``), as ``moe_ffn`` under a model axis of 2."""
+    d = 24
+    cap = moe.capacity(s, e, top_k)
+    r = moe.route(torch.from_numpy(_probs(b, s, e, seed, skew=skew, hot=hot)), top_k, cap)
+    e0, el, mine = 0, e, None
+    if split == "experts":
+        el = e // 2
+        e0 = el
+        mine = (r.expert >= e0) & (r.expert < e0 + el)
+    rows = ((r.expert - e0) * b + torch.arange(b)[:, None, None]) * cap + r.slot
+    keep = r.keep if mine is None else r.keep & mine
+    rs = np.random.default_rng(seed + 1)
+    ye = torch.from_numpy(rs.standard_normal((el * b * cap, d)).astype(np.float32)).to(dtype)
+    dy = torch.from_numpy(rs.standard_normal((b, s, d)).astype(np.float32))
+    dy[0, 0, :3] = torch.tensor([-0.0, 0.0, -1e-30])  # signed zeros and an underflow
+    top_p = torch.from_numpy(rs.uniform(0.05, 1.0, (b, s, top_k)).astype(np.float32))
+    return ye, rows, keep, mine, top_p, r.keep, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,s,e,top_k,hot,skew,split", [
+    (2, 32, 32, 8, 8, 6.0, None),  # granite's top-8 of 32 with most pairs dropped
+    (2, 32, 32, 8, 8, 6.0, "experts"),  # the same, rank 1 of split="experts"
+    (3, 24, 4, 2, 1, 0.0, None),  # the smoke models' top-2
+    (4, 1, 32, 8, 1, 0.0, None),  # a decode step: cap 1
+])
+def test_combine_matches_the_gather_and_sum(dtype, b, s, e, top_k, hot, skew, split):
+    """y and d_ye bitwise (signs of zero included), d_weight within f32
+    rounding, against the gather-and-sum on the CPU; no kernel runs."""
+    ye, rows, keep, mine, top_p, route_keep, dy = _combine_inputs(
+        b, s, e, top_k, hot, skew, split, dtype, seed=b * 10 + s)
+    if skew:
+        assert 1 - route_keep.float().mean() > 0.5  # more than half the pairs dropped
+    if s == 1:
+        assert moe.capacity(s, e, top_k) == 1
+    MC.reset_launches()
+    grads = []
+    for fn in (_gather_and_sum, None):
+        ye_l = ye.clone().requires_grad_(True)
+        p_l = top_p.clone().requires_grad_(True)
+        weight = torch.where(route_keep, p_l, torch.zeros_like(p_l))  # as route() weighs
+        y = (_gather_and_sum(ye_l, rows, keep, weight, mine) if fn else
+             MC.moe_combine(ye_l, rows, keep, weight))
+        y.backward(dy)
+        grads.append((y.detach(), ye_l.grad, p_l.grad))
+    (y_w, dye_w, dp_w), (y_g, dye_g, dp_g) = grads
+    assert y_g.dtype == torch.float32 and dye_g.dtype == dtype
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}
+    assert torch.equal(y_g.view(torch.int32), y_w.view(torch.int32))
+    assert torch.equal(dye_g.view(bits[dtype]), dye_w.view(bits[dtype]))
+    assert torch.equal(dp_g[~keep], torch.zeros_like(dp_g[~keep]))
+    torch.testing.assert_close(dp_g, dp_w, rtol=0, atol=1e-6 * float(dp_w.abs().max()))
+    assert not any(MC.LAUNCHES.values())
+
+
+def test_combine_rejects_what_it_cannot_take():
+    ye, rows, keep = torch.zeros(8, 4), torch.zeros(2, 3, dtype=torch.int64), torch.ones(2, 3,
+                                                                                        dtype=bool)
+    with pytest.raises(ValueError):
+        MC.moe_combine(ye, rows, keep, torch.zeros(2, 2))
+    with pytest.raises(TypeError):
+        MC.moe_combine(ye, rows.int(), keep, torch.zeros(2, 3))
+    with pytest.raises(TypeError):
+        MC.moe_combine(ye, rows, keep, torch.zeros(2, 3, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "grok_1_314b"])
+def test_moe_ffn_on_meta_tensors_gives_shapes_and_builds_nothing(monkeypatch, arch):
+    """The dry-run's route: ``moe_ffn`` and its backward on meta stand-ins
+    give the CPU run's shapes and dtypes through the ops' fake
+    implementations; nothing is built, loaded or launched."""
+    def refuse(*a, **kw):
+        raise AssertionError("built on meta tensors")
+
+    monkeypatch.setattr(kbuild, "build", refuse)
+    monkeypatch.setattr(kbuild, "load", refuse)
+    k, x, ws, _ = _layer_inputs(arch, "bfloat16", seed=5)
+    MC.reset_launches()
+    out = {}
+    for dev in ("cpu", "meta"):
+        leaves = [torch.from_numpy(a).to(torch.bfloat16).to(dev).requires_grad_(True)
+                  for a in [x] + ws]
+        y, aux = moe.moe_ffn(*leaves, k)
+        (torch.sum(y.float()) + aux).backward()
+        out[dev] = [(tuple(t.shape), t.dtype) for t in [y, aux] + [lf.grad for lf in leaves]]
+        assert y.device.type == dev
+    assert out["meta"] == out["cpu"]
+    assert not any(MC.LAUNCHES.values()) and MC._LIB is None
+
+
+def test_combine_under_vmap_of_grad_matches_autograd_per_item():
+    """``vmap(grad(loss))`` through the op on the plain route (the layout
+    robust_gd and local_update take a loss in) gives, item by item, the
+    gradients that autograd gives: d_ye bitwise, d_weight within f32
+    rounding."""
+    rs = np.random.default_rng(3)
+    n, r, d, b, s, k = 3, 40, 8, 2, 6, 2
+    ye = torch.from_numpy(rs.standard_normal((n, r, d)).astype(np.float32))
+    rows = torch.from_numpy(np.stack([rs.permutation(r)[:b * s * k].reshape(b, s, k)
+                                      for _ in range(n)]))
+    keep = torch.from_numpy(rs.uniform(size=(n, b, s, k)) > 0.4)
+    weight = torch.from_numpy(rs.uniform(size=(n, b, s, k)).astype(np.float32))
+
+    def loss(ye, rows, keep, weight):
+        return torch.sum(MC.moe_combine(ye, rows, keep, weight) ** 2)
+
+    d_ye, d_w = torch.func.vmap(torch.func.grad(loss, argnums=(0, 3)))(ye, rows, keep, weight)
+    for i in range(n):
+        ye_l, w_l = ye[i].clone().requires_grad_(True), weight[i].clone().requires_grad_(True)
+        loss(ye_l, rows[i], keep[i], w_l).backward()
+        assert torch.equal(d_ye[i], ye_l.grad)
+        torch.testing.assert_close(d_w[i], w_l.grad, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "grok_1_314b"])
+def test_moe_ffn_under_torch_func_grad_matches_autograd(arch):
+    """``torch.func.grad`` of an MoE loss (distributed.py's round step takes
+    its loss so) runs through the op and matches autograd's gradients."""
+    k, x, ws, cot = _layer_inputs(arch, "float32", seed=9)
+    leaves = [torch.from_numpy(a) for a in [x] + ws]
+    cot = torch.from_numpy(cot)
+
+    def loss(*leaves):
+        y, aux = moe.moe_ffn(*leaves, k)
+        return torch.sum(y.float() * cot) + aux
+
+    got = torch.func.grad(loss, argnums=tuple(range(5)))(*leaves)
+    want = [lf.clone().requires_grad_(True) for lf in leaves]
+    loss(*want).backward()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w.grad, rtol=1e-6, atol=1e-6 * float(w.grad.abs().max()))
