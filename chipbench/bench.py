@@ -1,5 +1,6 @@
 """What every cell shares: finding a cell's files from ``BENCHMARK.json``,
-seeds, the per-layer metric readers, the import check and the result line.
+its plain reference module, seeds, the per-layer metric readers, the
+import check and the result line.
 
 Nothing here imports the port: a cell's driver (``kinds/<kind>.py``) does.
 """
@@ -10,14 +11,20 @@ import hashlib
 import importlib.util
 import json
 import math
+import re
 import sys
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Callable, Dict, List, Optional
 
 #: top-level module names no run may hold once its window has closed: JAX and
 #: the JAX package the port was ported from (``repro_torch`` starts with
 #: ``repro``, so names are compared whole)
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+#: a name of ``BENCHMARK.json``, and so of a file the harness finds by it
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+#: the reference module of a configuration file without a ``reference`` key
+DEFAULT_REFERENCE = "model"
 
 
 class CellError(ValueError):
@@ -33,6 +40,7 @@ class Cell:
     config: Dict[str, Any]  # the configuration file
     traffic: Dict[str, Any]  # the traffic file
     limits: Dict[str, Any]  # limits/<cell>.json ({} where absent)
+    reference: ModuleType  # reference/<the configuration's "reference">.py
     end_to_end: List[Dict[str, Any]]  # the end-to-end metrics this cell reports
     per_layer: List[Dict[str, Any]]  # the per-layer metrics this cell reports
     root: Path  # the checkout: BENCHMARK.json and chipbench/ beneath it
@@ -40,6 +48,25 @@ class Cell:
 
 def bench_dir(root: Path) -> Path:
     return Path(root) / "chipbench"
+
+
+def _load(path: Path, prefix: str, name: str) -> ModuleType:
+    """The module of the file ``path``, loaded under a name of its own."""
+    mod_name = prefix + "".join(c if c.isalnum() else "_" for c in name)
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reference_module(root: Path, name: str) -> ModuleType:
+    """``chipbench/reference/<name>.py`` of the checkout ``root``: a
+    configuration's plain model, with the interface that
+    :mod:`chipbench.reference` documents."""
+    path = bench_dir(root) / "reference" / f"{name}.py"
+    if not NAME.match(name) or not path.exists():
+        raise CellError(f"no reference module {name!r} at {path}")
+    return _load(path, "chipbench_reference_", name)
 
 
 def _reported(metric: Dict[str, Any], cell: str, e2e_names: set) -> bool:
@@ -50,7 +77,9 @@ def _reported(metric: Dict[str, Any], cell: str, e2e_names: set) -> bool:
 
 def load_cell(root: Path, name: str) -> Cell:
     """The cell ``name`` of ``root/BENCHMARK.json`` with its configuration,
-    traffic and limits files, and the metrics it reports: an end-to-end
+    traffic and limits files, its configuration's reference module (the
+    file's ``reference`` key, :data:`DEFAULT_REFERENCE` without it), and
+    the metrics it reports: an end-to-end
     metric without ``workloads`` in every cell, a per-layer metric in the
     cells its ``workloads`` lists (without the key, in every cell that
     reports the end-to-end metric it moves)."""
@@ -63,6 +92,7 @@ def load_cell(root: Path, name: str) -> Cell:
     configs = {c["name"]: c for c in spec["configs"]}
     cfg_entry = configs[w["config"]]
     config = json.loads((root / cfg_entry["file"]).read_text())
+    reference = reference_module(root, config.get("reference", DEFAULT_REFERENCE))
     traffic = json.loads((bench_dir(root) / "traffic" / f"{w['traffic']}.json").read_text())
     lim_path = bench_dir(root) / "limits" / f"{name}.json"
     limits = json.loads(lim_path.read_text()) if lim_path.exists() else {}
@@ -70,7 +100,8 @@ def load_cell(root: Path, name: str) -> Cell:
     names = {m["name"] for m in e2e}
     per_layer = [m for m in spec["per_layer"] if _reported(m, name, names)]
     return Cell(name=name, chips=int(w["chips"]), config=config, traffic=traffic,
-                limits=limits, end_to_end=e2e, per_layer=per_layer, root=root)
+                limits=limits, reference=reference, end_to_end=e2e, per_layer=per_layer,
+                root=root)
 
 
 # ---------------------------------------------------------------------------
@@ -97,11 +128,7 @@ def metric_reader(root: Path, name: str) -> Callable[[Any], Optional[float]]:
     path = bench_dir(root) / "metrics" / f"{name}.py"
     if not path.exists():
         raise CellError(f"per-layer metric {name!r} has no reader at {path}")
-    mod_name = "chipbench_metric_" + "".join(c if c.isalnum() else "_" for c in name)
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, "chipbench_metric_", name).read
 
 
 def read_per_layer(cell: Cell, trace) -> Dict[str, Dict[str, Any]]:

@@ -4,7 +4,7 @@ size on the card, in one process:
 - the program's numbers (``kinds.train.first_steps`` against the
   reference) on each of ``--seeds``;
 - the control's: the reference put in the program's place and computed
-  in float8 (``reference.model.fp8_matmul``) on each of
+  in float8 (the cell's reference module's ``fp8_matmul``) on each of
   ``--control-seeds``;
 - each planted fault's (``faults.py``) on each of ``--fault-seeds``
   (``unchanged`` reads 1 by the measure and is not run).
@@ -49,7 +49,6 @@ def main(argv=None) -> int:
 
     from chipbench import bench, faults, generate
     from chipbench.kinds import train
-    from chipbench.reference import model as ref_model
     from chipbench.reference import train as reference
 
     device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
@@ -76,8 +75,9 @@ def main(argv=None) -> int:
     def program(seed, ring):
         prog = train.Program(cell, device)
         blocks = [{k: v[None] for k, v in b.items()} for b in ring]
-        got = train.first_steps(prog.window(), prog.state(seed), blocks, n, model,
-                                t["optimizer"]["b1"], seed, device)
+        got = train.first_steps(prog.window(), prog.state(seed), blocks, n,
+                                train.initial_weights(cell.reference, model, seed, device),
+                                t["optimizer"]["b1"])
         got.pop("state")
         return got
 
@@ -103,7 +103,8 @@ def main(argv=None) -> int:
         free()
         if seed in args.control_seeds:
             t0 = time.perf_counter()
-            ctl = train.reference_readings(cell, seed, ring, n, device, ref_model.fp8_matmul)
+            ctl = train.reference_readings(cell, seed, ring, n, device,
+                                           cell.reference.fp8_matmul)
             emit(kind="control", seed=seed, gaps=reference.gaps(ctl, ref),
                  control_s=time.perf_counter() - t0)
             free()

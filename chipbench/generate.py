@@ -14,12 +14,12 @@ a data attack (``label_flip``) rewrites the Byzantine workers' labels.
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict, List
 
 import torch
 
 from chipbench.bench import subseed
-from chipbench.reference import model as ref_model
 from chipbench.reference.train import num_byzantine
 
 
@@ -74,12 +74,13 @@ def make_ring(traffic: Dict, vocab: int, seed: int, device) -> List[Dict[str, to
 # ---------------------------------------------------------------------------
 
 
-def make_leaf(model: Dict, seed: int, path: str, device) -> torch.Tensor:
+def make_leaf(ref: ModuleType, model: Dict, seed: int, path: str, device) -> torch.Tensor:
     """One weight leaf of the configuration ``model`` (the configuration
     file's ``port`` group), drawn on ``device`` from the generator of
     (seed, path) in one call, in float32, and cast to the model's dtype:
-    N(0, std²) with the std of :func:`chipbench.reference.model.param_specs`."""
-    shape, std = ref_model.param_specs(model)[path]
+    N(0, std²) with the shape and std of the reference module ``ref``'s
+    ``param_specs``."""
+    shape, std = ref.param_specs(model)[path]
     gen = torch.Generator(device=device).manual_seed(subseed(seed, "weights", path))
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return x.mul_(std).to(getattr(torch, model["dtype"]))

@@ -19,22 +19,30 @@ freed and the plain reference runs the same first steps from the same
 weights on the same batches.
 
 The traced run splits its window: bare steps for half of it (the model
-FLOP rate), two steps under the profiler (idle share, launches, the
-aggregation kernel's time), then two steps with synchronising spans
-around the aggregation, the attack, the kernel call and the update.
+FLOP rate), two steps under the profiler with the program's own spans
+and counters on (``repro_torch.trace``: idle share, launches, the
+aggregation kernel's time, device time by span), then two steps with
+synchronising spans around the aggregation, the attack, the kernel call
+and the update.
+
+The model's reference, its weights' shapes and its FLOP count come from
+the cell's reference module (``cell.reference``), never from a module
+named here.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import math
 import subprocess
+import sys
 import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from chipbench import bench, generate, tracing, yardstick
-from chipbench.reference import model as ref_model
+from chipbench.kinds import port_config
 from chipbench.reference import train as reference
 
 GIB = 1 << 30
@@ -56,16 +64,15 @@ class Program:
     optimizer and attack, built from the configuration and traffic files."""
 
     def __init__(self, cell: bench.Cell, device: torch.device):
-        from repro_torch.configs.base import ModelConfig, MoEConfig, ParallelConfig
+        from repro_torch.configs.base import ParallelConfig
         from repro_torch.core.attacks import AttackConfig
         from repro_torch.launch import mesh as mesh_lib
         from repro_torch.optim.optimizers import get_optimizer
 
         t = cell.traffic
-        port = dict(cell.config["port"])
-        moe = port.pop("moe", None)
+        self.ref = cell.reference
         self.model = cell.config["port"]
-        self.cfg = ModelConfig(**port, moe=MoEConfig(**moe) if moe else None)
+        self.cfg = port_config(self.model)
         self.pcfg = ParallelConfig(agg_method=t["agg"]["method"],
                                    agg_beta=t["agg"].get("beta", 0.0),
                                    agg_strategy=t["agg"]["strategy"], **t["parallel"])
@@ -90,15 +97,22 @@ class Program:
         state = trainer.init_state(self.cfg, self.mesh, opt or self.opt, seed=seed,
                                    pcfg=self.pcfg)
         flat = flatten(state["params"])
-        specs = ref_model.param_specs(self.model)
+        specs = self.ref.param_specs(self.model)
         got = {p: tuple(t.shape) for p, t in flat.items()}
         want = {p: shape for p, (shape, _) in specs.items()}
         if got != want:
             raise bench.CellError(f"the port's parameter tree {got} is not the reference's {want}")
+        weights = initial_weights(self.ref, self.model, seed, self.device)
         with torch.no_grad():
             for p, t in flat.items():
-                t.copy_(generate.make_leaf(self.model, seed, p, self.device))
+                t.copy_(weights(p))
         return state
+
+
+def initial_weights(ref, model: Dict, seed: int, device) -> Callable[[str], torch.Tensor]:
+    """``weights(path)``: the leaf ``path`` of the benchmark's weights of
+    ``seed``, the shapes the reference module ``ref``'s."""
+    return lambda p: generate.make_leaf(ref, model, seed, p, device)
 
 
 def first_moment_norms(state: Dict[str, Any], b1: float) -> Dict[str, float]:
@@ -111,10 +125,10 @@ def first_moment_norms(state: Dict[str, Any], b1: float) -> Dict[str, float]:
 
 
 def first_steps(window: Callable, state: Dict[str, Any], blocks: List[Dict], n: int,
-                model: Dict, b1: float, seed: int, device) -> Dict[str, Any]:
+                weights: Callable[[str], torch.Tensor], b1: float) -> Dict[str, Any]:
     """Run the first ``n`` steps and read them: each step's mean loss, the
     first step's aggregate as AdamW's first moment holds it, the change of
-    each parameter leaf over the steps."""
+    each parameter leaf over the steps from ``weights(path)``."""
     losses, agg1 = [], {}
     before = float(state["metrics"]["loss_sum"])
     for i in range(n):
@@ -125,16 +139,19 @@ def first_steps(window: Callable, state: Dict[str, Any], blocks: List[Dict], n: 
         if i == 0:
             agg1 = first_moment_norms(state, b1)
     with torch.no_grad():
-        delta = {p: float((t.float() - generate.make_leaf(model, seed, p, device).float()).norm())
+        delta = {p: float((t.float() - weights(p).float()).norm())
                  for p, t in flatten(state["params"]).items()}
     return {"losses": losses, "agg1": agg1, "delta": delta, "state": state}
 
 
 def reference_readings(cell: bench.Cell, seed: int, ring: List[Dict], n: int, device,
-                       mm: Callable = ref_model.matmul) -> Dict:
-    model = cell.config["port"]
-    return reference.run(model, cell.traffic,
-                         lambda p: generate.make_leaf(model, seed, p, device), ring[:n], n, mm)
+                       mm: Optional[Callable] = None) -> Dict:
+    """The cell's reference module over the first ``n`` steps of ``ring``
+    from the weights of ``seed``, its products ``mm`` (the module's
+    ``matmul`` by default; the control passes its ``fp8_matmul``)."""
+    ref, model = cell.reference, cell.config["port"]
+    return reference.run(ref, model, cell.traffic, initial_weights(ref, model, seed, device),
+                         ring[:n], n, mm)
 
 
 def judge(gaps: Dict[str, float], limits: Optional[Dict[str, float]],
@@ -164,8 +181,19 @@ class Trace:
         self.device_type = device.type
         self.work = work  # model_flops_per_step, agg_bytes_per_step, the peaks
         self.bare: Dict[str, float] = {}  # steps, wall_s of the bare stretch
-        self.profile: Dict[str, Any] = {}  # tracing.profile's summary, steps
+        self.profile: Dict[str, Any] = {}  # tracing.profile's summary, steps, counts
         self.spans: Dict[str, List[float]] = {}  # ms a step by span name
+
+
+def program_tracing():
+    """(a context with the program's spans and counters on, the counters'
+    ``take_counts``); a null context and no counts where the program has
+    no ``repro_torch.trace``."""
+    try:
+        from repro_torch import trace
+    except ImportError:
+        return contextlib.nullcontext(), dict
+    return trace.enabled(), trace.take_counts
 
 
 def run(cell: bench.Cell, seed: int, seconds: float, trace: bool, device: torch.device,
@@ -186,7 +214,8 @@ def run(cell: bench.Cell, seed: int, seconds: float, trace: bool, device: torch.
     ring = generate.make_ring(t, model["vocab"], seed, device)
     blocks = [{k: v[None] for k, v in b.items()} for b in ring]
     window = prog.window(opt)
-    got = first_steps(window, state, blocks, n_check, model, t["optimizer"]["b1"], seed, device)
+    got = first_steps(window, state, blocks, n_check,
+                      initial_weights(cell.reference, model, seed, device), t["optimizer"]["b1"])
     state = got.pop("state")
     tracing.sync(device)
     setup_s = time.perf_counter() - t_start
@@ -212,15 +241,20 @@ def run(cell: bench.Cell, seed: int, seconds: float, trace: bool, device: torch.
     if not trace:
         n_win, window_s = steps_for(seconds)
     else:
-        tr = Trace(device, {"model_flops_per_step": yardstick.model_flops_per_step(model, t),
-                            "agg_bytes_per_step": yardstick.aggregate_bytes_per_step(model, t),
+        tr = Trace(device, {"model_flops_per_step": cell.reference.model_flops_per_step(model, t),
+                            "agg_bytes_per_step": yardstick.aggregate_bytes_per_step(
+                                cell.reference, model, t),
                             "peak_flops": yardstick.PEAK_BF16_FLOPS,
                             "hbm_bytes_per_s": yardstick.HBM_BYTES_PER_S})
         n_bare, bare_s = steps_for(seconds / 2)
         tr.bare = {"steps": n_bare, "wall_s": bare_s}
         prof_steps = 2
-        tr.profile = tracing.profile(lambda: [one_step() for _ in range(prof_steps)], device)
+        traced, take_counts = program_tracing()
+        with traced:
+            tr.profile = tracing.profile(lambda: [one_step() for _ in range(prof_steps)], device)
+        tr.profile["counts"] = take_counts()
         tr.profile["steps"] = prof_steps
+        gc.collect()  # the profile's garbage, which would stall the spanned steps' host
         with spans.patched():
             for _ in range(2):
                 spans.step(one_step)
@@ -260,8 +294,12 @@ def run(cell: bench.Cell, seed: int, seconds: float, trace: bool, device: torch.
         metrics = bench.read_per_layer(cell, tr)
         dev_info["busy_s"] = tr.profile["busy_s"]
         dev_info["window_s"] = tr.profile["window_s"]
-        breakdown = {"device_ops": tr.profile["device_ops"],
-                     "idle_gaps": tr.profile["idle_gaps"]}
+        breakdown = {k: tr.profile[k][:10] for k in ("device_ops", "idle_gaps", "spans",
+                                                     "idle_spans")}
+        print(f"spans (name, calls, self s, subtree s, backward s) of {tr.profile['steps']} "
+              f"profiled steps, busy {tr.profile['busy_s']!r} s: {tr.profile['spans']}",
+              file=sys.stderr)
     return {"correct": correct, "attempted": n_win, "failed": 0 if finite else n_win,
             "metrics": metrics, "device": dev_info, "checks": checks,
-            "breakdown": breakdown, "readings": {"program": got, "reference": ref}}
+            "breakdown": breakdown, "readings": {"program": got, "reference": ref},
+            "trace": tr}

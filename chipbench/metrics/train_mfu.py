@@ -1,6 +1,6 @@
 """The whole step's share of the card's bf16 peak: the model FLOPs of the
-bare steps (``yardstick.model_flops_per_step``) over their host-clock
-time and 989 TFLOP/s.  Only a run on the card has a share of its peak."""
+bare steps (the reference module's ``model_flops_per_step``) over their
+host-clock time and 989 TFLOP/s.  Only a run on the card has a share of its peak."""
 
 
 def read(t):

@@ -15,7 +15,9 @@ of the layers' auxiliary losses.
 Every matrix product the port runs in the model's dtype goes through
 ``mm(a, b)`` (:func:`matmul`: float32 here; the control passes a lower
 precision); the attention scores, softmax, norms, router and loss are
-float32 as in the port.
+float32 as in the port.  The module has the interface that
+:mod:`chipbench.reference` documents; :func:`model_flops_per_step` is
+the work a step has to do, counted from the shapes alone.
 """
 from __future__ import annotations
 
@@ -73,6 +75,46 @@ def param_specs(model: Dict) -> Dict[str, Tuple[Tuple[int, ...], float]]:
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
+
+
+# ---------------------------------------------------------------------------
+# the work of a step
+# ---------------------------------------------------------------------------
+
+
+def matmul_params_per_token(model: Dict) -> int:
+    """Weights a token is multiplied by in the forward pass: the attention
+    projections, the dense FFN or the router and the top-k experts' FFNs,
+    and the lm head (the embedding is a lookup)."""
+    d, h, kv, hd = model["d_model"], model["n_heads"], model["n_kv_heads"], head_dim(model)
+    per_layer = d * h * hd * 2 + d * kv * hd * 2
+    moe = model.get("moe")
+    if moe:
+        per_layer += d * moe["num_experts"] + moe["top_k"] * 3 * d * moe["d_expert"]
+    else:
+        per_layer += 3 * d * model["d_ff"]
+    return model["n_layers"] * per_layer + d * model["vocab"]
+
+
+def attention_pairs(seq: int, window: int) -> int:
+    """(query, key) pairs a causal sequence of ``seq`` tokens scores, a key
+    at most ``window`` - 1 positions back (``window`` 0: all before)."""
+    if window <= 0 or window >= seq:
+        return seq * (seq + 1) // 2
+    return window * (window + 1) // 2 + (seq - window) * window
+
+
+def model_flops_per_step(model: Dict, traffic: Dict) -> float:
+    """A training step's model FLOPs: 6 per matmul weight a token meets,
+    and 12 per causal (query, key) pair and head dimension (QKᵀ and PV,
+    forward and backward), over every worker's tokens.  The recompute of
+    checkpointed layers and the experts' capacity padding are not work
+    the model needs, and are not counted."""
+    seqs = traffic["workers"] * traffic["batch_per_worker"]
+    s = traffic["seq_len"]
+    attn = (12 * attention_pairs(s, model.get("sliding_window", 0))
+            * model["n_heads"] * head_dim(model) * model["n_layers"])
+    return seqs * (6.0 * matmul_params_per_token(model) * s + attn)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The reference of a training cell's first steps: every worker's loss and
-gradient on its rows, the attack on the stacked rows, the coordinate-wise
+"""The reference of a training cell's first steps, for the model of any
+reference module (``chipbench.reference``'s interface): every worker's
+loss and gradient on its rows, the attack on the stacked rows, the coordinate-wise
 aggregate and AdamW, in float32 with TF32 off.  Parameters are kept at
 the values the configuration's dtype holds (each update rounded to it),
 as the configuration stores them; moments in float32.
@@ -13,11 +14,11 @@ from __future__ import annotations
 import contextlib
 import math
 import statistics
-from typing import Callable, Dict, List
+from types import ModuleType
+from typing import Callable, Dict, List, Optional
 
 import torch
 
-from chipbench.reference import model as M
 from chipbench.reference import robust
 
 #: columns of the stacked rows attacked and aggregated at a time
@@ -41,7 +42,7 @@ def num_byzantine(alpha: float, m: int) -> int:
     return min(m - 1, math.ceil(alpha * m)) if alpha > 0 else 0
 
 
-def _split(params: Dict[str, torch.Tensor]) -> M.Leaves:
+def _split(params: Dict[str, torch.Tensor]) -> Dict[str, List[torch.Tensor]]:
     """Each leaf as a list of autograd leaves: one a layer for the stacked
     ``blocks`` leaves, so each layer's gradient comes out at its size."""
     return {p: [t.detach().requires_grad_()
@@ -66,17 +67,20 @@ def attack_and_aggregate(rows: torch.Tensor, traffic: Dict) -> torch.Tensor:
     return out
 
 
-def run(model: Dict, traffic: Dict, weights: Callable[[str], torch.Tensor],
+def run(ref: ModuleType, model: Dict, traffic: Dict, weights: Callable[[str], torch.Tensor],
         batches: List[Dict[str, torch.Tensor]], steps: int,
-        mm: Callable = M.matmul) -> Dict:
-    """``steps`` training steps from the weights ``weights(path)`` on
-    ``batches[0 .. steps-1]``: {"losses": the workers' mean loss a step,
-    "agg1": each leaf's norm of the first step's aggregate, "delta": each
-    leaf's norm of the parameters' change over the steps}."""
+        mm: Optional[Callable] = None) -> Dict:
+    """``steps`` training steps of the reference module ``ref``'s model
+    from the weights ``weights(path)`` on ``batches[0 .. steps-1]``, its
+    products ``mm`` (``ref.matmul`` by default): {"losses": the workers'
+    mean loss a step, "agg1": each leaf's norm of the first step's
+    aggregate, "delta": each leaf's norm of the parameters' change over
+    the steps}."""
     m, b = traffic["workers"], traffic["batch_per_worker"]
     opt = traffic["optimizer"]
     dtype = getattr(torch, model["dtype"])
-    paths = list(M.param_specs(model))
+    mm = mm or ref.matmul
+    paths = list(ref.param_specs(model))
     with no_tf32():
         params = {p: weights(p).float() for p in paths}
         dev = params[paths[0]].device
@@ -91,7 +95,7 @@ def run(model: Dict, traffic: Dict, weights: Callable[[str], torch.Tensor],
             worker_losses = []
             for w in range(m):
                 leaves = _split(params)
-                loss = M.loss(leaves, tokens[w * b:(w + 1) * b], labels[w * b:(w + 1) * b],
+                loss = ref.loss(leaves, tokens[w * b:(w + 1) * b], labels[w * b:(w + 1) * b],
                               model, mm)
                 flat = [t for p in paths for t in leaves[p]]
                 grads = iter(torch.autograd.grad(loss, flat))

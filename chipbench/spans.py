@@ -35,8 +35,6 @@ import dataclasses
 from collections import defaultdict
 from typing import Dict, Iterable, List, Optional, Tuple
 
-from chipbench.tracing import _union
-
 PREFIX = "repro/"
 UNSPANNED = "unspanned"
 _BACKWARD = "autograd::engine::evaluate_function: "
@@ -81,6 +79,18 @@ def events_of(kineto_events) -> List[Event]:
         out.append(Event(e.name(), e.start_thread_id(), s, s + e.duration_ns(),
                          e.sequence_nr(), e.fwd_thread_id(), e.correlation_id(),
                          e.linked_correlation_id(), e.device_type() == DeviceType.CUDA))
+    return out
+
+
+def union(intervals):
+    """Merged (start, end) intervals of the sorted ``intervals``."""
+    out = []
+    for s, e in intervals:
+        if out and s <= out[-1][1]:
+            if e > out[-1][1]:
+                out[-1][1] = e
+        else:
+            out.append([s, e])
     return out
 
 
@@ -252,7 +262,7 @@ def summary(events: List[Event], top: int = 16) -> Dict:
     and the totals they are checked against: ``busy_s`` (the union of the
     device's activity) and ``activity_s`` (the sum of their durations)."""
     att = Attribution(events)
-    busy = _union(sorted((a.start, a.end) for a in att.activities))
+    busy = union(sorted((a.start, a.end) for a in att.activities))
     gaps = [(a[1], b[0]) for a, b in zip(busy, busy[1:]) if b[0] > a[1]]
     rows = sorted(([n, r["calls"], r["self_s"], r["subtree_s"], r["backward_s"]]
                    for n, r in att.table().items()), key=lambda r: -r[3])
@@ -283,3 +293,13 @@ def metric_values(spans: List[list], counts: Dict[str, float], steps: int) -> Di
     if counts.get("moe.pairs"):
         out["moe_dropped_share"] = 100.0 * (1.0 - counts["moe.kept"] / counts["moe.pairs"])
     return out
+
+
+def read_metric(t, name: str) -> Optional[float]:
+    """The metric ``name`` of :func:`metric_values` of a traced run's
+    profile (``kinds.train.Trace``): None where the run had no card, or
+    the profile no such span or counter."""
+    p = t.profile
+    if t.device_type != "cuda" or not p.get("spans"):
+        return None
+    return metric_values(p["spans"], p.get("counts", {}), p["steps"]).get(name)

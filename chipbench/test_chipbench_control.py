@@ -6,6 +6,7 @@ own, set between the sound runs' readings and the control's on this CPU;
 the cells' limits on the card are in ``limits/``."""
 from __future__ import annotations
 
+import importlib
 import json
 import time
 from pathlib import Path
@@ -15,7 +16,6 @@ import torch
 
 from chipbench import bench, faults, generate
 from chipbench.kinds import train
-from chipbench.reference import model as M
 from chipbench.reference import train as reference
 
 torch.set_num_threads(2)
@@ -37,8 +37,10 @@ def smoke_cell(name: str) -> bench.Cell:
 
 
 def run(cell: bench.Cell) -> dict:
-    return train.run(cell, SEED, 0.05, False, torch.device("cpu"), time.perf_counter(),
-                     SMOKE_LIMITS)
+    """One run of ``cell`` through the driver of its traffic's ``kind``."""
+    driver = importlib.import_module(f"chipbench.kinds.{cell.traffic['kind']}")
+    return driver.run(cell, SEED, 0.05, False, torch.device("cpu"), time.perf_counter(),
+                      SMOKE_LIMITS)
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -49,7 +51,7 @@ def test_sound_run_is_correct_and_the_control_is_not(name):
     ref = out["readings"]["reference"]
     ring = generate.make_ring(cell.traffic, cell.config["port"]["vocab"], SEED, "cpu")
     control = train.reference_readings(cell, SEED, ring, cell.traffic["check_steps"], "cpu",
-                                       M.fp8_matmul)
+                                       cell.reference.fp8_matmul)
     checks = train.judge(reference.gaps(control, ref), SMOKE_LIMITS, name)
     assert any(c["value"] > c["limit"] for c in checks.values()), checks
 

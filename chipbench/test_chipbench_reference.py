@@ -1,7 +1,8 @@
-"""The benchmark's yardstick on the CPU at smoke sizes: the frozen plain
-reference against the port (model loss and gradients, dense and MoE, the
-attack, the aggregators, AdamW), the FLOP and byte counts against a hand
-count, and the token generator against the rule it copies."""
+"""The benchmark's yardstick on the CPU at smoke sizes: each
+configuration's plain reference module against the port (model loss and
+gradients, the attack, the aggregators, AdamW), the FLOP and byte counts
+against a hand count, and the token generator against the rule it
+copies."""
 from __future__ import annotations
 
 import json
@@ -11,7 +12,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from chipbench import generate, yardstick
+from chipbench import bench, generate, yardstick
+from chipbench.kinds import port_config
 from chipbench.reference import model as M
 from chipbench.reference import robust
 from chipbench.reference import train as reference
@@ -22,18 +24,12 @@ ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = sorted((ROOT / "chipbench" / "configs").glob("*.json"))
 
 
-def smoke_model(path: Path) -> dict:
+def smoke_model(path: Path) -> tuple:
+    """(the configuration's reference module, its port group at its smoke
+    sizes in float32)."""
     cfg = json.loads(path.read_text())
-    model = dict(cfg["port"], **cfg["smoke"], dtype="float32")
-    return model
-
-
-def port_config(model: dict):
-    from repro_torch.configs.base import ModelConfig, MoEConfig
-
-    kw = dict(model)
-    moe = kw.pop("moe", None)
-    return ModelConfig(**kw, moe=MoEConfig(**moe) if moe else None)
+    ref = bench.reference_module(ROOT, cfg.get("reference", bench.DEFAULT_REFERENCE))
+    return ref, dict(cfg["port"], **cfg["smoke"], dtype="float32")
 
 
 def nested(flat: dict) -> dict:
@@ -51,16 +47,16 @@ def nested(flat: dict) -> dict:
 def test_reference_loss_and_gradients_match_the_port(config):
     from repro_torch.models import transformer as T
 
-    model = smoke_model(config)
+    ref, model = smoke_model(config)
     cfg = port_config(model)
-    weights = {p: generate.make_leaf(model, 11, p, "cpu") for p in M.param_specs(model)}
+    weights = {p: generate.make_leaf(ref, model, 11, p, "cpu") for p in ref.param_specs(model)}
     tokens = torch.randint(0, model["vocab"], (2, 24), generator=torch.Generator().manual_seed(1))
     labels = torch.roll(tokens, -1, 1)
     port = {p: t.clone().requires_grad_() for p, t in weights.items()}
     want = T.loss_fn(nested(port), {"tokens": tokens, "labels": labels}, cfg, remat=False)
     want_g = torch.autograd.grad(want, list(port.values()))
     leaves = reference._split(weights)
-    got = M.loss(leaves, tokens, labels, model)
+    got = ref.loss(leaves, tokens, labels, model, ref.matmul)
     flat = [t for p in weights for t in leaves[p]]
     got_g = iter(torch.autograd.grad(got, flat))
     assert abs(float(got.detach()) - float(want.detach())) <= 1e-5 * abs(float(want.detach()))
@@ -108,17 +104,17 @@ def test_flop_and_byte_counts_by_hand():
              "d_ff": 16, "vocab": 10, "dtype": "bfloat16", "sliding_window": 3}
     traffic = {"workers": 3, "batch_per_worker": 2, "seq_len": 5}
     # per layer: wq 8x8, wk 8x4, wv 8x4, wo 8x8 = 192; ffn 3*8*16 = 384; head 8x10
-    assert yardstick.matmul_params_per_token(dense) == 2 * (192 + 384) + 80
+    assert M.matmul_params_per_token(dense) == 2 * (192 + 384) + 80
     # causal pairs within a window of 3 over 5 tokens: 1 + 2 + 3 + 3 + 3
-    assert yardstick.attention_pairs(5, 3) == 12 and yardstick.attention_pairs(5, 0) == 15
+    assert M.attention_pairs(5, 3) == 12 and M.attention_pairs(5, 0) == 15
     flops = 6 * (6.0 * 1232 * 5 + 12 * 12 * 4 * 2 * 2)
-    assert yardstick.model_flops_per_step(dense, traffic) == flops
+    assert M.model_flops_per_step(dense, traffic) == flops
     moe = dict(dense, family="moe", moe={"num_experts": 4, "top_k": 2, "d_expert": 6})
     # router 8x4 and 2 of 4 experts of 3*8*6 each, in place of the ffn
-    assert yardstick.matmul_params_per_token(moe) == 2 * (192 + 32 + 288) + 80
+    assert M.matmul_params_per_token(moe) == 2 * (192 + 32 + 288) + 80
     # params: layers (ln1, ln2 8 each, attention 192, ffn 384), embed and head 80 each, norm 8
-    assert yardstick.param_count(dense) == 2 * (16 + 192 + 384) + 80 + 80 + 8
-    assert yardstick.aggregate_bytes_per_step(dense, traffic) == 4 * 1352 * 2
+    assert yardstick.param_count(M, dense) == 2 * (16 + 192 + 384) + 80 + 80 + 8
+    assert yardstick.aggregate_bytes_per_step(M, dense, traffic) == 4 * 1352 * 2
 
 
 def test_token_streams_follow_the_rule():
@@ -132,8 +128,8 @@ def test_token_streams_follow_the_rule():
 
 
 def test_weights_are_the_seeds():
-    model = smoke_model(CONFIGS[0])
-    a = generate.make_leaf(model, 7, "embed", "cpu")
-    assert torch.equal(a, generate.make_leaf(model, 7, "embed", "cpu"))
-    assert not torch.equal(a, generate.make_leaf(model, 8, "embed", "cpu"))
+    ref, model = smoke_model(CONFIGS[0])
+    a = generate.make_leaf(ref, model, 7, "embed", "cpu")
+    assert torch.equal(a, generate.make_leaf(ref, model, 7, "embed", "cpu"))
+    assert not torch.equal(a, generate.make_leaf(ref, model, 8, "embed", "cpu"))
     assert math.isclose(float(a.std()), 0.02, rel_tol=0.1)

@@ -133,6 +133,17 @@ def test_metric_values_per_step():
     assert "moe_dev_ms" not in S.metric_values(table[:2], {}, 1)
 
 
+def test_a_reader_reads_only_a_card_s_profile():
+    from types import SimpleNamespace
+
+    profile = {"spans": [["attention", 8, 6.0, 6.0, 2.0]], "counts": {}, "steps": 2}
+    card = SimpleNamespace(device_type="cuda", profile=profile)
+    assert S.read_metric(card, "attn_dev_ms") == pytest.approx(3000.0)
+    assert S.read_metric(card, "moe_dev_ms") is None
+    assert S.read_metric(SimpleNamespace(device_type="cpu", profile=profile),
+                         "attn_dev_ms") is None
+
+
 def test_a_real_cpu_trace_gives_the_attention_s_backward_to_it():
     """The backward's operations, on the calling thread here, land under
     ``attention`` as backward, through the nodes' sequence numbers."""

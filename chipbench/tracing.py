@@ -11,7 +11,8 @@ that is missing fails the run: a span is never read as 0.
 The profile summary is a copy of ``chip_smoke.profile_summary``'s raw
 event path (device time and launches by kernel name), with the device's
 busy time taken as the union of its activity intervals and the idle gaps
-named by the host operation running through them.
+named by the host operation running through them; beside it, the device
+time by the program's own spans (``chipbench/spans.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from collections import defaultdict
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from chipbench import spans
 
 #: (module, attribute) of each span, by span name
 SPANS = {"aggregate": ("repro_torch.rounds.distributed", "aggregate_by_strategy"),
@@ -94,18 +97,6 @@ class Spans:
 # ---------------------------------------------------------------------------
 
 
-def _union(intervals):
-    """Merged (start, end) intervals of the sorted ``intervals``."""
-    out = []
-    for s, e in intervals:
-        if out and s <= out[-1][1]:
-            if e > out[-1][1]:
-                out[-1][1] = e
-        else:
-            out.append([s, e])
-    return out
-
-
 def _name_gaps(gaps, host) -> Dict[str, float]:
     """Seconds of ``gaps`` ((start, end) ns) by the innermost host operation
     running at each gap's middle (per thread, the latest-started open one;
@@ -141,8 +132,11 @@ def profile(fn: Callable[[], None], device: torch.device, top: int = 10) -> Dict
     its host-clock length (``window_s``), the device's busy seconds (the
     union of its activity intervals), kernel launches (device activities
     other than memory copies and sets), device seconds by kernel name, the
-    ``top`` kernels and the ``top`` idle gaps by host operation."""
-    from torch.autograd import DeviceType
+    ``top`` kernels and the ``top`` idle gaps by host operation; and the
+    program's spans (:func:`chipbench.spans.summary`: ``spans``,
+    ``idle_spans``), where ``fn`` ran with them on.  The profiler's
+    device copies of the spans are no work: they count nowhere, and no
+    idle gap is named by a span here."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -153,27 +147,29 @@ def profile(fn: Callable[[], None], device: torch.device, top: int = 10) -> Dict
         fn()
         sync(device)
         window_s = time.perf_counter() - t0
+    events = spans.events_of(prof.profiler.kineto_results.events())
     dev, host, kernels = [], [], defaultdict(float)
     launches = 0
-    for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        if e.device_type() == DeviceType.CUDA:
-            s = e.start_ns()
-            dev.append((s, s + e.duration_ns()))
-            kernels[name] += e.duration_ns() / 1e9
-            if not name.startswith(("Memcpy", "Memset")):
+    for e in events:
+        if e.span:
+            continue
+        if e.device:
+            dev.append((e.start, e.end))
+            kernels[e.name] += (e.end - e.start) / 1e9
+            if not e.name.startswith(("Memcpy", "Memset")):
                 launches += 1
-        elif not name.startswith(("cuda", "cu", "Memcpy", "Memset")):
-            s = e.start_ns()
-            host.append((e.start_thread_id(), s, s + e.duration_ns(), name))
+        elif not e.name.startswith(("cuda", "cu", "Memcpy", "Memset")):
+            host.append((e.tid, e.start, e.end, e.name))
     dev.sort()
-    busy = _union(dev)
+    busy = spans.union(dev)
     busy_s = sum(e - s for s, e in busy) / 1e9
     gaps = [(a[1], b[0]) for a, b in zip(busy, busy[1:]) if b[0] > a[1]]
     idle = _name_gaps(gaps, host) if gaps else {}
     ranked = sorted(kernels.items(), key=lambda kv: kv[1], reverse=True)
+    by_span = spans.summary(events)
     return {"window_s": window_s, "busy_s": busy_s, "launches": launches,
             "kernel_s": dict(kernels),
             "device_ops": [[k[:120], v] for k, v in ranked[:top]],
             "idle_gaps": [[k[:120], v] for k, v in
-                          sorted(idle.items(), key=lambda kv: kv[1], reverse=True)[:top]]}
+                          sorted(idle.items(), key=lambda kv: kv[1], reverse=True)[:top]],
+            "spans": by_span["spans"], "idle_spans": by_span["idle_spans"]}
